@@ -1,0 +1,555 @@
+#!/usr/bin/env python3
+"""Serve LEMUR's main path on one NVIDIA GPU through the PyTorch/CUDA port.
+
+    python3 chip_smoke.py [--m 800000] [--batches 4] [--seed 0]
+
+Run from the repository root on a machine with a CUDA card and nvcc.  The
+script
+
+1. prints the card's name and power limit and the software versions;
+2. builds every CUDA kernel in ``src/repro_torch/csrc`` (one nvcc each, in
+   parallel) and holds each against its plain PyTorch version on a small
+   ragged case (B=1, -1 pads, tiny lists, k > valid, a doc with no tokens);
+3. builds an index on the card at full width: m docs of Poisson(67.5)
+   tokens clipped to [4, 80] (MS MARCO's length, ``configs/lemur_paper.py``),
+   unit-norm with topic structure as in ``data/synthetic.make_corpus``,
+   d=128, d'=2048; psi and W come from the seed (not trained); then the
+   port's ``build_ivf`` (nlist = default_nlist(m), SQ8) and its page fill;
+4. serves a warm-up batch and ``--batches`` batches of 256 queries x 32
+   tokens through ``LemurRetriever.search(SearchParams())`` (k=100,
+   k'=1024, nprobe=32) with a few slots tombstoned, the kernels' launch
+   counters set to 0 just before and read just after;
+5. checks every batch against a composition of the plain versions on the
+   card and the returned scores against exact MaxSim recomputed plainly;
+6. times each kernel and its plain version at the served shapes on the
+   batch's real inputs (CUDA events, median of 20) and prints one JSON line
+   of kernels, one of serving numbers, and last ``{"ok": true, ...}``.
+
+Any failed check exits non-zero before the result lines are printed.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MSMARCO_DOCS = 8_841_823
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+DOC_CHUNK = 25_000               # docs generated on the card at a time
+SQ8_RTOL = 2 ** -16 * 4          # the JAX suite's SQ8 tolerance
+NEAR_TIE = 1e-5                  # relative score gap allowed for an id swap
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def require(ok, msg):
+    if not ok:
+        raise CheckFailed(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+# --------------------------------------------------------------------------
+# timing and bounds
+# --------------------------------------------------------------------------
+
+def time_ms(torch, fn, n=20, warmup=3):
+    """Median device time of ``fn`` over ``n`` runs, CUDA events per run."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def bound(nbytes, flops):
+    t_mem, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# the corpus, made on the card from the seed
+# --------------------------------------------------------------------------
+
+def build_corpus(torch, args):
+    """The page store, filled a chunk of docs at a time, and a psi drawn
+    from the JAX package's init distribution.  A doc's latent row is psi of
+    its normalised mean token: not LEMUR's trained OLS W, but a row of one
+    norm in the pooled query's space, so the probes spread over the lists
+    and the candidates relate to the query as a trained first stage's do."""
+    from repro_torch.core import pages
+    from repro_torch.core.model import Psi
+    from repro_torch.kernels import ref
+
+    d, dp, T = 128, 2048, 80
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    counts = np.clip(rng.poisson(67.5, args.m), 4, T)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(args.seed), device=dev)
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    centers = torch.nn.functional.normalize(
+        torch.randn(4096, d, generator=gen, device=dev), dim=1)
+    ppd = pages.pages_needed(torch.as_tensor(counts))
+    store = pages.allocate(args.m, int(ppd.sum()), int(ppd.max()), d, dp, device=dev)
+    slot = page = 0
+    for s in range(0, args.m, DOC_CHUNK):
+        n = min(DOC_CHUNK, args.m - s)
+        cnt = torch.as_tensor(counts[s:s + n], device=dev)
+        topics = torch.randint(0, 4096, (n, 2), generator=gen, device=dev)
+        which = torch.randint(0, 2, (n, T), generator=gen, device=dev)
+        tok = torch.randn(n, T, d, generator=gen, device=dev)
+        tok = torch.nn.functional.normalize(
+            tok + 1.2 * centers[topics.gather(1, which)], dim=-1)
+        mask = torch.arange(T, device=dev)[None, :] < cnt[:, None]
+        tok = tok * mask[..., None]
+        W = ref.fused_psi_ref(torch.nn.functional.normalize(tok.sum(1), dim=-1), *w)
+        page += pages.write_docs(store, slot, page, W, tok, mask)
+        slot += n
+        if s == 0:
+            # hold the chunked fill to from_dense on the first docs
+            k = min(500, n)
+            ref_store, _ = pages.from_dense(W[:k], tok[:k], mask[:k])
+            np_ = int(pages.pages_needed(cnt[:k]).sum())
+            require(torch.equal(ref_store.tok_pages[:np_], store.tok_pages[:np_])
+                    and torch.equal(ref_store.page_table[:k], store.page_table[:k])
+                    and torch.equal(ref_store.n_tokens[:k], store.n_tokens[:k]),
+                    "chunked page fill differs from pages.from_dense")
+            del ref_store
+    return store, psi, rng
+
+
+def make_queries(torch, store, rng, n, Tq=32, noise=0.25):
+    """The corpus-query strategy of data/synthetic: tokens of a sampled doc,
+    plus query-encoder noise, unit-normalised; ~1 in 8 queries is shorter
+    (masked tail).  Returns (tokens, mask, source doc ids)."""
+    dev = store.tok_pages.device
+    m = int(store.n_docs[0])
+    src = torch.as_tensor(rng.integers(0, m, n), device=dev)
+    nt = store.n_tokens[src].long()
+    pos = (torch.as_tensor(rng.random((n, Tq)), device=dev) * nt[:, None]).long()
+    pg = store.page_table[src[:, None], pos // 16].long()
+    tok = store.tok_pages[pg, pos % 16]
+    tok = tok + noise * torch.as_tensor(rng.standard_normal(tok.shape),
+                                        dtype=torch.float32, device=dev)
+    tok = torch.nn.functional.normalize(tok, dim=-1).contiguous()
+    short = torch.as_tensor(rng.random(n) < 0.125, device=dev)
+    qlen = torch.where(short, torch.as_tensor(rng.integers(8, Tq, n), device=dev), Tq)
+    mask = torch.arange(Tq, device=dev)[None, :] < qlen[:, None]
+    return tok, mask.contiguous(), src
+
+
+# --------------------------------------------------------------------------
+# the plain composition (reference for the served ids)
+# --------------------------------------------------------------------------
+
+def plain_search(torch, index, q, qm, p):
+    from repro_torch.anns.base import pad_topk, stable_topk
+    from repro_torch.core.pages import mask_dead
+    from repro_torch.kernels import ref
+
+    psi, ann, st = index.psi, index.ann, index.store
+    psi_q = ref.psi_pool_ref(q, qm, psi.dense.kernel, psi.dense.bias,
+                             psi.ln.scale, psi.ln.bias)
+    cs = psi_q @ ann.centroids.T
+    probe = stable_topk(cs, p.backend.nprobe)[1].int()
+    s = ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4)
+    B = q.shape[0]
+    flat_s = s.reshape(B, -1)
+    flat_i = ann.ids[probe.long()].reshape(B, -1)
+    top, pos = stable_topk(flat_s, min(p.k_prime, flat_s.shape[1]))
+    cand = mask_dead(st, pad_topk(top, torch.gather(flat_i, 1, pos), p.k_prime)[1])
+    r = ref.rerank_scores_paged_ref(q, qm, cand, st.tok_pages, st.page_table,
+                                    st.n_tokens, chunk=16)
+    r = torch.where(cand >= 0, r, ref.NEG)
+    top, idx = stable_topk(r, p.k)
+    ids = torch.gather(cand, 1, idx)
+    if top.shape[1] < p.k:              # k > k': pad with (NEG, -1)
+        pad = p.k - top.shape[1]
+        top = torch.cat([top, top.new_full((B, pad), ref.NEG)], 1)
+        ids = torch.cat([ids, ids.new_full((B, pad), -1)], 1)
+    return dict(psi_q=psi_q, cs=cs, probe=probe, flat_s=flat_s, flat_i=flat_i,
+                pos=pos, cand=cand, scores=top, ids=ids)
+
+
+def port_stages(torch, index, q, qm, p):
+    """The port's own intermediates for one batch (the kernels' real inputs)."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core.model import pool_queries
+    from repro_torch.core.pages import mask_dead
+    from repro_torch.kernels.gather_scan import ivf_probe_scan
+
+    ann = index.ann
+    B = q.shape[0]
+    psi_q = pool_queries(index.psi, q, qm)
+    probe = stable_topk(psi_q @ ann.centroids.T, p.backend.nprobe)[1].int()
+    flat_s = ivf_probe_scan(psi_q, probe, ann.ids, ann.vecs, ann.scales)
+    flat_s = flat_s.reshape(B, -1)
+    pos = stable_topk(flat_s, p.k_prime)[1]
+    flat_i = ann.ids[probe.long()].reshape(B, -1)
+    cand = mask_dead(index.store, torch.gather(flat_i, 1, pos))
+    return dict(psi_q=psi_q, probe=probe, flat_s=flat_s, pos=pos, cand=cand)
+
+
+def near(a, b, scale):
+    return (a - b).abs() <= NEAR_TIE * scale
+
+
+def classify_rows(torch, port_ids, port_scores, plain, stages, k_prime):
+    """Every row whose ids differ from the plain composition must differ by a
+    near-tie at one stage: the probe boundary, the k' boundary, or the final
+    ranking.  Returns counts by kind; raises otherwise."""
+    kinds = {"probe": 0, "candidates": 0, "final": 0}
+    bad = (port_ids != plain["ids"]).any(1).nonzero().flatten().tolist()
+    for b in bad:
+        pa, pb = set(stages["probe"][b].tolist()), set(plain["probe"][b].tolist())
+        cs = plain["cs"][b]
+        scale = max(1.0, float(cs.abs().max()))
+        if pa != pb:
+            edge = plain["cs"][b, plain["probe"][b, -1].long()]
+            for c in pa ^ pb:
+                require(bool(near(cs[c], edge, scale)),
+                        f"row {b}: probe {c} differs without a near-tie")
+            kinds["probe"] += 1
+            continue
+        qa = set(stages["cand"][b].tolist()) - {-1}
+        qb = set(plain["cand"][b].tolist()) - {-1}
+        if qa != qb:
+            fs, fi = plain["flat_s"][b], plain["flat_i"][b]
+            score = dict(zip(fi.tolist(), fs.tolist()))
+            edge = float(fs[plain["pos"][b, k_prime - 1]])
+            scale = max(1.0, float(fs[torch.isfinite(fs)].abs().max()))
+            for c in qa ^ qb:
+                require(abs(score[c] - edge) <= NEAR_TIE * scale,
+                        f"row {b}: candidate {c} differs without a near-tie")
+            kinds["candidates"] += 1
+            continue
+        sa, sb = port_scores[b], plain["scores"][b]
+        scale = max(1.0, float(sb.abs().max()))
+        require(bool(near(sa, sb, scale).all()),
+                f"row {b}: final ranking differs without a near-tie")
+        kinds["final"] += 1
+    return kinds
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def ragged_case(torch, seed):
+    """All three kernels against their plain versions on a tiny ragged index
+    served end to end: B=1, lists of a few slots, -1 pads, k > #valid
+    candidates, a doc with no tokens and a masked query tail."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core import pages
+    from repro_torch.core.config import LemurConfig
+    from repro_torch.core.model import Psi
+    from repro_torch.kernels import fused_psi, gather_scan, ref
+    from repro_torch.retriever import LemurRetriever, SearchParams
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    m, T, d, dp = 40, 37, 128, 256
+    tok = torch.nn.functional.normalize(torch.randn(m, T, d, generator=g, device=dev), dim=-1)
+    mask = torch.rand(m, T, generator=g, device=dev) > 0.5
+    mask[3] = False
+    W = torch.randn(m, dp, generator=g, device=dev)
+    store, _ = pages.from_dense(W, tok, mask)
+    store.alive[7] = False
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(seed), device=dev)
+    cfg = LemurConfig(d=d, d_prime=dp, k=50, k_prime=24)
+    r = LemurRetriever.from_arrays(cfg, psi, store,
+                                   generator=torch.Generator().manual_seed(seed))
+    q = torch.nn.functional.normalize(torch.randn(1, 6, d, generator=g, device=dev), dim=-1)
+    qm = torch.tensor([[True, True, True, True, False, False]], device=dev)
+    s, i = r.search(q, qm, SearchParams())
+    p = r.resolve(SearchParams())
+    plain = plain_search(torch, r.index, q, qm, p)
+    require(torch.equal(i, plain["ids"]), "ragged case: ids differ from plain")
+    require(i.shape == (1, 50) and bool((i[0, 24:] == -1).all()), "ragged pads")
+    torch.testing.assert_close(s, plain["scores"], rtol=1e-5, atol=1e-4)
+    errs = {}
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    errs["fused_psi_pool"] = float((fused_psi.fused_psi_pool(q, qm, *w)
+                                    - ref.psi_pool_ref(q, qm, *w)).abs().max())
+    ann = r.index.ann
+    probe = stable_topk(plain["psi_q"] @ ann.centroids.T, 5)[1].int()
+    a = gather_scan.ivf_probe_scan(plain["psi_q"], probe, ann.ids, ann.vecs, ann.scales)
+    b = ref.ivf_scan_ref(plain["psi_q"], probe, ann.ids, ann.vecs, ann.scales)
+    require(torch.equal(torch.isfinite(a), torch.isfinite(b)), "ragged scan pads")
+    fin = torch.isfinite(b)
+    errs["ivf_probe_scan"] = float((a[fin] - b[fin]).abs().max())
+    cand = torch.tensor([[-1, 3, 0, 7, -1, 12, 39]], dtype=torch.int32, device=dev)
+    args = (q, qm, cand, store.tok_pages, store.page_table, store.n_tokens)
+    a = gather_scan.rerank_paged_scores(*args)
+    b = ref.rerank_scores_paged_ref(*args)
+    real = b > ref.NEG / 2            # pads and the empty doc score 4 * NEG
+    require(bool(((a[~real] - b[~real]).abs() <= 1e-6 * b[~real].abs()).all()),
+            "ragged rerank: NEG-scale scores differ")
+    errs["rerank_paged_scores"] = float((a[real] - b[real]).abs().max())
+    require(errs["fused_psi_pool"] < 1e-3 and errs["ivf_probe_scan"] < 1e-3
+            and errs["rerank_paged_scores"] < 1e-4, f"ragged kernel errors {errs}")
+    return errs
+
+
+def profile_batch(torch, r, q, qm):
+    """One more batch under torch.profiler: device time by kernel and the
+    device's busy share of the traced wall time (tracing adds host cost, so
+    these are not the latency numbers above)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.search(q, qm)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key[:60], us / 1e3, e.count))
+    rows.sort(key=lambda x: -x[1])
+    busy = sum(x[1] for x in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall_ms) if wall_ms else None,
+            "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--m", type=int, default=800_000, help="corpus docs")
+    ap.add_argument("--batches", type=int, default=4, help="timed batches")
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels import build
+
+    t_start = time.time()
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}",
+          flush=True)
+    t0 = time.time()
+    reports = build.build()
+    t_build = time.time() - t0
+    print(f"build: {len(reports)} kernels compiled in {t_build:.1f} s", flush=True)
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    serving, kernels = serve_and_check(torch, args)
+    serving.update(card=card, build_s=t_build, total_s=time.time() - t_start,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def serve_and_check(torch, args):
+    """Phases 2-6 on the card; returns (serving numbers, kernel rows)."""
+    from repro_torch.anns.ivf import default_nlist
+    from repro_torch.core.config import LemurConfig
+    from repro_torch.core.model import pool_queries
+    from repro_torch.kernels import gather_scan, ops, ref
+    from repro_torch.retriever import LemurRetriever, SearchParams
+
+    dev = torch.device("cuda")
+
+    # -- 2. ragged case ----------------------------------------------------
+    ragged = ragged_case(torch, args.seed)
+    print(f"ragged case ok: max abs err {ragged}", flush=True)
+
+    # -- 3. index at full width ---------------------------------------------
+    t0 = time.time()
+    store, psi, rng = build_corpus(torch, args)
+    torch.cuda.synchronize()
+    t_corpus = time.time() - t0
+    cfg = LemurConfig()                            # paper defaults: d'=2048, k=100, k'=1024
+    t0 = time.time()
+    r = LemurRetriever.from_arrays(cfg, psi, store,
+                                   generator=torch.Generator().manual_seed(args.seed))
+    torch.cuda.synchronize()
+    t_ivf = time.time() - t0
+    index = r.index
+    ann = index.ann
+    require(ann.nlist == default_nlist(args.m), "nlist is not default_nlist(m)")
+    print(f"index: m={args.m} nlist={ann.nlist} cap={ann.capacity} "
+          f"pages={store.n_pages} corpus {t_corpus:.1f} s, ivf {t_ivf:.1f} s",
+          flush=True)
+
+    p = r.resolve(SearchParams())
+    require((p.k, p.k_prime, p.backend.nprobe) == (100, 1024, 32), f"params {p}")
+    batches = [make_queries(torch, store, rng, args.batch) for _ in range(args.batches + 1)]
+    dead = torch.cat([batches[1][2][:8],
+                      torch.as_tensor(rng.integers(0, args.m, 8), device=dev)]).unique()
+    store.alive[dead] = False
+
+    # -- 4. serve: the main path, counters from 0 ----------------------------
+    ops.reset_launch_counts()
+    lat, results, per_batch = [], [], []
+    for i, (q, qm, _) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, ids = r.search(q, qm)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i:
+            lat.append(dt)
+        results.append((s, ids))
+        per_batch.append(ops.launch_counts())
+    launches = ops.launch_counts()
+    for i, c in enumerate(per_batch):
+        require(all(v == i + 1 for v in c.values()),
+                f"launch counters after batch {i}: {c}")
+
+    # -- 5. checks -----------------------------------------------------------
+    ties = {"probe": 0, "candidates": 0, "final": 0}
+    alive = store.alive
+    valid_cands = []
+    for (q, qm, _), (s, ids) in zip(batches, results):
+        require(s.shape == (args.batch, 100) and bool(torch.isfinite(s).all()),
+                "scores not finite (B, 100)")
+        plain = plain_search(torch, index, q, qm, p)
+        stages = port_stages(torch, index, q, qm, p)
+        n_valid = (stages["cand"] >= 0).sum(1)
+        valid_cands.append(n_valid)
+        require(bool((ids >= 0).all()),
+                f"-1 ids in the top-100 of {int((ids < 0).any(1).sum())} rows; "
+                f"valid candidates per row min {int(n_valid.min())} mean "
+                f"{float(n_valid.float().mean()):.0f}; plain has -1 in "
+                f"{int((plain['ids'] < 0).any(1).sum())} rows")
+        require(not bool(torch.isin(ids.long(), dead).any()) and bool(alive[ids.long()].all()),
+                "a tombstoned doc in the top-100")
+        for kk, v in classify_rows(torch, ids, s, plain, stages, p.k_prime).items():
+            ties[kk] += v
+        exact = ref.rerank_scores_paged_ref(q, qm, ids, store.tok_pages,
+                                            store.page_table, store.n_tokens, chunk=32)
+        torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+        require(bool((s[:, :-1] >= s[:, 1:]).all()), "scores not sorted")
+    n_rows = args.batch * len(batches)
+    print(f"checks ok: {n_rows} rows, near-tie rows by stage {ties}", flush=True)
+
+    # -- 6. each kernel against its plain version, served shapes -------------
+    q, qm, _ = batches[1]
+    B, Tq, d = q.shape
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    dp = w[0].shape[1]
+    st = port_stages(torch, index, q, qm, p)
+    cand = st["cand"]
+    kernels = []
+
+    def entry(name, source, replaces, out, want, tol, fn, plain_fn, nbytes, flops):
+        fin = torch.isfinite(want)
+        require(torch.equal(torch.isfinite(out), fin), f"{name}: pad pattern differs")
+        err = float((out[fin] - want[fin]).abs().max())
+        scale = max(1.0, float(want[fin].abs().max()))
+        require(err <= tol * scale, f"{name}: max abs err {err} > {tol} x {scale}")
+        ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain_fn)
+        b_ms, b_by = bound(nbytes, flops)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], launches_per_search=launches[name] // len(batches),
+            max_abs_err=err, tolerance=f"{tol} x max(1, max|plain|)",
+            ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bytes=int(nbytes), flops=int(flops), library_ms=None))
+
+    nq_valid = int(qm.sum())
+    entry("fused_psi_pool", "src/repro_torch/csrc/fused_psi_pool.cu",
+          "src/repro/kernels/fused_psi.py:37",
+          pool_queries(psi, q, qm), ref.psi_pool_ref(q, qm, *w), 1e-4,
+          lambda: pool_queries(psi, q, qm), lambda: ref.psi_pool_ref(q, qm, *w),
+          q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4 + B * dp * 4,
+          2 * nq_valid * d * dp)
+
+    psi_q, probe = st["psi_q"], st["probe"]
+    P, cap = probe.shape[1], ann.capacity
+    uniq = probe.long().unique()
+    rows_u = int(ann.counts[uniq].sum())
+    scan_bytes = (len(uniq) * cap * 4 + rows_u * (dp * ann.vecs.element_size() + 4)
+                  + psi_q.numel() * 4 + probe.numel() * 4 + B * P * cap * 4)
+    rows_p = int(ann.counts[probe.long()].sum())      # rows read, probe by probe
+    scan_ops = 2 * rows_p * dp
+    entry("ivf_probe_scan", "src/repro_torch/csrc/ivf_probe_scan.cu",
+          "src/repro/kernels/gather_scan.py:103",
+          gather_scan.ivf_probe_scan(psi_q, probe, ann.ids, ann.vecs, ann.scales),
+          ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4),
+          SQ8_RTOL,
+          lambda: gather_scan.ivf_probe_scan(psi_q, probe, ann.ids, ann.vecs, ann.scales),
+          lambda: ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4),
+          scan_bytes, scan_ops)
+
+    pargs = (q, qm, cand, store.tok_pages, store.page_table, store.n_tokens)
+    valid = cand >= 0
+    nt = torch.where(valid, store.n_tokens[cand.clamp_min(0).long()], 0).long()
+    uc = cand[valid].long().unique()
+    pages_u = int(((store.n_tokens[uc].long() + 15) // 16).sum())
+    rr_bytes = (pages_u * 16 * d * 4 + len(uc) * (store.pages_per_doc * 4 + 4)
+                + q.numel() * 4 + qm.numel() + 2 * cand.numel() * 4)
+    rr_ops = 2 * int((nt * qm.sum(1, keepdim=True)).sum()) * d
+    rr_plain = ref.rerank_scores_paged_ref(*pargs, chunk=16)
+    entry("rerank_paged_scores", "src/repro_torch/csrc/rerank_paged.cu",
+          "src/repro/kernels/gather_scan.py:261",
+          torch.where(valid, gather_scan.rerank_paged_scores(*pargs), 0.0),
+          torch.where(valid, rr_plain, 0.0), 1e-5,
+          lambda: gather_scan.rerank_paged_scores(*pargs),
+          lambda: ref.rerank_scores_paged_ref(*pargs, chunk=16),
+          rr_bytes, rr_ops)
+
+    trace = profile_batch(torch, r, q, qm)
+    lat_ms = [1e3 * x for x in lat]
+    serving = dict(
+        batches=len(lat), batch=args.batch, q_tokens=Tq,
+        p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
+        qps=args.batch * len(lat) / sum(lat), k=p.k, k_prime=p.k_prime,
+        nprobe=p.backend.nprobe, m=args.m, nlist=ann.nlist, cap=ann.capacity,
+        dead_slots=int(len(dead)), near_tie_rows=ties, rows_checked=n_rows,
+        valid_candidates_per_query=float(torch.cat(valid_cands).float().mean()),
+        scanned_rows_per_query=int(ann.counts[st["probe"].long()].sum()) / B,
+        empty_lists=int((ann.counts == 0).sum()),
+        token_pool_bytes=store.tok_pages.numel() * 4,
+        W_bytes=store.W.numel() * 4,
+        list_bytes=sum(t.numel() * t.element_size() for t in
+                       (ann.ids, ann.vecs, ann.scales, ann.centroids, ann.counts)),
+        corpus_s=t_corpus, ivf_build_s=t_ivf,
+        reduced={"m": args.m, "from": MSMARCO_DOCS,
+                 "why": "from_dense rounds the fp32 page pool to a power of two: "
+                        "800k docs fill 2^22 pages (34.4 GB); 1M docs would need "
+                        "2^23 (68.7 GB) beside W and the lists on an 80 GB card"},
+        ragged_max_abs_err=ragged, traced_batch=trace)
+    return serving, kernels
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""IVF index over the latent corpus (twin of ``repro/anns/ivf.py``, fused
+search path).
+
+Build: k-means coarse quantizer over the mean-centred latent rows; vectors
+are packed into power-of-two capacity padded cluster lists, fp32 or SQ8.
+Search: one (B, nlist) centroid product, the top ``nprobe`` clusters, the
+gather-at-source probe scan (:func:`repro_torch.kernels.gather_scan.ivf_probe_scan`)
+and a flat top-k'.  The legacy gathered scan (``use_fused_gather=False``,
+the ``mips_sq8`` kernel) and residual lists are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.anns.base import pad_topk, stable_topk
+from repro_torch.anns.kmeans import assign as assign_clusters
+from repro_torch.anns.kmeans import kmeans
+from repro_torch.anns.quantization import sq8_quant
+from repro_torch.core.pages import next_pow2
+from repro_torch.kernels.gather_scan import ivf_probe_scan
+
+_PACK_ROWS = 65536   # rows quantized / copied at a time while packing
+
+
+class IVFIndex(NamedTuple):
+    centroids: torch.Tensor        # (nlist, d)
+    ids: torch.Tensor              # (nlist, cap) int32, -1 padded
+    vecs: torch.Tensor             # (nlist, cap, d) fp32, or int8 codes when sq8
+    scales: torch.Tensor | None    # (nlist, cap) fp32 when sq8 else None
+    counts: torch.Tensor           # (nlist,) int32
+    mean: torch.Tensor | None = None  # (d,) corpus mean the lists are centred by
+
+    @property
+    def nlist(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.ids.shape[1]
+
+
+def default_nlist(m: int) -> int:
+    """4*sqrt(m) rounded down to a power of two, floor 16 (JAX rule)."""
+    raw = 4 * int(np.sqrt(max(m, 1)))
+    return max(16, 1 << (raw.bit_length() - 1))
+
+
+def build_ivf(vectors: torch.Tensor, nlist: int = 0, *, sq8: bool = False,
+              kmeans_iters: int = 10, train_sample: int = 131072,
+              center: bool = True, generator: torch.Generator | None = None,
+              centroids: torch.Tensor | None = None) -> IVFIndex:
+    """Build on ``vectors``' device.  ``center`` subtracts the corpus mean
+    before clustering and packing (MIPS ranking is invariant to it: q.mean
+    is constant per query).  ``centroids`` supplies a trained coarse
+    quantizer and skips k-means; otherwise k-means runs on up to
+    ``train_sample`` rows drawn with ``generator``."""
+    m, d = vectors.shape
+    mean = None
+    if center:
+        mean = vectors.mean(0)
+        vectors = vectors - mean[None, :]
+    nlist = nlist or default_nlist(m)
+    if centroids is None:
+        sample = vectors
+        if m > train_sample:
+            idx = torch.randperm(m, generator=generator)[:train_sample]
+            sample = vectors[idx.to(vectors.device)]
+        centroids, _ = kmeans(sample, nlist, iters=kmeans_iters,
+                              generator=generator)
+        del sample
+    assign = assign_clusters(vectors, centroids)
+    ids, vecs, scales, counts = _pack_lists(vectors, assign, nlist, sq8=sq8)
+    return IVFIndex(centroids, ids, vecs, scales, counts, mean)
+
+
+def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
+                sq8: bool, cap_floor: int = 1):
+    """Pack vectors into fixed-capacity padded cluster lists, slots in
+    ascending vector order within each list (the JAX loop's order, placed
+    in one vectorized scatter).  SQ8 is per row and pad rows are zero, so
+    the rows are quantized before packing: the codes and scales equal the
+    JAX package's pack-then-quantize, pad slots included."""
+    m, d = vectors.shape
+    dev = vectors.device
+    assign = assign.long()
+    counts = torch.bincount(assign, minlength=nlist)
+    cap = max(next_pow2(max(1, int(counts.max()) if m else 1)), int(cap_floor))
+    order = torch.argsort(assign, stable=True)
+    lists = assign[order]
+    pos = torch.arange(m, device=dev) - (torch.cumsum(counts, 0) - counts)[lists]
+    ids = torch.full((nlist, cap), -1, dtype=torch.int32, device=dev)
+    ids[lists, pos] = order.to(torch.int32)
+    scales = None
+    if sq8:
+        vecs = torch.zeros((nlist, cap, d), dtype=torch.int8, device=dev)
+        pad_scale = sq8_quant(torch.zeros((1, 1), device=dev))[1]
+        scales = pad_scale.expand(nlist, cap).contiguous()
+    else:
+        vecs = torch.zeros((nlist, cap, d), dtype=vectors.dtype, device=dev)
+    for s in range(0, m, _PACK_ROWS):
+        rows = order[s:s + _PACK_ROWS]
+        li, pi = lists[s:s + _PACK_ROWS], pos[s:s + _PACK_ROWS]
+        if sq8:
+            codes, sc = sq8_quant(vectors[rows])
+            vecs[li, pi] = codes
+            scales[li, pi] = sc
+        else:
+            vecs[li, pi] = vectors[rows]
+    return ids, vecs, scales, counts.to(torch.int32)
+
+
+def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int):
+    """q: (B, d) pooled latents -> (scores (B, k), ids (B, k)), padded with
+    (-inf, -1).  The uncentred query scores the centroids of the centred
+    lists, as in the JAX package: MIPS ranking is invariant to the shift."""
+    B = q.shape[0]
+    cs = q @ index.centroids.T                               # (B, nlist)
+    probe = stable_topk(cs, nprobe)[1].to(torch.int32)       # (B, nprobe)
+    s = ivf_probe_scan(q, probe, index.ids, index.vecs, index.scales)
+    flat_s = s.reshape(B, -1)
+    flat_i = index.ids[probe.long()].reshape(B, -1)
+    top, pos = stable_topk(flat_s, min(k, flat_s.shape[1]))
+    return pad_topk(top, torch.gather(flat_i, 1, pos), k)

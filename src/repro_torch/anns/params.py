@@ -1,0 +1,98 @@
+"""Per-backend configuration namespaces and typed search parameters (twin of
+``repro/anns/params.py``: same fields, same defaults, so a JAX checkpoint's
+``cfg`` dict reads back unchanged).
+
+Only the ``ivf`` backend is ported so far; :func:`ported_backend` is the one
+place that says so.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.common.config import ConfigBase
+
+#: every backend name the JAX package registers ("exact" aliases bruteforce)
+KNOWN_BACKENDS = ("bruteforce", "dessert", "exact", "ivf", "muvera",
+                  "token_pruning")
+_ALIASES = {"exact": "bruteforce"}
+
+
+def canonical(name: str) -> str:
+    return _ALIASES.get(name, name)
+
+
+def ported_backend(name: str) -> str:
+    """Canonical backend name, or ``NotImplementedError`` for a backend this
+    port does not serve yet (``KeyError`` for a name nobody registers)."""
+    name = canonical(name)
+    if name == "ivf":
+        return name
+    if name in KNOWN_BACKENDS:
+        raise NotImplementedError(
+            f"first-stage backend {name!r} is not ported to PyTorch yet "
+            f"(ROADMAP Queue 1 item 5); only 'ivf' is served")
+    raise KeyError(f"unknown anns backend {name!r}; known: "
+                   f"{list(KNOWN_BACKENDS)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendConfig(ConfigBase):
+    """Marker base for per-backend build-time config namespaces."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSearchParams(ConfigBase):
+    """Marker base for per-backend query-time knobs."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BruteforceBackendConfig(BackendConfig):
+    """Exact latent MIPS has no build-time knobs."""
+
+
+@dataclasses.dataclass(frozen=True)
+class IVFBackendConfig(BackendConfig):
+    nlist: int = 0           # 0 => 4*sqrt(m) rounded down to pow2 (paper's rule)
+    nprobe: int = 32         # default query-time probe count
+    sq8: bool = True         # scalar-quantize the latent corpus (Glass-style)
+    residual_bits: int = 0   # 2/4 => residual-codec list storage; 0 => off
+    use_fused_gather: bool = True  # gather-at-source probe scan
+    use_one_launch: bool = False   # ψ-pool + probe scan + top-k' in one launch
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualConfig(ConfigBase):
+    """The compressed token-corpus tier (``cfg.residual``)."""
+
+    enabled: bool = False
+    bits: int = 4
+    ncent: int = 256
+    token_budget: int = 0
+    kmeans_iters: int = 8
+    train_sample: int = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class MuveraBackendConfig(BackendConfig):
+    r_reps: int = 20
+    k_sim: int = 5
+    final_dim: int = 1280
+
+
+@dataclasses.dataclass(frozen=True)
+class DessertBackendConfig(BackendConfig):
+    tables: int = 32
+    bits: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPruningBackendConfig(BackendConfig):
+    nlist: int = 0
+    nprobe: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class IVFSearchParams(BackendSearchParams):
+    nprobe: int | None = None             # None => cfg.ivf.nprobe
+    use_fused_gather: bool | None = None  # None => cfg.ivf.use_fused_gather
+    use_one_launch: bool | None = None    # None => cfg.ivf.use_one_launch

@@ -1,0 +1,58 @@
+"""LEMUR configuration (twin of ``repro/core/config.py``; paper App. A
+defaults).  The JAX ``LemurConfig.__post_init__`` imports the backend
+registry, which imports jax, so the port re-declares the dataclass with the
+same fields and defaults.  The v0 flat-knob aliases are not carried over:
+checkpoints store the namespaced form."""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.anns.params import (
+    KNOWN_BACKENDS,
+    BruteforceBackendConfig,
+    DessertBackendConfig,
+    IVFBackendConfig,
+    MuveraBackendConfig,
+    ResidualConfig,
+    TokenPruningBackendConfig,
+    ported_backend,
+)
+from repro_torch.common.config import ConfigBase
+
+
+@dataclasses.dataclass(frozen=True)
+class LemurConfig(ConfigBase):
+    d: int = 128                 # token embedding dim (ColBERTv2: 128)
+    d_prime: int = 2048          # latent dim d'
+    m_pretrain: int = 8192
+    n_train: int = 100_000
+    n_ols: int = 16_384
+    lr: float = 3e-3
+    epochs: int = 100
+    batch_size: int = 512
+    grad_clip: float = 0.5
+    ridge: float = 1e-4
+    query_strategy: str = "corpus-query"
+    k: int = 100                 # final top-k
+    k_prime: int = 1024          # candidates to rerank
+    anns: str = "ivf"            # first-stage backend name
+    bruteforce: BruteforceBackendConfig = BruteforceBackendConfig()
+    ivf: IVFBackendConfig = IVFBackendConfig()
+    muvera: MuveraBackendConfig = MuveraBackendConfig()
+    dessert: DessertBackendConfig = DessertBackendConfig()
+    token_pruning: TokenPruningBackendConfig = TokenPruningBackendConfig()
+    residual: ResidualConfig = ResidualConfig()
+    rerank_block: int = 1024
+    use_fused_gather: bool = True  # rerank through the page-fed kernel
+    use_one_launch: bool = False   # exact-scan one-launch first stage
+    score_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.anns not in KNOWN_BACKENDS:
+            raise ValueError(f"anns={self.anns!r} is not a registered backend; "
+                             f"known: {sorted(KNOWN_BACKENDS)}")
+
+    def backend_config(self, name: str | None = None):
+        """The config namespace for ``name`` (default: the active backend);
+        raises ``NotImplementedError`` for a backend not ported yet."""
+        return getattr(self, ported_backend(name or self.anns))

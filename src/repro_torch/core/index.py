@@ -1,0 +1,32 @@
+"""LemurIndex: the built index a retriever serves (twin of
+``repro/core/index.py``'s ``LemurIndex``)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+from repro_torch.anns.ivf import IVFIndex
+from repro_torch.core.config import LemurConfig
+from repro_torch.core.model import Psi, TargetStats
+from repro_torch.core.pages import PagedStore
+
+
+class LemurIndex(NamedTuple):
+    cfg: LemurConfig
+    psi: Psi                  # feature encoder
+    stats: TargetStats        # target standardization (App. A)
+    store: PagedStore         # paged corpus: W rows + token pages + tombstones
+    backend: str              # first-stage backend name ("ivf")
+    ann: IVFIndex             # first-stage state
+
+    @property
+    def m(self) -> int:
+        """Slot high-water mark (ids are stable slot indices)."""
+        return int(self.store.n_docs[0])
+
+    @property
+    def n_alive(self) -> int:
+        return int(self.store.alive.sum())
+
+    @property
+    def device(self):
+        return self.store.tok_pages.device

@@ -1,0 +1,101 @@
+"""Gather-at-source serving kernels: the IVF probe scan and the paged
+MaxSim rerank (twins of ``repro/kernels/gather_scan.py``).
+
+Each wrapper takes the plain version in :mod:`repro_torch.kernels.ref` for
+tensors on the CPU and launches its CUDA kernel (``csrc/ivf_probe_scan.cu``,
+``csrc/rerank_paged.cu``) for tensors on a CUDA device; there is no
+fall-back between the two.  ``<wrapper>.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+
+
+def ivf_probe_scan(q, probe, ids, vecs, scales=None):
+    """Score the probed IVF cluster lists without gathering them.
+
+    q: (B, d) fp32; probe: (B, nprobe) int32 cluster ids; ids: (nlist, cap)
+    int32 (-1 padded); vecs: (nlist, cap, d) fp32, or int8 codes with
+    scales: (nlist, cap) fp32 -> (B, nprobe, cap) fp32, pad slots -inf."""
+    if q.device.type == "cpu":
+        return ref.ivf_scan_ref(q, probe, ids, vecs, scales)
+    B, d = q.shape
+    nlist, cap = ids.shape
+    P = probe.shape[1]
+    dev = q.device
+    build.expect(q, "q", torch.float32, (B, d), dev)
+    build.expect(probe, "probe", torch.int32, (B, P), dev)
+    build.expect(ids, "ids", torch.int32, (nlist, cap), dev)
+    out = torch.empty((B, P, cap), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build.library("ivf_probe_scan")
+    if scales is not None:
+        build.expect(vecs, "vecs", torch.int8, (nlist, cap, d), dev)
+        build.expect(scales, "scales", torch.float32, (nlist, cap), dev)
+        fn = lib.ivf_probe_scan_sq8
+        fn.argtypes = [_p] * 6 + [_i] * 5 + [_p]
+        err = fn(q.data_ptr(), probe.data_ptr(), ids.data_ptr(), vecs.data_ptr(),
+                 scales.data_ptr(), out.data_ptr(), B, P, cap, d, nlist,
+                 build.stream_ptr(q))
+    else:
+        build.expect(vecs, "vecs", torch.float32, (nlist, cap, d), dev)
+        fn = lib.ivf_probe_scan_fp32
+        fn.argtypes = [_p] * 5 + [_i] * 5 + [_p]
+        err = fn(q.data_ptr(), probe.data_ptr(), ids.data_ptr(), vecs.data_ptr(),
+                 out.data_ptr(), B, P, cap, d, nlist, build.stream_ptr(q))
+    build.check(lib, err, "ivf_probe_scan")
+    ivf_probe_scan.launches += 1
+    return out
+
+
+ivf_probe_scan.launches = 0
+
+
+def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
+    """Exact MaxSim of each query against its own candidates, streaming each
+    candidate's token pages from the pool.
+
+    q: (B, Tq, d) fp32; q_mask: (B, Tq) bool; cand_ids: (B, k') int32 (-1
+    padded: pads score Tq_valid * NEG and are masked by the caller);
+    tok_pages: (P, 16, d) fp32; page_table: (C, pmax) int32; n_tokens: (C,)
+    int32 -> (B, k') fp32 raw pair scores."""
+    if q.device.type == "cpu":
+        return ref.rerank_scores_paged_ref(q, q_mask, cand_ids, tok_pages,
+                                           page_table, n_tokens)
+    B, Tq, d = q.shape
+    kp = cand_ids.shape[1]
+    n_pages, page, _ = tok_pages.shape
+    C, pmax = page_table.shape
+    dev = q.device
+    if page != 16 or d % 4 or B > 65535:
+        raise ValueError(f"rerank kernel takes 16-token pages, d % 4 == 0 and "
+                         f"B <= 65535 (got page={page}, d={d}, B={B})")
+    build.expect(q, "q", torch.float32, (B, Tq, d), dev)
+    build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev)
+    build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev)
+    build.expect(tok_pages, "tok_pages", torch.float32, (n_pages, page, d), dev)
+    build.expect(page_table, "page_table", torch.int32, (C, pmax), dev)
+    build.expect(n_tokens, "n_tokens", torch.int32, (C,), dev)
+    out = torch.empty((B, kp), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build.library("rerank_paged")
+    fn = lib.rerank_paged_scores
+    fn.argtypes = [_p] * 7 + [_i] * 6 + [ctypes.c_longlong, _p]
+    err = fn(q.data_ptr(), q_mask.data_ptr(), cand_ids.data_ptr(),
+             tok_pages.data_ptr(), page_table.data_ptr(), n_tokens.data_ptr(),
+             out.data_ptr(), B, Tq, d, kp, pmax, C, n_pages, build.stream_ptr(q))
+    build.check(lib, err, "rerank_paged_scores")
+    rerank_paged_scores.launches += 1
+    return out
+
+
+rerank_paged_scores.launches = 0

@@ -1,0 +1,89 @@
+"""Plain PyTorch twins of the JAX oracles in ``repro/kernels/ref.py``.
+
+They are the correctness contract of the CUDA kernels: the wrappers run them
+for CPU tensors, the CPU tests hold them against the JAX oracles, and
+``chip_smoke.py`` holds each kernel against them on the card.  The gathers
+here materialise what the kernels stream; at the serving shapes the scan's
+gather alone is (B, nprobe, cap, d') fp32 — tens of GB — so the scan, the
+rerank and the pool take ``chunk``: that many query rows at a time.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30
+
+
+def _chunks(n: int, chunk: int | None):
+    step = max(1, chunk or n)
+    return [(s, min(s + step, n)) for s in range(0, n, step)]
+
+
+def fused_psi_ref(x, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5):
+    """LN(GELU_tanh(x @ kernel + bias)), LayerNorm in fp32.  x: (n, d) -> (n, d')."""
+    h = F.gelu(x @ kernel + bias, approximate="tanh").float()
+    mu = h.mean(-1, keepdim=True)
+    var = (h - mu).square().mean(-1, keepdim=True)
+    y = (h - mu) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()
+    return y.to(x.dtype)
+
+
+def psi_pool_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
+                 eps: float = 1e-5, *, chunk: int | None = None):
+    """Pooled query latent sum_t mask_t * psi(x_t) (eq. 5); the mask applies
+    AFTER psi, so a masked token adds 0 although psi(0) != 0.
+    q_tokens: (B, Tq, d) -> (B, d')."""
+    out = []
+    for s, e in _chunks(q_tokens.shape[0], chunk):
+        y = fused_psi_ref(q_tokens[s:e], kernel, bias, ln_scale, ln_bias, eps)
+        if q_mask is not None:
+            y = y * q_mask[s:e, :, None].to(y.dtype)
+        out.append(y.sum(-2))
+    return torch.cat(out, 0)
+
+
+def ivf_scan_ref(q, probe, ids, vecs, scales=None, *, chunk: int | None = None):
+    """Gather-then-score IVF probe scan.  q: (B, d); probe: (B, nprobe);
+    ids: (nlist, cap); vecs: (nlist, cap, d) fp32, or int8 with scales
+    (nlist, cap) -> (B, nprobe, cap) fp32, pad slots -inf.  The SQ8 branch is
+    the fp32 dot with the widened codes times the row scale, as in JAX."""
+    probe = probe.long()
+    out = []
+    for s, e in _chunks(q.shape[0], chunk):
+        pr = probe[s:e]
+        gids = ids[pr]                                   # (b, P, cap)
+        gv = vecs[pr]                                    # (b, P, cap, d)
+        b, P, cap, d = gv.shape
+        if scales is not None:
+            sc = torch.einsum("bd,bnd->bn", q[s:e],
+                              gv.reshape(b, P * cap, d).float())
+            sc = sc.reshape(b, P, cap) * scales[pr].float()
+        else:
+            sc = torch.einsum("bd,bpcd->bpc", q[s:e], gv.to(q.dtype))
+        out.append(torch.where(gids >= 0, sc, float("-inf")))
+    return torch.cat(out, 0)
+
+
+def rerank_scores_paged_ref(q, q_mask, cand_ids, tok_pages, page_table,
+                            n_tokens, *, chunk: int | None = None):
+    """Exact MaxSim of each query against its own candidates, read from the
+    page pool (clamped page ids, positions >= n_tokens at NEG, query-masked
+    sum).  ``-1`` candidates score Tq_valid * NEG; the caller masks them.
+    q: (B, Tq, d); cand_ids: (B, k') -> (B, k') fp32."""
+    out = []
+    for s, e in _chunks(q.shape[0], chunk):
+        cand = cand_ids[s:e].long()
+        safe = cand.clamp_min(0)
+        table = page_table[safe].long()                  # (b, k', pmax)
+        nt = torch.where(cand >= 0, n_tokens[safe], 0)
+        toks = tok_pages[table.clamp_min(0)]             # (b, k', pmax, page, d)
+        b, kp, pmax, page, d = toks.shape
+        toks = toks.reshape(b, kp, pmax * page, d)
+        cm = torch.arange(pmax * page, device=cand.device) < nt[..., None]
+        sc = torch.einsum("bqd,bmtd->bmqt", q[s:e], toks.to(q.dtype))
+        sc = torch.where(cm[:, :, None, :], sc, NEG)
+        best = sc.amax(-1)                               # (b, k', Tq)
+        best = torch.where(q_mask[s:e, None, :], best, 0.0)
+        out.append(best.sum(-1))
+    return torch.cat(out, 0)

@@ -49,3 +49,9 @@ def run_forced8():
         return r.stdout
 
     return _run
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one "
+        "(run on the card: python -m pytest -m gpu tests/test_torch_*.py)")

@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither jax nor the JAX package, keeps
+its kernel build lazy, and its entry points run on the card unless the
+caller asks for the CPU."""
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+SRC = PKG.parent
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+               or k == "repro" or k.startswith("repro.")]
+        assert not bad, bad
+        assert "triton" not in sys.modules
+        print(len(names))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.strip()) >= 16
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_or_repro_import_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {n}"
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.common.device import resolve_device
+    from repro_torch.convert import index_from_numpy
+    from repro_torch.retriever import LemurRetriever
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LemurRetriever.load(tmp_path)                      # default: the card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        index_from_numpy({}, {"backend": "ivf"})
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_checkpoint_reader(tmp_path):
+    """Leaf names are unmangled, uncommitted steps are ignored, bfloat16
+    leaves are refused."""
+    import json
+
+    from repro_torch.checkpoint import manager
+
+    def write(step, leaves, committed=True, dtype=None):
+        d = tmp_path / f"step_{step:08d}"
+        d.mkdir()
+        np.savez(d / "shard_00000.npz", **{k.replace("/", "__"): v for k, v in leaves.items()})
+        spec = {k: {"shape": list(v.shape), "dtype": dtype or str(v.dtype)}
+                for k, v in leaves.items()}
+        (d / "manifest.json").write_text(json.dumps({"leaves": spec, "extra": {"x": 1}}))
+        if committed:
+            (d / "_COMMITTED").write_text("ok")
+
+    write(3, {"psi/dense/kernel": np.ones((2, 3), np.float32)})
+    write(7, {"a/b": np.zeros(2, np.int32)}, committed=False)
+    assert manager.latest_step(tmp_path) == 3
+    leaves, manifest = manager.restore(tmp_path)
+    assert list(leaves) == ["psi/dense/kernel"] and manifest["extra"] == {"x": 1}
+    write(9, {"w": np.ones(2, np.float32)}, dtype="bfloat16")
+    with pytest.raises(ValueError, match="bfloat16"):
+        manager.restore(tmp_path)
+    assert manager.latest_step(tmp_path / "missing") is None
