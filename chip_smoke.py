@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Serve LEMUR's main path on one NVIDIA GPU through the PyTorch/CUDA port.
+"""Build and serve LEMUR's main paths on one NVIDIA GPU through the
+PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--m 800000] [--batches 4] [--seed 0]
+    python3 chip_smoke.py [--build-m 200000] [--m 800000] [--batches 4] [--seed 0]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  The
 script
 
-1. prints the card's name and power limit and the software versions;
-2. builds every CUDA kernel in ``src/repro_torch/csrc`` (one nvcc each, in
-   parallel) and holds each against its plain PyTorch version on a small
-   ragged case (B=1, -1 pads, tiny lists, k > valid, a doc with no tokens);
-3. builds an index on the card at full width: m docs of Poisson(67.5)
-   tokens clipped to [4, 80] (MS MARCO's length, ``configs/lemur_paper.py``),
-   unit-norm with topic structure as in ``data/synthetic.make_corpus``,
-   d=128, d'=2048; psi and W come from the seed (not trained); then the
-   port's ``build_ivf`` (nlist = default_nlist(m), SQ8) and its page fill;
-4. serves a warm-up batch and ``--batches`` batches of 256 queries x 32
-   tokens through ``LemurRetriever.search(SearchParams())`` (k=100,
-   k'=1024, nprobe=32) with a few slots tombstoned, the kernels' launch
-   counters set to 0 just before and read just after;
-5. checks every batch against a composition of the plain versions on the
-   card and the returned scores against exact MaxSim recomputed plainly;
-6. times each kernel and its plain version at the served shapes on the
-   batch's real inputs (CUDA events, median of 20) and prints one JSON line
-   of kernels, one of serving numbers, and last ``{"ok": true, ...}``.
+1. prints the card's name and power limit and the software versions, and
+   builds every CUDA kernel in ``src/repro_torch/csrc`` (one nvcc each, in
+   parallel);
+2. holds the token MaxSim kernel against its plain version on a small
+   ragged case (d=20, T=7, a doc with no valid token, a mask that is not a
+   prefix, n and m off every tile);
+3. **build path**: makes a corpus of ``--build-m`` docs on the card with the
+   serving corpus's distribution (d=128, Poisson(67.5) lengths clipped to
+   [4, 80], unit-norm tokens at topic weight 1.2 over 4,096 centres, dense
+   (m, 80, 128) fp32) and runs ``LemurRetriever.build`` under the default
+   ``LemurConfig`` (paper App. A: d'=2048, m'=8192, n=100k, n'=16,384, 100
+   epochs of Adam, IVF-SQ8), launch counters set to 0 just before and read
+   just after; checks the launches, the loss, the first OLS block's W
+   against the plain target path, and the Gram features; serves 256 queries
+   of 32 tokens, scores recall against exact MaxSim and holds the learned
+   first stage (top-k' of q.W) to 20 k'/m; holds the kernel to its plain
+   version on rows of the pre-training launch, at the OLS block (timed) and
+   on a ground-truth block; builds at m=2,000 and round-trips
+   ``save``/``load`` on the card.  Then it frees the build's tensors;
+4. **serving path**: holds the three serving kernels against their plain
+   versions on a small ragged case (B=1, -1 pads, tiny lists, k > valid, a
+   doc with no tokens); builds an index of ``--m`` docs at full width
+   whose psi and W come from the seed (not trained); serves a warm-up batch
+   and ``--batches`` batches of 256 queries x 32 tokens through
+   ``LemurRetriever.search(SearchParams())`` (k=100, k'=1024, nprobe=32)
+   with a few slots tombstoned, the counters set to 0 just before and read
+   just after; checks every batch against a composition of the plain
+   versions and the returned scores against exact MaxSim recomputed
+   plainly; times each kernel and its plain version at the served shapes;
+5. prints a ``build`` line, a ``serving`` line, the ``kernels`` line and
+   last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -46,6 +60,14 @@ PEAK_FP32_S = 67e12
 DOC_CHUNK = 25_000               # docs generated on the card at a time
 SQ8_RTOL = 2 ** -16 * 4          # the JAX suite's SQ8 tolerance
 NEAR_TIE = 1e-5                  # relative score gap allowed for an id swap
+MAXSIM_RTOL = 1e-5               # token MaxSim: x max(1, max|plain|)
+SERVE_KERNELS = ("fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores")
+OLS_BLOCK = 2048                 # fit_output_layer_ols' doc block
+QUERY_SEED = 7                   # recall queries; the training tokens use seed 0
+# Both corpora's topic model, data/synthetic.make_corpus's weight: a token is
+# normalize(noise + 1.2 * one of its doc's 2 topic centres), 4,096 centres.
+TOPIC_STRENGTH = 1.2
+TOPIC_CENTERS = 4096
 
 
 class CheckFailed(RuntimeError):
@@ -110,18 +132,18 @@ def build_corpus(torch, args):
     psi = Psi.init(d, dp, torch.Generator().manual_seed(args.seed), device=dev)
     w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
     centers = torch.nn.functional.normalize(
-        torch.randn(4096, d, generator=gen, device=dev), dim=1)
+        torch.randn(TOPIC_CENTERS, d, generator=gen, device=dev), dim=1)
     ppd = pages.pages_needed(torch.as_tensor(counts))
     store = pages.allocate(args.m, int(ppd.sum()), int(ppd.max()), d, dp, device=dev)
     slot = page = 0
     for s in range(0, args.m, DOC_CHUNK):
         n = min(DOC_CHUNK, args.m - s)
         cnt = torch.as_tensor(counts[s:s + n], device=dev)
-        topics = torch.randint(0, 4096, (n, 2), generator=gen, device=dev)
+        topics = torch.randint(0, TOPIC_CENTERS, (n, 2), generator=gen, device=dev)
         which = torch.randint(0, 2, (n, T), generator=gen, device=dev)
         tok = torch.randn(n, T, d, generator=gen, device=dev)
         tok = torch.nn.functional.normalize(
-            tok + 1.2 * centers[topics.gather(1, which)], dim=-1)
+            tok + TOPIC_STRENGTH * centers[topics.gather(1, which)], dim=-1)
         mask = torch.arange(T, device=dev)[None, :] < cnt[:, None]
         tok = tok * mask[..., None]
         W = ref.fused_psi_ref(torch.nn.functional.normalize(tok.sum(1), dim=-1), *w)
@@ -337,9 +359,280 @@ def profile_batch(torch, r, q, qm):
             "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]]}
 
 
+# --------------------------------------------------------------------------
+# the build path
+# --------------------------------------------------------------------------
+
+def maxsim_err(torch, got, want):
+    """Max abs error of token MaxSim on the entries the plain version finds
+    a valid token for; raises unless the NEG entries match exactly and the
+    rest lie within MAXSIM_RTOL x max(1, max|plain|)."""
+    from repro_torch.kernels import ref
+
+    real = want != ref.NEG
+    require(torch.equal(got != ref.NEG, real), "token_maxsim: NEG entries differ")
+    if not bool(real.any()):
+        return 0.0
+    err = float((got[real] - want[real]).abs().max())
+    scale = max(1.0, float(want[real].abs().max()))
+    require(err <= MAXSIM_RTOL * scale, f"token_maxsim: max abs err {err} > "
+                                        f"{MAXSIM_RTOL} x {scale}")
+    return err
+
+
+def maxsim_ragged_case(torch, seed):
+    """d=20, T=7, n and m off every tile, a doc with no valid token, a mask
+    that is not a prefix."""
+    from repro_torch.kernels import maxsim as kmaxsim
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    n, m, T, d = 131, 37, 7, 20
+    x = torch.randn(n, d, generator=g, device=dev)
+    docs = torch.randn(m, T, d, generator=g, device=dev)
+    mask = torch.rand(m, T, generator=g, device=dev) > 0.4
+    mask[5] = False
+    mask[6] = torch.tensor([False, True, False, True, True, False, True], device=dev)
+    got = kmaxsim.token_maxsim(x, docs, mask)
+    want = ref.token_maxsim_ref(x, docs, mask)
+    require(bool((got[:, 5] == ref.NEG).all()), "a doc with no valid token is not NEG")
+    return maxsim_err(torch, got, want)
+
+
+def make_build_corpus(torch, m, seed):
+    """A dense corpus on the card: Poisson(67.5) lengths clipped to [4, 80],
+    tokens normalize(noise + TOPIC_STRENGTH * one of the doc's 2 topic
+    centres) as in data/synthetic.make_corpus, zero past the length.
+    (m, 80, 128) fp32."""
+    from repro_torch.data.synthetic import MultiVectorCorpus
+
+    d, T = 128, 80
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 1)
+    counts = torch.as_tensor(np.clip(rng.poisson(67.5, m), 4, T), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    centers = torch.nn.functional.normalize(
+        torch.randn(TOPIC_CENTERS, d, generator=gen, device=dev), dim=1)
+    topics = torch.randint(0, TOPIC_CENTERS, (m, 2), generator=gen, device=dev)
+    tokens = torch.empty((m, T, d), dtype=torch.float32, device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < counts[:, None]
+    for s in range(0, m, DOC_CHUNK):
+        e = min(s + DOC_CHUNK, m)
+        which = torch.randint(0, 2, (e - s, T), generator=gen, device=dev)
+        tok = torch.randn(e - s, T, d, generator=gen, device=dev)
+        tok = torch.nn.functional.normalize(
+            tok + TOPIC_STRENGTH * centers[topics[s:e].gather(1, which)], dim=-1)
+        tokens[s:e] = tok * mask[s:e, :, None]
+    return MultiVectorCorpus(tokens, mask, topics, centers)
+
+
+def build_phase(torch, args, card):
+    """The build path on the card and its checks -> (build line, token
+    MaxSim kernel row, fused_psi launches of the build)."""
+    import gc
+    import tempfile
+
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.convert import index_to_numpy
+    from repro_torch.core import indexer, maxsim
+    from repro_torch.core.config import LemurConfig
+    from repro_torch.core.model import pool_queries
+    from repro_torch.data.synthetic import MultiVectorCorpus, queries_from_corpus_query
+    from repro_torch.kernels import maxsim as kmaxsim
+    from repro_torch.kernels import ops, ref
+    from repro_torch.retriever import LemurRetriever, SearchParams
+    from repro_torch.retriever.facade import first_stage
+
+    dev = torch.device("cuda")
+    ragged_err = maxsim_ragged_case(torch, args.seed)
+    print(f"token_maxsim ragged case ok: max abs err {ragged_err}", flush=True)
+
+    t0 = time.time()
+    corpus = make_build_corpus(torch, args.build_m, args.seed)
+    torch.cuda.synchronize()
+    corpus_s = time.time() - t0
+    m = corpus.m
+    cfg = LemurConfig()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path, counters from 0 ------------------------------------
+    ops.reset_launch_counts()
+    t0 = time.time()
+    r = LemurRetriever.build(corpus, cfg, generator=torch.Generator().manual_seed(args.seed),
+                             device="cuda", verbose=True)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"token_maxsim": 1 + -(-m // OLS_BLOCK), "fused_psi": 1}
+    require(launches == {**{k: 0 for k in launches}, **want},
+            f"build launches {launches}, expected {want}")
+    log = r.build_log
+    losses = log["losses"]
+    require(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # -- checks of the build ----------------------------------------------
+    solver, stats, index = r.solver_state, r.index.stats, r.index
+    x_ols = solver["x_ols"]
+    blk = (corpus.doc_tokens[:OLS_BLOCK], corpus.doc_mask[:OLS_BLOCK])
+    g_plain = ref.token_maxsim_ref(x_ols, *blk, chunk=128)
+    w_plain = torch.cholesky_solve(solver["feats"].T @ ((g_plain - stats.mean) / stats.std),
+                                   solver["chol"]).T
+    W = index.store.W[:OLS_BLOCK]
+    w_err = float((W - w_plain).abs().max())
+    w_tol = 1e-3 * float(W.abs().max())
+    sv = torch.linalg.svdvals(solver["chol"])
+    cond = float((sv.max() / sv.min()) ** 2)
+    require(w_err <= w_tol, f"first OLS block W: max abs err {w_err} > {w_tol} "
+                            f"(Gram condition number {cond:.3g})")
+    feats_plain = ref.fused_psi_ref(x_ols, *index.psi.params().values())
+    feats_err = float((solver["feats"] - feats_plain).abs().max())
+    feats_tol = 1e-4 * max(1.0, float(feats_plain.abs().max()))
+    require(feats_err <= feats_tol, f"Gram features: max abs err {feats_err} > {feats_tol}")
+    del g_plain, w_plain, feats_plain
+
+    # -- serve the built index, recall against exact MaxSim -----------------
+    q = torch.as_tensor(queries_from_corpus_query(corpus, 256, q_tokens=32, seed=QUERY_SEED),
+                        device=dev).contiguous()
+    qm = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
+    p = r.resolve(SearchParams())
+    s, ids = r.search(q, qm, SearchParams())
+    with torch.inference_mode():
+        cand = first_stage(index, q, qm, p)
+        latent = stable_topk(pool_queries(index.psi, q, qm) @ index.store.W[:m].T,
+                             p.k_prime)[1]
+    t0 = time.time()
+    _, truth = maxsim.true_topk(q, qm, corpus.doc_tokens, corpus.doc_mask, p.k, block=16384)
+    torch.cuda.synchronize()
+    truth_s = time.time() - t0
+    top10 = truth[:, :10]
+    recall = {"recall@10": float(maxsim.recall_at(ids[:, :10], top10).mean()),
+              "recall@100": float(maxsim.recall_at(ids, top10).mean()),
+              "first_stage_recall": float(maxsim.recall_at(cand, top10).mean()),
+              "latent_recall": float(maxsim.recall_at(latent, top10).mean())}
+    floor = 20 * p.k_prime / m
+    # The learned first stage (top-k' of q.W over every doc) must find 20x
+    # what chance finds.  The IVF over W is reported, not held to the floor:
+    # on this corpus k-means leaves most lists with a few rows, in the JAX
+    # package as in the port (tests/test_torch_ivf_skew.py), and the probed
+    # lists hold few of the exact neighbours.
+    require(recall["latent_recall"] >= floor,
+            f"latent first-stage recall {recall['latent_recall']} < 20 k'/m = {floor}")
+    n_cand = (cand >= 0).sum(1)
+    valid = ids >= 0
+    require(torch.equal(valid.sum(1), n_cand.clamp(max=p.k))
+            and bool((valid[:, :-1] >= valid[:, 1:]).all()),
+            "the top-k holds -1 before a real id, or more -1 than the first stage owes")
+    st = index.store
+    exact = ref.rerank_scores_paged_ref(q, qm, ids, st.tok_pages, st.page_table,
+                                        st.n_tokens, chunk=32)
+    torch.testing.assert_close(s, torch.where(valid, exact, ref.NEG), rtol=1e-5, atol=1e-4)
+    counts = index.ann.counts.float()
+    lists = {"max": int(counts.max()), "median": float(counts.median()),
+             "mean": float(counts.mean()), "lists_le_3": float((counts <= 3).float().mean()),
+             "empty": int((counts == 0).sum())}
+    print(f"build served: {recall}, floor {floor} (latent), lists {lists}, "
+          f"valid candidates a query {float(n_cand.float().mean())}", flush=True)
+
+    # -- the kernel at the OLS block shape ---------------------------------
+    kargs = (x_ols, *blk)
+    k_err = maxsim_err(torch, kmaxsim.token_maxsim(*kargs), ref.token_maxsim_ref(*kargs, chunk=128))
+    ms = time_ms(torch, lambda: kmaxsim.token_maxsim(*kargs))
+    plain_ms = time_ms(torch, lambda: ref.token_maxsim_ref(*kargs, chunk=128))
+    nvalid = int(blk[1].sum())
+    n_ols, d = x_ols.shape
+    nbytes = n_ols * d * 4 + nvalid * d * 4 + blk[1].numel() + n_ols * OLS_BLOCK * 4
+    flops = 2 * n_ols * nvalid * d
+    b_ms, b_by = bound(nbytes, flops)
+
+    # -- ... at the pre-training shape (the build's first draw, its tokens)
+    # and at a ground-truth block: rows of the launch against the plain one
+    x_train = torch.as_tensor(indexer.make_training_tokens(corpus, cfg, seed=0),
+                              dtype=torch.float32, device=dev).contiguous()
+    pre = torch.randperm(m, generator=torch.Generator().manual_seed(args.seed))
+    pre = pre[:min(cfg.m_pretrain, m)].to(dev)
+    pre_docs = (corpus.doc_tokens[pre], corpus.doc_mask[pre])
+    g_pre = kmaxsim.token_maxsim(x_train, *pre_docs)
+    n_tr = x_train.shape[0]
+    rows = torch.cat([torch.arange(0, 2048), torch.arange(n_tr - 1001, n_tr)]).to(dev)
+    pre_err = maxsim_err(torch, g_pre[rows],
+                         ref.token_maxsim_ref(x_train[rows], *pre_docs, chunk=512))
+    del g_pre
+    pre_ms = time_ms(torch, lambda: kmaxsim.token_maxsim(x_train, *pre_docs), n=3, warmup=1)
+    nvalid_pre = int(pre_docs[1].sum())
+    pre_b_ms, pre_b_by = bound(n_tr * d * 4 + nvalid_pre * d * 4 + pre_docs[1].numel()
+                               + n_tr * len(pre) * 4, 2 * n_tr * nvalid_pre * d)
+    qt = q.reshape(-1, d)
+    gt_docs = (corpus.doc_tokens[:16384], corpus.doc_mask[:16384])
+    gt_err = maxsim_err(torch, kmaxsim.token_maxsim(qt, *gt_docs),
+                        ref.token_maxsim_ref(qt, *gt_docs, chunk=512))
+    print(f"token_maxsim ok at the OLS block ({k_err}), pre-training rows ({pre_err}) "
+          f"and a ground-truth block ({gt_err})", flush=True)
+    row = dict(name="token_maxsim", route="cuda", source="src/repro_torch/csrc/token_maxsim.cu",
+               replaces="src/repro/kernels/maxsim.py:47", launches=launches["token_maxsim"],
+               launches_per_build=launches["token_maxsim"], max_abs_err=k_err,
+               ragged_max_abs_err=ragged_err, pretrain_rows_max_abs_err=pre_err,
+               truth_block_max_abs_err=gt_err,
+               tolerance=f"{MAXSIM_RTOL} x max(1, max|plain|); NEG entries equal",
+               shape=f"x ({n_ols}, {d}) x docs ({OLS_BLOCK}, {blk[0].shape[1]}, {d})",
+               ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=int(nbytes), flops=int(flops), library_ms=None,
+               pretrain_shape=f"x ({n_tr}, {d}) x docs ({len(pre)}, {blk[0].shape[1]}, {d})",
+               pretrain_ms=pre_ms, pretrain_bound_ms=pre_b_ms, pretrain_bound_by=pre_b_by)
+    del x_train, pre, pre_docs, qt, gt_docs
+
+    # -- save and load on the card, at full widths over 2,000 docs -----------
+    small = MultiVectorCorpus(corpus.doc_tokens[:2000], corpus.doc_mask[:2000],
+                              corpus.topics[:2000], corpus.centers)
+    r2 = LemurRetriever.build(small, cfg.replace(epochs=1), device="cuda",
+                              generator=torch.Generator().manual_seed(args.seed + 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        r2.save(tmp)
+        back = LemurRetriever.load(tmp, device="cuda")
+    a, b = index_to_numpy(r2.index, r2.x_ols)[0], index_to_numpy(back.index, back.x_ols)[0]
+    require(sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a),
+        "save/load: leaves differ")
+    s2, i2 = r2.search(q[:64], qm[:64])
+    s3, i3 = back.search(q[:64], qm[:64])
+    require(torch.equal(i2, i3) and torch.equal(s2, s3), "save/load: search differs")
+    print("save/load round trip ok", flush=True)
+
+    steps = log["steps"]
+    ann = index.ann
+    line = dict(
+        m=m, d=corpus.d, T=corpus.doc_tokens.shape[1], topic_strength=TOPIC_STRENGTH,
+        centers=TOPIC_CENTERS, cfg={k: getattr(cfg, k) for k in (
+            "d_prime", "m_pretrain", "n_train", "n_ols", "epochs", "batch_size", "lr",
+            "grad_clip", "ridge", "query_strategy", "k", "k_prime")},
+        seconds=log["seconds"], build_s=build_s, corpus_s=corpus_s, truth_s=truth_s,
+        train_steps=steps, steps_per_s=steps / log["seconds"]["train_phi"],
+        loss_first=losses[0], loss_last=losses[-1], gram_cond=cond,
+        nlist=ann.nlist, cap=ann.capacity, nprobe=p.backend.nprobe,
+        launches={"token_maxsim": launches["token_maxsim"], "fused_psi": launches["fused_psi"]},
+        peak_mem_gib=peak_gib, **recall, latent_recall_floor=floor,
+        served_recall_at_floor=recall["recall@10"] >= floor, ivf_lists=lists,
+        valid_candidates_per_query=float(n_cand.float().mean()), queries=int(q.shape[0]),
+        q_tokens=int(q.shape[1]), W_first_block_err=w_err, W_tol=w_tol,
+        feats_err=feats_err, save_load={"m": 2000, "epochs": 1, "leaves": len(a)},
+        reduced={"m": m, "from": MSMARCO_DOCS,
+                 "why": "build holds the dense (m, 80, d) corpus on the card, as the JAX "
+                        "build does: 800k docs would be 32.8 GB beside a 2^22-page pool "
+                        "(34.4 GB), W and the lists on an 80 GB card"},
+        card=card)
+    fused_psi_launches = launches["fused_psi"]
+    del r, r2, back, corpus, small, index, solver, stats, x_ols, blk, kargs, q, qm, cand, truth
+    del latent, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, row, fused_psi_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--m", type=int, default=800_000, help="corpus docs")
+    ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
+    ap.add_argument("--m", type=int, default=800_000, help="docs of the served index")
     ap.add_argument("--batches", type=int, default=4, help="timed batches")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
@@ -367,9 +660,16 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    build_line, maxsim_row, psi_build_launches = build_phase(torch, args, card)
+    build_line.update(kernel_build_s=t_build)
+    print(json.dumps({"build": build_line}), flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
     serving, kernels = serve_and_check(torch, args)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start,
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
+    kernels.append(maxsim_row)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -431,7 +731,7 @@ def serve_and_check(torch, args):
         per_batch.append(ops.launch_counts())
     launches = ops.launch_counts()
     for i, c in enumerate(per_batch):
-        require(all(v == i + 1 for v in c.values()),
+        require(all(v == (i + 1 if k in SERVE_KERNELS else 0) for k, v in c.items()),
                 f"launch counters after batch {i}: {c}")
 
     # -- 5. checks -----------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Read side of the JAX package's checkpoint layout
-(``repro/checkpoint/manager.py``), straight into numpy:
+"""The JAX package's checkpoint layout (``repro/checkpoint/manager.py``),
+read and written as numpy:
 
     <dir>/step_000120/
         manifest.json      # leaf names, shapes, dtypes, extra (config, ...)
@@ -12,8 +12,47 @@ import json
 import os
 import pathlib
 import re
+import shutil
+import time
 
 import numpy as np
+
+
+def _fsync_file(path: pathlib.Path) -> None:
+    with open(path, "rb") as f:
+        os.fsync(f.fileno())
+
+
+def save(directory: str | os.PathLike, step: int, leaves: dict[str, np.ndarray],
+         extra: dict | None = None) -> pathlib.Path:
+    """Write one step -> its committed directory, in the JAX crash order: the
+    shard and the manifest are written and fsync'd in a ``.tmp`` staging
+    directory, then ``_COMMITTED`` (fsync'd), and the rename into place comes
+    last.  A crash leaves the previous step or the new one, never a torn one."""
+    d = pathlib.Path(directory) / f"step_{step:08d}"
+    tmp = d.with_suffix(".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    leaves = {k: np.asarray(v) for k, v in leaves.items()}
+    manifest = {
+        "step": step,
+        "time": time.time(),
+        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                   for k, v in leaves.items()},
+        "extra": extra or {},
+    }
+    np.savez(tmp / "shard_00000.npz",
+             **{k.replace("/", "__"): v for k, v in leaves.items()})
+    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    _fsync_file(tmp / "shard_00000.npz")
+    _fsync_file(tmp / "manifest.json")
+    (tmp / "_COMMITTED").write_text("ok")
+    _fsync_file(tmp / "_COMMITTED")
+    if d.exists():
+        shutil.rmtree(d)
+    tmp.rename(d)
+    return d
 
 
 def latest_step(directory: str | os.PathLike) -> int | None:

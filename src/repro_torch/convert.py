@@ -1,4 +1,4 @@
-"""Carry a JAX-built retriever's state into the port.
+"""Carry a retriever's state between the JAX package and the port.
 
 The JAX facade saves one flat tree (``repro/retriever/facade.py:700-722``):
 
@@ -10,7 +10,9 @@ The JAX facade saves one flat tree (``repro/retriever/facade.py:700-722``):
 
 plus ``extra = {"format", "cfg", "backend", "ann_meta"}`` in the manifest.
 :func:`index_from_numpy` turns that tree, as numpy arrays, into the port's
-:class:`~repro_torch.core.index.LemurIndex` on ``device``.
+:class:`~repro_torch.core.index.LemurIndex` on ``device``;
+:func:`index_to_numpy` is its inverse, with the JAX names, shapes and
+dtypes, so the JAX package loads what the port saves.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.pages import PagedStore
 _RESIDUAL_LEAVES = ("pages/cent_pages", "pages/code_pages", "codec/centroids",
                     "ann/rq_cuts", "ann/rq_values")
 _STORE = ("tok_pages", "page_table", "n_tokens", "W", "alive", "n_docs")
+FORMAT = "lemur-retriever-v1"
 
 
 def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
@@ -68,3 +71,33 @@ def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
                    counts=t("ann/counts", torch.int32),
                    mean=t("ann/mean", torch.float32) if "ann/mean" in tree else None)
     return LemurIndex(cfg, psi, stats, store, "ivf", ann)
+
+
+def index_to_numpy(index: LemurIndex, x_ols=None) -> tuple[dict[str, np.ndarray], dict]:
+    """The save-tree of ``index`` (leaf name -> numpy array) and its manifest
+    ``extra``: the inverse of :func:`index_from_numpy`.  ``x_ols`` (the OLS
+    tokens, when the retriever kept them) is saved as ``solver/x_ols``."""
+    def a(t, dtype):
+        return np.array(t.detach().cpu().numpy(), dtype=dtype, order="C")
+
+    tree = {k: a(v, np.float32) for k, v in index.psi.params().items()}
+    tree["stats/mean"] = a(index.stats.mean.reshape(()), np.float32)
+    tree["stats/std"] = a(index.stats.std.reshape(()), np.float32)
+    st = index.store
+    for name, dtype in zip(_STORE, (np.float32, np.int32, np.int32, np.float32,
+                                    np.bool_, np.int32)):
+        tree[f"pages/{name}"] = a(getattr(st, name), dtype)
+    ann = index.ann
+    tree["ann/centroids"] = a(ann.centroids, np.float32)
+    tree["ann/ids"] = a(ann.ids, np.int32)
+    tree["ann/vecs"] = a(ann.vecs, np.float32 if ann.scales is None else np.int8)
+    tree["ann/counts"] = a(ann.counts, np.int32)
+    if ann.scales is not None:
+        tree["ann/scales"] = a(ann.scales, np.float32)
+    if ann.mean is not None:
+        tree["ann/mean"] = a(ann.mean, np.float32)
+    if x_ols is not None:
+        tree["solver/x_ols"] = a(x_ols, np.float32)
+    extra = {"format": FORMAT, "cfg": index.cfg.to_dict(), "backend": index.backend,
+             "ann_meta": {}}
+    return tree, extra

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 from repro_torch.anns.ivf import IVFIndex
+from repro_torch.core import pages
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.model import Psi, TargetStats
 from repro_torch.core.pages import PagedStore
@@ -17,6 +18,14 @@ class LemurIndex(NamedTuple):
     store: PagedStore         # paged corpus: W rows + token pages + tombstones
     backend: str              # first-stage backend name ("ivf")
     ann: IVFIndex             # first-stage state
+
+    @classmethod
+    def from_dense(cls, cfg, psi, stats, W, doc_tokens, doc_mask, backend,
+                   ann) -> "LemurIndex":
+        """Build from the dense padded layout, on ``doc_tokens``' device (the
+        JAX classmethod's positional order)."""
+        store, _ = pages.from_dense(W, doc_tokens, doc_mask)
+        return cls(cfg, psi, stats, store, backend, ann)
 
     @property
     def m(self) -> int:

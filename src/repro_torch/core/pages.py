@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.common.device import resolve_device
+
 TOKENS_PER_PAGE = 16   # power of two — the paged-KV NUM_TOKENS_IN_BLOCK
 MIN_CAPACITY = 8       # smallest doc-slot bucket
 
@@ -72,9 +74,11 @@ def pages_needed(n_tokens: torch.Tensor, page: int = TOKENS_PER_PAGE) -> torch.T
 
 def allocate(m: int, n_pages: int, pmax: int, d: int, d_prime: int, *,
              page: int = TOKENS_PER_PAGE, min_capacity: int = MIN_CAPACITY,
-             device="cpu") -> PagedStore:
+             device="cuda") -> PagedStore:
     """An empty store sized for ``m`` docs over ``n_pages`` pages of at most
-    ``pmax`` pages each (capacity and pool rounded up to powers of two)."""
+    ``pmax`` pages each (capacity and pool rounded up to powers of two), on
+    ``device``."""
+    device = resolve_device(device)
     C = max(min_capacity, next_pow2(m))
     P = next_pow2(max(1, n_pages))
     return PagedStore(

@@ -110,9 +110,9 @@ def stream_ptr(t) -> ctypes.c_void_p:
 
 
 def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+           device: torch.device, align: int = 16) -> None:
     """Validate one kernel argument: device, dtype, shape, contiguity and the
-    16-byte alignment the kernels' vector loads assume."""
+    alignment (bytes) of the kernel's loads: 16 for vector loads."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -121,5 +121,5 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")

@@ -1,4 +1,4 @@
-"""Public wrappers over the serving kernels (twin of ``repro/kernels/ops.py``).
+"""Public wrappers over the kernels (twin of ``repro/kernels/ops.py``).
 
 The device decides the path and nothing else does: CPU tensors go through
 the plain PyTorch versions, CUDA tensors through the hand-written kernels,
@@ -12,13 +12,17 @@ import torch
 from repro_torch.anns.base import stable_topk
 from repro_torch.kernels import fused_psi as _fp
 from repro_torch.kernels import gather_scan as _gs
+from repro_torch.kernels import maxsim as _mx
 from repro_torch.kernels.ref import NEG
 
-#: the kernel wrappers of the serving path, by kernel name
+#: every kernel wrapper, by name: the serving path's three, then the
+#: build's token MaxSim and the unpooled psi (the psi-pool kernel's other form)
 KERNELS = {
     "fused_psi_pool": _fp.fused_psi_pool,
     "ivf_probe_scan": _gs.ivf_probe_scan,
     "rerank_paged_scores": _gs.rerank_paged_scores,
+    "token_maxsim": _mx.token_maxsim,
+    "fused_psi": _fp.fused_psi,
 }
 
 
@@ -29,6 +33,15 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def maxsim_scores(q, q_mask, doc_tokens, doc_mask, *, chunk: int | None = None):
+    """(B, Tq, d) -> (B, m): full MaxSim through the token kernel plus a
+    masked sum over the query tokens (``chunk``: see ``token_maxsim``)."""
+    B, Tq, d = q.shape
+    g = _mx.token_maxsim(q.reshape(B * Tq, d), doc_tokens, doc_mask, chunk=chunk)
+    g = g.reshape(B, Tq, doc_tokens.shape[0])
+    return torch.where(q_mask[:, :, None], g, 0.0).sum(1)
 
 
 def fused_rerank_paged(q, q_mask, cand_ids, tok_pages, page_table, n_tokens,

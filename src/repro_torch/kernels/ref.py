@@ -5,7 +5,9 @@ for CPU tensors, the CPU tests hold them against the JAX oracles, and
 ``chip_smoke.py`` holds each kernel against them on the card.  The gathers
 here materialise what the kernels stream; at the serving shapes the scan's
 gather alone is (B, nprobe, cap, d') fp32 — tens of GB — so the scan, the
-rerank and the pool take ``chunk``: that many query rows at a time.
+rerank and the pool take ``chunk``: that many query rows at a time.  The
+token MaxSim twins materialise (n, m, T) scores and take ``chunk`` over
+docs instead.
 """
 from __future__ import annotations
 
@@ -18,6 +20,30 @@ NEG = -1e30
 def _chunks(n: int, chunk: int | None):
     step = max(1, chunk or n)
     return [(s, min(s + step, n)) for s in range(0, n, step)]
+
+
+def token_maxsim_ref(x, doc_tokens, doc_mask, *, chunk: int | None = None):
+    """g(x)_l = max over doc l's valid tokens c of <c, x>; NEG for a doc
+    with no valid token.  x: (n, d); doc_tokens: (m, T, d); doc_mask: (m, T)
+    bool -> (n, m) fp32."""
+    out = []
+    for s, e in _chunks(doc_tokens.shape[0], chunk):
+        sc = torch.einsum("nd,mtd->nmt", x, doc_tokens[s:e].to(x.dtype))
+        sc = torch.where(doc_mask[None, s:e].bool(), sc, NEG)
+        out.append(sc.amax(-1))
+    return torch.cat(out, 1) if out else x.new_empty((x.shape[0], 0))
+
+
+def maxsim_scores_ref(q, q_mask, doc_tokens, doc_mask, *, chunk: int | None = None):
+    """MaxSim(X, C_j) of every query against every doc: the per-token maxima
+    summed over the valid query tokens.  q: (B, Tq, d) -> (B, m) fp32."""
+    out = []
+    for s, e in _chunks(doc_tokens.shape[0], chunk):
+        sc = torch.einsum("bqd,mtd->bmqt", q, doc_tokens[s:e].to(q.dtype))
+        sc = torch.where(doc_mask[None, s:e, None, :].bool(), sc, NEG)
+        best = torch.where(q_mask[:, None, :].bool(), sc.amax(-1), 0.0)
+        out.append(best.sum(-1))
+    return torch.cat(out, 1) if out else q.new_empty((q.shape[0], 0))
 
 
 def fused_psi_ref(x, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5):

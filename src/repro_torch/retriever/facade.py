@@ -1,32 +1,71 @@
-"""LemurRetriever, serving side (twin of ``repro/retriever/facade.py``).
+"""LemurRetriever: build, save, load and serve (twin of
+``repro/retriever/facade.py``).
 
-    r = LemurRetriever.load("my_index/")              # a JAX-saved index, on the card
+    r = LemurRetriever.build(corpus, cfg, generator=torch.Generator().manual_seed(0))
     scores, ids = r.search(q_tokens, q_mask, SearchParams(k=10))
+    r.save("my_index/")                                # the JAX package loads it
+    r = LemurRetriever.load("my_index/")               # either package's save
 
-The default route is the one ported: psi-pool (fused kernel) -> centroid
-scores -> top-nprobe -> SQ8/fp32 probe scan (kernel) -> flat top-k' ->
-tombstone mask -> paged exact-MaxSim rerank (kernel) -> top-k.  The routes
-not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
-PyTorch runs eagerly, so there is no compile cache to account for.
+The build is the JAX build's pipeline: training tokens (§4.2) -> token
+MaxSim targets over m' sampled docs (kernel) -> psi pre-training (Adam,
+autograd) -> Gram factor (psi kernel) and per-block OLS (kernel) -> IVF ->
+paged store.  Where the JAX build draws with ``jax.random.choice``, the
+port draws with ``torch.randperm`` on the caller's CPU ``generator``.
+
+The default search route is the one ported: psi-pool (fused kernel) ->
+centroid scores -> top-nprobe -> SQ8/fp32 probe scan (kernel) -> flat
+top-k' -> tombstone mask -> paged exact-MaxSim rerank (kernel) -> top-k.
+The routes and build options not ported yet raise ``NotImplementedError``
+naming their ROADMAP item.  PyTorch runs eagerly, so there is no compile
+cache to account for.
 """
 from __future__ import annotations
 
 import pathlib
+import time
 
 import torch
 
 from repro_torch.anns.ivf import build_ivf, search_ivf
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common.device import resolve_device
-from repro_torch.convert import index_from_numpy
-from repro_torch.core import pages
+from repro_torch.convert import FORMAT, index_from_numpy, index_to_numpy
+from repro_torch.core import indexer, maxsim, pages
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.index import LemurIndex
-from repro_torch.core.model import Psi, TargetStats, pool_queries
+from repro_torch.core.model import PSI_LEAVES, Psi, TargetStats, pool_queries, train_phi
 from repro_torch.kernels import ops
 from repro_torch.retriever.params import SearchParams, effective_nprobe
 
-FORMAT = "lemur-retriever-v1"
+
+def _check_build(cfg: LemurConfig) -> None:
+    cfg.backend_config()       # other first-stage backends: Queue 1 item 5
+    if cfg.residual.enabled or cfg.ivf.residual_bits:
+        raise NotImplementedError(
+            "residual token tier (cfg.residual.enabled / ivf.residual_bits) is "
+            "not ported yet (ROADMAP Queue 1 item 6)")
+    if cfg.residual.token_budget:
+        raise NotImplementedError(
+            "index-time token pooling (cfg.residual.token_budget) is not ported "
+            "yet (ROADMAP Queue 1 item 4, pages.pool_tokens)")
+
+
+class _StageClock:
+    """Seconds of each build stage, the device synchronized at each mark."""
+
+    def __init__(self, device: torch.device, verbose: bool):
+        self.device, self.verbose = device, verbose
+        self.seconds: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, stage: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.seconds[stage] = now - self._t
+        self._t = now
+        if self.verbose:
+            print(f"[build] {stage} {self.seconds[stage]:.2f} s", flush=True)
 
 
 def _check_route(params: SearchParams) -> None:
@@ -45,7 +84,7 @@ def _check_route(params: SearchParams) -> None:
     if not params.use_fused_gather:
         raise NotImplementedError(
             "legacy gathered rerank (use_fused_gather=False) is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
+            "(ROADMAP Queue 1 item 2)")
     if params.use_residual:
         raise NotImplementedError(
             "residual token tier (use_residual=True) is not ported yet "
@@ -81,11 +120,19 @@ def launch_plan(resolved: SearchParams) -> dict[str, int]:
 
 
 class LemurRetriever:
-    """Serves a :class:`LemurIndex` (see module docstring)."""
+    """Builds and serves a :class:`LemurIndex` (see module docstring).  The
+    OLS solver state (Gram factor, features, OLS tokens) of a build is kept,
+    and the OLS tokens travel through ``save``/``load``."""
 
-    def __init__(self, index: LemurIndex):
+    def __init__(self, index: LemurIndex, *, solver_state: dict | None = None,
+                 x_ols: torch.Tensor | None = None):
         self._index = index
+        self._solver = solver_state
+        self._x_ols = x_ols if x_ols is not None else (
+            solver_state["x_ols"] if solver_state else None)
         self._resolve_memo: dict[SearchParams | None, SearchParams] = {}
+        #: stage seconds, epoch losses and steps of :meth:`build`, else None
+        self.build_log: dict | None = None
 
     @property
     def index(self) -> LemurIndex:
@@ -111,22 +158,97 @@ class LemurRetriever:
     def device(self) -> torch.device:
         return self._index.device
 
+    @property
+    def solver_state(self) -> dict | None:
+        return self._solver
+
+    @property
+    def x_ols(self) -> torch.Tensor | None:
+        return self._x_ols
+
     def __repr__(self) -> str:
         return (f"LemurRetriever(m={self.m}, d_prime={self.cfg.d_prime}, "
                 f"backend={self.backend!r}, device={self.device})")
 
     @classmethod
+    def build(cls, corpus, cfg: LemurConfig | None = None, *,
+              generator: torch.Generator | None = None, x_train=None,
+              device="cuda", verbose: bool = False) -> "LemurRetriever":
+        """Full offline build on ``device`` (see module docstring).
+        ``corpus`` has ``doc_tokens`` (m, T, d) and ``doc_mask`` (m, T),
+        numpy or tensors; the dense corpus is held on the device, as the JAX
+        build holds it.  ``generator`` (CPU; default seed 0) draws the
+        pre-training docs, psi's init and permutations, the OLS tokens and
+        k-means' sample; ``x_train`` replaces the selected training tokens.
+        Records :attr:`build_log`."""
+        cfg = cfg or LemurConfig()
+        _check_build(cfg)
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        clock = _StageClock(dev, verbose)
+        doc_tokens = torch.as_tensor(corpus.doc_tokens).to(
+            device=dev, dtype=torch.float32).contiguous()
+        doc_mask = torch.as_tensor(corpus.doc_mask).to(device=dev, dtype=torch.bool).contiguous()
+        m = doc_tokens.shape[0]
+
+        # 1. training tokens (§4.2)
+        if x_train is None:
+            x_train = indexer.make_training_tokens(corpus, cfg, seed=0)
+        x_train = torch.as_tensor(x_train, dtype=torch.float32).to(dev).contiguous()
+        clock("tokens")
+
+        # 2. psi pre-training against m' sampled documents (§4.3)
+        pre = torch.randperm(m, generator=gen)[:min(cfg.m_pretrain, m)].to(dev)
+        g_pre = maxsim.token_maxsim(x_train, doc_tokens[pre], doc_mask[pre])
+        clock("g_pre")
+        params, stats, losses = train_phi(x_train, g_pre, cfg, generator=gen)
+        del g_pre
+        psi = Psi.from_arrays(*(params[k] for k in PSI_LEAVES), device=dev)
+        clock("train_phi")
+
+        # 3. OLS output layer over the full corpus (eq. 7); the solver state
+        # is kept for incremental indexing
+        n = x_train.shape[0]
+        x_ols = x_train[torch.randperm(n, generator=gen)[:min(cfg.n_ols, n)].to(dev)]
+        solver = indexer.ols_solver_state(psi, x_ols, cfg)
+        clock("gram")
+        W = indexer.fit_output_layer_ols(psi, x_ols, doc_tokens, doc_mask, cfg,
+                                         stats, solver_state=solver)
+        clock("ols")
+
+        # 4. first stage, 5. paged store
+        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8, generator=gen)
+        clock("ivf")
+        index = LemurIndex.from_dense(cfg, psi, stats, W, doc_tokens, doc_mask, "ivf", ann)
+        clock("pages")
+        r = cls(index, solver_state=solver)
+        r.build_log = {"seconds": clock.seconds, "losses": losses,
+                       "steps": cfg.epochs * max(1, n // cfg.batch_size)}
+        return r
+
+    def save(self, directory) -> pathlib.Path:
+        """Write a ``lemur-retriever-v1`` checkpoint (step 0) in the JAX
+        layout: cfg, psi, target stats, the paged store, the IVF state and
+        the OLS tokens when kept.  Returns the committed step directory."""
+        tree, extra = index_to_numpy(self._index, self._x_ols)
+        return ckpt.save(directory, 0, tree, extra)
+
+    @classmethod
     def load(cls, directory, *, step: int | None = None,
              device="cuda") -> "LemurRetriever":
-        """Serve a ``lemur-retriever-v1`` checkpoint saved by the JAX
-        package's ``LemurRetriever.save``."""
+        """Serve a ``lemur-retriever-v1`` checkpoint saved by either
+        package's ``LemurRetriever.save``; ``solver/x_ols`` is kept when
+        present."""
         dev = resolve_device(device)
         tree, manifest = ckpt.restore(pathlib.Path(directory), step)
         extra = manifest.get("extra", {})
         if extra.get("format") != FORMAT:
             raise ValueError(f"{directory} is not a {FORMAT} checkpoint "
                              f"(format={extra.get('format')!r})")
-        return cls(index_from_numpy(tree, extra, dev))
+        x_ols = tree.get("solver/x_ols")
+        if x_ols is not None:
+            x_ols = torch.tensor(x_ols, device=dev)
+        return cls(index_from_numpy(tree, extra, dev), x_ols=x_ols)
 
     @classmethod
     def from_arrays(cls, cfg: LemurConfig, psi: Psi, store: pages.PagedStore, *,

@@ -8,7 +8,8 @@ Every test needs a CUDA device and skips without one.  Tolerances: the
 kernels sum in another order than the plain versions (fp32 rounding): the
 psi-pool to 1e-4 (LayerNorm over d' = 2048 amplifies the product's
 rounding), the scan to the JAX suite's SQ8 bound 2^-16 * 4 relative to the
-largest score, the rerank to rtol 1e-5 / atol 1e-4.
+largest score, the rerank to rtol 1e-5 / atol 1e-4, token MaxSim to
+1e-5 x max(1, max|plain|) with NEG entries exactly equal.
 """
 import copy
 
@@ -20,8 +21,11 @@ from repro_torch.core import pages
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.model import Psi
 from repro_torch.anns.quantization import sq8_quant
+from repro_torch.core import maxsim
+from repro_torch.data import synthetic
 from repro_torch.kernels import fused_psi, gather_scan, ops, ref
-from repro_torch.retriever import LemurRetriever
+from repro_torch.kernels import maxsim as kmaxsim
+from repro_torch.retriever import LemurRetriever, SearchParams
 
 SQ8_RTOL = 2 ** -16 * 4
 
@@ -131,7 +135,7 @@ def test_search_on_card_matches_cpu(cuda):
     W = torch.as_tensor(rng.standard_normal((m, dp)), dtype=torch.float32)
     store, _ = pages.from_dense(W, tok, mask)
     store.alive[[4, 8]] = False
-    psi = Psi.init(d, dp, torch.Generator().manual_seed(0))
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(0), device="cpu")
     cfg = LemurConfig(d=d, d_prime=dp, k=20, k_prime=128)
     cpu = LemurRetriever.from_arrays(cfg, psi, store,
                                      generator=torch.Generator().manual_seed(1))
@@ -144,3 +148,63 @@ def test_search_on_card_matches_cpu(cuda):
     s1, i1 = gpu.search(q)
     assert torch.equal(i1.cpu(), i0)
     torch.testing.assert_close(s1.cpu(), s0, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,T,d", [
+    (7, 5, 3, 20), (9, 4, 1, 16), (65, 37, 7, 20), (130, 70, 80, 128), (1, 1, 1, 4),
+    (64, 33, 40, 256)])
+def test_token_maxsim_kernel(cuda, n, m, T, d):
+    """Ragged n and m, d not a multiple of 4, T = 1, a doc with no valid
+    token, a mask that is not a prefix, and a 16-position chunk masked in
+    every doc (the kernel skips it)."""
+    rng = np.random.default_rng(n * m + T)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    x = g(rng.standard_normal((n, d)), torch.float32)
+    docs = g(rng.standard_normal((m, T, d)), torch.float32)
+    mask = rng.random((m, T)) > 0.4
+    mask[0] = False
+    if T > 32:
+        mask[:, 16:32] = False
+    mask = g(mask)
+    n0 = kmaxsim.token_maxsim.launches
+    got = kmaxsim.token_maxsim(x, docs, mask)
+    assert kmaxsim.token_maxsim.launches == n0 + 1
+    want = ref.token_maxsim_ref(x, docs, mask)
+    real = want != ref.NEG
+    assert torch.equal(got != ref.NEG, real) and not bool(real[:, 0].any())
+    if real.any():
+        scale = max(1.0, float(want[real].abs().max()))
+        assert float((got[real] - want[real]).abs().max()) <= 1e-5 * scale
+    q = x[: (n // 4) * 4].reshape(-1, 4, d)
+    qm = g(rng.random(q.shape[:2]) > 0.3)
+    torch.testing.assert_close(ops.maxsim_scores(q, qm, docs, mask),
+                               ref.maxsim_scores_ref(q, qm, docs, mask), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_build_on_card(cuda, tmp_path):
+    """A small build on the card: every token MaxSim and psi launch is the
+    expected one, recall is far above a blind first stage, and save/load
+    returns the same ids and scores."""
+    corpus = synthetic.make_corpus(m=3000, d=32, avg_tokens=16, max_tokens=24,
+                                   n_centers=64, seed=0)
+    cfg = LemurConfig(d=32, d_prime=128, m_pretrain=256, n_train=2048, n_ols=512,
+                      epochs=3, k=10, k_prime=64)
+    ops.reset_launch_counts()
+    r = LemurRetriever.build(corpus, cfg, generator=torch.Generator().manual_seed(0),
+                             device=cuda)
+    counts = ops.launch_counts()
+    assert counts["token_maxsim"] == 1 + -(-3000 // 2048) and counts["fused_psi"] == 1
+    assert r.device.type == "cuda" and r.x_ols.device.type == "cuda"
+    q = synthetic.queries_from_corpus_query(corpus, 64, q_tokens=8, seed=7)
+    qm = np.ones(q.shape[:2], bool)
+    dev = lambda a: torch.as_tensor(a, device=cuda)
+    _, truth = maxsim.true_topk(dev(q), dev(qm), dev(corpus.doc_tokens),
+                                dev(corpus.doc_mask), 10)
+    s, i = r.search(q, qm, SearchParams(k=10))
+    assert float(maxsim.recall_at(i, truth).mean()) > 5 * cfg.k_prime / 3000
+    r.save(tmp_path)
+    back = LemurRetriever.load(tmp_path, device=cuda)
+    s1, i1 = back.search(q, qm, SearchParams(k=10))
+    assert torch.equal(i, i1) and torch.equal(s, s1)

@@ -65,6 +65,25 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_constructors_default_to_the_card(monkeypatch):
+    """Psi.from_arrays, Psi.init and pages.allocate run on the card unless
+    the caller asks for the CPU, and raise without one."""
+    from repro_torch.core import pages
+    from repro_torch.core.model import Psi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = [np.ones((2, 3), np.float32)] + [np.zeros(3, np.float32)] * 3
+    calls = [lambda **kw: Psi.from_arrays(*w, **kw),
+             lambda **kw: Psi.init(2, 3, torch.Generator().manual_seed(0), **kw),
+             lambda **kw: pages.allocate(4, 2, 1, 2, 3, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        out = call(device="cpu")
+        t = out.dense.kernel if isinstance(out, Psi) else out.W
+        assert t.device.type == "cpu"
+
+
 def test_checkpoint_reader(tmp_path):
     """Leaf names are unmangled, uncommitted steps are ignored, bfloat16
     leaves are refused."""

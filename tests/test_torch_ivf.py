@@ -177,7 +177,7 @@ def test_chunked_fill_equals_from_dense():
     W, tok, mask = _docs(1, m=40)
     want, _ = pages.from_dense(T(W), T(tok), T(mask))
     ppd = pages.pages_needed(T(mask).sum(1))
-    store = pages.allocate(40, int(ppd.sum()), int(ppd.max()), 8, 12)
+    store = pages.allocate(40, int(ppd.sum()), int(ppd.max()), 8, 12, device="cpu")
     slot = page = 0
     for s in range(0, 40, 7):
         page += pages.write_docs(store, slot, page, T(W[s:s + 7]), T(tok[s:s + 7]),

@@ -64,8 +64,8 @@ def test_fused_psi_ref_matches_jax(n, d, dp):
     jparams = {"dense": {"kernel": jnp.asarray(w[0]), "bias": jnp.asarray(w[1])},
                "ln": {"scale": jnp.asarray(w[2]), "bias": jnp.asarray(w[3])}}
     served = jax_model.psi_apply(jparams, jnp.asarray(x))
-    np.testing.assert_allclose(Psi.from_arrays(*w)(T(x)).numpy(), np.asarray(served),
-                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(Psi.from_arrays(*w, device="cpu")(T(x)).numpy(),
+                               np.asarray(served), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("B,Tq,d,dp", [(4, 6, 16, 128), (1, 3, 20, 64), (7, 32, 12, 128)])
@@ -76,7 +76,7 @@ def test_psi_pool_matches_jax(B, Tq, d, dp):
     qm = rng.random((B, Tq)) > 0.3
     qm[:, 0] = True
     w = _psi_params(rng, d, dp)
-    psi = Psi.from_arrays(*w)
+    psi = Psi.from_arrays(*w, device="cpu")
     got = pool_queries(psi, T(q), T(qm))
     want = jax_ref.psi_pool_ref(jnp.asarray(q), jnp.asarray(qm), *map(jnp.asarray, w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -144,7 +144,7 @@ def test_from_arrays_serves_a_store_built_in_the_port(tiny_corpus):
     store, _ = pages.from_dense(W, torch.as_tensor(tiny_corpus.doc_tokens),
                                 torch.as_tensor(tiny_corpus.doc_mask))
     store.alive[[0, 5]] = False
-    psi = Psi.init(16, 64, torch.Generator().manual_seed(0))
+    psi = Psi.init(16, 64, torch.Generator().manual_seed(0), device="cpu")
     cfg = LemurConfig(d=16, d_prime=64, k=7, k_prime=40)
     r = LemurRetriever.from_arrays(cfg, psi, store,
                                    generator=torch.Generator().manual_seed(1))
