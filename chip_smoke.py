@@ -35,9 +35,23 @@ script
    with a few slots tombstoned, the counters set to 0 just before and read
    just after; checks every batch against a composition of the plain
    versions and the returned scores against exact MaxSim recomputed
-   plainly; times each kernel and its plain version at the served shapes;
-5. prints a ``build`` line, a ``serving`` line, the ``kernels`` line and
-   last ``{"ok": true, ...}``.
+   plainly;
+5. **routes**: holds ``query_fused``, ``mips_topk`` and ``mips_sq8`` against
+   their plain versions on a small ragged case (B=1, an empty probed list,
+   k' above the valid slots and rows, exact ties from duplicated rows and
+   slots, cap and m off every tile, a valid mask with holes); serves the
+   same batches through the other routes, counters set to 0 just before
+   each and read just after: one-launch IVF
+   (``IVFSearchParams(use_one_launch=True)``) and the exact latent scan over
+   W's full slot capacity, in one launch and blocked
+   (``use_ann=False``), at the batch size, and the legacy gathered scan and
+   rerank (``use_fused_gather=False``) at 64 queries; holds each batch
+   against the plain composition and exact MaxSim, and 32 queries' top-10
+   against exact MaxSim over the whole corpus (recall); then times the
+   three kernels against their plain versions at the served shapes;
+6. times each serving kernel and its plain version at the served shapes;
+7. prints a ``build`` line, a ``serving`` line, a ``routes`` line, the
+   ``kernels`` line and last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -202,17 +216,46 @@ def plain_search(torch, index, q, qm, p):
     flat_i = ann.ids[probe.long()].reshape(B, -1)
     top, pos = stable_topk(flat_s, min(p.k_prime, flat_s.shape[1]))
     cand = mask_dead(st, pad_topk(top, torch.gather(flat_i, 1, pos), p.k_prime)[1])
+    top, ids = plain_rerank(torch, st, q, qm, cand, p.k)
+    return dict(psi_q=psi_q, cs=cs, probe=probe, flat_s=flat_s, flat_i=flat_i,
+                pos=pos, cand=cand, scores=top, ids=ids)
+
+
+def plain_rerank(torch, st, q, qm, cand, k):
+    """The plain paged rerank of (B, k') candidates and its top-k, padded
+    with (NEG, -1) when k > k'."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.kernels import ref
+
+    B = q.shape[0]
     r = ref.rerank_scores_paged_ref(q, qm, cand, st.tok_pages, st.page_table,
                                     st.n_tokens, chunk=16)
     r = torch.where(cand >= 0, r, ref.NEG)
-    top, idx = stable_topk(r, p.k)
+    top, idx = stable_topk(r, min(k, r.shape[1]))
     ids = torch.gather(cand, 1, idx)
-    if top.shape[1] < p.k:              # k > k': pad with (NEG, -1)
-        pad = p.k - top.shape[1]
+    if top.shape[1] < k:
+        pad = k - top.shape[1]
         top = torch.cat([top, top.new_full((B, pad), ref.NEG)], 1)
         ids = torch.cat([ids, ids.new_full((B, pad), -1)], 1)
-    return dict(psi_q=psi_q, cs=cs, probe=probe, flat_s=flat_s, flat_i=flat_i,
-                pos=pos, cand=cand, scores=top, ids=ids)
+    return top, ids
+
+
+def exact_plain(torch, index, q, qm, p):
+    """The plain composition of the exact latent scan route: the plain pool,
+    the full (B, C) latent product over W's slot capacity with the alive
+    mask, its stable top-k', the tombstone mask, the plain rerank."""
+    from repro_torch.anns.base import pad_topk
+    from repro_torch.core.pages import mask_dead
+    from repro_torch.kernels import ref
+
+    psi, st = index.psi, index.store
+    psi_q = ref.psi_pool_ref(q, qm, psi.dense.kernel, psi.dense.bias,
+                             psi.ln.scale, psi.ln.bias)
+    kk = min(p.k_prime, st.W.shape[0])
+    lat_s, lat_i = ref.mips_topk_ref(psi_q, st.W, None, st.alive, kp=kk, chunk=32)
+    cand = mask_dead(st, pad_topk(lat_s, lat_i, p.k_prime)[1])
+    top, ids = plain_rerank(torch, st, q, qm, cand, p.k)
+    return dict(psi_q=psi_q, lat_s=lat_s, cand=cand, scores=top, ids=ids)
 
 
 def port_stages(torch, index, q, qm, p):
@@ -629,6 +672,404 @@ def build_phase(torch, args, card):
     return line, row, fused_psi_launches
 
 
+# --------------------------------------------------------------------------
+# the other search routes: one-launch IVF, exact latent scan, legacy gather
+# --------------------------------------------------------------------------
+
+LEGACY_BATCH = 64     # the legacy route gathers (B, 32, 1024, 2048) int8 codes
+RECALL_QUERIES = 32   # queries held to exact MaxSim over the whole corpus
+
+
+def same_topk(torch, got_s, got_i, want_s, want_i, tol, what, exact_ties=True):
+    """Scores within tol x max(1, max|plain|) (pads equal), ids equal up to
+    near-ties, and with ``exact_ties`` equal exactly wherever the plain
+    result has an exact tie (the tie rule: the lower position first; for
+    constructed ties of duplicated rows, which score the same bits in both
+    versions, not for chance ties of distinct rows, which another sum order
+    splits).  Returns (max abs err, near-tie ids, exact ties seen)."""
+    fin = torch.isfinite(want_s)
+    require(torch.equal(torch.isfinite(got_s), fin) and torch.equal(got_i[~fin], want_i[~fin]),
+            f"{what}: pads differ")
+    err = float((got_s[fin] - want_s[fin]).abs().max()) if bool(fin.any()) else 0.0
+    scale = max(1.0, float(want_s[fin].abs().max())) if bool(fin.any()) else 1.0
+    require(err <= tol * scale, f"{what}: max abs err {err} > {tol} x {scale}")
+    diff = got_i != want_i
+    gap = torch.where(fin, got_s - want_s, 0.0).abs() / want_s.abs().clamp_min(1.0)
+    require(bool((gap[diff] < NEAR_TIE).all()), f"{what}: an id differs without a near-tie")
+    tied = torch.zeros_like(diff)
+    eq = (want_s[:, 1:] == want_s[:, :-1]) & fin[:, 1:]
+    tied[:, 1:] |= eq
+    tied[:, :-1] |= eq
+    require(not (exact_ties and bool(diff[tied].any())),
+            f"{what}: an exact tie broke another way")
+    return err, int(diff.sum()), int(tied.sum())
+
+
+def routes_ragged_case(torch, seed):
+    """query_fused, mips_topk and mips_sq8 against their plain versions on
+    small ragged inputs: B=1, an empty probed list, k' above the valid slots
+    and above the rows, exact ties from duplicated rows and slots, cap and m
+    off every tile, a valid mask with holes.  Returns max abs errors."""
+    from repro_torch.anns.base import pad_topk, stable_topk
+    from repro_torch.anns.quantization import sq8_quant
+    from repro_torch.core.model import Psi
+    from repro_torch.kernels import fused_psi, gather_scan, mips_sq8, query_fused, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    errs = {}
+    # query_fused: B=1, 6 lists of 300 slots (a chunk and a bit), list 2 empty
+    d, dp, nlist, cap, Tq = 128, 256, 6, 300, 6
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(seed), device=dev)
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    ids = torch.randperm(10 ** 6, generator=g, device=dev)[:nlist * cap]
+    ids = ids.reshape(nlist, cap).int()
+    ids[:, 200:] = -1
+    ids[2] = -1
+    vecs = torch.randn(nlist, cap, dp, generator=g, device=dev) * (ids >= 0)[..., None]
+    vecs[3, 5] = vecs[0, 0]                       # exact ties across lists
+    vecs[0, 199] = vecs[0, 0]
+    q = torch.nn.functional.normalize(torch.randn(1, Tq, d, generator=g, device=dev), dim=-1)
+    qm = torch.tensor([[True, True, True, False, True, False]], device=dev)
+    probe = torch.tensor([[3, 2, 0, 5]], dtype=torch.int32, device=dev)
+    for sq8 in (False, True):
+        lists = list(sq8_quant(vecs)) if sq8 else [vecs]
+        args = (q, qm, *w, probe, ids, *lists)
+        kp = 1000                                 # > the 600 valid slots probed
+        got = query_fused.query_fused(*args, kp=kp)
+        want = ref.query_fused_ref(*args, kp=kp)
+        err, _, ties = same_topk(torch, *got, *want, SQ8_RTOL if sq8 else 1e-4,
+                                 "query_fused ragged")
+        require(ties >= 2, "query_fused ragged: no exact tie")
+        # the default route's kernels on the same query: the same bits
+        psi_q = fused_psi.fused_psi_pool(q, qm, *w)
+        sc = gather_scan.ivf_probe_scan(psi_q, probe, ids, *lists).reshape(1, -1)
+        top, pos = stable_topk(sc, sc.shape[1])
+        top, kid = pad_topk(top, torch.gather(ids[probe.long()].reshape(1, -1), 1, pos), kp)
+        require(torch.equal(got[0], top) and torch.equal(got[1], kid),
+                "query_fused ragged: differs from psi-pool + scan + stable top-k")
+        errs[f"query_fused_{'sq8' if sq8 else 'fp32'}"] = err
+    # mips_topk: m = 1500 off the 512-row tile, integer rows (exact sums),
+    # duplicated rows, a quarter of the rows invalid, k' above both
+    for B, kp in ((1, 1200), (9, 1600)):
+        qi = torch.randint(-3, 4, (B, 64), generator=g, device=dev).float()
+        W = torch.randint(-3, 4, (1500, 64), generator=g, device=dev).float()
+        W[750], W[1499] = W[500], W[0]
+        valid = torch.rand(1500, generator=g, device=dev) > 0.25
+        got = query_fused.mips_topk(qi, W, None, valid, kp=kp)
+        want = ref.mips_topk_ref(qi, W, None, valid, kp=kp)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"mips_topk ragged (B={B}, kp={kp}): differs from plain")
+        codes, scales = sq8_quant(W)
+        got = query_fused.mips_topk(qi, codes, scales, valid, kp=kp)
+        want = ref.mips_topk_ref(qi, codes, scales, valid, kp=kp)
+        err, _, _ = same_topk(torch, *got, *want, SQ8_RTOL, "mips_topk sq8 ragged")
+        errs["mips_topk"] = max(errs.get("mips_topk", 0.0), err)
+    # mips_sq8: batched B=1 x 300 rows (off the 128-row tile); all pairs
+    # 9 x 1100 (off the 8 x 512 tile), a duplicated row
+    qs = torch.randn(9, 2048, generator=g, device=dev)
+    codes = torch.randint(-127, 128, (9, 1100, 2048), generator=g, device=dev).to(torch.int8)
+    scales = torch.rand(9, 1100, generator=g, device=dev) + 0.1
+    codes[:, 7], scales[:, 7] = codes[:, 3], scales[:, 3]
+    a = mips_sq8.mips_sq8_batched(qs[:1], codes[:1, :300], scales[:1, :300])
+    b = ref.mips_sq8_batched_ref(qs[:1], codes[:1, :300], scales[:1, :300])
+    e1 = float((a - b).abs().max())
+    flat_c, flat_s = codes[0], scales[0]
+    a = mips_sq8.mips_sq8(qs, flat_c, flat_s)
+    b = ref.mips_sq8_ref(qs, flat_c, flat_s)
+    require(torch.equal(a[:, 7], a[:, 3]), "mips_sq8 ragged: equal rows score apart")
+    e2 = float((a - b).abs().max())
+    scale = max(1.0, float(b.abs().max()))
+    require(max(e1, e2) <= SQ8_RTOL * scale, f"mips_sq8 ragged errors {e1} {e2}")
+    errs["mips_sq8"] = max(e1, e2)
+    return errs
+
+
+def classify_exact(torch, index, port_ids, port_scores, port_cand, plain, k_prime):
+    """Rows of an exact-scan route whose ids differ from the plain
+    composition must differ by a near-tie at the k' boundary of the latent
+    scores, or in the final ranking.  Returns counts by kind; raises
+    otherwise."""
+    kinds = {"candidates": 0, "final": 0}
+    W = index.store.W
+    for b in (port_ids != plain["ids"]).any(1).nonzero().flatten().tolist():
+        qa = set(port_cand[b].tolist()) - {-1}
+        qb = set(plain["cand"][b].tolist()) - {-1}
+        if qa != qb:
+            lat = plain["lat_s"][b]
+            edge = float(lat[k_prime - 1])
+            scale = max(1.0, float(lat.abs().max()))
+            for c in qa ^ qb:
+                sc = float(plain["psi_q"][b] @ W[c])
+                require(abs(sc - edge) <= NEAR_TIE * scale,
+                        f"row {b}: candidate {c} differs without a near-tie")
+            kinds["candidates"] += 1
+            continue
+        sa, sb = port_scores[b], plain["scores"][b]
+        require(bool(near(sa, sb, max(1.0, float(sb.abs().max()))).all()),
+                f"row {b}: final ranking differs without a near-tie")
+        kinds["final"] += 1
+    return kinds
+
+
+def truth_top10(torch, store, q, qm):
+    """Exact MaxSim top-10 over every live doc (the token kernel over docs
+    gathered from the pages, 16,384 at a time)."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core import pages
+    from repro_torch.kernels import ops
+
+    m = int(store.n_docs[0])
+    dev = q.device
+    scores = torch.empty((q.shape[0], m), dtype=torch.float32, device=dev)
+    for s in range(0, m, 16384):
+        ids = torch.arange(s, min(m, s + 16384), dtype=torch.int32, device=dev)
+        toks, tmask = pages.gather_docs(store, ids)
+        scores[:, s:s + len(ids)] = ops.maxsim_scores(q, qm, toks, tmask)
+    scores[:, ~store.alive[:m]] = float("-inf")
+    return stable_topk(scores, 10)[1].int()
+
+
+def routes_phase(torch, args, r, batches, plains, default_ids):
+    """Each other route on the served index, counters from 0 just before it
+    and read just after; each batch held against the plain composition and
+    its scores against exact MaxSim.  Returns the routes line."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core import maxsim
+    from repro_torch.core.model import pool_queries
+    from repro_torch.kernels import ops, ref
+    from repro_torch.retriever import IVFSearchParams, SearchParams
+    from repro_torch.retriever.facade import first_stage
+
+    index, st = r.index, r.index.store
+    legacy = SearchParams(use_fused_gather=False,
+                          backend=IVFSearchParams(use_fused_gather=False))
+    routes = {   # name: (params, batch, kernels launched once a search)
+        "one_launch_ivf": (SearchParams(backend=IVFSearchParams(use_one_launch=True)),
+                           args.batch, ("fused_psi_pool", "query_fused", "rerank_paged_scores")),
+        "exact_one_launch": (SearchParams(use_ann=False, use_one_launch=True), args.batch,
+                             ("fused_psi_pool", "mips_topk", "rerank_paged_scores")),
+        "exact_blocked": (SearchParams(use_ann=False), args.batch,
+                          ("fused_psi_pool", "rerank_paged_scores")),
+        "legacy_gathered": (legacy, LEGACY_BATCH, ("fused_psi_pool", "mips_sq8")),
+    }
+    nq = RECALL_QUERIES
+    q1, qm1, _ = batches[1]
+    t0 = time.time()
+    truth = truth_top10(torch, st, q1[:nq], qm1[:nq])
+    torch.cuda.synchronize()
+    line = {"recall_queries": nq, "truth_s": time.time() - t0,
+            "default_ivf": {"recall_at_10": float(maxsim.recall_at(default_ids[1][:nq, :10],
+                                                                truth).mean())}}
+    for name, (params, B, kernels) in routes.items():
+        p = r.resolve(params)
+        ops.reset_launch_counts()
+        lat, outs = [], []
+        for i, (q, qm, _) in enumerate(batches):
+            q, qm = q[:B], qm[:B]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, ids = r.search(q, qm, params)
+            torch.cuda.synchronize()
+            if i:
+                lat.append(time.perf_counter() - t0)
+            outs.append((s, ids))
+        launches = ops.launch_counts()
+        want = {k: (len(batches) if k in kernels else 0) for k in launches}
+        require(launches == want, f"route {name}: launches {launches}, expected {want}")
+        ties = {}
+        differ = 0
+        for i, ((q, qm, _), (s, ids)) in enumerate(zip(batches, outs)):
+            q, qm = q[:B], qm[:B]
+            require(s.shape == (B, p.k) and bool(torch.isfinite(s).all())
+                    and bool((ids >= 0).all()), f"route {name}: scores or ids malformed")
+            require(bool(st.alive[ids.long()].all()), f"route {name}: a tombstoned doc")
+            cand = first_stage(index, q, qm, p)
+            if p.use_ann:
+                plain = {k: v[:B] for k, v in plains[i].items()}
+                probe = stable_topk(pool_queries(index.psi, q, qm) @ index.ann.centroids.T,
+                                    p.backend.nprobe)[1].int()
+                kinds = classify_rows(torch, ids, s, plain, {"probe": probe, "cand": cand},
+                                      p.k_prime)
+                differ += int((ids != default_ids[i][:B]).any(1).sum())
+            else:
+                plain = exact_plain(torch, index, q, qm, p)
+                kinds = classify_exact(torch, index, ids, s, cand, plain, p.k_prime)
+            for kk, v in kinds.items():
+                ties[kk] = ties.get(kk, 0) + v
+            exact = ref.rerank_scores_paged_ref(q, qm, ids, st.tok_pages, st.page_table,
+                                                st.n_tokens, chunk=32)
+            torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+            require(bool((s[:, :-1] >= s[:, 1:]).all()), f"route {name}: scores not sorted")
+        lat_ms = [1e3 * x for x in lat]
+        line[name] = dict(
+            params=repr(params), batch=B, batches=len(lat), p50_ms=float(np.median(lat_ms)),
+            max_ms=float(np.max(lat_ms)), qps=B * len(lat) / sum(lat),
+            launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
+            rows_checked=B * len(batches),
+            recall_at_10=float(maxsim.recall_at(outs[1][1][:nq, :10], truth).mean()))
+        if p.use_ann:
+            line[name]["rows_differing_from_default"] = differ
+        print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, "
+              f"near-tie rows {ties}", flush=True)
+        del outs
+    return line
+
+
+def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
+    """The three new kernels at the served shapes against their plain
+    versions, timed beside them and beside the nearest PyTorch call."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.anns.quantization import sq8_dequant, sq8_quant
+    from repro_torch.core.model import pool_queries
+    from repro_torch.kernels import mips_sq8, query_fused, ref
+
+    index, st, ann = r.index, r.index.store, r.index.ann
+    psi = index.psi
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    q, qm, _ = batches[1]
+    B, Tq, d = q.shape
+    dp, cap, kp, P = st.d_prime, ann.capacity, 1024, 32
+    psi_q = pool_queries(psi, q, qm)
+    rows = []
+
+    def row(name, variant, source, replaces, err, tol, fn, plain_fn, lib_fn, nbytes, flops,
+            shape, n=20, ragged_key=None, **extra):
+        ms = time_ms(torch, fn, n=n)
+        plain_ms = time_ms(torch, plain_fn, n=max(3, n // 4), warmup=1)
+        lib_ms = time_ms(torch, lib_fn, n=n) if lib_fn else None
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(
+            name=name, variant=variant, route="cuda", source=source, replaces=replaces,
+            launches=launches_by_kernel[name], max_abs_err=err,
+            ragged_max_abs_err=ragged[ragged_key or name], tolerance=tol, shape=shape,
+            ms=ms, kernel_ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes),
+            flops=int(flops), library_ms=lib_ms, **extra))
+        print(f"{name} ({variant}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}), library {lib_ms}", flush=True)
+
+    # query_fused, SQ8 lists at the served shape
+    probe = stable_topk(psi_q @ ann.centroids.T, P)[1].int()
+    qargs = (q, qm, *w, probe, ann.ids, ann.vecs, ann.scales)
+    err, near_ties, _ = same_topk(torch, *query_fused.query_fused(*qargs, kp=kp),
+                                  *ref.query_fused_ref(*qargs, kp=kp, chunk=4),
+                                  SQ8_RTOL, "query_fused sq8", exact_ties=False)
+    uniq = probe.long().unique()
+    rows_u, rows_p = int(ann.counts[uniq].sum()), int(ann.counts[probe.long()].sum())
+    nq_valid = int(qm.sum())
+    psi_bytes = q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4
+    row("query_fused", "sq8", "src/repro_torch/csrc/query_fused.cu",
+        "src/repro/kernels/query_fused.py:193", err, f"{SQ8_RTOL} x max(1, max|plain|)",
+        lambda: query_fused.query_fused(*qargs, kp=kp),
+        lambda: ref.query_fused_ref(*qargs, kp=kp, chunk=4), None,
+        psi_bytes + len(uniq) * cap * 4 + rows_u * (dp + 4) + probe.numel() * 4 + 2 * B * kp * 4,
+        2 * nq_valid * d * dp + 2 * rows_p * dp,
+        f"B {B} x Tq {Tq}, nprobe {P} of {ann.nlist} lists of cap {cap} int8, "
+        f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
+        ragged_key="query_fused_sq8",
+        launches_per_search=launches_by_kernel["query_fused"] // len(batches),
+        cuda_launches_per_call=1)
+    # ... and fp32 lists: the first 256 lists dequantized (2.1 GB)
+    L = 256
+    vec32 = sq8_dequant(ann.vecs[:L], ann.scales[:L]).contiguous()
+    ids32 = ann.ids[:L].contiguous()
+    probe32 = stable_topk(psi_q @ ann.centroids[:L].T, P)[1].int()
+    fargs = (q, qm, *w, probe32, ids32, vec32)
+    err, near_ties, _ = same_topk(torch, *query_fused.query_fused(*fargs, kp=kp),
+                                  *ref.query_fused_ref(*fargs, kp=kp, chunk=8), 1e-4,
+                                  "query_fused fp32", exact_ties=False)
+    uniq = probe32.long().unique()
+    rows_u, rows_p = int(ann.counts[uniq].sum()), int(ann.counts[probe32.long()].sum())
+    row("query_fused", "fp32", "src/repro_torch/csrc/query_fused.cu",
+        "src/repro/kernels/query_fused.py:193", err, "1e-4 x max(1, max|plain|)",
+        lambda: query_fused.query_fused(*fargs, kp=kp),
+        lambda: ref.query_fused_ref(*fargs, kp=kp, chunk=8), None,
+        psi_bytes + len(uniq) * cap * 4 + rows_u * dp * 4 + probe32.numel() * 4 + 2 * B * kp * 4,
+        2 * nq_valid * d * dp + 2 * rows_p * dp,
+        f"B {B} x Tq {Tq}, nprobe {P} of a reduced set of {L} fp32 lists of cap {cap} "
+        f"({vec32.numel() * 4 / 1e9:.2f} GB: the index's first {L} lists dequantized), "
+        f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
+        ragged_key="query_fused_fp32",
+        launches_per_search=launches_by_kernel["query_fused"] // len(batches),
+        cuda_launches_per_call=1)
+    del vec32, ids32, fargs
+
+    # mips_topk over W's full slot capacity, fp32 and SQ8
+    C = st.W.shape[0]
+    live = int(st.alive.sum())
+    valid = st.alive
+    margs = (psi_q, st.W, None, valid)
+    err, near_ties, _ = same_topk(torch, *query_fused.mips_topk(*margs, kp=kp),
+                                  *ref.mips_topk_ref(*margs, kp=kp, chunk=32), 1e-4,
+                                  "mips_topk fp32", exact_ties=False)
+    shape = (f"B {B} x {C} slots ({live} live) x d' {dp}, k' {kp}; bound counts the "
+             f"live rows")
+    row("mips_topk", "fp32", "src/repro_torch/csrc/query_fused.cu",
+        "src/repro/kernels/query_fused.py:354", err, "1e-4 x max(1, max|plain|)",
+        lambda: query_fused.mips_topk(*margs, kp=kp),
+        lambda: ref.mips_topk_ref(*margs, kp=kp, chunk=32),
+        lambda: torch.topk(psi_q @ st.W.T, kp),
+        psi_q.numel() * 4 + live * dp * 4 + C + 2 * B * kp * 4, 2 * B * live * dp, shape,
+        n=10, near_tie_ids=near_ties,
+        launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
+        cuda_launches_per_call=2)
+    codes = torch.empty(st.W.shape, dtype=torch.int8, device=st.W.device)
+    wsc = torch.empty((C,), dtype=torch.float32, device=st.W.device)
+    for s0 in range(0, C, 65536):
+        codes[s0:s0 + 65536], wsc[s0:s0 + 65536] = sq8_quant(st.W[s0:s0 + 65536])
+    sargs = (psi_q, codes, wsc, valid)
+    err, near_ties, _ = same_topk(torch, *query_fused.mips_topk(*sargs, kp=kp),
+                                  *ref.mips_topk_ref(*sargs, kp=kp, chunk=32), SQ8_RTOL,
+                                  "mips_topk sq8", exact_ties=False)
+    row("mips_topk", "sq8", "src/repro_torch/csrc/query_fused.cu",
+        "src/repro/kernels/query_fused.py:354", err, f"{SQ8_RTOL} x max(1, max|plain|)",
+        lambda: query_fused.mips_topk(*sargs, kp=kp),
+        lambda: ref.mips_topk_ref(*sargs, kp=kp, chunk=32), None,
+        psi_q.numel() * 4 + live * (dp + 4) + C + 2 * B * kp * 4, 2 * B * live * dp,
+        shape + ", W quantized by sq8_quant (the sharded path's layout)",
+        n=10, near_tie_ids=near_ties,
+        launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
+        cuda_launches_per_call=2)
+    del codes, wsc, sargs
+
+    # mips_sq8: the legacy route's batched strips, and all pairs
+    Bl = LEGACY_BATCH
+    probe_l = probe[:Bl].long()
+    gcodes = ann.vecs[probe_l].reshape(Bl, -1, dp)
+    gsc = ann.scales[probe_l].reshape(Bl, -1)
+    ql = psi_q[:Bl].contiguous()
+    got, want = mips_sq8.mips_sq8_batched(ql, gcodes, gsc), ref.mips_sq8_batched_ref(
+        ql, gcodes, gsc, chunk=2)
+    err = float((got - want).abs().max())
+    require(err <= SQ8_RTOL * max(1.0, float(want.abs().max())), f"mips_sq8 batched err {err}")
+    n = gcodes.shape[1]
+    row("mips_sq8", "batched strips", "src/repro_torch/csrc/mips_sq8.cu",
+        "src/repro/kernels/mips_sq8.py:38", err, f"{SQ8_RTOL} x max(1, max|plain|)",
+        lambda: mips_sq8.mips_sq8_batched(ql, gcodes, gsc),
+        lambda: ref.mips_sq8_batched_ref(ql, gcodes, gsc, chunk=2), None,
+        Bl * n * (dp + 4) + ql.numel() * 4 + Bl * n * 4, 2 * Bl * n * dp,
+        f"B {Bl} x {n} gathered rows (nprobe {P} x cap {cap}) x {dp} int8",
+        launches_per_search=launches_by_kernel["mips_sq8"] // len(batches),
+        cuda_launches_per_call=1)
+    del gcodes, gsc
+    pc = ann.vecs[:32].reshape(-1, dp)
+    ps = ann.scales[:32].reshape(-1)
+    got, want = mips_sq8.mips_sq8(psi_q, pc, ps), ref.mips_sq8_ref(psi_q, pc, ps)
+    err = float((got - want).abs().max())
+    require(err <= SQ8_RTOL * max(1.0, float(want.abs().max())), f"mips_sq8 pairs err {err}")
+    row("mips_sq8", "all pairs", "src/repro_torch/csrc/mips_sq8.cu",
+        "src/repro/kernels/mips_sq8.py:38", err, f"{SQ8_RTOL} x max(1, max|plain|)",
+        lambda: mips_sq8.mips_sq8(psi_q, pc, ps), lambda: ref.mips_sq8_ref(psi_q, pc, ps),
+        lambda: (psi_q @ pc.float().T) * ps,
+        pc.numel() + ps.numel() * 4 + psi_q.numel() * 4 + B * pc.shape[0] * 4,
+        2 * B * pc.shape[0] * dp,
+        f"B {B} x {pc.shape[0]} rows (the first 32 lists) x {dp} int8; this entry runs "
+        f"on no route (launches: the kernel's, from the legacy route's batched entry)",
+        cuda_launches_per_call=1)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -665,12 +1106,13 @@ def main():
     print(json.dumps({"build": build_line}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    serving, kernels = serve_and_check(torch, args)
+    serving, routes, kernels = serve_and_check(torch, args)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start,
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
     kernels.append(maxsim_row)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -678,7 +1120,10 @@ def main():
 
 
 def serve_and_check(torch, args):
-    """Phases 2-6 on the card; returns (serving numbers, kernel rows)."""
+    """Phases 2-6 on the card; returns (serving numbers, routes line, kernel
+    rows)."""
+    import gc
+
     from repro_torch.anns.ivf import default_nlist
     from repro_torch.core.config import LemurConfig
     from repro_torch.core.model import pool_queries
@@ -687,9 +1132,12 @@ def serve_and_check(torch, args):
 
     dev = torch.device("cuda")
 
-    # -- 2. ragged case ----------------------------------------------------
+    # -- 2. ragged cases ---------------------------------------------------
     ragged = ragged_case(torch, args.seed)
     print(f"ragged case ok: max abs err {ragged}", flush=True)
+    route_ragged = routes_ragged_case(torch, args.seed)
+    print(f"ragged case of query_fused, mips_topk, mips_sq8 ok: max abs err "
+          f"{route_ragged}", flush=True)
 
     # -- 3. index at full width ---------------------------------------------
     t0 = time.time()
@@ -737,11 +1185,12 @@ def serve_and_check(torch, args):
     # -- 5. checks -----------------------------------------------------------
     ties = {"probe": 0, "candidates": 0, "final": 0}
     alive = store.alive
-    valid_cands = []
+    valid_cands, plains = [], []
     for (q, qm, _), (s, ids) in zip(batches, results):
         require(s.shape == (args.batch, 100) and bool(torch.isfinite(s).all()),
                 "scores not finite (B, 100)")
         plain = plain_search(torch, index, q, qm, p)
+        plains.append(plain)
         stages = port_stages(torch, index, q, qm, p)
         n_valid = (stages["cand"] >= 0).sum(1)
         valid_cands.append(n_valid)
@@ -760,6 +1209,16 @@ def serve_and_check(torch, args):
         require(bool((s[:, :-1] >= s[:, 1:]).all()), "scores not sorted")
     n_rows = args.batch * len(batches)
     print(f"checks ok: {n_rows} rows, near-tie rows by stage {ties}", flush=True)
+
+    # -- 5b. the other routes, then their kernels at the served shapes -------
+    routes = routes_phase(torch, args, r, batches, plains, [ids for _, ids in results])
+    del plains
+    route_launches = {"query_fused": routes["one_launch_ivf"]["launches"]["query_fused"],
+                      "mips_topk": routes["exact_one_launch"]["launches"]["mips_topk"],
+                      "mips_sq8": routes["legacy_gathered"]["launches"]["mips_sq8"]}
+    new_rows = route_kernel_rows(torch, r, batches, route_launches, route_ragged)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 6. each kernel against its plain version, served shapes -------------
     q, qm, _ = batches[1]
@@ -848,7 +1307,7 @@ def serve_and_check(torch, args):
                         "800k docs fill 2^22 pages (34.4 GB); 1M docs would need "
                         "2^23 (68.7 GB) beside W and the lists on an 80 GB card"},
         ragged_max_abs_err=ragged, traced_batch=trace)
-    return serving, kernels
+    return serving, routes, kernels + new_rows
 
 
 if __name__ == "__main__":

@@ -1,12 +1,16 @@
-"""IVF index over the latent corpus (twin of ``repro/anns/ivf.py``, fused
-search path).
+"""IVF index over the latent corpus (twin of ``repro/anns/ivf.py``).
 
 Build: k-means coarse quantizer over the mean-centred latent rows; vectors
 are packed into power-of-two capacity padded cluster lists, fp32 or SQ8.
-Search: one (B, nlist) centroid product, the top ``nprobe`` clusters, the
-gather-at-source probe scan (:func:`repro_torch.kernels.gather_scan.ivf_probe_scan`)
-and a flat top-k'.  The legacy gathered scan (``use_fused_gather=False``,
-the ``mips_sq8`` kernel) and residual lists are not ported yet.
+Search (:func:`search_ivf`): one (B, nlist) centroid product, the top
+``nprobe`` clusters, a scan of the probed lists and a flat top-k'.  The scan
+is the gather-at-source probe-scan kernel
+(:func:`repro_torch.kernels.gather_scan.ivf_probe_scan`), or with
+``use_fused_gather=False`` the legacy route: the probed lists gathered into
+(B, nprobe, cap, d') and scored by the ``mips_sq8`` kernel's batched entry
+(SQ8) or a plain einsum (fp32).  :func:`search_ivf_one_launch` takes the
+query tokens and runs pool, scan and top-k' in the ``query_fused`` kernel.
+Residual lists are not ported yet (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from repro_torch.anns.kmeans import assign as assign_clusters
 from repro_torch.anns.kmeans import kmeans
 from repro_torch.anns.quantization import sq8_quant
 from repro_torch.core.pages import next_pow2
+from repro_torch.kernels import ops
 from repro_torch.kernels.gather_scan import ivf_probe_scan
 
 _PACK_ROWS = 65536   # rows quantized / copied at a time while packing
@@ -112,15 +117,42 @@ def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
     return ids, vecs, scales, counts.to(torch.int32)
 
 
-def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int):
+def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int,
+               use_fused_gather: bool = True):
     """q: (B, d) pooled latents -> (scores (B, k), ids (B, k)), padded with
     (-inf, -1).  The uncentred query scores the centroids of the centred
-    lists, as in the JAX package: MIPS ranking is invariant to the shift."""
+    lists, as in the JAX package: MIPS ranking is invariant to the shift.
+    ``use_fused_gather=False`` takes the legacy gathered scan (module
+    docstring); both score pad slots -inf and give the same ids."""
     B = q.shape[0]
     cs = q @ index.centroids.T                               # (B, nlist)
     probe = stable_topk(cs, nprobe)[1].to(torch.int32)       # (B, nprobe)
-    s = ivf_probe_scan(q, probe, index.ids, index.vecs, index.scales)
+    flat_i = index.ids[probe.long()].reshape(B, -1)          # (B, nprobe * cap)
+    if use_fused_gather:
+        s = ivf_probe_scan(q, probe, index.ids, index.vecs, index.scales)
+    else:
+        vecs = index.vecs[probe.long()]                      # (B, nprobe, cap, d)
+        d = vecs.shape[-1]
+        if index.scales is not None:
+            sc = index.scales[probe.long()].reshape(B, -1)
+            s = ops.mips_sq8_batched(q, vecs.reshape(B, -1, d), sc)
+        else:
+            s = torch.einsum("bd,bpcd->bpc", q, vecs.to(q.dtype))
+        del vecs
+        s = torch.where(flat_i.reshape(s.shape) >= 0, s, float("-inf"))
     flat_s = s.reshape(B, -1)
-    flat_i = index.ids[probe.long()].reshape(B, -1)
     top, pos = stable_topk(flat_s, min(k, flat_s.shape[1]))
     return pad_topk(top, torch.gather(flat_i, 1, pos), k)
+
+
+def search_ivf_one_launch(index: IVFIndex, psi, q_tokens: torch.Tensor, q_mask,
+                          nprobe: int, k: int):
+    """The one-launch first stage: raw query tokens in, top-k candidates
+    out, pool + scan + top-k' in one ``query_fused`` launch after the
+    probe-select prelude (``ops.fused_query``).  The same arithmetic as
+    ``pool_queries`` + :func:`search_ivf`, so on the card the same ids.
+    q_tokens: (B, Tq, d) -> (scores (B, k), ids (B, k)), padded with (-inf, -1)."""
+    kp = min(k, nprobe * index.capacity)
+    top, ids = ops.fused_query(q_tokens, q_mask, psi, index.centroids, index.ids,
+                               index.vecs, index.scales, nprobe=nprobe, kp=kp)
+    return pad_topk(top, ids, k)

@@ -6,8 +6,8 @@ Every function goes through the token MaxSim wrapper
 its plain twin for CPU tensors.  ``block`` docs at a time bound the plain
 twin's (n, block, T) scores and, in ``maxsim_scores``, the (B * Tq, block)
 per-token maxima on either device.  The legacy
-gathered rerank (``rerank``, ``rerank_gathered``) is ROADMAP Queue 1
-item 4.
+gathered rerank (:func:`rerank`, :func:`rerank_gathered`) is plain PyTorch
+on either device, as the JAX package's is jnp.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 from repro_torch.anns.base import stable_topk
 from repro_torch.kernels import maxsim as _mx
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG
 
 
 def token_maxsim(x, docs, docs_mask, *, block: int = 1024):
@@ -47,3 +48,30 @@ def recall_at(retrieved, truth) -> torch.Tensor:
     """Recall (eq. 3): |retrieved ∩ truth| / |truth| per row."""
     hits = (retrieved[:, :, None] == truth[:, None, :]).any(1)
     return hits.float().mean(-1)
+
+
+def rerank_gathered(q, q_mask, cand_ids, cand_docs, cand_mask, k: int):
+    """Exact MaxSim rerank of pre-gathered candidates (``pages.gather_docs``).
+    q: (B, Tq, d); cand_ids: (B, k'); cand_docs: (B, k', Tm, d); cand_mask:
+    (B, k', Tm) -> (scores (B, k), ids (B, k)).  ``-1`` candidates score NEG
+    and surface, id ``-1``, only when a row has fewer than k real ones; rows
+    are padded with (NEG, -1) when k > k', as the paged rerank pads them."""
+    s = torch.einsum("bqd,bmtd->bmqt", q, cand_docs.to(q.dtype))
+    s = torch.where(cand_mask[:, :, None, :], s, NEG)
+    best = torch.where(q_mask[:, None, :], s.amax(-1), 0.0)
+    scores = torch.where(cand_ids >= 0, best.sum(-1), NEG)   # (B, k')
+    kk = min(k, scores.shape[1])
+    top, idx = stable_topk(scores, kk)
+    ids = torch.gather(cand_ids, 1, idx)
+    if kk < k:
+        B = scores.shape[0]
+        top = torch.cat([top, top.new_full((B, k - kk), NEG)], 1)
+        ids = torch.cat([ids, ids.new_full((B, k - kk), -1)], 1)
+    return top, ids
+
+
+def rerank(q, q_mask, cand_ids, docs, docs_mask, k: int):
+    """Exact MaxSim rerank against a dense corpus: docs (m, Td, d), docs_mask
+    (m, Td); the same NEG and pad rules as :func:`rerank_gathered`."""
+    safe = cand_ids.clamp_min(0).long()
+    return rerank_gathered(q, q_mask, cand_ids, docs[safe], docs_mask[safe].bool(), k)

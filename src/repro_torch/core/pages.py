@@ -12,7 +12,9 @@ The pool, the slot capacity and the table width are powers of two, as in
 the JAX package.  :func:`from_dense` builds a store from the dense padded
 layout; :func:`allocate` plus :func:`write_docs` fill the same store a chunk
 of docs at a time, for corpora whose dense layout does not fit in memory
-(they write in place).  Mutation (add/delete) is ROADMAP Queue 1 item 4.
+(they write in place).  :func:`gather_docs` materialises candidates from
+the pages for the legacy gathered rerank.  Mutation (add/delete) is ROADMAP
+Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -147,3 +149,18 @@ def mask_dead(store: PagedStore, cand_ids: torch.Tensor) -> torch.Tensor:
     """Tombstone filter: candidate ids of deleted slots -> ``-1``."""
     ok = (cand_ids >= 0) & store.alive[cand_ids.clamp_min(0).long()]
     return torch.where(ok, cand_ids, -1)
+
+
+def gather_docs(store: PagedStore, doc_ids: torch.Tensor):
+    """Materialise docs from their pages: ``(...,)`` slot ids -> (tokens
+    ``(..., pmax * page, d)``, mask ``(..., pmax * page)`` bool), the
+    tokens zeroed past ``n_tokens``.  ``-1`` ids give an all-False mask and
+    zero tokens.  The same token values in the same positions as the paged
+    rerank kernel reads."""
+    safe = doc_ids.clamp_min(0).long()
+    table = store.page_table[safe].long()                    # (..., pmax)
+    nt = torch.where(doc_ids >= 0, store.n_tokens[safe], 0)
+    toks = store.tok_pages[table.clamp_min(0)]               # (..., pmax, page, d)
+    toks = toks.reshape(*doc_ids.shape, store.pages_per_doc * store.page, store.d)
+    mask = torch.arange(toks.shape[-2], device=toks.device) < nt[..., None]
+    return toks.mul_(mask[..., None]), mask                  # toks is a fresh copy

@@ -24,112 +24,27 @@
 // mask_t * y into a per-thread pooled accumulator that is written once per
 // segment.  The mask is applied after psi, so a masked token adds 0 even
 // though psi(0) != 0.
-#include "common.cuh"
+#include "psi.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = kThreads / 32;  // one warp per row for the statistics
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
-
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPsiThreads)
 fused_psi_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
                  const float* __restrict__ W, const float* __restrict__ bias,
                  const float* __restrict__ gamma, const float* __restrict__ beta,
                  float* __restrict__ out, int n_rows, int seg_len, int D, int Dp,
                  int pool, float eps) {
   extern __shared__ __align__(16) float sm[];
-  float* xs = sm;                       // kRows x D
-  float* hs = xs + kRows * D;           // kRows x Dp
-  float* stats = hs + (size_t)kRows * Dp;  // kRows x (mean, 1/std)
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int seg0 = blockIdx.x * seg_len;
   float pooled[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) pooled[c] = 0.f;
-
-  for (int r0 = 0; r0 < seg_len; r0 += kRows) {
-    for (int i = tid; i < kRows * D; i += kThreads) {
-      const int r = i / D, row = seg0 + r0 + r;
-      xs[i] = (r0 + r < seg_len && row < n_rows) ? x[(size_t)row * D + i % D] : 0.f;
-    }
-    __syncthreads();
-
-    float acc[kRows][C];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
-    for (int k = 0; k < D; ++k) {
-      float w[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = tid + c * kThreads;
-        w[c] = j < Dp ? __ldg(W + (size_t)k * Dp + j) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float xv = xs[r * D + k];
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(xv, w[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = tid + c * kThreads;
-      if (j < Dp) {
-        const float bj = bias[j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) hs[(size_t)r * Dp + j] = gelu_tanh(acc[r][c] + bj);
-      }
-    }
-    __syncthreads();
-
-    {  // LayerNorm statistics of row `warp` over the full d'
-      const float* h = hs + (size_t)warp * Dp;
-      float s = 0.f;
-      for (int j = lane; j < Dp; j += 32) s += h[j];
-      const float mu = warp_sum(s) / (float)Dp;
-      float v = 0.f;
-      for (int j = lane; j < Dp; j += 32) {
-        const float dv = h[j] - mu;
-        v = fmaf(dv, dv, v);
-      }
-      const float var = warp_sum(v) / (float)Dp;
-      if (lane == 0) {
-        stats[2 * warp] = mu;
-        stats[2 * warp + 1] = 1.f / sqrtf(var + eps);
-      }
-    }
-    __syncthreads();
-
-    for (int r = 0; r < kRows; ++r) {
-      const int row = seg0 + r0 + r;
-      if (r0 + r >= seg_len || row >= n_rows) break;
-      const float mu = stats[2 * r], rstd = stats[2 * r + 1];
-      const float m = (pool && mask != nullptr) ? (float)(mask[row] != 0) : 1.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = tid + c * kThreads;
-        if (j < Dp) {
-          const float y = (hs[(size_t)r * Dp + j] - mu) * rstd * gamma[j] + beta[j];
-          if (pool) pooled[c] += y * m;
-          else out[(size_t)row * Dp + j] = y;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  psi_segment<C>(x, mask, W, bias, gamma, beta, out, pooled, blockIdx.x * seg_len,
+                 seg_len, n_rows, D, Dp, pool != 0, eps, sm);
   if (pool) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int j = tid + c * kThreads;
+      const int j = threadIdx.x + c * kPsiThreads;
       if (j < Dp) out[(size_t)blockIdx.x * Dp + j] = pooled[c];
     }
   }
@@ -139,11 +54,11 @@ template <int C>
 int launch(const float* x, const uint8_t* mask, const float* W, const float* bias,
            const float* gamma, const float* beta, float* out, int n_rows,
            int seg_len, int D, int Dp, int pool, float eps, cudaStream_t stream) {
-  const size_t smem = ((size_t)kRows * D + (size_t)kRows * Dp + 2 * kRows) * sizeof(float);
+  const size_t smem = psi_smem_floats(D, Dp) * sizeof(float);
   cudaError_t err = allow_smem(fused_psi_kernel<C>, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_seg = (n_rows + seg_len - 1) / seg_len;
-  fused_psi_kernel<C><<<n_seg, kThreads, smem, stream>>>(
+  fused_psi_kernel<C><<<n_seg, kPsiThreads, smem, stream>>>(
       x, mask, W, bias, gamma, beta, out, n_rows, seg_len, D, Dp, pool, eps);
   return (int)cudaGetLastError();
 }
@@ -156,7 +71,7 @@ extern "C" int fused_psi(const void* x, const void* mask, const void* W,
                          const void* bias, const void* gamma, const void* beta,
                          void* out, int n_rows, int seg_len, int D, int Dp,
                          int pool, float eps, void* stream) {
-  const int cols = (Dp + kThreads - 1) / kThreads;
+  const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
   auto* xf = (const float*)x;
   auto* mk = (const uint8_t*)mask;
   auto* Wf = (const float*)W;

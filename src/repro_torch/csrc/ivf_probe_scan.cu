@@ -28,37 +28,6 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = 128;
 
 template <typename T>
-__device__ __forceinline__ float dot_chunk(const uint4& v, const float* qs);
-
-// 16 int8 codes against 16 query values (qs is 16-byte aligned shared memory)
-template <>
-__device__ __forceinline__ float dot_chunk<int8_t>(const uint4& v, const float* qs) {
-  const float4* q4 = reinterpret_cast<const float4*>(qs);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 qv = q4[i];
-    acc = fmaf((float)(int8_t)(w[i] & 0xff), qv.x, acc);
-    acc = fmaf((float)(int8_t)((w[i] >> 8) & 0xff), qv.y, acc);
-    acc = fmaf((float)(int8_t)((w[i] >> 16) & 0xff), qv.z, acc);
-    acc = fmaf((float)(int8_t)(w[i] >> 24), qv.w, acc);
-  }
-  return acc;
-}
-
-// 4 fp32 values against 4 query values
-template <>
-__device__ __forceinline__ float dot_chunk<float>(const uint4& v, const float* qs) {
-  const float4 qv = *reinterpret_cast<const float4*>(qs);
-  float acc = __uint_as_float(v.x) * qv.x;
-  acc = fmaf(__uint_as_float(v.y), qv.y, acc);
-  acc = fmaf(__uint_as_float(v.z), qv.z, acc);
-  acc = fmaf(__uint_as_float(v.w), qv.w, acc);
-  return acc;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ivf_scan_kernel(const float* __restrict__ q, const int* __restrict__ probe,
                 const int* __restrict__ ids, const T* __restrict__ vecs,
@@ -76,7 +45,6 @@ ivf_scan_kernel(const float* __restrict__ q, const int* __restrict__ probe,
   const int r1 = min(r0 + kRowsPerBlock, cap);
   const bool in_range = cl >= 0 && cl < nlist;
   float* o = out + (size_t)bp * cap;
-  constexpr int kPer = 16 / sizeof(T);       // elements per 16-byte load
   for (int r = r0 + warp; r < r1; r += kThreads / 32) {
     const size_t slot = (size_t)(in_range ? cl : 0) * cap + r;
     const int id = in_range ? ids[slot] : -1;
@@ -84,19 +52,10 @@ ivf_scan_kernel(const float* __restrict__ q, const int* __restrict__ probe,
       if (lane == 0) o[r] = -INFINITY;
       continue;
     }
-    const T* row = vecs + slot * D;
-    float acc = 0.f;
-    if (vectorized) {
-      const uint4* row4 = reinterpret_cast<const uint4*>(row);
-      const int nchunk = D / kPer;
-#pragma unroll 4
-      for (int c = lane; c < nchunk; c += 32)
-        acc += dot_chunk<T>(__ldg(row4 + c), qs + c * kPer);
-    } else {
-      for (int k = lane; k < D; k += 32) acc = fmaf((float)row[k], qs[k], acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) o[r] = scales != nullptr ? acc * scales[slot] : acc;
+    const T* row[1] = {vecs + slot * D};
+    float acc[1];
+    warp_rows_dot<1, T>(row, qs, D, vectorized, lane, acc);
+    if (lane == 0) o[r] = scales != nullptr ? acc[0] * scales[slot] : acc[0];
   }
 }
 

@@ -1,0 +1,94 @@
+// SQ8 latent scans: fp32 queries against int8 rows with per-row scales.
+//
+// Replaces: src/repro/kernels/mips_sq8.py:mips_sq8 (_mips_sq8_kernel), a
+//   tiled (block_q, d) x (block_m, d) Pallas product that widens the codes
+//   to bf16 and splits the query into hi and lo bf16 halves for the MXU.
+//   The JAX package's legacy IVF scan (ops.mips_sq8_batched) flattens each
+//   query's gathered rows into one all-pairs call and keeps each query's own
+//   strip: B times the work, which is why it sends every shape past 256 MB
+//   to the plain einsum.
+//
+// Numerics: the fp32 dot with the widened codes, then the row scale, as the
+// CPU oracle and the port's probe scan compute it (no hi/lo split: it only
+// worked around the MXU).  Sums run in another order than the plain
+// versions, so results agree to fp32 rounding.
+//
+// Two entry points:
+//  - batched strips, the legacy IVF scan: q (B, d) against each query's own
+//    (n, d) rows -> (B, n).  Bound on the H100: device-memory bytes (each
+//    code row is read once for d multiply-adds, one operation per byte).
+//    One block per (query, tile of kRowsPerBlock rows), q in shared memory,
+//    a warp a row through the probe scan's row dot (common.cuh), 16 bytes a
+//    lane a load; no B-fold waste.
+//  - all pairs: q (B, d) against (m, d) rows -> (B, m).  Bound: fp32
+//    operations once B is past about 20 (2 B operations a byte of codes).
+//    One block per tile of 128 rows x 64 queries (tile.cuh: gemm_tile).
+#include "tile.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRowsPerBlock = 128;
+
+__global__ void __launch_bounds__(kThreads)
+mips_sq8_batched_kernel(const float* __restrict__ q, const int8_t* __restrict__ codes,
+                        const float* __restrict__ scales, float* __restrict__ out,
+                        int n, int D, int vectorized) {
+  extern __shared__ __align__(16) float qs[];
+  const int b = blockIdx.x;
+  for (int i = threadIdx.x; i < D; i += kThreads) qs[i] = q[(size_t)b * D + i];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r1 = min((int)(blockIdx.y + 1) * kRowsPerBlock, n);
+  for (int r = blockIdx.y * kRowsPerBlock + warp; r < r1; r += kThreads / 32) {
+    const size_t row = (size_t)b * n + r;
+    const int8_t* rows[1] = {codes + row * D};
+    float acc[1];
+    warp_rows_dot<1, int8_t>(rows, qs, D, vectorized, lane, acc);
+    if (lane == 0) out[row] = acc[0] * scales[row];
+  }
+}
+
+__global__ void __launch_bounds__(kGemmThreads)
+mips_sq8_pairs_kernel(const float* __restrict__ q, const int8_t* __restrict__ codes,
+                      const float* __restrict__ scales, float* __restrict__ out, int B,
+                      int m, int D, int vec_w, int vec_q) {
+  const int b0 = blockIdx.x * kGemmQ, r0 = blockIdx.y * kGemmRows;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float acc[8][8];
+  gemm_tile<int8_t>(q, B, b0, codes, m, r0, D, vec_w != 0, vec_q != 0, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + ty * 8 + i;
+    if (row >= m) break;
+    const float sc = scales[row];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (b0 + tx * 8 + j < B) out[(size_t)(b0 + tx * 8 + j) * m + row] = acc[i][j] * sc;
+  }
+}
+
+}  // namespace
+
+extern "C" int mips_sq8_batched(const void* q, const void* codes, const void* scales,
+                                void* out, int B, int n, int D, void* stream) {
+  const int vectorized = (D % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
+  const size_t smem = (size_t)((D + 3) / 4 * 4) * sizeof(float);
+  cudaError_t err = allow_smem(mips_sq8_batched_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)B, (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock));
+  mips_sq8_batched_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)codes, (const float*)scales, (float*)out, n, D,
+      vectorized);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mips_sq8_pairs(const void* q, const void* codes, const void* scales,
+                              void* out, int B, int m, int D, void* stream) {
+  const dim3 grid((unsigned)((B + kGemmQ - 1) / kGemmQ), (unsigned)((m + kGemmRows - 1) / kGemmRows));
+  mips_sq8_pairs_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)codes, (const float*)scales, (float*)out, B, m, D,
+      (int)tile_vectorized((const int8_t*)codes, D),
+      (int)(D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0));
+  return (int)cudaGetLastError();
+}

@@ -13,16 +13,23 @@ from repro_torch.anns.base import stable_topk
 from repro_torch.kernels import fused_psi as _fp
 from repro_torch.kernels import gather_scan as _gs
 from repro_torch.kernels import maxsim as _mx
+from repro_torch.kernels import mips_sq8 as _mq
+from repro_torch.kernels import query_fused as _qf
 from repro_torch.kernels.ref import NEG
 
-#: every kernel wrapper, by name: the serving path's three, then the
-#: build's token MaxSim and the unpooled psi (the psi-pool kernel's other form)
+#: every kernel wrapper, by name: the serving path's three, the build's
+#: token MaxSim and the unpooled psi (the psi-pool kernel's other form), then
+#: the other search routes' one-launch IVF, dense scan and SQ8 scan (both
+#: ``mips_sq8`` entries count on ``mips_sq8``)
 KERNELS = {
     "fused_psi_pool": _fp.fused_psi_pool,
     "ivf_probe_scan": _gs.ivf_probe_scan,
     "rerank_paged_scores": _gs.rerank_paged_scores,
     "token_maxsim": _mx.token_maxsim,
     "fused_psi": _fp.fused_psi,
+    "query_fused": _qf.query_fused,
+    "mips_topk": _qf.mips_topk,
+    "mips_sq8": _mq.mips_sq8,
 }
 
 
@@ -63,3 +70,34 @@ def fused_rerank_paged(q, q_mask, cand_ids, tok_pages, page_table, n_tokens,
         top = torch.cat([top, top.new_full((B, k - kk), NEG)], 1)
         out_ids = torch.cat([out_ids, out_ids.new_full((B, k - kk), -1)], 1)
     return top, out_ids
+
+
+def mips_sq8(q, codes, scales):
+    """All-pairs SQ8 scan: (B, d) x (m, d) int8 with (m,) scales -> (B, m)."""
+    return _mq.mips_sq8(q, codes, scales)
+
+
+def mips_sq8_batched(q, codes, scales, *, chunk: int | None = None):
+    """Per-query SQ8 scan: q (B, d) x codes (B, n, d) / scales (B, n) ->
+    (B, n), each query against its own gathered rows, on the card always
+    through the kernel (``chunk``: the plain version's query rows at a time)."""
+    return _mq.mips_sq8_batched(q, codes, scales, chunk=chunk)
+
+
+def fused_query(q_tokens, q_mask, psi, centroids, ids, vecs, scales=None, *,
+                nprobe: int, kp: int):
+    """One-launch first stage: psi-pool + IVF probe scan + top-kp in one
+    kernel launch, after the probe-select prelude (the pool through the
+    psi-pool kernel, the (B, nlist) centroid product and the top-nprobe),
+    which steers the launch and so runs before it, as in the JAX package.
+    Returns (scores, ids), (B, kp), short rows padded with (-inf, -1)."""
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    psi_q = _fp.fused_psi_pool(q_tokens, q_mask, *w)
+    probe = stable_topk(psi_q @ centroids.T, nprobe)[1].to(torch.int32)
+    return _qf.query_fused(q_tokens, q_mask, *w, probe, ids, vecs, scales, kp=kp)
+
+
+def mips_topk_fused(q, W, W_scales, kp: int, valid=None):
+    """Dense latent scan + top-kp without the (B, m) score matrix: ids are
+    row positions, ``valid=False`` rows keep theirs and score NEG."""
+    return _qf.mips_topk(q, W, W_scales, valid, kp=kp)

@@ -5,14 +5,17 @@ for CPU tensors, the CPU tests hold them against the JAX oracles, and
 ``chip_smoke.py`` holds each kernel against them on the card.  The gathers
 here materialise what the kernels stream; at the serving shapes the scan's
 gather alone is (B, nprobe, cap, d') fp32 — tens of GB — so the scan, the
-rerank and the pool take ``chunk``: that many query rows at a time.  The
-token MaxSim twins materialise (n, m, T) scores and take ``chunk`` over
-docs instead.
+rerank, the pool, the one-launch first stage, the dense scan and the
+batched SQ8 scan take ``chunk``: that many query rows at a time.  The token
+MaxSim twins materialise (n, m, T) scores and take ``chunk`` over docs
+instead.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.anns.base import pad_topk, stable_topk
 
 NEG = -1e30
 
@@ -113,3 +116,63 @@ def rerank_scores_paged_ref(q, q_mask, cand_ids, tok_pages, page_table,
         best = torch.where(q_mask[s:e, None, :], best, 0.0)
         out.append(best.sum(-1))
     return torch.cat(out, 0)
+
+
+def mips_sq8_ref(q, codes, scales):
+    """fp32 queries x int8 rows with per-row scales: the fp32 dot with the
+    widened codes, then the scale.  q: (B, d); codes: (m, d) int8; scales:
+    (m,) -> (B, m) fp32."""
+    return (q @ codes.float().T) * scales.float()[None, :]
+
+
+def mips_sq8_batched_ref(q, codes, scales, *, chunk: int | None = None):
+    """Per-query SQ8 scan: every query scores its own rows.  q: (B, d);
+    codes: (B, n, d) int8; scales: (B, n) -> (B, n) fp32.  ``chunk`` queries
+    at a time bound the widened (chunk, n, d) copy of the codes."""
+    out = []
+    for s, e in _chunks(q.shape[0], chunk):
+        sc = torch.einsum("bd,bnd->bn", q[s:e], codes[s:e].float())
+        out.append(sc * scales[s:e].float())
+    return torch.cat(out, 0) if out else q.new_empty((0, codes.shape[1]))
+
+
+def query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe,
+                    ids, vecs, scales=None, *, kp: int, chunk: int | None = None):
+    """The one-launch first stage as the composition it fuses: psi-pool,
+    gather-then-score probe scan, stable flat top-kp over the (B, nprobe *
+    cap) strip (earlier flat positions win ties).  Returns (scores (B, kp),
+    ids (B, kp)) padded with (-inf, -1).  ``chunk``: query rows at a time
+    of the pool and of the (chunk, nprobe, cap, d') gather."""
+    out_s, out_i = [], []
+    for s, e in _chunks(q_tokens.shape[0], chunk):
+        psi_q = psi_pool_ref(q_tokens[s:e], None if q_mask is None else q_mask[s:e],
+                             kernel, bias, ln_scale, ln_bias)
+        sc = ivf_scan_ref(psi_q, probe[s:e], ids, vecs, scales)
+        flat_s = sc.reshape(sc.shape[0], -1)
+        flat_i = ids[probe[s:e].long()].reshape(sc.shape[0], -1)
+        top, pos = stable_topk(flat_s, min(kp, flat_s.shape[1]))
+        top, got = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
+        out_s.append(top)
+        out_i.append(got)
+    return torch.cat(out_s, 0), torch.cat(out_i, 0)
+
+
+def mips_topk_ref(q, W, W_scales=None, valid=None, *, kp: int,
+                  chunk: int | None = None):
+    """Dense latent scan and top-kp: the full (B, m) score matrix, optional
+    per-row scales, invalid rows at NEG with their positions kept, then a
+    stable top-kp (lower position first on ties).  q: (B, d'); W: (m, d')
+    fp32 or int8 -> (scores, int32 positions) (B, kp), short rows padded
+    with (-inf, -1).  ``chunk``: query rows at a time of the score matrix."""
+    out_s, out_i = [], []
+    for s, e in _chunks(q.shape[0], chunk):
+        sc = q[s:e] @ W.T.to(q.dtype)
+        if W_scales is not None:
+            sc = sc * W_scales[None, :].to(sc.dtype)
+        if valid is not None:
+            sc = torch.where(valid[None, :], sc, NEG)
+        top, pos = stable_topk(sc, min(kp, sc.shape[1]))
+        top, pos = pad_topk(top, pos.to(torch.int32), kp)
+        out_s.append(top)
+        out_i.append(pos)
+    return torch.cat(out_s, 0), torch.cat(out_i, 0)

@@ -12,12 +12,26 @@ autograd) -> Gram factor (psi kernel) and per-block OLS (kernel) -> IVF ->
 paged store.  Where the JAX build draws with ``jax.random.choice``, the
 port draws with ``torch.randperm`` on the caller's CPU ``generator``.
 
-The default search route is the one ported: psi-pool (fused kernel) ->
-centroid scores -> top-nprobe -> SQ8/fp32 probe scan (kernel) -> flat
-top-k' -> tombstone mask -> paged exact-MaxSim rerank (kernel) -> top-k.
-The routes and build options not ported yet raise ``NotImplementedError``
-naming their ROADMAP item.  PyTorch runs eagerly, so there is no compile
-cache to account for.
+Search routes, as ``SearchParams`` spells them (every one ends in the
+tombstone mask and an exact-MaxSim rerank to the top-k):
+
+* ``SearchParams()``, the default: psi-pool (kernel) -> centroid scores ->
+  top-nprobe -> SQ8/fp32 probe scan (kernel) -> flat top-k' -> paged
+  rerank (kernel);
+* ``SearchParams(backend=IVFSearchParams(use_one_launch=True))``: the
+  probe-select prelude, then pool + scan + top-k' in one ``query_fused``
+  launch;
+* ``SearchParams(use_ann=False, use_one_launch=True)``: the exact latent
+  scan over W's full slot capacity in the ``mips_topk`` kernel;
+  ``SearchParams(use_ann=False)``: the same scan as a blocked plain product;
+* ``IVFSearchParams(use_fused_gather=False)``: the legacy gathered IVF scan
+  (``mips_sq8`` kernel for SQ8 lists); ``SearchParams(use_fused_gather=
+  False)``: the legacy gathered rerank (``pages.gather_docs`` +
+  ``maxsim.rerank_gathered``, plain).
+
+The residual tier (``use_residual=True``) and the build options not ported
+yet raise ``NotImplementedError`` naming their ROADMAP item.  PyTorch runs
+eagerly, so there is no compile cache to account for.
 """
 from __future__ import annotations
 
@@ -26,7 +40,9 @@ import time
 
 import torch
 
-from repro_torch.anns.ivf import build_ivf, search_ivf
+from repro_torch.anns.base import pad_topk
+from repro_torch.anns.bruteforce import mips_topk
+from repro_torch.anns.ivf import build_ivf, search_ivf, search_ivf_one_launch
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common.device import resolve_device
 from repro_torch.convert import FORMAT, index_from_numpy, index_to_numpy
@@ -69,22 +85,6 @@ class _StageClock:
 
 
 def _check_route(params: SearchParams) -> None:
-    if not params.use_ann:
-        raise NotImplementedError(
-            "exact latent scan (use_ann=False) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
-    if params.use_one_launch or params.backend.use_one_launch:
-        raise NotImplementedError(
-            "one-launch first stage (use_one_launch=True) is not ported yet "
-            "(ROADMAP Queue 2 item 5, query_fused)")
-    if not params.backend.use_fused_gather:
-        raise NotImplementedError(
-            "legacy gathered IVF scan (IVFSearchParams.use_fused_gather=False) "
-            "is not ported yet (ROADMAP Queue 2 item 8, mips_sq8)")
-    if not params.use_fused_gather:
-        raise NotImplementedError(
-            "legacy gathered rerank (use_fused_gather=False) is not ported yet "
-            "(ROADMAP Queue 1 item 2)")
     if params.use_residual:
         raise NotImplementedError(
             "residual token tier (use_residual=True) is not ported yet "
@@ -92,30 +92,55 @@ def _check_route(params: SearchParams) -> None:
 
 
 def first_stage(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
-    """Pool the queries and run the IVF first stage -> (B, k') candidate ids,
-    tombstoned slots masked to -1.  ``params`` must be resolved."""
+    """Pool the queries and run the IVF first stage, or the exact latent
+    scan -> (B, k') candidate ids, tombstoned slots masked to -1.
+    ``params`` must be resolved (module docstring: the routes)."""
     _check_route(params)
+    store = index.store
+    if params.use_ann and params.backend.use_one_launch:
+        nprobe = effective_nprobe(params.backend.nprobe, index.ann.nlist)
+        _, cand = search_ivf_one_launch(index.ann, index.psi, q_tokens, q_mask,
+                                        nprobe, params.k_prime)
+        return pages.mask_dead(store, cand)
     psi_q = pool_queries(index.psi, q_tokens, q_mask)           # (B, d')
+    if not params.use_ann:
+        # over the store's full slot capacity: dead and unallocated slots
+        # are masked by the alive bits
+        kk = min(params.k_prime, store.W.shape[0])
+        if params.use_one_launch:
+            top, cand = ops.mips_topk_fused(psi_q, store.W, None, kk, valid=store.alive)
+        else:
+            top, cand = mips_topk(psi_q, store.W, kk, valid=store.alive)
+        return pages.mask_dead(store, pad_topk(top, cand, params.k_prime)[1])
     nprobe = effective_nprobe(params.backend.nprobe, index.ann.nlist)
-    _, cand = search_ivf(index.ann, psi_q, nprobe, params.k_prime)
-    return pages.mask_dead(index.store, cand)
+    _, cand = search_ivf(index.ann, psi_q, nprobe, params.k_prime,
+                         use_fused_gather=params.backend.use_fused_gather)
+    return pages.mask_dead(store, cand)
 
 
 def search_pipeline(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
-    """pool -> first-stage candidates -> paged exact-MaxSim rerank -> top-k.
-    ``-1`` candidates (pads, tombstones) score NEG and never outrank a real
-    one."""
+    """pool -> first-stage candidates -> exact-MaxSim rerank -> top-k: the
+    paged rerank kernel, or with ``use_fused_gather=False`` the candidates
+    gathered from the pages and reranked plainly.  ``-1`` candidates (pads,
+    tombstones) score NEG and never outrank a real one."""
     cand = first_stage(index, q_tokens, q_mask, params)
     st = index.store
-    return ops.fused_rerank_paged(q_tokens, q_mask, cand, st.tok_pages,
-                                  st.page_table, st.n_tokens, params.k)
+    if params.use_fused_gather:
+        return ops.fused_rerank_paged(q_tokens, q_mask, cand, st.tok_pages,
+                                      st.page_table, st.n_tokens, params.k)
+    toks, tmask = pages.gather_docs(st, cand)
+    return maxsim.rerank_gathered(q_tokens, q_mask, cand, toks, tmask, params.k)
 
 
 def launch_plan(resolved: SearchParams) -> dict[str, int]:
-    """Per-search launch breakdown of the ported route, as the JAX package
-    counts it: projection (psi-pool kernel), scan (probe-scan kernel), the
-    flat top-k', and the rerank kernel."""
+    """Per-search launch breakdown, as the JAX package counts it: the
+    default route's projection, scan and flat top-k' before the rerank, or
+    one launch before it on the one-launch routes."""
     _check_route(resolved)
+    one = (resolved.backend.use_one_launch if resolved.use_ann
+           else resolved.use_one_launch)
+    if one:
+        return {"one_launch": 1, "rerank": 1}
     return {"projection": 1, "scan": 1, "topk": 1, "rerank": 1}
 
 

@@ -9,7 +9,9 @@ kernels sum in another order than the plain versions (fp32 rounding): the
 psi-pool to 1e-4 (LayerNorm over d' = 2048 amplifies the product's
 rounding), the scan to the JAX suite's SQ8 bound 2^-16 * 4 relative to the
 largest score, the rerank to rtol 1e-5 / atol 1e-4, token MaxSim to
-1e-5 x max(1, max|plain|) with NEG entries exactly equal.
+1e-5 x max(1, max|plain|) with NEG entries exactly equal; the one-launch
+and SQ8 scans as the psi-pool and the scan, with ids equal up to near-ties
+(relative gap 1e-5) and exactly equal on integer-valued rows.
 """
 import copy
 
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.anns.base import pad_topk, stable_topk
 from repro_torch.core import pages
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.model import Psi
@@ -25,7 +28,7 @@ from repro_torch.core import maxsim
 from repro_torch.data import synthetic
 from repro_torch.kernels import fused_psi, gather_scan, ops, ref
 from repro_torch.kernels import maxsim as kmaxsim
-from repro_torch.retriever import LemurRetriever, SearchParams
+from repro_torch.retriever import IVFSearchParams, LemurRetriever, SearchParams
 
 SQ8_RTOL = 2 ** -16 * 4
 
@@ -208,3 +211,171 @@ def test_build_on_card(cuda, tmp_path):
     back = LemurRetriever.load(tmp_path, device=cuda)
     s1, i1 = back.search(q, qm, SearchParams(k=10))
     assert torch.equal(i, i1) and torch.equal(s, s1)
+
+
+def _same_topk(got_s, got_i, want_s, want_i, tol):
+    """Scores within tol x max(1, max|plain|) (pads equal), ids equal up to
+    near-ties (relative gap < 1e-5)."""
+    fin = torch.isfinite(want_s)
+    assert torch.equal(torch.isfinite(got_s), fin)
+    assert torch.equal(got_i[~fin], want_i[~fin])
+    if fin.any():
+        scale = max(1.0, float(want_s[fin].abs().max()))
+        assert float((got_s[fin] - want_s[fin]).abs().max()) <= tol * scale
+    diff = got_i != want_i
+    assert bool(((got_s - want_s).abs()[diff & fin] <= 1e-5 * want_s.abs().clamp_min(1)[diff & fin]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,d,dp,nlist,cap,nprobe,kp", [
+    (1, 5, 16, 64, 6, 7, 2, 9),          # B=1, cap odd, kp > valid slots
+    (3, 32, 128, 2048, 8, 300, 4, 256),  # full widths, cap past a chunk
+    (4, 6, 20, 300, 5, 11, 5, 60),       # d' off every tile, kp > the strip
+])
+@pytest.mark.parametrize("sq8", [False, True])
+def test_query_fused_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, sq8):
+    """Pads, an empty list and duplicated rows (exact ties); the result
+    equals the default route's kernels (psi-pool, scan, stable top-k) bit
+    for bit."""
+    rng = np.random.default_rng(B * cap + dp)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    q = g(rng.standard_normal((B, Tq, d)), torch.float32)
+    qm = g(rng.random((B, Tq)) > 0.3)
+    ids = rng.permutation(10 ** 6)[:nlist * cap].reshape(nlist, cap).astype(np.int32)
+    ids[:, cap - cap // 3:] = -1
+    ids[1] = -1                                       # an empty list
+    vecs = rng.standard_normal((nlist, cap, dp)) * (ids >= 0)[..., None]
+    vecs[2, 1] = vecs[0, 0]
+    vecs[3, 0] = vecs[0, 0]
+    vecs = g(vecs, torch.float32)
+    lists = list(sq8_quant(vecs)) if sq8 else [vecs]
+    probe = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]).astype(np.int32)
+    probe[0, 0] = 0
+    args = (q, qm, *w, g(probe), g(ids), *lists)
+    n0 = ops.launch_counts()["query_fused"]
+    got = ops.KERNELS["query_fused"](*args, kp=kp)
+    assert ops.launch_counts()["query_fused"] == n0 + 1
+    want = ref.query_fused_ref(*args, kp=kp)
+    _same_topk(*got, *want, SQ8_RTOL if sq8 else 1e-4)
+    # the kernel's own pool and scan: the default route's kernels, same bits
+    from repro_torch.kernels import query_fused as qf
+    psi_q = fused_psi.fused_psi_pool(q, qm, *w)
+    s = gather_scan.ivf_probe_scan(psi_q, g(probe), g(ids), *lists).reshape(B, -1)
+    flat_i = g(ids)[g(probe).long()].reshape(B, -1)
+    top, pos = stable_topk(s, min(kp, s.shape[1]))
+    top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
+    assert torch.equal(got[1], idx) and torch.equal(got[0], top)
+    with pytest.raises(ValueError, match="kp"):
+        qf.query_fused(*args, kp=qf.MAX_KP + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,dp,kp", [(1, 7, 16, 5), (9, 1500, 64, 100),
+                                       (20, 3000, 2048, 1024), (3, 40, 20, 64),
+                                       (70, 40000, 48, 100),    # the filtered pass
+                                       (5, 70001, 20, 300)])    # ... d off the vector width
+@pytest.mark.parametrize("sq8", [False, True])
+def test_mips_topk_kernel(cuda, B, m, dp, kp, sq8):
+    """valid holes, kp above the valid rows and above m, m off the tile, and
+    exact ties from integer-valued duplicated rows (ids equal exactly); past
+    FILTER_MIN_ROWS x kp rows the sampled bound, filter and selection."""
+    from repro_torch.kernels import query_fused as qf
+
+    rng = np.random.default_rng(m + kp)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    q = g(rng.integers(-3, 4, (B, dp)), torch.float32)
+    W = rng.integers(-3, 4, (m, dp)).astype(np.float32)
+    W[m // 2] = W[m // 3]
+    W[m - 1] = W[0]
+    W = g(W)
+    valid = g(rng.random(m) > 0.25)
+    args = list(sq8_quant(W)) if sq8 else [W, None]
+    n0 = qf.mips_topk.launches
+    got_s, got_i = qf.mips_topk(q, *args, valid, kp=kp)
+    assert qf.mips_topk.launches == n0 + 1
+    want_s, want_i = ref.mips_topk_ref(q, *args, valid, kp=kp)
+    if sq8:
+        _same_topk(got_s, got_i, want_s, want_i, SQ8_RTOL)
+    else:    # integer products: every sum is exact, so are the ids
+        assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+    with pytest.raises(ValueError, match="kp"):
+        qf.mips_topk(q, *args, valid, kp=qf.MAX_KP + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d", [(1, 5, 16), (3, 300, 2048), (4, 70, 20), (2, 129, 128)])
+def test_mips_sq8_kernel(cuda, B, n, d):
+    from repro_torch.kernels import mips_sq8 as mq
+
+    rng = np.random.default_rng(B * n + d)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    q = g(rng.standard_normal((B, d)), torch.float32)
+    codes = g(rng.integers(-127, 128, (B, n, d)), torch.int8)
+    scales = g(rng.random((B, n)) + 0.1, torch.float32)
+    n0 = mq.mips_sq8.launches
+    got = mq.mips_sq8_batched(q, codes, scales)
+    want = ref.mips_sq8_batched_ref(q, codes, scales)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= SQ8_RTOL * scale
+    got = mq.mips_sq8(q, codes.reshape(B * n, d), scales.reshape(-1))
+    want = ref.mips_sq8_ref(q, codes.reshape(B * n, d), scales.reshape(-1))
+    assert float((got - want).abs().max()) <= SQ8_RTOL * max(1.0, float(want.abs().max()))
+    assert mq.mips_sq8.launches == n0 + 2
+    with pytest.raises(ValueError, match="int8"):
+        mq.mips_sq8_batched(q, codes.float(), scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params", [
+    SearchParams(backend=IVFSearchParams(use_one_launch=True)),
+    SearchParams(use_ann=False, use_one_launch=True),
+    SearchParams(use_ann=False),
+    SearchParams(backend=IVFSearchParams(use_fused_gather=False), use_fused_gather=False),
+], ids=["one_launch_ivf", "exact_one_launch", "exact_blocked", "legacy"])
+@pytest.mark.parametrize("sq8", [False, True])
+def test_routes_on_card_match_cpu(cuda, params, sq8):
+    """Each route served on the card returns the CPU's ids up to near-ties."""
+    rng = np.random.default_rng(5)
+    m, T, d, dp = 600, 24, 32, 256
+    tok = torch.nn.functional.normalize(torch.as_tensor(
+        rng.standard_normal((m, T, d)), dtype=torch.float32), dim=-1)
+    mask = torch.as_tensor(rng.random((m, T)) > 0.3)
+    W = torch.as_tensor(rng.standard_normal((m, dp)), dtype=torch.float32)
+    store, _ = pages.from_dense(W, tok, mask)
+    store.alive[[4, 8]] = False
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(0), device="cpu")
+    cfg = LemurConfig(d=d, d_prime=dp, k=20, k_prime=128)
+    cfg = cfg.replace(ivf=cfg.ivf.replace(sq8=sq8))
+    cpu = LemurRetriever.from_arrays(cfg, psi, store,
+                                     generator=torch.Generator().manual_seed(1))
+    idx = cpu.index
+    gpu = LemurRetriever(idx._replace(
+        psi=copy.deepcopy(psi).to(cuda), store=store.to(cuda),
+        ann=type(idx.ann)(*(None if t is None else t.to(cuda) for t in idx.ann))))
+    q = torch.as_tensor(rng.standard_normal((16, 8, d)), dtype=torch.float32)
+    s0, i0 = cpu.search(q, None, params)
+    s1, i1 = gpu.search(q, None, params)
+    torch.testing.assert_close(s1.cpu(), s0, rtol=1e-5, atol=1e-4)
+    diff = i1.cpu() != i0
+    assert int(diff.sum()) <= 2
+
+
+@pytest.mark.gpu
+def test_mips_topk_rescans_when_the_bound_lets_too_much_through(cuda):
+    """Every sampled row scores lowest, so the bound admits nearly every row
+    and the candidates overflow: the call rescans exactly and still returns
+    the plain result."""
+    from repro_torch.kernels import query_fused as qf
+
+    rng = np.random.default_rng(1)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    q = g(rng.integers(0, 4, (6, 32)), torch.float32)
+    W = rng.integers(-3, 4, (30000, 32)).astype(np.float32)
+    W[::qf.SAMPLE_STRIDE] = -3
+    W = g(W)
+    n0 = qf.mips_topk.rescans
+    got = qf.mips_topk(q, W, kp=80)
+    assert qf.mips_topk.rescans == n0 + 1
+    want = ref.mips_topk_ref(q, W, kp=80)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
