@@ -25,7 +25,9 @@ script
    first stage (top-k' of q.W) to 20 k'/m; holds the kernel to its plain
    version on rows of the pre-training launch, at the OLS block (timed) and
    on a ground-truth block; builds at m=2,000 and round-trips
-   ``save``/``load`` on the card.  Then it frees the build's tensors;
+   ``save``/``load`` on the card, then again with the residual tier
+   (``ResidualConfig(enabled=True)``, ``ivf.residual_bits=4``).  Then it
+   frees the build's tensors;
 4. **serving path**: holds the three serving kernels against their plain
    versions on a small ragged case (B=1, -1 pads, tiny lists, k > valid, a
    doc with no tokens); builds an index of ``--m`` docs at full width
@@ -50,8 +52,22 @@ script
    against exact MaxSim over the whole corpus (recall); then times the
    three kernels against their plain versions at the served shapes;
 6. times each serving kernel and its plain version at the served shapes;
-7. prints a ``build`` line, a ``serving`` line, a ``routes`` line, the
-   ``kernels`` line and last ``{"ok": true, ...}``.
+7. **residual**: holds ``ivf_probe_res_scan``, ``query_fused_res`` and
+   ``rerank_paged_res_scores`` against their plain versions on a small
+   ragged case at 2 and 4 bits (with the other ragged cases, before the
+   index is built); then, beside the served index, trains the token codec
+   (``ResidualConfig()``: 4 bits, 256 centroids, a 65,536-token sample of
+   the pages), encodes the page pool a chunk of docs at a time (held to
+   ``from_dense(codec=)`` on the first 500 docs) and builds 4-bit residual
+   IVF lists over the same W with the served index's centroids; serves the
+   same batches through the residual default route and the one-launch IVF,
+   counters set to 0 just before each and read just after, holds every
+   batch against the plain composition, the scores against exact MaxSim
+   over the decoded tokens and 32 queries' top-10 against the fp32 exact
+   top-10 (recall, beside the SQ8 route's); times the three kernels against
+   their plain versions and reports token bytes per doc of both tiers;
+8. prints a ``build`` line, a ``serving`` line, a ``routes`` line, a
+   ``residual`` line, the ``kernels`` line and last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -210,7 +226,11 @@ def plain_search(torch, index, q, qm, p):
                              psi.ln.scale, psi.ln.bias)
     cs = psi_q @ ann.centroids.T
     probe = stable_topk(cs, p.backend.nprobe)[1].int()
-    s = ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4)
+    if ann.residual:
+        s = ref.ivf_scan_res_ref(psi_q, probe, ann.ids, ann.vecs, ann.centroids,
+                                 ann.rq_values, chunk=4)
+    else:
+        s = ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4)
     B = q.shape[0]
     flat_s = s.reshape(B, -1)
     flat_i = ann.ids[probe.long()].reshape(B, -1)
@@ -221,6 +241,20 @@ def plain_search(torch, index, q, qm, p):
                 pos=pos, cand=cand, scores=top, ids=ids)
 
 
+def plain_pair_scores(torch, st, q, qm, cand, chunk=16):
+    """Exact MaxSim of each query against its (B, k) docs, recomputed plainly
+    from the store's pages (decoded on the compressed tier)."""
+    from repro_torch.kernels import ref
+
+    if st.residual:
+        return ref.rerank_scores_paged_res_ref(q, qm, cand, st.cent_pages, st.code_pages,
+                                               st.page_table, st.n_tokens,
+                                               st.codec.centroids, st.codec.values,
+                                               chunk=chunk)
+    return ref.rerank_scores_paged_ref(q, qm, cand, st.tok_pages, st.page_table,
+                                       st.n_tokens, chunk=chunk)
+
+
 def plain_rerank(torch, st, q, qm, cand, k):
     """The plain paged rerank of (B, k') candidates and its top-k, padded
     with (NEG, -1) when k > k'."""
@@ -228,8 +262,7 @@ def plain_rerank(torch, st, q, qm, cand, k):
     from repro_torch.kernels import ref
 
     B = q.shape[0]
-    r = ref.rerank_scores_paged_ref(q, qm, cand, st.tok_pages, st.page_table,
-                                    st.n_tokens, chunk=16)
+    r = plain_pair_scores(torch, st, q, qm, cand)
     r = torch.where(cand >= 0, r, ref.NEG)
     top, idx = stable_topk(r, min(k, r.shape[1]))
     ids = torch.gather(cand, 1, idx)
@@ -641,6 +674,23 @@ def build_phase(torch, args, card):
     s3, i3 = back.search(q[:64], qm[:64])
     require(torch.equal(i2, i3) and torch.equal(s2, s3), "save/load: search differs")
     print("save/load round trip ok", flush=True)
+    # ... and with the residual tier: 4-bit token codec and 4-bit IVF lists
+    rcfg = cfg.replace(epochs=1, residual=cfg.residual.replace(enabled=True),
+                       ivf=cfg.ivf.replace(residual_bits=4))
+    r3 = LemurRetriever.build(small, rcfg, device="cuda",
+                              generator=torch.Generator().manual_seed(args.seed + 1))
+    require(r3.index.store.residual and r3.index.ann.residual, "residual build: no tier")
+    with tempfile.TemporaryDirectory() as tmp:
+        r3.save(tmp)
+        back3 = LemurRetriever.load(tmp, device="cuda")
+    a3, b3 = index_to_numpy(r3.index, r3.x_ols)[0], index_to_numpy(back3.index, back3.x_ols)[0]
+    require(sorted(a3) == sorted(b3) and "pages/code_pages" in a3 and all(
+        a3[k].dtype == b3[k].dtype and np.array_equal(a3[k], b3[k]) for k in a3),
+        "residual save/load: leaves differ")
+    s2, i2 = r3.search(q[:64], qm[:64])
+    s3, i3 = back3.search(q[:64], qm[:64])
+    require(torch.equal(i2, i3) and torch.equal(s2, s3), "residual save/load: search differs")
+    print("save/load round trip of the residual tier ok", flush=True)
 
     steps = log["steps"]
     ann = index.ann
@@ -658,14 +708,16 @@ def build_phase(torch, args, card):
         served_recall_at_floor=recall["recall@10"] >= floor, ivf_lists=lists,
         valid_candidates_per_query=float(n_cand.float().mean()), queries=int(q.shape[0]),
         q_tokens=int(q.shape[1]), W_first_block_err=w_err, W_tol=w_tol,
-        feats_err=feats_err, save_load={"m": 2000, "epochs": 1, "leaves": len(a)},
+        feats_err=feats_err, save_load={"m": 2000, "epochs": 1, "leaves": len(a),
+                                        "residual_leaves": len(a3)},
         reduced={"m": m, "from": MSMARCO_DOCS,
                  "why": "build holds the dense (m, 80, d) corpus on the card, as the JAX "
                         "build does: 800k docs would be 32.8 GB beside a 2^22-page pool "
                         "(34.4 GB), W and the lists on an 80 GB card"},
         card=card)
     fused_psi_launches = launches["fused_psi"]
-    del r, r2, back, corpus, small, index, solver, stats, x_ols, blk, kargs, q, qm, cand, truth
+    del r, r2, back, r3, back3, corpus, small, index, solver, stats, x_ols, blk, kargs, q, qm
+    del cand, truth
     del latent, exact
     gc.collect()
     torch.cuda.empty_cache()
@@ -833,7 +885,8 @@ def truth_top10(torch, store, q, qm):
 def routes_phase(torch, args, r, batches, plains, default_ids):
     """Each other route on the served index, counters from 0 just before it
     and read just after; each batch held against the plain composition and
-    its scores against exact MaxSim.  Returns the routes line."""
+    its scores against exact MaxSim.  Returns the routes line and the exact
+    top-10 of the recall queries."""
     from repro_torch.anns.base import stable_topk
     from repro_torch.core import maxsim
     from repro_torch.core.model import pool_queries
@@ -913,7 +966,7 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
         print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, "
               f"near-tie rows {ties}", flush=True)
         del outs
-    return line
+    return line, truth
 
 
 def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
@@ -1070,6 +1123,339 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the residual tier: codec, compressed pages, residual lists
+# --------------------------------------------------------------------------
+
+RES_SCAN_RTOL = 1e-5   # residual scans: x max(1, max|plain|) (another sum order)
+RES_ROUTES = {   # name: (params, kernels launched once a search)
+    "residual_default": ({}, ("fused_psi_pool", "ivf_probe_res_scan",
+                              "rerank_paged_res_scores")),
+    "residual_one_launch": ({"use_one_launch": True},
+                            ("fused_psi_pool", "query_fused_res", "rerank_paged_res_scores")),
+}
+
+
+def residual_ragged_case(torch, seed):
+    """ivf_probe_res_scan, query_fused_res and rerank_paged_res_scores
+    against their plain versions on small ragged inputs at 2 and 4 bits:
+    B=1, an empty probed list, k' above the valid slots, a doc with no
+    tokens, duplicated rows and candidates (exact ties), cap and d' off
+    every tile (300 slots, d' = 1008).  Returns max abs errors by kernel."""
+    from repro_torch.anns.base import pad_topk, stable_topk
+    from repro_torch.anns.quantization import train_residual_codec
+    from repro_torch.core import pages
+    from repro_torch.core.model import Psi
+    from repro_torch.kernels import fused_psi, gather_scan, query_fused, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    errs = {"ivf_probe_res_scan": 0.0, "query_fused_res": 0.0, "rerank_paged_res_scores": 0.0}
+    d, dp, nlist, cap, Tq = 128, 1008, 6, 300, 6
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(seed), device=dev)
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    ids = torch.randperm(10 ** 6, generator=g, device=dev)[:nlist * cap]
+    ids = ids.reshape(nlist, cap).int()
+    ids[:, 200:] = -1
+    ids[2] = -1
+    q = torch.nn.functional.normalize(torch.randn(1, Tq, d, generator=g, device=dev), dim=-1)
+    qm = torch.tensor([[True, True, True, False, True, False]], device=dev)
+    probe = torch.tensor([[3, 2, 0, 5]], dtype=torch.int32, device=dev)
+    cent = torch.randn(nlist, dp, generator=g, device=dev)
+    psi_q = fused_psi.fused_psi_pool(q, qm, *w)
+    m, T = 40, 37
+    tok = torch.nn.functional.normalize(torch.randn(m, T, d, generator=g, device=dev), dim=-1)
+    mask = torch.rand(m, T, generator=g, device=dev) > 0.5
+    mask[3] = False
+    cand = torch.tensor([[-1, 3, 0, 7, -1, 12, 39, 12]], dtype=torch.int32, device=dev)
+    for bits in (2, 4):
+        values = torch.randn(dp, 1 << bits, generator=g, device=dev).sort(dim=1).values
+        codes = torch.randint(0, 256, (nlist, cap, dp * bits // 8), generator=g,
+                              device=dev).to(torch.uint8)
+        codes[3, 5] = codes[3, 0]                 # exact ties within a list
+        codes[0, 199] = codes[0, 0]
+        codes *= (ids >= 0)[..., None].to(torch.uint8)
+        lists = (ids, codes, cent, values)
+        a = gather_scan.ivf_probe_res_scan(psi_q, probe, *lists)
+        b = ref.ivf_scan_res_ref(psi_q, probe, *lists)
+        fin = torch.isfinite(b)
+        require(torch.equal(torch.isfinite(a), fin), f"ragged residual scan ({bits} bits): pads")
+        err = float((a[fin] - b[fin]).abs().max())
+        require(err <= RES_SCAN_RTOL * max(1.0, float(b[fin].abs().max())),
+                f"ragged residual scan ({bits} bits): max abs err {err}")
+        errs["ivf_probe_res_scan"] = max(errs["ivf_probe_res_scan"], err)
+        kp = 1000                                 # > the 600 valid slots probed
+        got = query_fused.query_fused_res(q, qm, *w, probe, *lists, kp=kp)
+        want = ref.query_fused_res_ref(q, qm, *w, probe, *lists, kp=kp)
+        err, _, ties = same_topk(torch, *got, *want, 1e-4, f"query_fused_res ragged ({bits} bits)")
+        require(ties >= 2, "query_fused_res ragged: no exact tie")
+        errs["query_fused_res"] = max(errs["query_fused_res"], err)
+        top, pos = stable_topk(a.reshape(1, -1), a.numel())
+        top, kid = pad_topk(top, torch.gather(ids[probe.long()].reshape(1, -1), 1, pos), kp)
+        require(torch.equal(got[0], top) and torch.equal(got[1], kid),
+                "query_fused_res ragged: differs from psi-pool + residual scan + stable top-k")
+        codec = train_residual_codec(torch.Generator().manual_seed(seed), tok[mask], bits=bits,
+                                     ncent=16, iters=3)
+        store, _ = pages.from_dense(torch.randn(m, 8, generator=g, device=dev), tok, mask,
+                                    codec=codec)
+        args = (q, qm, cand, store.cent_pages, store.code_pages, store.page_table,
+                store.n_tokens, codec.centroids, codec.values)
+        a = gather_scan.rerank_paged_res_scores(*args)
+        b = ref.rerank_scores_paged_res_ref(*args)
+        real = b > ref.NEG / 2            # pads and the empty doc score 4 * NEG
+        require(bool(((a[~real] - b[~real]).abs() <= 1e-6 * b[~real].abs()).all()),
+                "ragged residual rerank: NEG-scale scores differ")
+        require(bool(a[0, 5] == a[0, 7]), "ragged residual rerank: a repeated doc scores apart")
+        err = float((a[real] - b[real]).abs().max())
+        require(err <= 1e-4 + 1e-5 * float(b[real].abs().max()),
+                f"ragged residual rerank ({bits} bits): max abs err {err}")
+        errs["rerank_paged_res_scores"] = max(errs["rerank_paged_res_scores"], err)
+    return errs
+
+
+def residual_store(torch, args, store, codec):
+    """The compressed tier of the served corpus: each chunk of docs read back
+    from the fp32 pages and encoded into a store of its own (held to
+    ``from_dense(codec=)`` on the first 500 docs); W and the tombstones are
+    the fp32 store's, since the tiers differ only in their pages."""
+    from repro_torch.core import pages
+
+    m = int(store.n_docs[0])
+    rstore = pages.allocate(m, store.n_pages, store.pages_per_doc, store.d, 0,
+                            device=store.W.device, codec=codec)
+    page = 0
+    for s in range(0, m, DOC_CHUNK):
+        e = min(s + DOC_CHUNK, m)
+        toks, tmask = pages.gather_docs(store, torch.arange(s, e, device=store.W.device))
+        page += pages.write_docs(rstore, s, page, store.W[s:e, :0], toks, tmask)
+        if s == 0:
+            k = min(500, e)
+            ref_store, _ = pages.from_dense(store.W[:k, :0], toks[:k], tmask[:k], codec=codec)
+            np_ = int(pages.pages_needed(store.n_tokens[:k]).sum())
+            require(torch.equal(ref_store.cent_pages[:np_], rstore.cent_pages[:np_])
+                    and torch.equal(ref_store.code_pages[:np_], rstore.code_pages[:np_])
+                    and torch.equal(ref_store.page_table[:k], rstore.page_table[:k]),
+                    "chunked compressed fill differs from pages.from_dense(codec=)")
+            del ref_store
+        del toks, tmask
+    require(torch.equal(rstore.page_table, store.page_table)
+            and torch.equal(rstore.n_tokens, store.n_tokens),
+            "the compressed tier's pages are not laid out as the fp32 tier's")
+    return rstore._replace(W=store.W, alive=store.alive)
+
+
+def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
+    """Build the residual tier beside the served fp32/SQ8 index at full
+    width, serve the same batches through the residual default and
+    one-launch routes (counters from 0 around each), check every batch,
+    then time the three kernels.  Returns (residual line, kernel rows)."""
+    import dataclasses
+
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.anns.ivf import build_ivf
+    from repro_torch.anns.params import ResidualConfig
+    from repro_torch.anns.quantization import train_residual_codec
+    from repro_torch.core import maxsim, pages
+    from repro_torch.core.model import pool_queries
+    from repro_torch.kernels import gather_scan, ops, query_fused, ref
+    from repro_torch.retriever import IVFSearchParams, LemurRetriever, SearchParams
+    from repro_torch.retriever.facade import first_stage
+
+    index, store, ann = r.index, r.index.store, r.index.ann
+    m, dev = int(store.n_docs[0]), store.W.device
+    rcfg = ResidualConfig()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    # the codec's sample: train_sample valid tokens drawn from the pages
+    gen = torch.Generator().manual_seed(args.seed + 5)
+    nt = store.n_tokens[:m].long()
+    flat = torch.randperm(int(nt.sum()), generator=gen)[:rcfg.train_sample].to(dev)
+    ends = torch.cumsum(nt, 0)
+    doc = torch.searchsorted(ends, flat, right=True)
+    pos = flat - (ends - nt)[doc]
+    sample = store.tok_pages[store.page_table[doc, pos // 16].long(), pos % 16]
+    codec = train_residual_codec(gen, sample, bits=rcfg.bits, ncent=rcfg.ncent,
+                                 iters=rcfg.kmeans_iters, sample=rcfg.train_sample)
+    torch.cuda.synchronize()
+    t_codec = time.time() - t0
+    t0 = time.time()
+    rstore = residual_store(torch, args, store, codec)
+    torch.cuda.synchronize()
+    t_pages = time.time() - t0
+    t0 = time.time()
+    rann = build_ivf(store.W[:m], ann.nlist, residual_bits=4, centroids=ann.centroids)
+    torch.cuda.synchronize()
+    t_lists = time.time() - t0
+    require(torch.equal(rann.ids, ann.ids), "the residual lists hold other rows than the SQ8 lists")
+    cfg = r.cfg.replace(residual=dataclasses.replace(rcfg, enabled=True),
+                        ivf=r.cfg.ivf.replace(residual_bits=4))
+    rr = LemurRetriever(index._replace(cfg=cfg, store=rstore, ann=rann))
+    print(f"residual tier: codec {t_codec:.1f} s, pages {t_pages:.1f} s, lists {t_lists:.1f} s",
+          flush=True)
+
+    nq = RECALL_QUERIES
+    line = dict(codec=dict(bits=codec.bits, ncent=codec.ncent, sample=int(sample.shape[0]),
+                           kmeans_iters=rcfg.kmeans_iters),
+                list_bits=4, codec_s=t_codec, pages_s=t_pages, lists_s=t_lists,
+                sq8_default_recall_at_10=sq8_recall,
+                token_bytes_per_doc={"fp32": pages.token_bytes(store) / m,
+                                     "residual": pages.token_bytes(rstore) / m},
+                list_bytes={"sq8": sum(t.numel() * t.element_size() for t in
+                                       (ann.ids, ann.vecs, ann.scales)),
+                            "residual": sum(t.numel() * t.element_size() for t in
+                                            (rann.ids, rann.vecs, rann.rq_cuts,
+                                             rann.rq_values))})
+    del sample
+    plains = {}
+    outs_by_route = {}
+    for name, (bp, kernels) in RES_ROUTES.items():
+        params = SearchParams(backend=IVFSearchParams(**bp)) if bp else SearchParams()
+        p = rr.resolve(params)
+        require(p.use_residual and p.use_fused_gather, f"{name}: resolved {p}")
+        ops.reset_launch_counts()
+        lat, outs = [], []
+        for i, (q, qm, _) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, ids = rr.search(q, qm, params)
+            torch.cuda.synchronize()
+            if i:
+                lat.append(time.perf_counter() - t0)
+            outs.append((s, ids))
+        launches = ops.launch_counts()
+        want = {k: (len(batches) if k in kernels else 0) for k in launches}
+        require(launches == want, f"route {name}: launches {launches}, expected {want}")
+        ties = {"probe": 0, "candidates": 0, "final": 0}
+        for i, ((q, qm, _), (s, ids)) in enumerate(zip(batches, outs)):
+            require(s.shape == (q.shape[0], p.k) and bool(torch.isfinite(s).all())
+                    and bool((ids >= 0).all()), f"route {name}: scores or ids malformed")
+            require(bool(rstore.alive[ids.long()].all()), f"route {name}: a tombstoned doc")
+            if i not in plains:
+                plains[i] = plain_search(torch, rr.index, q, qm, p)
+            probe = stable_topk(pool_queries(index.psi, q, qm) @ ann.centroids.T,
+                                p.backend.nprobe)[1].int()
+            cand = first_stage(rr.index, q, qm, p)
+            for kk, v in classify_rows(torch, ids, s, plains[i], {"probe": probe, "cand": cand},
+                                       p.k_prime).items():
+                ties[kk] += v
+            exact = plain_pair_scores(torch, rstore, q, qm, ids, chunk=32)
+            torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+            require(bool((s[:, :-1] >= s[:, 1:]).all()), f"route {name}: scores not sorted")
+        lat_ms = [1e3 * x for x in lat]
+        line[name] = dict(
+            params=repr(params), batch=args.batch, batches=len(lat),
+            p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
+            qps=args.batch * len(lat) / sum(lat),
+            launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
+            rows_checked=args.batch * len(batches),
+            recall_at_10=float(maxsim.recall_at(outs[1][1][:nq, :10], truth).mean()))
+        outs_by_route[name] = outs
+        print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, near-tie rows {ties}",
+              flush=True)
+    line["one_launch_rows_differing_from_default"] = int(sum(
+        int((a[1] != b[1]).any(1).sum()) for a, b in
+        zip(outs_by_route["residual_default"], outs_by_route["residual_one_launch"])))
+    del plains, outs_by_route
+
+    # the three kernels at the served shapes, against their plain versions
+    psi = index.psi
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    q, qm, _ = batches[1]
+    B, Tq, d = q.shape
+    p0 = rr.resolve(SearchParams())
+    dp, cap, P = store.d_prime, rann.capacity, p0.backend.nprobe
+    kp = min(p0.k_prime, P * cap)
+    L = 1 << codec.bits
+    db = rann.vecs.shape[2]
+    psi_q = pool_queries(psi, q, qm)
+    probe = stable_topk(psi_q @ rann.centroids.T, P)[1].int()
+    uniq = probe.long().unique()
+    rows_u, rows_p = int(rann.counts[uniq].sum()), int(rann.counts[probe.long()].sum())
+    launches = {k: line[route]["launches"].get(k, 0) for route, k in (
+        ("residual_default", "ivf_probe_res_scan"),
+        ("residual_default", "rerank_paged_res_scores"),
+        ("residual_one_launch", "query_fused_res"))}
+    rows = []
+
+    def row(name, source, replaces, err, tol, fn, plain_fn, nbytes, flops, shape, **extra):
+        ms = time_ms(torch, fn)
+        plain_ms = time_ms(torch, plain_fn, n=5, warmup=1)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(
+            name=name, variant="residual 4-bit", route="cuda", source=source,
+            replaces=replaces, launches=launches[name],
+            launches_per_search=launches[name] // len(batches), max_abs_err=err,
+            ragged_max_abs_err=ragged[name], tolerance=tol, shape=shape, ms=ms,
+            kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes),
+            flops=int(flops), library_ms=None, cuda_launches_per_call=1, **extra))
+        print(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
+
+    lists = (rann.ids, rann.vecs, rann.centroids, rann.rq_values)
+    got = gather_scan.ivf_probe_res_scan(psi_q, probe, *lists)
+    want = ref.ivf_scan_res_ref(psi_q, probe, *lists, chunk=4)
+    fin = torch.isfinite(want)
+    require(torch.equal(torch.isfinite(got), fin), "ivf_probe_res_scan: pads differ")
+    err = float((got[fin] - want[fin]).abs().max())
+    require(err <= RES_SCAN_RTOL * max(1.0, float(want[fin].abs().max())),
+            f"ivf_probe_res_scan: max abs err {err}")
+    del got, want, fin
+    table_bytes = len(uniq) * dp * 4 + dp * L * 4
+    row("ivf_probe_res_scan", "src/repro_torch/csrc/ivf_probe_res_scan.cu",
+        "src/repro/kernels/gather_scan.py:386", err,
+        f"{RES_SCAN_RTOL} x max(1, max|plain|)",
+        lambda: gather_scan.ivf_probe_res_scan(psi_q, probe, *lists),
+        lambda: ref.ivf_scan_res_ref(psi_q, probe, *lists, chunk=4),
+        len(uniq) * cap * 4 + rows_u * db + table_bytes + psi_q.numel() * 4
+        + probe.numel() * 4 + B * P * cap * 4, 2 * rows_p * dp,
+        f"B {B} x nprobe {P} of {rann.nlist} lists of cap {cap}, {db} B a row (4 bits), "
+        f"{rows_p / B:.0f} rows scanned a query")
+
+    qargs = (q, qm, *w, probe, *lists)
+    err, near_ties, _ = same_topk(torch, *query_fused.query_fused_res(*qargs, kp=kp),
+                                  *ref.query_fused_res_ref(*qargs, kp=kp, chunk=4), 1e-4,
+                                  "query_fused_res", exact_ties=False)
+    nq_valid = int(qm.sum())
+    row("query_fused_res", "src/repro_torch/csrc/query_fused.cu",
+        "src/repro/kernels/query_fused.py:248", err, "1e-4 x max(1, max|plain|)",
+        lambda: query_fused.query_fused_res(*qargs, kp=kp),
+        lambda: ref.query_fused_res_ref(*qargs, kp=kp, chunk=4),
+        q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4 + len(uniq) * cap * 4
+        + rows_u * db + table_bytes + probe.numel() * 4 + 2 * B * kp * 4,
+        2 * nq_valid * d * dp + 2 * rows_p * dp,
+        f"B {B} x Tq {Tq}, nprobe {P} of {rann.nlist} residual lists of cap {cap}, "
+        f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties)
+
+    cand = first_stage(rr.index, q, qm, rr.resolve(SearchParams()))
+    pargs = (q, qm, cand, rstore.cent_pages, rstore.code_pages, rstore.page_table,
+             rstore.n_tokens, codec.centroids, codec.values)
+    valid = cand >= 0
+    got = torch.where(valid, gather_scan.rerank_paged_res_scores(*pargs), 0.0)
+    want = torch.where(valid, ref.rerank_scores_paged_res_ref(*pargs, chunk=16), 0.0)
+    err = float((got - want).abs().max())
+    require(err <= 1e-4 + 1e-5 * float(want.abs().max()),
+            f"rerank_paged_res_scores: max abs err {err}")
+    ntok = torch.where(valid, rstore.n_tokens[cand.clamp_min(0).long()], 0).long()
+    uc = cand[valid].long().unique()
+    pages_u = int(((rstore.n_tokens[uc].long() + 15) // 16).sum())
+    row("rerank_paged_res_scores", "src/repro_torch/csrc/rerank_paged_res.cu",
+        "src/repro/kernels/gather_scan.py:456", err, "1e-4 + 1e-5 x max|plain|",
+        lambda: gather_scan.rerank_paged_res_scores(*pargs),
+        lambda: ref.rerank_scores_paged_res_ref(*pargs, chunk=16),
+        pages_u * 16 * (4 + codec.packed_width) + len(uc) * (rstore.pages_per_doc * 4 + 4)
+        + codec.ncent * d * 4 + d * L * 4 + q.numel() * 4 + qm.numel()
+        + 2 * cand.numel() * 4, 2 * int((ntok * qm.sum(1, keepdim=True)).sum()) * d,
+        f"B {B} x k' {cand.shape[1]} candidates of the residual default route, Tq {Tq}, "
+        f"16-token pages of {codec.packed_width} B codes + int32 centroid ids, "
+        f"codec {codec.ncent} x {d}")
+    # the tier shares W and the tombstones with the fp32 tier and fits beside
+    # it, so nothing of the earlier phases is freed first
+    line.update(card=card_line(), freed=[], traced_batch=profile_batch(torch, rr, q, qm),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del rr, rstore, rann, codec, cand, pargs, qargs, lists
+    return line, rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -1106,13 +1492,13 @@ def main():
     print(json.dumps({"build": build_line}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    serving, routes, kernels = serve_and_check(torch, args)
-    serving.update(card=card, build_s=t_build, total_s=time.time() - t_start,
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    serving, routes, residual, kernels = serve_and_check(torch, args)
+    serving.update(card=card, build_s=t_build, total_s=time.time() - t_start)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
     kernels.append(maxsim_row)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
+    print(json.dumps({"residual": residual}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1120,8 +1506,8 @@ def main():
 
 
 def serve_and_check(torch, args):
-    """Phases 2-6 on the card; returns (serving numbers, routes line, kernel
-    rows)."""
+    """Phases 2-7 on the card; returns (serving numbers, routes line,
+    residual line, kernel rows)."""
     import gc
 
     from repro_torch.anns.ivf import default_nlist
@@ -1138,6 +1524,9 @@ def serve_and_check(torch, args):
     route_ragged = routes_ragged_case(torch, args.seed)
     print(f"ragged case of query_fused, mips_topk, mips_sq8 ok: max abs err "
           f"{route_ragged}", flush=True)
+    res_ragged = residual_ragged_case(torch, args.seed)
+    print(f"ragged case of the residual kernels (2 and 4 bits) ok: max abs err "
+          f"{res_ragged}", flush=True)
 
     # -- 3. index at full width ---------------------------------------------
     t0 = time.time()
@@ -1211,7 +1600,8 @@ def serve_and_check(torch, args):
     print(f"checks ok: {n_rows} rows, near-tie rows by stage {ties}", flush=True)
 
     # -- 5b. the other routes, then their kernels at the served shapes -------
-    routes = routes_phase(torch, args, r, batches, plains, [ids for _, ids in results])
+    routes, truth = routes_phase(torch, args, r, batches, plains,
+                                 [ids for _, ids in results])
     del plains
     route_launches = {"query_fused": routes["one_launch_ivf"]["launches"]["query_fused"],
                       "mips_topk": routes["exact_one_launch"]["launches"]["mips_topk"],
@@ -1306,8 +1696,16 @@ def serve_and_check(torch, args):
                  "why": "from_dense rounds the fp32 page pool to a power of two: "
                         "800k docs fill 2^22 pages (34.4 GB); 1M docs would need "
                         "2^23 (68.7 GB) beside W and the lists on an 80 GB card"},
-        ragged_max_abs_err=ragged, traced_batch=trace)
-    return serving, routes, kernels + new_rows
+        ragged_max_abs_err=ragged, traced_batch=trace,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # -- 7. the residual tier beside it ----------------------------------------
+    del st, cand
+    gc.collect()
+    torch.cuda.empty_cache()
+    residual, res_rows = residual_phase(torch, args, r, batches, truth,
+                                        routes["default_ivf"]["recall_at_10"], res_ragged)
+    return serving, routes, residual, kernels + new_rows + res_rows
 
 
 if __name__ == "__main__":

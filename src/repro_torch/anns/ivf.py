@@ -1,16 +1,21 @@
 """IVF index over the latent corpus (twin of ``repro/anns/ivf.py``).
 
 Build: k-means coarse quantizer over the mean-centred latent rows; vectors
-are packed into power-of-two capacity padded cluster lists, fp32 or SQ8.
+are packed into power-of-two capacity padded cluster lists, fp32, SQ8, or packed 2/4-bit
+residuals against each list's own centroid (``residual_bits``; the codec of
+:mod:`repro_torch.anns.quantization`, its tables the quantiles of the
+valid rows' residuals).
 Search (:func:`search_ivf`): one (B, nlist) centroid product, the top
 ``nprobe`` clusters, a scan of the probed lists and a flat top-k'.  The scan
 is the gather-at-source probe-scan kernel
-(:func:`repro_torch.kernels.gather_scan.ivf_probe_scan`), or with
+(:func:`repro_torch.kernels.gather_scan.ivf_probe_scan`, or
+``ivf_probe_res_scan`` decoding residual lists at the source), or with
 ``use_fused_gather=False`` the legacy route: the probed lists gathered into
 (B, nprobe, cap, d') and scored by the ``mips_sq8`` kernel's batched entry
-(SQ8) or a plain einsum (fp32).  :func:`search_ivf_one_launch` takes the
-query tokens and runs pool, scan and top-k' in the ``query_fused`` kernel.
-Residual lists are not ported yet (ROADMAP Queue 1 item 6).
+(SQ8), a plain einsum (fp32), or decoded and scored plainly (residual: the
+JAX package's decode-then-score route).  :func:`search_ivf_one_launch`
+takes the query tokens and runs pool, scan and top-k' in the
+``query_fused`` (or ``query_fused_res``) kernel.
 """
 from __future__ import annotations
 
@@ -22,21 +27,32 @@ import torch
 from repro_torch.anns.base import pad_topk, stable_topk
 from repro_torch.anns.kmeans import assign as assign_clusters
 from repro_torch.anns.kmeans import kmeans
-from repro_torch.anns.quantization import sq8_quant
+from repro_torch.anns.quantization import (
+    ResidualCodec,
+    residual_decode,
+    residual_encode,
+    residual_quantiles,
+    sq8_quant,
+)
 from repro_torch.core.pages import next_pow2
-from repro_torch.kernels import ops
-from repro_torch.kernels.gather_scan import ivf_probe_scan
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.gather_scan import ivf_probe_res_scan, ivf_probe_scan
 
 _PACK_ROWS = 65536   # rows quantized / copied at a time while packing
+_RQ_COLS = 64        # residual columns sorted at a time for the quantile tables
+_LEGACY_RES_ROWS = 8  # queries decoded at a time on the legacy residual scan
 
 
 class IVFIndex(NamedTuple):
     centroids: torch.Tensor        # (nlist, d)
     ids: torch.Tensor              # (nlist, cap) int32, -1 padded
-    vecs: torch.Tensor             # (nlist, cap, d) fp32, or int8 codes when sq8
+    vecs: torch.Tensor             # (nlist, cap, d) fp32, int8 codes when sq8, or
+                                   # (nlist, cap, d*bits/8) uint8 packed residuals
     scales: torch.Tensor | None    # (nlist, cap) fp32 when sq8 else None
     counts: torch.Tensor           # (nlist,) int32
     mean: torch.Tensor | None = None  # (d,) corpus mean the lists are centred by
+    rq_cuts: torch.Tensor | None = None    # (d, L-1) residual bucket boundaries
+    rq_values: torch.Tensor | None = None  # (d, L) residual reconstruction values
 
     @property
     def nlist(self) -> int:
@@ -46,6 +62,10 @@ class IVFIndex(NamedTuple):
     def capacity(self) -> int:
         return self.ids.shape[1]
 
+    @property
+    def residual(self) -> bool:
+        return self.rq_values is not None
+
 
 def default_nlist(m: int) -> int:
     """4*sqrt(m) rounded down to a power of two, floor 16 (JAX rule)."""
@@ -54,14 +74,17 @@ def default_nlist(m: int) -> int:
 
 
 def build_ivf(vectors: torch.Tensor, nlist: int = 0, *, sq8: bool = False,
-              kmeans_iters: int = 10, train_sample: int = 131072,
-              center: bool = True, generator: torch.Generator | None = None,
+              residual_bits: int = 0, kmeans_iters: int = 10,
+              train_sample: int = 131072, center: bool = True,
+              generator: torch.Generator | None = None,
               centroids: torch.Tensor | None = None) -> IVFIndex:
     """Build on ``vectors``' device.  ``center`` subtracts the corpus mean
     before clustering and packing (MIPS ranking is invariant to it: q.mean
     is constant per query).  ``centroids`` supplies a trained coarse
     quantizer and skips k-means; otherwise k-means runs on up to
-    ``train_sample`` rows drawn with ``generator``."""
+    ``train_sample`` rows drawn with ``generator``.  ``residual_bits`` (2 or
+    4) stores each row as packed residuals against its own list's centroid,
+    and ``sq8`` is then ignored, as in the JAX package."""
     m, d = vectors.shape
     mean = None
     if center:
@@ -77,17 +100,27 @@ def build_ivf(vectors: torch.Tensor, nlist: int = 0, *, sq8: bool = False,
                               generator=generator)
         del sample
     assign = assign_clusters(vectors, centroids)
+    if residual_bits:
+        cuts, values = _train_rq(vectors, assign, centroids, int(residual_bits))
+        codec = ResidualCodec(centroids, cuts, values)
+        ids, vecs, _, counts = _pack_lists(vectors, assign, nlist, sq8=False,
+                                           codec=codec)
+        return IVFIndex(centroids, ids, vecs, None, counts, mean,
+                        rq_cuts=cuts, rq_values=values)
     ids, vecs, scales, counts = _pack_lists(vectors, assign, nlist, sq8=sq8)
     return IVFIndex(centroids, ids, vecs, scales, counts, mean)
 
 
 def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
-                sq8: bool, cap_floor: int = 1):
+                sq8: bool, cap_floor: int = 1, codec: ResidualCodec | None = None):
     """Pack vectors into fixed-capacity padded cluster lists, slots in
     ascending vector order within each list (the JAX loop's order, placed
     in one vectorized scatter).  SQ8 is per row and pad rows are zero, so
     the rows are quantized before packing: the codes and scales equal the
-    JAX package's pack-then-quantize, pad slots included."""
+    JAX package's pack-then-quantize, pad slots included.  With ``codec``
+    (the lists' centroids and residual tables) each row is coded against
+    its own list's centroid and pad slots keep zero codes, as the JAX
+    ``_residual_pack`` leaves them."""
     m, d = vectors.shape
     dev = vectors.device
     assign = assign.long()
@@ -99,7 +132,9 @@ def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
     ids = torch.full((nlist, cap), -1, dtype=torch.int32, device=dev)
     ids[lists, pos] = order.to(torch.int32)
     scales = None
-    if sq8:
+    if codec is not None:
+        vecs = torch.zeros((nlist, cap, codec.packed_width), dtype=torch.uint8, device=dev)
+    elif sq8:
         vecs = torch.zeros((nlist, cap, d), dtype=torch.int8, device=dev)
         pad_scale = sq8_quant(torch.zeros((1, 1), device=dev))[1]
         scales = pad_scale.expand(nlist, cap).contiguous()
@@ -108,7 +143,9 @@ def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
     for s in range(0, m, _PACK_ROWS):
         rows = order[s:s + _PACK_ROWS]
         li, pi = lists[s:s + _PACK_ROWS], pos[s:s + _PACK_ROWS]
-        if sq8:
+        if codec is not None:
+            vecs[li, pi] = residual_encode(codec, vectors[rows], li)[1]
+        elif sq8:
             codes, sc = sq8_quant(vectors[rows])
             vecs[li, pi] = codes
             scales[li, pi] = sc
@@ -117,18 +154,49 @@ def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
     return ids, vecs, scales, counts.to(torch.int32)
 
 
+def _train_rq(vectors: torch.Tensor, assign: torch.Tensor, centroids: torch.Tensor,
+              bits: int):
+    """The residual tables of the lists: quantiles of every row's residual
+    against its own list's centroid (the JAX ``_train_rq`` over the packed
+    lists' valid rows: the same residuals, whose order a quantile ignores),
+    ``_RQ_COLS`` columns at a time -> (cuts (d, L-1), values (d, L))."""
+    d = vectors.shape[1]
+    L = 1 << bits
+    cuts = torch.empty((d, L - 1), dtype=torch.float32, device=vectors.device)
+    values = torch.empty((d, L), dtype=torch.float32, device=vectors.device)
+    for c in range(0, d, _RQ_COLS):
+        r = vectors[:, c:c + _RQ_COLS] - centroids[:, c:c + _RQ_COLS][assign]
+        cuts[c:c + _RQ_COLS], values[c:c + _RQ_COLS] = residual_quantiles(r, bits)
+    return cuts, values
+
+
+def _residual_unpack(index: IVFIndex) -> torch.Tensor:
+    """Decode the packed lists back to (nlist, cap, d) fp32 (centred), pad
+    slots zero."""
+    codec = ResidualCodec(index.centroids, index.rq_cuts, index.rq_values)
+    nlist, cap = index.ids.shape
+    cent = torch.arange(nlist, device=index.ids.device)[:, None].expand(nlist, cap)
+    return residual_decode(codec, cent, index.vecs) * (index.ids >= 0)[..., None]
+
+
 def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int,
                use_fused_gather: bool = True):
     """q: (B, d) pooled latents -> (scores (B, k), ids (B, k)), padded with
     (-inf, -1).  The uncentred query scores the centroids of the centred
     lists, as in the JAX package: MIPS ranking is invariant to the shift.
     ``use_fused_gather=False`` takes the legacy gathered scan (module
-    docstring); both score pad slots -inf and give the same ids."""
+    docstring); both score pad slots -inf and give the same ids.  On
+    residual lists the legacy route is the plain decode-then-score on any
+    device, ``_LEGACY_RES_ROWS`` queries at a time."""
     B = q.shape[0]
     cs = q @ index.centroids.T                               # (B, nlist)
     probe = stable_topk(cs, nprobe)[1].to(torch.int32)       # (B, nprobe)
     flat_i = index.ids[probe.long()].reshape(B, -1)          # (B, nprobe * cap)
-    if use_fused_gather:
+    if index.residual:
+        args = (q, probe, index.ids, index.vecs, index.centroids, index.rq_values)
+        s = (ivf_probe_res_scan(*args) if use_fused_gather
+             else ref.ivf_scan_res_ref(*args, chunk=_LEGACY_RES_ROWS))
+    elif use_fused_gather:
         s = ivf_probe_scan(q, probe, index.ids, index.vecs, index.scales)
     else:
         vecs = index.vecs[probe.long()]                      # (B, nprobe, cap, d)
@@ -148,11 +216,17 @@ def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int,
 def search_ivf_one_launch(index: IVFIndex, psi, q_tokens: torch.Tensor, q_mask,
                           nprobe: int, k: int):
     """The one-launch first stage: raw query tokens in, top-k candidates
-    out, pool + scan + top-k' in one ``query_fused`` launch after the
-    probe-select prelude (``ops.fused_query``).  The same arithmetic as
+    out, pool + scan + top-k' in one ``query_fused`` (residual lists:
+    ``query_fused_res``) launch after the probe-select prelude
+    (``ops.fused_query``, ``ops.fused_query_res``).  The same arithmetic as
     ``pool_queries`` + :func:`search_ivf`, so on the card the same ids.
     q_tokens: (B, Tq, d) -> (scores (B, k), ids (B, k)), padded with (-inf, -1)."""
     kp = min(k, nprobe * index.capacity)
-    top, ids = ops.fused_query(q_tokens, q_mask, psi, index.centroids, index.ids,
-                               index.vecs, index.scales, nprobe=nprobe, kp=kp)
+    if index.residual:
+        top, ids = ops.fused_query_res(q_tokens, q_mask, psi, index.centroids,
+                                       index.ids, index.vecs, index.rq_values,
+                                       nprobe=nprobe, kp=kp)
+    else:
+        top, ids = ops.fused_query(q_tokens, q_mask, psi, index.centroids, index.ids,
+                                   index.vecs, index.scales, nprobe=nprobe, kp=kp)
     return pad_topk(top, ids, k)

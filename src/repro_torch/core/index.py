@@ -21,10 +21,12 @@ class LemurIndex(NamedTuple):
 
     @classmethod
     def from_dense(cls, cfg, psi, stats, W, doc_tokens, doc_mask, backend,
-                   ann) -> "LemurIndex":
+                   ann, *, codec=None) -> "LemurIndex":
         """Build from the dense padded layout, on ``doc_tokens``' device (the
-        JAX classmethod's positional order)."""
-        store, _ = pages.from_dense(W, doc_tokens, doc_mask)
+        JAX classmethod's positional order); ``codec`` (a trained
+        :class:`~repro_torch.anns.quantization.ResidualCodec`) keeps the
+        tokens in the compressed tier."""
+        store, _ = pages.from_dense(W, doc_tokens, doc_mask, codec=codec)
         return cls(cfg, psi, stats, store, backend, ann)
 
     @property

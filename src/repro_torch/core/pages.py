@@ -1,4 +1,4 @@
-"""Paged corpus memory, fp32 tier (twin of ``repro/core/pages.py``).
+"""Paged corpus memory (twin of ``repro/core/pages.py``).
 
 * ``tok_pages (P, page, d)`` — the page pool; each page holds
   ``TOKENS_PER_PAGE`` compacted (mask-stripped) token embeddings, a doc's
@@ -8,20 +8,31 @@
 * ``W (C, d')`` latent rows, ``alive (C,)`` tombstones, ``n_docs (1,)`` the
   slot high-water mark.  Doc ids are slot indices.
 
+**Compressed tier** (``codec=``): a token is kept as its residual codec's
+centroid id (``cent_pages (P, page)`` int32) and packed 2/4-bit residual
+(``code_pages (P, page, d * bits / 8)`` uint8), with the trained
+:class:`~repro_torch.anns.quantization.ResidualCodec` beside them;
+``tok_pages`` is then ``(P, page, 0)``.  Slots, pages and tombstones are
+those of the fp32 tier; pad positions are zero in both pools.
+
 The pool, the slot capacity and the table width are powers of two, as in
 the JAX package.  :func:`from_dense` builds a store from the dense padded
 layout; :func:`allocate` plus :func:`write_docs` fill the same store a chunk
 of docs at a time, for corpora whose dense layout does not fit in memory
 (they write in place).  :func:`gather_docs` materialises candidates from
-the pages for the legacy gathered rerank.  Mutation (add/delete) is ROADMAP
-Queue 1 item 4.
+the pages (decoded on the compressed tier) for the legacy gathered rerank.
+:func:`pool_tokens` caps each doc at a token budget before it is paged
+(host-side numpy, as in the JAX package).  Mutation (add/delete) is
+ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.anns.quantization import ResidualCodec, residual_decode, residual_encode
 from repro_torch.common.device import resolve_device
 
 TOKENS_PER_PAGE = 16   # power of two — the paged-KV NUM_TOKENS_IN_BLOCK
@@ -40,6 +51,10 @@ class PagedStore(NamedTuple):
     W: torch.Tensor           # (C, d') latent rows (dead slots zeroed)
     alive: torch.Tensor       # (C,) bool tombstone mask
     n_docs: torch.Tensor      # (1,) int32 slot high-water mark
+    # compressed tier (None on the fp32 tier, whose tok_pages is then (P, page, 0))
+    cent_pages: torch.Tensor | None = None   # (P, page) int32 centroid ids
+    code_pages: torch.Tensor | None = None   # (P, page, db) uint8 packed residuals
+    codec: ResidualCodec | None = None       # the trained codec tables
 
     @property
     def n_pages(self) -> int:
@@ -51,7 +66,12 @@ class PagedStore(NamedTuple):
 
     @property
     def d(self) -> int:
-        return self.tok_pages.shape[2]
+        return self.codec.d if self.codec is not None else self.tok_pages.shape[2]
+
+    @property
+    def residual(self) -> bool:
+        """True when the tokens live in the compressed (codec) tier."""
+        return self.codec is not None
 
     @property
     def capacity(self) -> int:
@@ -66,7 +86,7 @@ class PagedStore(NamedTuple):
         return self.W.shape[1]
 
     def to(self, device) -> "PagedStore":
-        return PagedStore(*(t.to(device) for t in self))
+        return PagedStore(*(None if t is None else t.to(device) for t in self))
 
 
 def pages_needed(n_tokens: torch.Tensor, page: int = TOKENS_PER_PAGE) -> torch.Tensor:
@@ -76,20 +96,29 @@ def pages_needed(n_tokens: torch.Tensor, page: int = TOKENS_PER_PAGE) -> torch.T
 
 def allocate(m: int, n_pages: int, pmax: int, d: int, d_prime: int, *,
              page: int = TOKENS_PER_PAGE, min_capacity: int = MIN_CAPACITY,
-             device="cuda") -> PagedStore:
+             device="cuda", codec: ResidualCodec | None = None) -> PagedStore:
     """An empty store sized for ``m`` docs over ``n_pages`` pages of at most
     ``pmax`` pages each (capacity and pool rounded up to powers of two), on
-    ``device``."""
+    ``device``; with ``codec``, on the compressed tier (the codec moves to
+    ``device``)."""
     device = resolve_device(device)
     C = max(min_capacity, next_pow2(m))
     P = next_pow2(max(1, n_pages))
+    extra = {}
+    if codec is not None:
+        extra = dict(
+            cent_pages=torch.zeros((P, page), dtype=torch.int32, device=device),
+            code_pages=torch.zeros((P, page, codec.packed_width), dtype=torch.uint8,
+                                   device=device),
+            codec=codec.to(device))
     return PagedStore(
-        tok_pages=torch.zeros((P, page, d), dtype=torch.float32, device=device),
+        tok_pages=torch.zeros((P, page, 0 if codec is not None else d),
+                              dtype=torch.float32, device=device),
         page_table=torch.full((C, max(1, pmax)), -1, dtype=torch.int32, device=device),
         n_tokens=torch.zeros((C,), dtype=torch.int32, device=device),
         W=torch.zeros((C, d_prime), dtype=torch.float32, device=device),
         alive=torch.zeros((C,), dtype=torch.bool, device=device),
-        n_docs=torch.zeros((1,), dtype=torch.int32, device=device))
+        n_docs=torch.zeros((1,), dtype=torch.int32, device=device), **extra)
 
 
 def write_docs(store: PagedStore, first_slot: int, first_page: int, W,
@@ -97,7 +126,8 @@ def write_docs(store: PagedStore, first_slot: int, first_page: int, W,
     """Write n docs into slots ``[first_slot, first_slot + n)`` and pages
     from ``first_page`` on, in place: valid tokens compacted in doc-major
     order, ``ceil(n_tokens / page)`` pages a doc (the JAX ``_paginate``
-    layout).  Returns the number of pages written."""
+    layout), residual-encoded on the compressed tier (only the valid
+    tokens).  Returns the number of pages written."""
     dm = doc_mask.bool()
     n = dm.shape[0]
     page, pmax = store.page, store.pages_per_doc
@@ -115,8 +145,14 @@ def write_docs(store: PagedStore, first_slot: int, first_page: int, W,
     flat = doc_tokens[dm].to(device=dev, dtype=torch.float32)   # (k, d)
     tok_start = torch.cumsum(counts, 0) - counts
     t = torch.arange(flat.shape[0], device=dm.device) - torch.repeat_interleave(tok_start, counts)
-    rows = torch.repeat_interleave(starts, counts) + t // page
-    store.tok_pages[rows.to(dev), (t % page).to(dev)] = flat
+    rows = (torch.repeat_interleave(starts, counts) + t // page).to(dev)
+    cols = (t % page).to(dev)
+    if store.codec is not None:
+        cid, packed = residual_encode(store.codec, flat)
+        store.cent_pages[rows, cols] = cid
+        store.code_pages[rows, cols] = packed
+    else:
+        store.tok_pages[rows, cols] = flat
     sl = slice(first_slot, first_slot + n)
     store.page_table[sl] = table.to(device=dev, dtype=torch.int32)
     store.n_tokens[sl] = counts.to(device=dev, dtype=torch.int32)
@@ -127,19 +163,22 @@ def write_docs(store: PagedStore, first_slot: int, first_page: int, W,
 
 
 def from_dense(W, doc_tokens, doc_mask, *, page: int = TOKENS_PER_PAGE,
-               min_capacity: int = MIN_CAPACITY):
+               min_capacity: int = MIN_CAPACITY, codec: ResidualCodec | None = None):
     """Build a :class:`PagedStore` from the dense padded layout, on
-    ``doc_tokens``' device.  Returns ``(store, bytes_moved)``, the bytes the
-    JAX ``from_dense`` reports for the same build."""
+    ``doc_tokens``' device; with ``codec`` the valid tokens are
+    residual-encoded into the compressed tier.  Returns ``(store,
+    bytes_moved)``, the bytes the JAX ``from_dense`` reports for the same
+    build."""
     dm = doc_mask.bool()
     m, _, d = doc_tokens.shape
     ppd = pages_needed(dm.sum(1), page)
     pmax = max(1, int(ppd.max()) if m else 1)
     need = int(ppd.sum())
     store = allocate(m, need, pmax, d, W.shape[1], page=page,
-                     min_capacity=min_capacity, device=doc_tokens.device)
+                     min_capacity=min_capacity, device=doc_tokens.device, codec=codec)
     write_docs(store, 0, 0, W, doc_tokens, dm)
-    moved = (need * page * d * 4 + store.page_table.numel() * 4
+    payload = d * 4 if codec is None else 4 + codec.packed_width
+    moved = (need * page * payload + store.page_table.numel() * 4
              + store.n_tokens.numel() * 4 + store.W.numel() * store.W.element_size()
              + store.alive.numel())
     return store, moved
@@ -156,11 +195,74 @@ def gather_docs(store: PagedStore, doc_ids: torch.Tensor):
     ``(..., pmax * page, d)``, mask ``(..., pmax * page)`` bool), the
     tokens zeroed past ``n_tokens``.  ``-1`` ids give an all-False mask and
     zero tokens.  The same token values in the same positions as the paged
-    rerank kernel reads."""
+    rerank kernels read; the compressed tier is decoded."""
     safe = doc_ids.clamp_min(0).long()
-    table = store.page_table[safe].long()                    # (..., pmax)
+    table = store.page_table[safe].long().clamp_min(0)      # (..., pmax)
     nt = torch.where(doc_ids >= 0, store.n_tokens[safe], 0)
-    toks = store.tok_pages[table.clamp_min(0)]               # (..., pmax, page, d)
-    toks = toks.reshape(*doc_ids.shape, store.pages_per_doc * store.page, store.d)
+    td = store.pages_per_doc * store.page
+    if store.codec is not None:
+        toks = residual_decode(store.codec, store.cent_pages[table],
+                               store.code_pages[table])  # (..., pmax, page, d)
+    else:
+        toks = store.tok_pages[table]                        # (..., pmax, page, d)
+    toks = toks.reshape(*doc_ids.shape, td, store.d)
     mask = torch.arange(toks.shape[-2], device=toks.device) < nt[..., None]
     return toks.mul_(mask[..., None]), mask                  # toks is a fresh copy
+
+
+def token_bytes(store: PagedStore) -> int:
+    """Bytes of the token payload: the fp32 page pool, or the compressed
+    tier's id and code pools plus the codec tables."""
+    if store.codec is not None:
+        tables = sum(t.numel() * t.element_size() for t in store.codec if t is not None)
+        return (store.cent_pages.numel() * 4 + store.code_pages.numel()) + tables
+    return store.tok_pages.numel() * 4
+
+
+def pool_tokens(doc_tokens, doc_mask, budget: int):
+    """Index-time constant-space token pooling: each doc's valid tokens are
+    agglomerated to at most ``budget`` count-weighted means (greedy
+    closest pair, squared Euclidean, the first pair on ties), host-side in
+    numpy as in the JAX package.  Returns ``(pooled (n, min(T, budget), d)
+    fp32, mask)`` as numpy arrays; ``budget <= 0``, or docs no longer than
+    it, pass through."""
+    dt = _numpy(doc_tokens).astype(np.float32, copy=False)
+    dm = _numpy(doc_mask).astype(bool, copy=False)
+    if budget <= 0 or dt.shape[1] <= budget:
+        return dt, dm
+    n, T, d = dt.shape
+    tp = min(T, budget)
+    out = np.zeros((n, tp, d), np.float32)
+    om = np.zeros((n, tp), bool)
+    for i in range(n):
+        toks = dt[i][dm[i]]
+        if toks.shape[0] > budget:
+            toks = _pool_one(toks, budget)
+        t = toks.shape[0]
+        out[i, :t] = toks
+        om[i, :t] = True
+    return out, om
+
+
+def _pool_one(toks: np.ndarray, budget: int) -> np.ndarray:
+    """Agglomerate one doc's (t, d) tokens to ``budget`` count-weighted
+    means by repeatedly merging the closest pair (fp64)."""
+    reps = toks.astype(np.float64)
+    w = np.ones(len(reps))
+    alive = np.ones(len(reps), bool)
+    while int(alive.sum()) > budget:
+        idx = np.flatnonzero(alive)
+        sub = reps[idx]
+        sq = np.sum(np.square(sub), axis=1)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * (sub @ sub.T)
+        iu = np.triu_indices(len(idx), k=1)
+        flatpos = np.argmin(d2[iu])
+        i, j = int(idx[iu[0][flatpos]]), int(idx[iu[1][flatpos]])
+        reps[i] = (w[i] * reps[i] + w[j] * reps[j]) / (w[i] + w[j])
+        w[i] += w[j]
+        alive[j] = False
+    return reps[alive].astype(np.float32)
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -83,10 +83,12 @@ __device__ __forceinline__ void warp_rows_dot(const T* const (&rows)[R], const f
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs
-// it (a launch above the default limit is refused otherwise).
+// it (a launch above the default limit is refused otherwise).  The default
+// limit counts the kernel's static shared memory too, so the opt-in starts
+// a kilobyte early.
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 47 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }

@@ -1,10 +1,11 @@
 // The one-launch first stages: query_fused (psi-pool + IVF probe scan +
-// top-k', fp32 and SQ8 lists) and mips_topk (dense latent scan + top-k',
-// fp32 and SQ8 rows).
+// top-k', fp32 and SQ8 lists), query_fused_res (the same over residual
+// lists) and mips_topk (dense latent scan + top-k', fp32 and SQ8 rows).
 //
 // Replaces: src/repro/kernels/query_fused.py:query_fused
-//   (_query_fused_fp_kernel, _query_fused_sq8_kernel, _pool_psi, _merge_topk)
-//   and :mips_topk (_mips_topk_fp_kernel, _mips_topk_sq8_kernel).  On the
+//   (_query_fused_fp_kernel, _query_fused_sq8_kernel, _pool_psi, _merge_topk),
+//   :query_fused_res (_query_fused_res_kernel) and :mips_topk
+//   (_mips_topk_fp_kernel, _mips_topk_sq8_kernel).  On the
 //   TPU both carry a (1, k') top-k in VMEM scratch across the sequential grid
 //   axis (probes, or row tiles) and merge each step's strip into it with the
 //   carried entries first, so that earlier flat positions win ties.
@@ -27,6 +28,14 @@
 // most folds empty once the list has filled.  The list, k' (score,
 // position) pairs, stays in shared memory; the ids are looked up once at
 // the end.  One CUDA launch a call.
+//
+// query_fused_res.  Bound on the H100: the decode's instructions, as the
+// residual probe scan (ivf_probe_res_scan.cu), plus the psi-pool.  Design:
+// query_fused's block per query, psi-pool and top-k' fold, with the lists
+// scored kResChunk = 1024 slots at a time by the residual scan's own
+// scorer (residual.cuh: res_score_chunk, each tile of d' decoded once into
+// a table of products), so its candidates are the residual scan's bit for
+// bit; the fold after each chunk takes the rows that beat the list's k'-th.
 //
 // mips_topk.  Bound on the H100: fp32 operations (2 B m d': 12.5 ms at
 // B = 256 over 800k live rows of d' = 2048, against 2 ms for their bytes in
@@ -51,6 +60,7 @@
 // CUDA launches a call: 2 for the exact pass alone; 4 and 2 memsets with the
 // filtered pass (the sample's exact pass, the filter, the selection).
 #include "psi.cuh"
+#include "residual.cuh"
 #include "tile.cuh"
 #include "topk.cuh"
 
@@ -194,6 +204,134 @@ int dispatch_query_fused(const void* qt, const void* qm, const void* W, const vo
   if (cols <= 8) LEMUR_QF(8);
   if (cols <= 16) LEMUR_QF(16);
 #undef LEMUR_QF
+  return (int)cudaErrorInvalidValue;  // d' > 4096: the wrapper refuses it first
+}
+
+// -------------------------------------------------------------------------
+// query_fused_res
+// -------------------------------------------------------------------------
+
+static_assert(kResThreads == kPsiThreads, "the residual scorer runs on the psi block");
+
+template <int BITS, int C>
+__global__ void __launch_bounds__(kPsiThreads)
+query_fused_res_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
+                       const float* __restrict__ W, const float* __restrict__ bias,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const int* __restrict__ probe, const int* __restrict__ ids,
+                       const uint8_t* __restrict__ codes, const float* __restrict__ centroids,
+                       const float* __restrict__ values, float* __restrict__ out_s,
+                       int* __restrict__ out_i, int B, int Tq, int D, int Dp, int P, int cap,
+                       int nlist, int kp, float eps) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int n_in;
+  float* qs = sm;                           // the pooled latent, (Dp,)
+  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then the top-k and a tile
+  const int b = blockIdx.x, tid = threadIdx.x;
+  {
+    float pooled[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) pooled[c] = 0.f;
+    psi_segment<C>(qt, qm, W, bias, gamma, beta, nullptr, pooled, b * Tq, Tq, B * Tq,
+                   D, Dp, true, eps, work);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = tid + c * kPsiThreads;
+      if (j < Dp) qs[j] = pooled[c];
+    }
+  }
+  float* ts = work;                         // the list: kp scores ...
+  int* tp = reinterpret_cast<int*>(ts + kp);  // ... and kp flat positions
+  float* es = reinterpret_cast<float*>(tp + kp);  // a chunk's entries
+  int* ep = reinterpret_cast<int*>(es + kResChunk);
+  float* rs = reinterpret_cast<float*>(ep + kResChunk);  // res_score_chunk's
+  const float* acc = rs + ResCodes<BITS>::kLevels * kResTileStride;
+  const BlockGroup g;
+  __syncthreads();                          // psi's scratch is free
+  topk_clear(ts, tp, kp, g);
+  if (tid == 0) n_in = 0;
+  __syncthreads();
+
+  const size_t db = Dp / ResCodes<BITS>::kPer;
+  for (int p = 0; p < P; ++p) {
+    const int cl = probe[(size_t)b * P + p];
+    if (cl < 0 || cl >= nlist) continue;    // block-uniform
+    const int* lid = ids + (size_t)cl * cap;
+    for (int c0 = 0; c0 < cap; c0 += kResChunk) {
+      const float th_s = ts[kp - 1];
+      const int th_p = tp[kp - 1];
+      const int c1 = min(c0 + kResChunk, cap);
+      res_score_chunk<BITS>(codes + (size_t)cl * cap * db, lid, c0, c1,
+                            centroids + (size_t)cl * Dp, values, qs, Dp, rs);
+      for (int r = c0 + tid; r < c1; r += kPsiThreads) {
+        const int pos = p * cap + r;
+        if (lid[r] >= 0 && better(acc[r - c0], pos, th_s, th_p)) {
+          const int at = atomicAdd(&n_in, 1);
+          es[at] = acc[r - c0];
+          ep[at] = pos;
+        }
+      }
+      __syncthreads();                      // the chunk's entries are in
+      const int n = n_in;
+      __syncthreads();                      // every thread has read n
+      if (tid == 0) n_in = 0;
+      if (n > 0) {
+        bitonic_sort(es, ep, n, g);
+        topk_merge<kResChunk / kPsiThreads>(ts, tp, kp, es, ep, n, g);
+      }
+      __syncthreads();                      // n_in = 0 before the next chunk
+    }
+  }
+  for (int i = tid; i < kp; i += kPsiThreads) {
+    const int pos = tp[i];
+    int id = -1;
+    if (pos != kNoPos) id = ids[(size_t)probe[(size_t)b * P + pos / cap] * cap + pos % cap];
+    out_s[(size_t)b * kp + i] = ts[i];
+    out_i[(size_t)b * kp + i] = id;
+  }
+}
+
+template <int BITS, int C>
+int launch_query_fused_res(const float* qt, const uint8_t* qm, const float* W,
+                           const float* bias, const float* gamma, const float* beta,
+                           const int* probe, const int* ids, const uint8_t* codes,
+                           const float* centroids, const float* values, float* out_s,
+                           int* out_i, int B, int Tq, int D, int Dp, int P, int cap,
+                           int nlist, int kp, float eps, cudaStream_t stream) {
+  if (kp < 1 || kp > kMaxKp) return (int)cudaErrorInvalidValue;
+  const size_t list_floats = 2 * (size_t)kp + 2 * kResChunk + res_smem_floats(BITS);
+  const size_t psi_floats = psi_smem_floats(D, Dp);
+  const size_t smem = ((Dp + 3) / 4 * 4 + (psi_floats > list_floats ? psi_floats : list_floats))
+                      * sizeof(float);
+  cudaError_t err = allow_smem(query_fused_res_kernel<BITS, C>, smem);
+  if (err != cudaSuccess) return (int)err;
+  query_fused_res_kernel<BITS, C><<<B, kPsiThreads, smem, stream>>>(
+      qt, qm, W, bias, gamma, beta, probe, ids, codes, centroids, values, out_s, out_i, B,
+      Tq, D, Dp, P, cap, nlist, kp, eps);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int dispatch_query_fused_res(const void* qt, const void* qm, const void* W, const void* bias,
+                             const void* gamma, const void* beta, const void* probe,
+                             const void* ids, const void* codes, const void* centroids,
+                             const void* values, void* out_s, void* out_i, int B, int Tq,
+                             int D, int Dp, int P, int cap, int nlist, int kp, float eps,
+                             void* stream) {
+#define LEMUR_QFR(C)                                                                  \
+  return launch_query_fused_res<BITS, C>(                                             \
+      (const float*)qt, (const uint8_t*)qm, (const float*)W, (const float*)bias,      \
+      (const float*)gamma, (const float*)beta, (const int*)probe, (const int*)ids,    \
+      (const uint8_t*)codes, (const float*)centroids, (const float*)values,           \
+      (float*)out_s, (int*)out_i, B, Tq, D, Dp, P, cap, nlist, kp, eps,               \
+      (cudaStream_t)stream)
+  const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
+  if (cols <= 1) LEMUR_QFR(1);
+  if (cols <= 2) LEMUR_QFR(2);
+  if (cols <= 4) LEMUR_QFR(4);
+  if (cols <= 8) LEMUR_QFR(8);
+  if (cols <= 16) LEMUR_QFR(16);
+#undef LEMUR_QFR
   return (int)cudaErrorInvalidValue;  // d' > 4096: the wrapper refuses it first
 }
 
@@ -497,6 +635,26 @@ extern "C" int query_fused_sq8(const void* qt, const void* qm, const void* W,
   return dispatch_query_fused<int8_t>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
                                       scales, out_s, out_i, B, Tq, D, Dp, P, cap, nlist,
                                       kp, eps, stream);
+}
+
+// codes (nlist, cap, Dp * bits / 8) uint8 against each list's own centroid;
+// centroids (nlist, Dp), values (Dp, 2^bits) fp32; bits 2 or 4.  Otherwise
+// as query_fused_fp32.
+extern "C" int query_fused_res(const void* qt, const void* qm, const void* W,
+                               const void* bias, const void* gamma, const void* beta,
+                               const void* probe, const void* ids, const void* codes,
+                               const void* centroids, const void* values, void* out_s,
+                               void* out_i, int B, int Tq, int D, int Dp, int P, int cap,
+                               int nlist, int kp, int bits, float eps, void* stream) {
+  if (bits == 4)
+    return dispatch_query_fused_res<4>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
+                                       centroids, values, out_s, out_i, B, Tq, D, Dp, P,
+                                       cap, nlist, kp, eps, stream);
+  if (bits == 2)
+    return dispatch_query_fused_res<2>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
+                                       centroids, values, out_s, out_i, B, Tq, D, Dp, P,
+                                       cap, nlist, kp, eps, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // W: (m, D) fp32 (scales null) or int8 codes with (m,) scales; valid: (m,)

@@ -1,9 +1,11 @@
 """Gather-at-source serving kernels: the IVF probe scan and the paged
-MaxSim rerank (twins of ``repro/kernels/gather_scan.py``).
+MaxSim rerank, over fp32/SQ8 data and over the residual codec's packed
+codes (twins of ``repro/kernels/gather_scan.py``).
 
 Each wrapper takes the plain version in :mod:`repro_torch.kernels.ref` for
 tensors on the CPU and launches its CUDA kernel (``csrc/ivf_probe_scan.cu``,
-``csrc/rerank_paged.cu``) for tensors on a CUDA device; there is no
+``csrc/rerank_paged.cu``, ``csrc/ivf_probe_res_scan.cu``,
+``csrc/rerank_paged_res.cu``) for tensors on a CUDA device; there is no
 fall-back between the two.  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -99,3 +101,107 @@ def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
 
 
 rerank_paged_scores.launches = 0
+
+
+def residual_bits(values: torch.Tensor, d: int, *, words: bool = False) -> int:
+    """The code width of a (d, L) residual values table; raises unless L is
+    4 or 16 (2 or 4 bits), or with ``words`` unless a packed row is whole
+    4-byte words (the scans load codes a word at a time)."""
+    L = values.shape[1]
+    if L not in (4, 16) or values.shape[0] != d:
+        raise ValueError(f"residual values must be (d={d}, 4 or 16), got {tuple(values.shape)}")
+    bits = L.bit_length() - 1
+    if words and d * bits % 32:
+        raise ValueError(f"the residual scans take packed rows of whole 4-byte words: "
+                         f"d={d} at {bits} bits is {d * bits / 8:g} bytes")
+    return bits
+
+
+def ivf_probe_res_scan(q, probe, ids, codes, centroids, values):
+    """Score the probed residual IVF lists, decoding each row at the source.
+
+    q: (B, d) fp32; probe: (B, nprobe) int32; ids: (nlist, cap) int32 (-1
+    padded); codes: (nlist, cap, d * bits / 8) uint8, each row coded against
+    its own list's centroid; centroids: (nlist, d) fp32; values: (d, 2^bits)
+    fp32 -> (B, nprobe, cap) fp32, pad slots -inf.  The kernel reads the
+    codes a 4-byte word at a time: d * bits / 8 must be a multiple of 4."""
+    if q.device.type == "cpu":
+        return ref.ivf_scan_res_ref(q, probe, ids, codes, centroids, values)
+    B, d = q.shape
+    nlist, cap = ids.shape
+    P = probe.shape[1]
+    dev = q.device
+    bits = residual_bits(values, d, words=True)
+    build.expect(q, "q", torch.float32, (B, d), dev, align=4)
+    build.expect(probe, "probe", torch.int32, (B, P), dev, align=4)
+    build.expect(ids, "ids", torch.int32, (nlist, cap), dev, align=4)
+    build.expect(codes, "codes", torch.uint8, (nlist, cap, d * bits // 8), dev, align=4)
+    build.expect(centroids, "centroids", torch.float32, (nlist, d), dev, align=4)
+    build.expect(values, "values", torch.float32, (d, 1 << bits), dev)
+    if cap * (d * bits // 8) >= 2 ** 31:
+        raise ValueError(f"ivf_probe_res_scan kernel takes a list under 2^31 bytes, "
+                         f"got cap {cap} x {d * bits // 8}")
+    out = torch.empty((B, P, cap), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build.library("ivf_probe_res_scan")
+    fn = lib.ivf_probe_res_scan
+    fn.argtypes = [_p] * 7 + [_i] * 6 + [_p]
+    err = fn(q.data_ptr(), probe.data_ptr(), ids.data_ptr(), codes.data_ptr(),
+             centroids.data_ptr(), values.data_ptr(), out.data_ptr(), B, P, cap, d, nlist,
+             bits, build.stream_ptr(q))
+    build.check(lib, err, "ivf_probe_res_scan")
+    ivf_probe_res_scan.launches += 1
+    return out
+
+
+ivf_probe_res_scan.launches = 0
+
+
+def rerank_paged_res_scores(q, q_mask, cand_ids, cent_pages, code_pages, page_table,
+                            n_tokens, centroids, values):
+    """:func:`rerank_paged_scores` over compressed pages, decoded on the card.
+
+    cent_pages: (P, 16) int32 centroid ids; code_pages: (P, 16, d * bits /
+    8) uint8; centroids: (ncent, d), values: (d, 2^bits) fp32, the codec's
+    tables; the rest as :func:`rerank_paged_scores` -> (B, k') fp32 raw pair
+    scores."""
+    if q.device.type == "cpu":
+        return ref.rerank_scores_paged_res_ref(q, q_mask, cand_ids, cent_pages, code_pages,
+                                               page_table, n_tokens, centroids, values)
+    B, Tq, d = q.shape
+    kp = cand_ids.shape[1]
+    n_pages, page = cent_pages.shape
+    C, pmax = page_table.shape
+    ncent = centroids.shape[0]
+    dev = q.device
+    bits = residual_bits(values, d)
+    if page != 16 or d % 4 or B > 65535:
+        raise ValueError(f"rerank kernel takes 16-token pages, d % 4 == 0 and "
+                         f"B <= 65535 (got page={page}, d={d}, B={B})")
+    build.expect(q, "q", torch.float32, (B, Tq, d), dev)
+    build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev)
+    build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev)
+    build.expect(cent_pages, "cent_pages", torch.int32, (n_pages, page), dev, align=4)
+    build.expect(code_pages, "code_pages", torch.uint8, (n_pages, page, d * bits // 8), dev,
+                 align=4)
+    build.expect(page_table, "page_table", torch.int32, (C, pmax), dev)
+    build.expect(n_tokens, "n_tokens", torch.int32, (C,), dev)
+    build.expect(centroids, "centroids", torch.float32, (ncent, d), dev)
+    build.expect(values, "values", torch.float32, (d, 1 << bits), dev, align=4)
+    out = torch.empty((B, kp), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build.library("rerank_paged_res")
+    fn = lib.rerank_paged_res_scores
+    fn.argtypes = [_p] * 10 + [_i] * 6 + [ctypes.c_longlong, _i, _i, _p]
+    err = fn(q.data_ptr(), q_mask.data_ptr(), cand_ids.data_ptr(), cent_pages.data_ptr(),
+             code_pages.data_ptr(), page_table.data_ptr(), n_tokens.data_ptr(),
+             centroids.data_ptr(), values.data_ptr(), out.data_ptr(), B, Tq, d, kp, pmax,
+             C, n_pages, ncent, bits, build.stream_ptr(q))
+    build.check(lib, err, "rerank_paged_res_scores")
+    rerank_paged_res_scores.launches += 1
+    return out
+
+
+rerank_paged_res_scores.launches = 0

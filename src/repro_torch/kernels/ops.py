@@ -18,9 +18,10 @@ from repro_torch.kernels import query_fused as _qf
 from repro_torch.kernels.ref import NEG
 
 #: every kernel wrapper, by name: the serving path's three, the build's
-#: token MaxSim and the unpooled psi (the psi-pool kernel's other form), then
-#: the other search routes' one-launch IVF, dense scan and SQ8 scan (both
-#: ``mips_sq8`` entries count on ``mips_sq8``)
+#: token MaxSim and the unpooled psi (the psi-pool kernel's other form), the
+#: other search routes' one-launch IVF, dense scan and SQ8 scan (both
+#: ``mips_sq8`` entries count on ``mips_sq8``), then the residual tier's
+#: scan, rerank and one-launch IVF
 KERNELS = {
     "fused_psi_pool": _fp.fused_psi_pool,
     "ivf_probe_scan": _gs.ivf_probe_scan,
@@ -30,6 +31,9 @@ KERNELS = {
     "query_fused": _qf.query_fused,
     "mips_topk": _qf.mips_topk,
     "mips_sq8": _mq.mips_sq8,
+    "ivf_probe_res_scan": _gs.ivf_probe_res_scan,
+    "rerank_paged_res_scores": _gs.rerank_paged_res_scores,
+    "query_fused_res": _qf.query_fused_res,
 }
 
 
@@ -61,6 +65,22 @@ def fused_rerank_paged(q, q_mask, cand_ids, tok_pages, page_table, n_tokens,
     ``repro/kernels/ops.py:168-199``)."""
     s = _gs.rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table,
                                 n_tokens)
+    return _rerank_topk(s, cand_ids, k)
+
+
+def fused_rerank_paged_res(q, q_mask, cand_ids, cent_pages, code_pages, page_table,
+                           n_tokens, centroids, values, k: int):
+    """:func:`fused_rerank_paged` over compressed pages (centroid-id pages,
+    packed residual pages and the codec's centroids / values), decoded in
+    the kernel (``repro/kernels/ops.py:202-231``)."""
+    s = _gs.rerank_paged_res_scores(q, q_mask, cand_ids, cent_pages, code_pages,
+                                    page_table, n_tokens, centroids, values)
+    return _rerank_topk(s, cand_ids, k)
+
+
+def _rerank_topk(s, cand_ids, k: int):
+    """Pair scores (B, k') -> the stable top-k, -1 candidates at NEG, rows
+    padded with (NEG, -1) past k'."""
     s = torch.where(cand_ids >= 0, s, NEG)
     kk = min(k, s.shape[1])
     top, idx = stable_topk(s, kk)
@@ -91,10 +111,26 @@ def fused_query(q_tokens, q_mask, psi, centroids, ids, vecs, scales=None, *,
     psi-pool kernel, the (B, nlist) centroid product and the top-nprobe),
     which steers the launch and so runs before it, as in the JAX package.
     Returns (scores, ids), (B, kp), short rows padded with (-inf, -1)."""
+    w, probe = _probe_select(q_tokens, q_mask, psi, centroids, nprobe)
+    return _qf.query_fused(q_tokens, q_mask, *w, probe, ids, vecs, scales, kp=kp)
+
+
+def fused_query_res(q_tokens, q_mask, psi, centroids, ids, codes, values, *,
+                    nprobe: int, kp: int):
+    """:func:`fused_query` over residual lists (codes (nlist, cap, d' * bits
+    / 8) uint8 against each list's own centroid, values (d', 2^bits)), in
+    one ``query_fused_res`` launch (``repro/kernels/ops.py:265-290``)."""
+    w, probe = _probe_select(q_tokens, q_mask, psi, centroids, nprobe)
+    return _qf.query_fused_res(q_tokens, q_mask, *w, probe, ids, codes, centroids, values,
+                               kp=kp)
+
+
+def _probe_select(q_tokens, q_mask, psi, centroids, nprobe: int):
+    """The one-launch routes' prelude: psi's weights and the top-nprobe
+    lists of the pooled query (the psi-pool kernel, the centroid product)."""
     w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
     psi_q = _fp.fused_psi_pool(q_tokens, q_mask, *w)
-    probe = stable_topk(psi_q @ centroids.T, nprobe)[1].to(torch.int32)
-    return _qf.query_fused(q_tokens, q_mask, *w, probe, ids, vecs, scales, kp=kp)
+    return w, stable_topk(psi_q @ centroids.T, nprobe)[1].to(torch.int32)
 
 
 def mips_topk_fused(q, W, W_scales, kp: int, valid=None):

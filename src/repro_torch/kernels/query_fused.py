@@ -2,7 +2,7 @@
 kernels in ``csrc/query_fused.cu``).
 
 ``query_fused``: psi-pool + IVF probe scan + top-k' of each query, one CUDA
-launch a call.  ``mips_topk``: dense latent scan + top-k', fp32 or SQ8 rows:
+launch a call; ``query_fused_res`` the same over residual lists.  ``mips_topk``: dense latent scan + top-k', fp32 or SQ8 rows:
 an exact pass (row splits, each a carried top-k', then their merge: two
 launches) on small inputs, and on large ones that pass over a sample of the
 rows, then a filtered pass and a selection (four launches and two memsets;
@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.gather_scan import residual_bits
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -95,6 +96,63 @@ def query_fused(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
 
 
 query_fused.launches = 0
+
+
+def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
+                    codes, centroids, values, *, kp: int, eps: float = 1e-5,
+                    chunk: int | None = None):
+    """:func:`query_fused` over residual lists: codes (nlist, cap, d' * bits
+    / 8) uint8 against each list's own centroid, centroids (nlist, d') and
+    values (d', 2^bits) fp32, d' * bits / 8 a multiple of 4.  The rows score
+    as ``ivf_probe_res_scan`` scores them (the same row code), so the ids
+    equal that scan's followed by the stable flat top-kp."""
+    if q_tokens.device.type == "cpu":
+        return ref.query_fused_res_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
+                                       probe, ids, codes, centroids, values, kp=kp,
+                                       chunk=chunk)
+    B, Tq, d = q_tokens.shape
+    nlist, cap = ids.shape
+    P = probe.shape[1]
+    dp = kernel.shape[1]
+    dev = q_tokens.device
+    bits = residual_bits(values, dp, words=True)
+    _check_kp(kp, "query_fused_res")
+    if dp > MAX_D_PRIME:
+        raise ValueError(f"query_fused_res kernel takes d' <= {MAX_D_PRIME}, got {dp}")
+    if P * cap >= 2 ** 31:
+        raise ValueError(f"query_fused_res kernel takes nprobe * cap < 2^31, got {P * cap}")
+    build.expect(q_tokens, "q_tokens", torch.float32, (B, Tq, d), dev, align=4)
+    if q_mask is not None:
+        build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev, align=1)
+    build.expect(kernel, "kernel", torch.float32, (d, dp), dev, align=4)
+    for name, t in (("bias", bias), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+        build.expect(t, name, torch.float32, (dp,), dev, align=4)
+    build.expect(probe, "probe", torch.int32, (B, P), dev, align=4)
+    build.expect(ids, "ids", torch.int32, (nlist, cap), dev, align=4)
+    build.expect(codes, "codes", torch.uint8, (nlist, cap, dp * bits // 8), dev, align=4)
+    build.expect(centroids, "centroids", torch.float32, (nlist, dp), dev, align=4)
+    build.expect(values, "values", torch.float32, (dp, 1 << bits), dev)
+    if cap * (dp * bits // 8) >= 2 ** 31:
+        raise ValueError(f"query_fused_res kernel takes a list under 2^31 bytes, "
+                         f"got cap {cap} x {dp * bits // 8}")
+    out_s = torch.empty((B, kp), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, kp), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_s, out_i
+    lib = build.library("query_fused")
+    fn = lib.query_fused_res
+    fn.argtypes = [_p] * 13 + [_i] * 9 + [ctypes.c_float, _p]
+    err = fn(q_tokens.data_ptr(), None if q_mask is None else q_mask.data_ptr(),
+             kernel.data_ptr(), bias.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+             probe.data_ptr(), ids.data_ptr(), codes.data_ptr(), centroids.data_ptr(),
+             values.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, Tq, d, dp, P, cap,
+             nlist, kp, bits, float(eps), build.stream_ptr(q_tokens))
+    build.check(lib, err, "query_fused_res")
+    query_fused_res.launches += 1
+    return out_s, out_i
+
+
+query_fused_res.launches = 0
 
 
 #: the dense scan's filtered pass samples every SAMPLE_STRIDE-th row for

@@ -4,11 +4,13 @@ They are the correctness contract of the CUDA kernels: the wrappers run them
 for CPU tensors, the CPU tests hold them against the JAX oracles, and
 ``chip_smoke.py`` holds each kernel against them on the card.  The gathers
 here materialise what the kernels stream; at the serving shapes the scan's
-gather alone is (B, nprobe, cap, d') fp32 — tens of GB — so the scan, the
-rerank, the pool, the one-launch first stage, the dense scan and the
+gather alone is (B, nprobe, cap, d') fp32 — tens of GB — so the scans, the
+reranks, the pool, the one-launch first stages, the dense scan and the
 batched SQ8 scan take ``chunk``: that many query rows at a time.  The token
 MaxSim twins materialise (n, m, T) scores and take ``chunk`` over docs
-instead.
+instead.  The residual twins decode what they gather with
+``quantization.residual_decode`` (one fp32 add an element, the kernels'
+decode) and then score as the fp32 twins do.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.anns.base import pad_topk, stable_topk
+from repro_torch.anns.quantization import ResidualCodec, residual_decode
 
 NEG = -1e30
 
@@ -94,19 +97,58 @@ def ivf_scan_ref(q, probe, ids, vecs, scales=None, *, chunk: int | None = None):
     return torch.cat(out, 0)
 
 
+def ivf_scan_res_ref(q, probe, ids, codes, centroids, values, *,
+                     chunk: int | None = None):
+    """Decode-then-score IVF probe scan over packed residual lists, each row
+    coded against its own list's centroid.  q: (B, d); probe: (B, nprobe);
+    ids: (nlist, cap); codes: (nlist, cap, d * bits / 8) uint8; centroids:
+    (nlist, d); values: (d, L) -> (B, nprobe, cap) fp32, pad slots -inf."""
+    codec = ResidualCodec(centroids, None, values)
+    probe = probe.long()
+    out = []
+    for s, e in _chunks(q.shape[0], chunk):
+        pr = probe[s:e]
+        gids = ids[pr]                                   # (b, P, cap)
+        v = residual_decode(codec, pr[..., None].expand(gids.shape), codes[pr])
+        sc = torch.einsum("bd,bpcd->bpc", q[s:e].float(), v)
+        out.append(torch.where(gids >= 0, sc, float("-inf")))
+    return torch.cat(out, 0)
+
+
 def rerank_scores_paged_ref(q, q_mask, cand_ids, tok_pages, page_table,
                             n_tokens, *, chunk: int | None = None):
     """Exact MaxSim of each query against its own candidates, read from the
     page pool (clamped page ids, positions >= n_tokens at NEG, query-masked
     sum).  ``-1`` candidates score Tq_valid * NEG; the caller masks them.
     q: (B, Tq, d); cand_ids: (B, k') -> (B, k') fp32."""
+    return _rerank_pages(q, q_mask, cand_ids, page_table, n_tokens,
+                         lambda table: tok_pages[table], chunk)
+
+
+def rerank_scores_paged_res_ref(q, q_mask, cand_ids, cent_pages, code_pages,
+                                page_table, n_tokens, centroids, values, *,
+                                chunk: int | None = None):
+    """:func:`rerank_scores_paged_ref` over compressed pages: cent_pages (P,
+    page) int32 centroid ids, code_pages (P, page, db) uint8 and the codec
+    tables centroids (ncent, d) / values (d, L); the candidates' pages are
+    decoded as they are gathered (the JAX oracle decodes the whole pool
+    first: the same values)."""
+    codec = ResidualCodec(centroids, None, values)
+    return _rerank_pages(q, q_mask, cand_ids, page_table, n_tokens,
+                         lambda table: residual_decode(codec, cent_pages[table],
+                                                       code_pages[table]), chunk)
+
+
+def _rerank_pages(q, q_mask, cand_ids, page_table, n_tokens, read_pages, chunk):
+    """The paged rerank twins' body; ``read_pages(table)`` -> the tokens of
+    the (b, k', pmax) clamped page ids, (b, k', pmax, page, d) fp32."""
     out = []
     for s, e in _chunks(q.shape[0], chunk):
         cand = cand_ids[s:e].long()
         safe = cand.clamp_min(0)
         table = page_table[safe].long()                  # (b, k', pmax)
         nt = torch.where(cand >= 0, n_tokens[safe], 0)
-        toks = tok_pages[table.clamp_min(0)]             # (b, k', pmax, page, d)
+        toks = read_pages(table.clamp_min(0))            # (b, k', pmax, page, d)
         b, kp, pmax, page, d = toks.shape
         toks = toks.reshape(b, kp, pmax * page, d)
         cm = torch.arange(pmax * page, device=cand.device) < nt[..., None]
@@ -148,13 +190,37 @@ def query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe,
         psi_q = psi_pool_ref(q_tokens[s:e], None if q_mask is None else q_mask[s:e],
                              kernel, bias, ln_scale, ln_bias)
         sc = ivf_scan_ref(psi_q, probe[s:e], ids, vecs, scales)
-        flat_s = sc.reshape(sc.shape[0], -1)
-        flat_i = ids[probe[s:e].long()].reshape(sc.shape[0], -1)
-        top, pos = stable_topk(flat_s, min(kp, flat_s.shape[1]))
-        top, got = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
+        top, got = _flat_topk(sc, ids, probe[s:e], kp)
         out_s.append(top)
         out_i.append(got)
     return torch.cat(out_s, 0), torch.cat(out_i, 0)
+
+
+def query_fused_res_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe,
+                        ids, codes, centroids, values, *, kp: int,
+                        chunk: int | None = None):
+    """:func:`query_fused_ref` over residual lists (codes (nlist, cap, db)
+    uint8 against each list's own centroid, values (d', L)): psi-pool, the
+    decode-then-score probe scan, stable flat top-kp (score desc, position
+    asc), padded with (-inf, -1)."""
+    out_s, out_i = [], []
+    for s, e in _chunks(q_tokens.shape[0], chunk):
+        psi_q = psi_pool_ref(q_tokens[s:e], None if q_mask is None else q_mask[s:e],
+                             kernel, bias, ln_scale, ln_bias)
+        sc = ivf_scan_res_ref(psi_q, probe[s:e], ids, codes, centroids, values)
+        top, got = _flat_topk(sc, ids, probe[s:e], kp)
+        out_s.append(top)
+        out_i.append(got)
+    return torch.cat(out_s, 0), torch.cat(out_i, 0)
+
+
+def _flat_topk(sc, ids, probe, kp):
+    """Stable top-kp of a (b, nprobe, cap) score strip -> (scores, ids),
+    padded with (-inf, -1)."""
+    flat_s = sc.reshape(sc.shape[0], -1)
+    flat_i = ids[probe.long()].reshape(sc.shape[0], -1)
+    top, pos = stable_topk(flat_s, min(kp, flat_s.shape[1]))
+    return pad_topk(top, torch.gather(flat_i, 1, pos), kp)
 
 
 def mips_topk_ref(q, W, W_scales=None, valid=None, *, kp: int,

@@ -8,9 +8,13 @@
 
 The build is the JAX build's pipeline: training tokens (§4.2) -> token
 MaxSim targets over m' sampled docs (kernel) -> psi pre-training (Adam,
-autograd) -> Gram factor (psi kernel) and per-block OLS (kernel) -> IVF ->
-paged store.  Where the JAX build draws with ``jax.random.choice``, the
-port draws with ``torch.randperm`` on the caller's CPU ``generator``.
+autograd) -> Gram factor (psi kernel) and per-block OLS (kernel) -> IVF
+(``cfg.ivf.residual_bits``: residual lists) -> paged store, its docs first
+pooled to ``cfg.residual.token_budget`` tokens and, with
+``cfg.residual.enabled``, kept in the compressed tier under a codec trained
+on them.  Where the JAX build draws with ``jax.random.choice``, the port
+draws with ``torch.randperm`` on the caller's CPU ``generator``; the codec
+draws last, so ψ, W and the IVF do not depend on the tier.
 
 Search routes, as ``SearchParams`` spells them (every one ends in the
 tombstone mask and an exact-MaxSim rerank to the top-k):
@@ -25,13 +29,20 @@ tombstone mask and an exact-MaxSim rerank to the top-k):
   scan over W's full slot capacity in the ``mips_topk`` kernel;
   ``SearchParams(use_ann=False)``: the same scan as a blocked plain product;
 * ``IVFSearchParams(use_fused_gather=False)``: the legacy gathered IVF scan
-  (``mips_sq8`` kernel for SQ8 lists); ``SearchParams(use_fused_gather=
-  False)``: the legacy gathered rerank (``pages.gather_docs`` +
-  ``maxsim.rerank_gathered``, plain).
+  (``mips_sq8`` kernel for SQ8 lists, the plain decode-then-score for
+  residual lists); ``SearchParams(use_fused_gather=False)``: the legacy
+  gathered rerank (``pages.gather_docs`` + ``maxsim.rerank_gathered``,
+  plain).
 
-The residual tier (``use_residual=True``) and the build options not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item.  PyTorch runs
-eagerly, so there is no compile cache to account for.
+Residual IVF lists take the same spellings through their own kernels
+(``ivf_probe_res_scan``, ``query_fused_res``).  The rerank takes one of
+three branches, as the JAX package's: a compressed store with
+``use_residual`` (default ``cfg.residual.enabled``) and the fused gather,
+the ``rerank_paged_res_scores`` kernel; an fp32 store with the fused
+gather, the fp32 kernel (``use_residual`` or not); otherwise the legacy
+gathered rerank (on the compressed tier over decoded tokens).  Backends
+other than ``ivf`` raise ``NotImplementedError`` naming their ROADMAP item.
+PyTorch runs eagerly, so there is no compile cache to account for.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ import torch
 from repro_torch.anns.base import pad_topk
 from repro_torch.anns.bruteforce import mips_topk
 from repro_torch.anns.ivf import build_ivf, search_ivf, search_ivf_one_launch
+from repro_torch.anns.quantization import train_residual_codec
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common.device import resolve_device
 from repro_torch.convert import FORMAT, index_from_numpy, index_to_numpy
@@ -52,18 +64,6 @@ from repro_torch.core.index import LemurIndex
 from repro_torch.core.model import PSI_LEAVES, Psi, TargetStats, pool_queries, train_phi
 from repro_torch.kernels import ops
 from repro_torch.retriever.params import SearchParams, effective_nprobe
-
-
-def _check_build(cfg: LemurConfig) -> None:
-    cfg.backend_config()       # other first-stage backends: Queue 1 item 5
-    if cfg.residual.enabled or cfg.ivf.residual_bits:
-        raise NotImplementedError(
-            "residual token tier (cfg.residual.enabled / ivf.residual_bits) is "
-            "not ported yet (ROADMAP Queue 1 item 6)")
-    if cfg.residual.token_budget:
-        raise NotImplementedError(
-            "index-time token pooling (cfg.residual.token_budget) is not ported "
-            "yet (ROADMAP Queue 1 item 4, pages.pool_tokens)")
 
 
 class _StageClock:
@@ -84,18 +84,10 @@ class _StageClock:
             print(f"[build] {stage} {self.seconds[stage]:.2f} s", flush=True)
 
 
-def _check_route(params: SearchParams) -> None:
-    if params.use_residual:
-        raise NotImplementedError(
-            "residual token tier (use_residual=True) is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
-
-
 def first_stage(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
     """Pool the queries and run the IVF first stage, or the exact latent
     scan -> (B, k') candidate ids, tombstoned slots masked to -1.
     ``params`` must be resolved (module docstring: the routes)."""
-    _check_route(params)
     store = index.store
     if params.use_ann and params.backend.use_one_launch:
         nprobe = effective_nprobe(params.backend.nprobe, index.ann.nlist)
@@ -119,13 +111,18 @@ def first_stage(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
 
 
 def search_pipeline(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
-    """pool -> first-stage candidates -> exact-MaxSim rerank -> top-k: the
-    paged rerank kernel, or with ``use_fused_gather=False`` the candidates
-    gathered from the pages and reranked plainly.  ``-1`` candidates (pads,
-    tombstones) score NEG and never outrank a real one."""
+    """pool -> first-stage candidates -> exact-MaxSim rerank -> top-k, the
+    rerank by the JAX package's three branches (module docstring): the
+    compressed paged kernel, the fp32 paged kernel, or the candidates
+    gathered (decoded) from the pages and reranked plainly.  ``-1``
+    candidates (pads, tombstones) score NEG and never outrank a real one."""
     cand = first_stage(index, q_tokens, q_mask, params)
     st = index.store
-    if params.use_fused_gather:
+    if st.residual and params.use_residual and params.use_fused_gather:
+        return ops.fused_rerank_paged_res(q_tokens, q_mask, cand, st.cent_pages,
+                                          st.code_pages, st.page_table, st.n_tokens,
+                                          st.codec.centroids, st.codec.values, params.k)
+    if params.use_fused_gather and not st.residual:
         return ops.fused_rerank_paged(q_tokens, q_mask, cand, st.tok_pages,
                                       st.page_table, st.n_tokens, params.k)
     toks, tmask = pages.gather_docs(st, cand)
@@ -136,7 +133,6 @@ def launch_plan(resolved: SearchParams) -> dict[str, int]:
     """Per-search launch breakdown, as the JAX package counts it: the
     default route's projection, scan and flat top-k' before the rerank, or
     one launch before it on the one-launch routes."""
-    _check_route(resolved)
     one = (resolved.backend.use_one_launch if resolved.use_ann
            else resolved.use_one_launch)
     if one:
@@ -203,11 +199,12 @@ class LemurRetriever:
         ``corpus`` has ``doc_tokens`` (m, T, d) and ``doc_mask`` (m, T),
         numpy or tensors; the dense corpus is held on the device, as the JAX
         build holds it.  ``generator`` (CPU; default seed 0) draws the
-        pre-training docs, psi's init and permutations, the OLS tokens and
-        k-means' sample; ``x_train`` replaces the selected training tokens.
-        Records :attr:`build_log`."""
+        pre-training docs, psi's init and permutations, the OLS tokens,
+        k-means' sample and, last, the token codec's sample and k-means;
+        ``x_train`` replaces the selected training tokens.  Records
+        :attr:`build_log`."""
         cfg = cfg or LemurConfig()
-        _check_build(cfg)
+        cfg.backend_config()       # other first-stage backends: Queue 1 item 5
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         clock = _StageClock(dev, verbose)
@@ -241,10 +238,27 @@ class LemurRetriever:
                                          stats, solver_state=solver)
         clock("ols")
 
-        # 4. first stage, 5. paged store
-        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8, generator=gen)
+        # 4. first stage
+        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8,
+                        residual_bits=cfg.ivf.residual_bits, generator=gen)
         clock("ivf")
-        index = LemurIndex.from_dense(cfg, psi, stats, W, doc_tokens, doc_mask, "ivf", ann)
+
+        # 5. paged store: the docs pooled to a token budget and / or kept in
+        # the compressed tier (cfg.residual); psi, W and the IVF above always
+        # see the raw tokens
+        rcfg = cfg.residual
+        st_tokens, st_mask, codec = doc_tokens, doc_mask, None
+        if rcfg.token_budget > 0:
+            pooled, pmask = pages.pool_tokens(doc_tokens, doc_mask, rcfg.token_budget)
+            st_tokens = torch.from_numpy(pooled).to(dev)
+            st_mask = torch.from_numpy(pmask).to(dev)
+        if rcfg.enabled:
+            codec = train_residual_codec(gen, st_tokens[st_mask], bits=rcfg.bits,
+                                         ncent=rcfg.ncent, iters=rcfg.kmeans_iters,
+                                         sample=rcfg.train_sample)
+            clock("codec")
+        index = LemurIndex.from_dense(cfg, psi, stats, W, st_tokens, st_mask, "ivf", ann,
+                                      codec=codec)
         clock("pages")
         r = cls(index, solver_state=solver)
         r.build_log = {"seconds": clock.seconds, "losses": losses,
@@ -278,12 +292,14 @@ class LemurRetriever:
     @classmethod
     def from_arrays(cls, cfg: LemurConfig, psi: Psi, store: pages.PagedStore, *,
                     generator: torch.Generator | None = None) -> "LemurRetriever":
-        """Serve a psi and a filled paged store: the IVF first stage is built
-        over the store's W rows (``cfg.ivf``: nlist, SQ8), k-means seeded by
-        ``generator``.  Target stats are the identity (mean 0, std 1)."""
+        """Serve a psi and a filled paged store (either tier): the IVF first
+        stage is built over the store's W rows (``cfg.ivf``: nlist, SQ8,
+        residual bits), k-means seeded by ``generator``.  Target stats are
+        the identity (mean 0, std 1)."""
         cfg.backend_config()
         W = store.W[: int(store.n_docs[0])]
-        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8, generator=generator)
+        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8,
+                        residual_bits=cfg.ivf.residual_bits, generator=generator)
         one = torch.ones((), device=store.W.device)
         return cls(LemurIndex(cfg, psi, TargetStats(0 * one, one), store, "ivf", ann))
 

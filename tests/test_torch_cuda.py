@@ -11,7 +11,11 @@ rounding), the scan to the JAX suite's SQ8 bound 2^-16 * 4 relative to the
 largest score, the rerank to rtol 1e-5 / atol 1e-4, token MaxSim to
 1e-5 x max(1, max|plain|) with NEG entries exactly equal; the one-launch
 and SQ8 scans as the psi-pool and the scan, with ids equal up to near-ties
-(relative gap 1e-5) and exactly equal on integer-valued rows.
+(relative gap 1e-5) and exactly equal on integer-valued rows.  The residual
+kernels (2 and 4 bits) decode the host decoder's bits and sum in another
+order: scores to 1e-5 x max(1, max|plain|) (the rerank as the fp32 one),
+and exactly equal where the codec's tables, the centroids and the queries
+are small integers (every product and sum exact).
 """
 import copy
 
@@ -23,7 +27,7 @@ from repro_torch.anns.base import pad_topk, stable_topk
 from repro_torch.core import pages
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.model import Psi
-from repro_torch.anns.quantization import sq8_quant
+from repro_torch.anns.quantization import sq8_quant, train_residual_codec
 from repro_torch.core import maxsim
 from repro_torch.data import synthetic
 from repro_torch.kernels import fused_psi, gather_scan, ops, ref
@@ -328,25 +332,36 @@ def test_mips_sq8_kernel(cuda, B, n, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("params", [
+    SearchParams(),
     SearchParams(backend=IVFSearchParams(use_one_launch=True)),
     SearchParams(use_ann=False, use_one_launch=True),
     SearchParams(use_ann=False),
     SearchParams(backend=IVFSearchParams(use_fused_gather=False), use_fused_gather=False),
-], ids=["one_launch_ivf", "exact_one_launch", "exact_blocked", "legacy"])
-@pytest.mark.parametrize("sq8", [False, True])
-def test_routes_on_card_match_cpu(cuda, params, sq8):
-    """Each route served on the card returns the CPU's ids up to near-ties."""
+    SearchParams(use_residual=False),
+], ids=["default", "one_launch_ivf", "exact_one_launch", "exact_blocked", "legacy",
+        "residual_off"])
+@pytest.mark.parametrize("tier", ["fp32", "sq8", "residual"])
+def test_routes_on_card_match_cpu(cuda, params, tier):
+    """Each route served on the card returns the CPU's ids up to near-ties,
+    over fp32 and SQ8 lists of an fp32 store, and over 4-bit residual lists
+    of a compressed store."""
     rng = np.random.default_rng(5)
     m, T, d, dp = 600, 24, 32, 256
     tok = torch.nn.functional.normalize(torch.as_tensor(
         rng.standard_normal((m, T, d)), dtype=torch.float32), dim=-1)
     mask = torch.as_tensor(rng.random((m, T)) > 0.3)
     W = torch.as_tensor(rng.standard_normal((m, dp)), dtype=torch.float32)
-    store, _ = pages.from_dense(W, tok, mask)
+    codec = None
+    cfg = LemurConfig(d=d, d_prime=dp, k=20, k_prime=128)
+    if tier == "residual":
+        codec = train_residual_codec(torch.Generator().manual_seed(2), tok[mask], bits=4,
+                                     ncent=32, iters=3)
+        cfg = cfg.replace(ivf=cfg.ivf.replace(residual_bits=4),
+                          residual=cfg.residual.replace(enabled=True))
+    cfg = cfg.replace(ivf=cfg.ivf.replace(sq8=tier == "sq8"))
+    store, _ = pages.from_dense(W, tok, mask, codec=codec)
     store.alive[[4, 8]] = False
     psi = Psi.init(d, dp, torch.Generator().manual_seed(0), device="cpu")
-    cfg = LemurConfig(d=d, d_prime=dp, k=20, k_prime=128)
-    cfg = cfg.replace(ivf=cfg.ivf.replace(sq8=sq8))
     cpu = LemurRetriever.from_arrays(cfg, psi, store,
                                      generator=torch.Generator().manual_seed(1))
     idx = cpu.index
@@ -379,3 +394,139 @@ def test_mips_topk_rescans_when_the_bound_lets_too_much_through(cuda):
     assert qf.mips_topk.rescans == n0 + 1
     want = ref.mips_topk_ref(q, W, kp=80)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _residual_tables(rng, n_cent, d, bits, exact):
+    """Centroids (n_cent, d) and values (d, 2^bits): small integers when
+    ``exact`` (every decode, product and sum is exact), else normal."""
+    L = 1 << bits
+    if exact:
+        return (rng.integers(-3, 4, (n_cent, d)).astype(np.float32),
+                np.sort(rng.integers(-4, 5, (d, L)), axis=1).astype(np.float32))
+    return (rng.standard_normal((n_cent, d)).astype(np.float32),
+            np.sort(rng.standard_normal((d, L)), axis=1).astype(np.float32))
+
+
+def _close(got, want, tol, exact):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+    if exact:
+        assert torch.equal(got, want)
+    elif fin.any():
+        scale = max(1.0, float(want[fin].abs().max()))
+        assert float((got[fin] - want[fin]).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nlist,cap,d,nprobe", [
+    (1, 8, 5, 16, 3),           # B=1, cap below a warp's rows
+    (3, 16, 9, 32, 8),
+    (2, 4, 1100, 2048, 3),      # full d', cap past a 1024-slot chunk
+    (2, 6, 130, 1008, 4)])      # d' off the 512-dim tile
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
+def test_ivf_res_scan_kernel(cuda, B, nlist, cap, d, nprobe, bits, exact):
+    """Pads (-1 slots, an empty list, an out-of-range probe) score -inf; the
+    rest agree with the plain decode-then-score scan."""
+    rng = np.random.default_rng(B * nlist + cap + bits)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    ids = rng.integers(-1, 99, (nlist, cap)).astype(np.int32)
+    ids[1] = -1
+    codes = rng.integers(0, 256, (nlist, cap, d * bits // 8)).astype(np.uint8)
+    cent, values = _residual_tables(rng, nlist, d, bits, exact)
+    q = rng.integers(-2, 3, (B, d)) if exact else rng.standard_normal((B, d))
+    probe = rng.integers(0, nlist, (B, nprobe)).astype(np.int32)
+    probe[0, 0] = 1
+    args = (g(q, torch.float32), g(probe), g(ids), g(codes), g(cent), g(values))
+    n0 = gather_scan.ivf_probe_res_scan.launches
+    got = gather_scan.ivf_probe_res_scan(*args)
+    assert gather_scan.ivf_probe_res_scan.launches == n0 + 1
+    _close(got, ref.ivf_scan_res_ref(*args), 1e-5, exact)
+    with pytest.raises(ValueError, match="uint8"):
+        gather_scan.ivf_probe_res_scan(*args[:3], args[3].to(torch.int8), *args[4:])
+    # the scans load codes a word at a time: rows of 20 dims at 2 bits are 5 bytes
+    with pytest.raises(ValueError, match="4-byte words"):
+        gather_scan.ivf_probe_res_scan(torch.zeros(1, 20, device=cuda), *args[1:5],
+                                       torch.zeros(20, 4, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,Tq,d,kp,pmax,ncent", [
+    (3, 12, 4, 16, 5, 2, 10), (1, 8, 3, 20, 6, 1, 3), (2, 40, 32, 128, 64, 5, 256),
+    (2, 10, 40, 8, 9, 3, 7)])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
+def test_rerank_paged_res_kernel(cuda, B, C, Tq, d, kp, pmax, ncent, bits, exact):
+    """Compressed pages decoded in the kernel: a doc with no tokens, -1
+    candidates and table pads, k' above the docs; the top-k wrapper equals
+    the CPU's."""
+    rng = np.random.default_rng(B * C + Tq + bits)
+    n_tokens = rng.integers(1, pmax * 16 + 1, C).astype(np.int32)
+    n_tokens[1] = 0
+    table = rng.permutation(C * pmax).reshape(C, pmax).astype(np.int32)
+    table[np.arange(pmax)[None, :] >= (-(-n_tokens // 16))[:, None]] = -1
+    cent, values = _residual_tables(rng, ncent, d, bits, exact)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    q = rng.integers(-2, 3, (B, Tq, d)) if exact else rng.standard_normal((B, Tq, d))
+    args = (g(q, torch.float32), g(rng.random((B, Tq)) > 0.3),
+            g(rng.integers(-1, C, (B, kp)), torch.int32),
+            g(rng.integers(0, ncent, (C * pmax, 16)), torch.int32),
+            g(rng.integers(0, 256, (C * pmax, 16, d * bits // 8)), torch.uint8),
+            g(table), g(n_tokens), g(cent), g(values))
+    n0 = gather_scan.rerank_paged_res_scores.launches
+    got = gather_scan.rerank_paged_res_scores(*args)
+    assert gather_scan.rerank_paged_res_scores.launches == n0 + 1
+    want = ref.rerank_scores_paged_res_ref(*args)
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    k = kp + 3
+    s, i = ops.fused_rerank_paged_res(*args, k)
+    s0, i0 = ops.fused_rerank_paged_res(*(a.cpu() for a in args), k)
+    assert torch.equal(i.cpu(), i0)
+    torch.testing.assert_close(s.cpu(), s0, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,d,dp,nlist,cap,nprobe,kp", [
+    (1, 5, 16, 64, 6, 7, 2, 9),          # B=1, cap odd, kp > valid slots
+    (3, 32, 128, 2048, 8, 300, 4, 256),  # full widths, cap past a pass of 128
+    (4, 6, 20, 1008, 5, 11, 5, 60),      # d' off the 512-dim tile, kp > the strip
+    (2, 8, 16, 256, 3, 1100, 2, 1500),   # cap past a 1024-slot chunk
+])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_query_fused_res_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, bits):
+    """Pads, an empty list and duplicated rows (exact ties); the result
+    equals the residual default route's kernels (psi-pool, residual scan,
+    stable top-k) bit for bit."""
+    from repro_torch.kernels import query_fused as qf
+
+    rng = np.random.default_rng(B * cap + dp + bits)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    q = g(rng.standard_normal((B, Tq, d)), torch.float32)
+    qm = g(rng.random((B, Tq)) > 0.3)
+    ids = rng.permutation(10 ** 6)[:nlist * cap].reshape(nlist, cap).astype(np.int32)
+    ids[:, cap - cap // 3:] = -1
+    ids[1] = -1                                       # an empty list
+    codes = rng.integers(0, 256, (nlist, cap, dp * bits // 8)).astype(np.uint8)
+    codes[0, 2] = codes[0, 0]                         # exact ties within a list
+    cent, values = _residual_tables(rng, nlist, dp, bits, False)
+    probe = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]).astype(np.int32)
+    probe[0, 0] = 0
+    lists = (g(ids), g(codes), g(cent), g(values))
+    args = (q, qm, *w, g(probe), *lists)
+    n0 = ops.launch_counts()["query_fused_res"]
+    got = ops.KERNELS["query_fused_res"](*args, kp=kp)
+    assert ops.launch_counts()["query_fused_res"] == n0 + 1
+    want = ref.query_fused_res_ref(*args, kp=kp)
+    _same_topk(*got, *want, 1e-4)
+    psi_q = fused_psi.fused_psi_pool(q, qm, *w)
+    s = gather_scan.ivf_probe_res_scan(psi_q, g(probe), *lists).reshape(B, -1)
+    flat_i = g(ids)[g(probe).long()].reshape(B, -1)
+    top, pos = stable_topk(s, min(kp, s.shape[1]))
+    top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
+    assert torch.equal(got[1], idx) and torch.equal(got[0], top)
+    with pytest.raises(ValueError, match="kp"):
+        qf.query_fused_res(*args, kp=qf.MAX_KP + 1)

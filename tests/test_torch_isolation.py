@@ -51,7 +51,8 @@ def test_no_jax_or_repro_import_in_source(path):
 
 
 @pytest.mark.parametrize("name", ["fused_psi_pool", "ivf_probe_scan", "mips_sq8",
-                                  "query_fused", "rerank_paged", "token_maxsim"])
+                                  "query_fused", "rerank_paged", "token_maxsim",
+                                  "ivf_probe_res_scan", "rerank_paged_res"])
 def test_kernel_source_names_what_it_replaces_and_its_bound(name):
     """Each CUDA source names the TPU kernel it replaces and what bounds it
     on the card, and the build finds it."""
@@ -63,13 +64,14 @@ def test_kernel_source_names_what_it_replaces_and_its_bound(name):
 
 
 def test_every_kernel_counts_its_launches():
-    """ops.KERNELS lists every kernel, the three of the search routes
-    included, and reset_launch_counts sets every counter to 0."""
+    """ops.KERNELS lists every kernel, the search routes' and the residual
+    tier's included, and reset_launch_counts sets every counter to 0."""
     from repro_torch.kernels import ops
 
     assert set(ops.launch_counts()) == {
         "fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores", "token_maxsim",
-        "fused_psi", "query_fused", "mips_topk", "mips_sq8"}
+        "fused_psi", "query_fused", "mips_topk", "mips_sq8", "ivf_probe_res_scan",
+        "rerank_paged_res_scores", "query_fused_res"}
     saved = ops.launch_counts()
     try:
         for fn in ops.KERNELS.values():

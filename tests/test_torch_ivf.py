@@ -168,8 +168,11 @@ def test_from_dense_bit_identical():
     store, moved = pages.from_dense(T(W), T(tok), T(mask))
     assert moved == jmoved
     for name in store._fields:
-        np.testing.assert_array_equal(getattr(store, name).numpy(),
-                                      np.asarray(getattr(jstore, name)), err_msg=name)
+        got, want = getattr(store, name), getattr(jstore, name)
+        if want is None:                   # the compressed tier's fields, unset on fp32
+            assert got is None, name
+            continue
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
 
 
 def test_chunked_fill_equals_from_dense():
@@ -184,7 +187,8 @@ def test_chunked_fill_equals_from_dense():
                                  T(mask[s:s + 7]))
         slot += len(W[s:s + 7])
     for name in store._fields:
-        assert torch.equal(getattr(store, name), getattr(want, name)), name
+        a, b = getattr(store, name), getattr(want, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
 
 
 def test_mask_dead_matches_jax():

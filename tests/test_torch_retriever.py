@@ -106,14 +106,19 @@ def test_index_from_live_jax_state(built):
 
 
 def test_unported_routes_raise(built):
-    """The residual tier is the one search route not ported yet (the others
-    are held against JAX in tests/test_torch_routes.py)."""
-    _, path, q, qm = built
+    """``use_residual=True``, refused before the residual tier was ported,
+    serves an fp32 store as JAX does: the fp32 paged rerank, JAX's ids and
+    launch plan (the other routes are held in tests/test_torch_routes.py,
+    the residual tier's in tests/test_torch_residual_routes.py)."""
+    r, path, q, qm = built
     port = LemurRetriever.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        port.search(q, qm, SearchParams(use_residual=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        port.launches(SearchParams(use_residual=True))
+    want_s, want_i = r.search(jnp.asarray(q), jnp.asarray(qm), JaxParams(use_residual=True))
+    got_s, got_i = port.search(q, qm, SearchParams(use_residual=True))
+    assert_same_topk(want_s, want_i, got_s, got_i)
+    s0, i0 = port.search(q, qm, SearchParams())
+    assert torch.equal(got_i, i0) and torch.equal(got_s, s0)
+    assert port.launches(SearchParams(use_residual=True)) == r.launches(
+        JaxParams(use_residual=True))
 
 
 def test_checkpoint_config_round_trip(built):
@@ -125,10 +130,17 @@ def test_checkpoint_config_round_trip(built):
 
 
 def test_residual_and_other_backends_refused(built):
+    """Other backends are refused; a tree with part of the residual tier's
+    leaves (compressed pages without the codec, or residual lists without
+    their tables) is not a checkpoint either package writes."""
     r, _, _, _ = built
     tree, extra = _save_tree(r)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        index_from_numpy({**tree, "pages/cent_pages": np.zeros((1, 16), np.int32)},
+    with pytest.raises(ValueError, match="codec/centroids"):
+        index_from_numpy({**tree, "pages/cent_pages": np.zeros((1, 16), np.int32),
+                          "pages/code_pages": np.zeros((1, 16, 8), np.uint8)},
+                         extra, device="cpu")
+    with pytest.raises(ValueError, match="ann/rq_cuts"):
+        index_from_numpy({**tree, "ann/rq_values": np.zeros((16, 16), np.float32)},
                          extra, device="cpu")
     for name in ("muvera", "exact"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
