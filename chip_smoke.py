@@ -66,14 +66,32 @@ script
    over the decoded tokens and 32 queries' top-10 against the fp32 exact
    top-10 (recall, beside the SQ8 route's); times the three kernels against
    their plain versions and reports token bytes per doc of both tiers;
-8. prints a ``build`` line, a ``serving`` line, a ``routes`` line, a
-   ``residual`` line, the ``kernels`` line and last ``{"ok": true, ...}``.
+8. **sharded**: on a one-rank NCCL process group and its ("model",)
+   DeviceMesh, holds ``rerank_gather_scores`` (fp32 and SQ8) against its
+   plain version on a ragged case (B=1, Td=77, -1 candidates, a doc with no
+   valid token, duplicated candidates, a partial query mask, k > k'),
+   ``mips_topk`` at k'=4096 (valid rows above and below k') and the sharded
+   one-launch route on small blocks; then, the residual tier freed, shards
+   the served index with ``LemurRetriever.shard`` (its SQ8 block of 2^20
+   rows, filled 25,000 slots at a time; k'_loc = 4096) and serves the same
+   batches through the fused route (``SearchParams(use_ann=False)``), the
+   one-launch route and the legacy route (16 queries), counters from 0
+   around each: every row against the plain composition (near-ties
+   counted), its scores against exact MaxSim over the stored SQ8 tokens,
+   no free or tombstoned row; times the latent product, its sort and the
+   two kernels; then an fp32 block over a base cut to the first 100,000
+   slots, its default route checked the same way, and the same base
+   sharded at k'_loc = 1024 against its own exact scan;
+9. prints a ``build`` line, a ``serving`` line, a ``routes`` line, a
+   ``residual`` line, a ``sharded`` line, the ``kernels`` line and last
+   ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -288,7 +306,7 @@ def exact_plain(torch, index, q, qm, p):
     lat_s, lat_i = ref.mips_topk_ref(psi_q, st.W, None, st.alive, kp=kk, chunk=32)
     cand = mask_dead(st, pad_topk(lat_s, lat_i, p.k_prime)[1])
     top, ids = plain_rerank(torch, st, q, qm, cand, p.k)
-    return dict(psi_q=psi_q, lat_s=lat_s, cand=cand, scores=top, ids=ids)
+    return dict(psi_q=psi_q, cand=cand, scores=top, ids=ids, **latent_edge(lat_s))
 
 
 def port_stages(torch, index, q, qm, p):
@@ -837,22 +855,35 @@ def routes_ragged_case(torch, seed):
     return errs
 
 
-def classify_exact(torch, index, port_ids, port_scores, port_cand, plain, k_prime):
+def latent_edge(lat_s):
+    """Per row of a plain latent top-k' (B, k'): the k'-th score and the
+    scale of the near-tie test, max(1, the largest |score| that is not
+    NEG)."""
+    from repro_torch.kernels import ref
+
+    real = lat_s.masked_fill(lat_s <= ref.NEG / 2, 0.0)
+    return dict(edge=lat_s[:, -1].clone(), lat_scale=real.abs().amax(1).clamp_min(1.0))
+
+
+def classify_exact(torch, W, W_scales, port_ids, port_scores, port_cand, plain):
     """Rows of an exact-scan route whose ids differ from the plain
-    composition must differ by a near-tie at the k' boundary of the latent
-    scores, or in the final ranking.  Returns counts by kind; raises
-    otherwise."""
+    composition must differ by a near-tie at the k' boundary of the plain
+    latent scores (each candidate only one side has scores within NEAR_TIE
+    of the k'-th; SQ8 rows through their scales), or in the final ranking.
+    ``port_cand`` (rows of W, -1 ignored) may be None when no row differs.
+    Returns counts by kind; raises otherwise."""
     kinds = {"candidates": 0, "final": 0}
-    W = index.store.W
-    for b in (port_ids != plain["ids"]).any(1).nonzero().flatten().tolist():
+    bad = (port_ids != plain["ids"]).any(1).nonzero().flatten().tolist()
+    if bad and port_cand is None:
+        raise CheckFailed("rows differ but no candidates were given")
+    for b in bad:
         qa = set(port_cand[b].tolist()) - {-1}
         qb = set(plain["cand"][b].tolist()) - {-1}
         if qa != qb:
-            lat = plain["lat_s"][b]
-            edge = float(lat[k_prime - 1])
-            scale = max(1.0, float(lat.abs().max()))
+            edge, scale = float(plain["edge"][b]), float(plain["lat_scale"][b])
             for c in qa ^ qb:
-                sc = float(plain["psi_q"][b] @ W[c])
+                sc = float(plain["psi_q"][b] @ W[c].float()) * (
+                    1.0 if W_scales is None else float(W_scales[c]))
                 require(abs(sc - edge) <= NEAR_TIE * scale,
                         f"row {b}: candidate {c} differs without a near-tie")
             kinds["candidates"] += 1
@@ -947,7 +978,7 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
                 differ += int((ids != default_ids[i][:B]).any(1).sum())
             else:
                 plain = exact_plain(torch, index, q, qm, p)
-                kinds = classify_exact(torch, index, ids, s, cand, plain, p.k_prime)
+                kinds = classify_exact(torch, st.W, None, ids, s, cand, plain)
             for kk, v in kinds.items():
                 ties[kk] = ties.get(kk, 0) + v
             exact = ref.rerank_scores_paged_ref(q, qm, ids, st.tok_pages, st.page_table,
@@ -1456,6 +1487,494 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
     return line, rows
 
 
+# --------------------------------------------------------------------------
+# sharded serving: LemurRetriever.shard on a one-rank NCCL process group
+# --------------------------------------------------------------------------
+
+SHARD_WIDEN = 65536        # SQ8 rows widened at a time by the plain latent product
+FP32_CUT = 100_000         # slots of the fp32 block's base (its 43 GB at 2^20 rows)
+SHARD_ROUTES = {   # name: (SearchParams keywords, batch or None, kernels a search)
+    "sharded_fused": (dict(use_ann=False), None,
+                      ("fused_psi_pool", "rerank_gather_scores")),
+    "sharded_one_launch": (dict(use_ann=False, use_one_launch=True), None,
+                           ("fused_psi_pool", "mips_topk", "rerank_gather_scores")),
+    # the gathered slab at 256 queries x 4,096 candidates would be 43 GB
+    "sharded_legacy": (dict(use_ann=False, use_fused_gather=False), 16, ("fused_psi_pool",)),
+}
+
+
+@contextlib.contextmanager
+def nccl_mesh(torch):
+    """A one-rank NCCL process group on the card (a tcp store on a free
+    local port) and its ("model",) DeviceMesh; destroyed on exit."""
+    import socket
+
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                             rank=0)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    finally:
+        tdist.destroy_process_group()
+
+
+def sharded_plain(torch, state, q, qm, kp, k):
+    """The plain composition of a one-shard route: the plain pool, the full
+    latent product over the block (SQ8 rows through ``mips_sq8_ref``,
+    SHARD_WIDEN rows at a time), free and tombstoned rows at NEG, the stable
+    top-k', the plain dense rerank, the stable top-k, the row ids."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.kernels import ref
+
+    psi = state.psi
+    psi_q = ref.psi_pool_ref(q, qm, psi.dense.kernel, psi.dense.bias, psi.ln.scale,
+                             psi.ln.bias)
+    n = state.W.shape[0]
+    kp = min(kp, n)
+    lat = torch.empty((q.shape[0], n), dtype=torch.float32, device=q.device)
+    for s in range(0, n, SHARD_WIDEN):
+        e = min(n, s + SHARD_WIDEN)
+        lat[:, s:e] = (psi_q @ state.W[s:e].T if state.W_scales is None else
+                       ref.mips_sq8_ref(psi_q, state.W[s:e], state.W_scales[s:e]))
+    lat.masked_fill_(~state.row_valid[None, :], ref.NEG)
+    lat_s, cand = stable_topk(lat, kp)
+    del lat
+    cand = cand.int()
+    r = ref.rerank_scores_ref(q, qm, cand, state.doc_tokens, state.doc_mask, state.doc_scales,
+                              chunk=128)
+    top, idx = stable_topk(torch.where(cand >= 0, r, ref.NEG), min(k, kp))
+    local = torch.gather(cand, 1, idx)
+    ids = torch.where(local >= 0, state.row_ids[local.clamp_min(0).long()], -1)
+    return dict(psi_q=psi_q, cand=cand, scores=torch.where(ids >= 0, top, ref.NEG), ids=ids,
+                **latent_edge(lat_s))
+
+
+def port_candidates(torch, state, q, qm, kp, one_launch):
+    """The port's own latent top-k' of a one-shard route (block rows)."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core.model import pool_queries
+    from repro_torch.dist.serve import latent_scores
+    from repro_torch.kernels import ops, ref
+
+    psi_q = pool_queries(state.psi, q, qm)
+    kp = min(kp, state.W.shape[0])
+    if one_launch:
+        return ops.mips_topk_fused(psi_q, state.W, state.W_scales, kp, state.row_valid)[1]
+    s = latent_scores(psi_q, state.W, state.W_scales).masked_fill_(~state.row_valid[None, :],
+                                                                    ref.NEG)
+    return stable_topk(s, kp)[1].int()
+
+
+def rerank_gather_cost(torch, q, qm, cand, doc_mask, token_bytes):
+    """Bytes and operations of one rerank_gather_scores call on this data:
+    q, its mask and the candidates read once, each distinct candidate's
+    mask row and its valid tokens (``token_bytes`` each: the values and,
+    for SQ8, the scale) read once, the scores written; 2 d operations for
+    every (valid query token, valid doc token) pair."""
+    safe = cand.clamp_min(0).long()
+    ntok = doc_mask.sum(1)
+    uc = safe.unique()
+    Td = doc_mask.shape[1]
+    nbytes = (q.numel() * 4 + qm.numel() + 2 * cand.numel() * 4 + len(uc) * Td
+              + int(ntok[uc].sum()) * token_bytes)
+    flops = 2 * q.shape[2] * int((ntok[safe] * qm.sum(1, keepdim=True)).sum())
+    return nbytes, flops
+
+
+def cut_base(torch, r, n):
+    """A retriever over the first n slots of the served index: their pages,
+    W rows and tombstones copied DOC_CHUNK slots at a time (the exact latent
+    scan serves it; its IVF is not used)."""
+    from repro_torch.core import pages
+    from repro_torch.retriever import LemurRetriever
+
+    st = r.index.store
+    ppd = pages.pages_needed(st.n_tokens[:n])
+    cst = pages.allocate(n, int(ppd.sum()), st.pages_per_doc, st.d, st.d_prime,
+                         device=st.W.device)
+    page = 0
+    for s in range(0, n, DOC_CHUNK):
+        ids = torch.arange(s, min(n, s + DOC_CHUNK), dtype=torch.int32, device=st.W.device)
+        toks, tm = pages.gather_docs(st, ids)
+        page += pages.write_docs(cst, s, page, st.W[ids.long()], toks, tm)
+    cst.alive[:n] = st.alive[:n]
+    return LemurRetriever(r.index._replace(store=cst))
+
+
+def sharded_ragged_case(torch, seed, mesh):
+    """rerank_gather_scores (fp32 and SQ8) against its plain version on B = 1,
+    Td = 77 (off every 16-row tile), -1 candidates, a doc with no valid
+    token, duplicated candidates, a partial query mask and k > k'; mips_topk
+    at k' = 4096 with the valid rows above and below k'; the sharded
+    one-launch route at k'_loc = 4096 over 4,096 rows (k' above the valid
+    ones) and over 8,192; a cuda mesh refusing a retriever on the CPU.
+    Returns max abs errors."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.anns.quantization import sq8_quant
+    from repro_torch.core import pages
+    from repro_torch.core.config import LemurConfig
+    from repro_torch.core.model import Psi
+    from repro_torch.kernels import gather_scan, ops, query_fused, ref
+    from repro_torch.retriever import LemurRetriever, SearchParams
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    norm = torch.nn.functional.normalize
+    errs = {}
+    m, Td, d, Tq = 40, 77, 128, 6
+    docs = norm(torch.randn(m, Td, d, generator=g, device=dev), dim=-1)
+    dm = torch.rand(m, Td, generator=g, device=dev) > 0.4
+    dm[3] = False
+    q = norm(torch.randn(1, Tq, d, generator=g, device=dev), dim=-1)
+    qm = torch.tensor([[True, True, False, True, True, False]], device=dev)
+    cand = torch.tensor([[-1, 3, 0, 7, 7, -1, 12, 39, 3]], dtype=torch.int32, device=dev)
+    for sq8 in (False, True):
+        toks, scales = sq8_quant(docs) if sq8 else (docs, None)
+        args = (q, qm, cand, toks, dm, scales)
+        a, b = gather_scan.rerank_gather_scores(*args), ref.rerank_scores_ref(*args)
+        real = b > ref.NEG / 2
+        require(bool(((a[~real] - b[~real]).abs() <= 1e-6 * b[~real].abs()).all()),
+                "rerank_gather ragged: NEG-scale scores differ")
+        err = float((a[real] - b[real]).abs().max())
+        require(err <= 1e-5 * max(1.0, float(b[real].abs().max())),
+                f"rerank_gather ragged: max abs err {err}")
+        require(bool(a[0, 3] == a[0, 4]) and bool(a[0, 1] == a[0, 8]),
+                "rerank_gather ragged: duplicated candidates score apart")
+        s, i = ops.fused_rerank(q, qm, cand, toks, dm, 12, doc_scales=scales)
+        top, idx = stable_topk(torch.where(cand >= 0, b, ref.NEG), 9)
+        require(torch.equal(i[:, :9], torch.gather(cand, 1, idx))
+                and bool((i[:, 9:] == -1).all()) and bool((s[:, 9:] == ref.NEG).all()),
+                "rerank_gather ragged: the top-k wrapper differs from plain")
+        errs[f"rerank_gather_{'sq8' if sq8 else 'fp32'}"] = err
+    for frac in (0.9, 0.3):               # 4,500 and 1,500 valid rows of 5,000
+        qi = torch.randint(-3, 4, (3, 64), generator=g, device=dev).float()
+        W = torch.randint(-3, 4, (5000, 64), generator=g, device=dev).float()
+        W[2500] = W[7]
+        valid = torch.rand(5000, generator=g, device=dev) < frac
+        got = query_fused.mips_topk(qi, W, None, valid, kp=4096)
+        want = ref.mips_topk_ref(qi, W, None, valid, kp=4096)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"mips_topk ragged at kp 4096 ({frac} valid) differs from plain")
+        codes, sc = sq8_quant(W)
+        err, _, _ = same_topk(torch, *query_fused.mips_topk(qi, codes, sc, valid, kp=4096),
+                              *ref.mips_topk_ref(qi, codes, sc, valid, kp=4096), SQ8_RTOL,
+                              "mips_topk sq8 ragged at kp 4096")
+        errs["mips_topk_kp4096"] = max(errs.get("mips_topk_kp4096", 0.0), err)
+    for n_docs in (3000, 6000):
+        T, dp = 20, 256
+        tok = norm(torch.randn(n_docs, T, d, generator=g, device=dev), dim=-1)
+        mask = torch.rand(n_docs, T, generator=g, device=dev) > 0.3
+        store, _ = pages.from_dense(torch.randn(n_docs, dp, generator=g, device=dev), tok, mask)
+        store.alive[[5, 9]] = False
+        psi = Psi.init(d, dp, torch.Generator().manual_seed(seed), device=dev)
+        rr = LemurRetriever.from_arrays(LemurConfig(d=d, d_prime=dp, k=50, k_prime=1024), psi,
+                                        store, generator=torch.Generator().manual_seed(seed))
+        if n_docs == 3000:         # a cuda mesh refuses a retriever on the CPU
+            try:
+                LemurRetriever(rr.index._replace(store=store.to("cpu"))).shard(mesh)
+            except ValueError:
+                pass
+            else:
+                raise CheckFailed("a cuda mesh sharded a retriever whose tensors are on the CPU")
+        sr = rr.shard(mesh)
+        qq = norm(torch.randn(4, 8, d, generator=g, device=dev), dim=-1)
+        qqm = torch.rand(4, 8, generator=g, device=dev) > 0.2
+        qqm[:, 0] = True
+        s, i = sr.search(qq, qqm, SearchParams(use_ann=False, use_one_launch=True))
+        plain = sharded_plain(torch, sr.state, qq, qqm, 4096, 50)
+        err, _, _ = same_topk(torch, s, i, plain["scores"], plain["ids"], 1e-5,
+                              f"sharded one-launch ragged ({n_docs} docs)", exact_ties=False)
+        dead = torch.tensor([5, 9], dtype=i.dtype, device=dev)
+        require(bool((i >= 0).all()) and not bool(torch.isin(i, dead).any()),
+                "sharded one-launch ragged: a free or tombstoned row")
+        errs[f"sharded_one_launch_{sr.rows_per_shard}_rows"] = err
+    return errs
+
+
+def sharded_phase(torch, args, r, batches):
+    """Corpus-sharded serving (``LemurRetriever.shard``) on one rank of an
+    NCCL process group over the served index at full width: the SQ8 block
+    of 2^20 rows through three routes, then an fp32 block of a base cut to
+    FP32_CUT slots through the default route and against the base's exact
+    scan.  Counters from 0 around each route.  Returns (sharded line,
+    kernel rows)."""
+    import gc
+
+    from repro_torch import dist
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core import pages
+    from repro_torch.core.model import pool_queries
+    from repro_torch.dist.serve import latent_scores
+    from repro_torch.kernels import gather_scan, ops, query_fused, ref
+    from repro_torch.retriever import SearchParams
+    from repro_torch.retriever.facade import first_stage
+
+    store = r.index.store
+    m = int(store.n_docs[0])
+    line, rows = {}, []
+    with nccl_mesh(torch) as mesh:
+        ragged = sharded_ragged_case(torch, args.seed, mesh)
+        print(f"ragged case of rerank_gather_scores, mips_topk at kp 4096 and the sharded "
+              f"one-launch route ok: max abs err {ragged}", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sr = r.shard(mesh)                          # cfg.ivf.sq8: the SQ8 block
+        torch.cuda.synchronize()
+        t_fill = time.time() - t0
+        st = sr.state
+        p0 = sr.resolve(SearchParams(use_ann=False))
+        kp = dist.default_k_prime_local(p0.k, p0.k_prime, 1)
+        require(sr.sq8 and st.W.dtype == torch.int8 and sr.rows_per_shard == pages.next_pow2(m)
+                and st.doc_tokens.shape[1:] == (80, 128) and kp == 4096,
+                f"sharded state {sr!r}, rows {sr.rows_per_shard}, kp {kp}")
+        print(f"sharded SQ8 block: {sr.rows_per_shard} rows filled in {t_fill:.1f} s",
+              flush=True)
+        plains = [sharded_plain(torch, st, q, qm, kp, p0.k) for q, qm, _ in batches]
+        line.update(world_size=1, backend="nccl", mesh="(1,) ('model',)",
+                    rows_per_shard=sr.rows_per_shard, m=m, k=p0.k, k_prime=p0.k_prime,
+                    k_prime_local=kp, sq8_fill_s=t_fill,
+                    sq8_block_bytes={n: t.numel() * t.element_size() for n, t in (
+                        ("W", st.W), ("W_scales", st.W_scales), ("doc_tokens", st.doc_tokens),
+                        ("doc_scales", st.doc_scales), ("doc_mask", st.doc_mask))},
+                    reduced={"m": m, "from": MSMARCO_DOCS, "legacy_batch": 16,
+                             "fp32_block_slots": FP32_CUT,
+                             "why": "one card: the served index (800k docs) and its SQ8 "
+                                    "block fit beside each other; an fp32 block of 2^20 "
+                                    "rows would be 43 GB of tokens; the legacy route's "
+                                    "gathered slab at 256 queries would be 43 GB"})
+        outs = {}
+        for name, (kw, batch, kernels) in SHARD_ROUTES.items():
+            params = SearchParams(**kw)
+            B = min(batch or args.batch, args.batch)
+            ops.reset_launch_counts()
+            lat, res = [], []
+            for i, (q, qm, _) in enumerate(batches):
+                q, qm = q[:B], qm[:B]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, ids = sr.search(q, qm, params)
+                torch.cuda.synchronize()
+                if i:
+                    lat.append(time.perf_counter() - t0)
+                res.append((s, ids))
+            launches = ops.launch_counts()
+            want = {k: (len(batches) if k in kernels else 0) for k in launches}
+            require(launches == want, f"route {name}: launches {launches}, expected {want}")
+            ties = {"candidates": 0, "final": 0}
+            for (q, qm, _), (s, ids), plain in zip(batches, res, plains):
+                q, qm = q[:B], qm[:B]
+                plain = {k: v[:B] for k, v in plain.items()}
+                require(s.shape == (B, p0.k) and bool(torch.isfinite(s).all())
+                        and bool((ids >= 0).all()) and bool((ids < m).all()),
+                        f"route {name}: scores or ids malformed")
+                require(bool(store.alive[ids.long()].all()),
+                        f"route {name}: a free or tombstoned row in the top-k")
+                cand = None
+                if bool((ids != plain["ids"]).any()):
+                    cand = port_candidates(torch, st, q, qm, kp, "one_launch" in name)
+                kinds = classify_exact(torch, st.W, st.W_scales, ids, s, cand, plain)
+                for kk, v in kinds.items():
+                    ties[kk] += v
+                # one shard: a doc's row is its slot id
+                exact = ref.rerank_scores_ref(q, qm, ids, st.doc_tokens, st.doc_mask,
+                                              st.doc_scales, chunk=25)
+                torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+                require(bool((s[:, :-1] >= s[:, 1:]).all()), f"route {name}: not sorted")
+            lat_ms = [1e3 * x for x in lat]
+            line[name] = dict(
+                params=repr(params), batch=B, batches=len(lat),
+                p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
+                qps=B * len(lat) / sum(lat), launches={k: v for k, v in launches.items() if v},
+                near_tie_rows=ties, rows_checked=B * len(batches))
+            outs[name] = res
+            print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, near-tie rows {ties}",
+                  flush=True)
+        line["one_launch_rows_differing_from_fused"] = int(sum(
+            int((a[1] != b[1]).any(1).sum()) for a, b in
+            zip(outs["sharded_fused"], outs["sharded_one_launch"])))
+        launches_by_kernel = {
+            "rerank_gather_scores": line["sharded_fused"]["launches"]["rerank_gather_scores"],
+            "mips_topk": line["sharded_one_launch"]["launches"]["mips_topk"]}
+        del outs, plains
+
+        # the default route's stages alone, and the kernels at the served shape
+        q, qm, _ = batches[1]
+        B, Tq, d = q.shape
+        psi_q = pool_queries(st.psi, q, qm)
+        lat_ms = time_ms(torch, lambda: latent_scores(psi_q, st.W, st.W_scales), n=5)
+        s_lat = latent_scores(psi_q, st.W, st.W_scales).masked_fill_(~st.row_valid[None, :],
+                                                                      ref.NEG)
+        sort_ms = time_ms(torch, lambda: stable_topk(s_lat, kp), n=5)
+        cand = stable_topk(s_lat, kp)[1].int()
+        del s_lat
+        args_k = (q, qm, cand, st.doc_tokens, st.doc_mask, st.doc_scales)
+        rows.append(rerank_gather_row(torch, "sq8", args_k, launches_by_kernel, ragged))
+        line["stages_ms"] = {"latent_product": lat_ms, "latent_sort": sort_ms,
+                             "rerank_kernel": rows[-1]["ms"]}
+        print(f"sharded stages: latent product {lat_ms:.3f} ms, its stable top-{kp} "
+              f"{sort_ms:.3f} ms", flush=True)
+        margs = (psi_q, st.W, st.W_scales, st.row_valid)
+        err, near_ties, _ = same_topk(torch, *query_fused.mips_topk(*margs, kp=kp),
+                                      *ref.mips_topk_ref(*margs, kp=kp, chunk=64), SQ8_RTOL,
+                                      "mips_topk sq8 kp 4096", exact_ties=False)
+        live = int(st.row_valid.sum())
+        n_rows = st.W.shape[0]
+        ms = time_ms(torch, lambda: query_fused.mips_topk(*margs, kp=kp), n=10)
+        plain_ms = time_ms(torch, lambda: ref.mips_topk_ref(*margs, kp=kp, chunk=64), n=3,
+                           warmup=1)
+        b_ms, b_by = bound(psi_q.numel() * 4 + live * (st.W.shape[1] + 4) + n_rows
+                           + 2 * B * kp * 4, 2 * B * live * st.W.shape[1])
+        rows.append(dict(
+            name="mips_topk", variant="sq8, k' 4096 (sharded one-launch route)", route="cuda",
+            source="src/repro_torch/csrc/query_fused.cu",
+            replaces="src/repro/kernels/query_fused.py:354",
+            launches=launches_by_kernel["mips_topk"], max_abs_err=err,
+            ragged_max_abs_err=ragged["mips_topk_kp4096"],
+            tolerance=f"{SQ8_RTOL} x max(1, max|plain|)",
+            shape=f"B {B} x {n_rows} block rows ({live} valid) x d' {st.W.shape[1]} int8, "
+                  f"k' {kp}", ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, near_tie_ids=near_ties, library_ms=None,
+            launches_per_search=launches_by_kernel["mips_topk"] // len(batches)))
+        print(f"mips_topk (sq8, kp {kp}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by})", flush=True)
+        line["traced_batch"] = profile_batch(torch, sr, q, qm)
+        line["sq8_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del sr, st, args_k, margs, cand, psi_q
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the fp32 block, over a base cut to FP32_CUT slots of the same corpus
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rc = cut_base(torch, r, FP32_CUT)
+        src = rc.shard(mesh, sq8=False)
+        torch.cuda.synchronize()
+        t_cut = time.time() - t0
+        st = src.state
+        params = SearchParams(use_ann=False)
+        ops.reset_launch_counts()
+        lat, res = [], []
+        for i, (q, qm, _) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.append(src.search(q, qm, params))
+            torch.cuda.synchronize()
+            if i:
+                lat.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        want = {k: (len(batches) if k in SHARD_ROUTES["sharded_fused"][2] else 0)
+                for k in launches}
+        require(launches == want, f"fp32 block: launches {launches}, expected {want}")
+        ties = {"candidates": 0, "final": 0}
+        for (q, qm, _), (s, ids) in zip(batches, res):
+            plain = sharded_plain(torch, st, q, qm, kp, p0.k)
+            require(bool((ids >= 0).all()) and bool(rc.index.store.alive[ids.long()].all()),
+                    "fp32 block: a free or tombstoned row in the top-k")
+            cand = None
+            if bool((ids != plain["ids"]).any()):
+                cand = port_candidates(torch, st, q, qm, kp, False)
+            kinds = classify_exact(torch, st.W, st.W_scales, ids, s, cand, plain)
+            for kk, v in kinds.items():
+                ties[kk] += v
+            exact = ref.rerank_scores_ref(q, qm, ids, st.doc_tokens, st.doc_mask, chunk=25)
+            torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+        lat_ms = [1e3 * x for x in lat]
+        line["sharded_fp32_cut"] = dict(
+            params=repr(params), batch=args.batch, batches=len(lat), slots=FP32_CUT,
+            rows_per_shard=src.rows_per_shard, fill_s=t_cut,
+            p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
+            qps=args.batch * len(lat) / sum(lat),
+            launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
+            rows_checked=args.batch * len(batches))
+        print(f"route sharded_fp32_cut ok: p50 {line['sharded_fp32_cut']['p50_ms']:.3f} ms, "
+              f"near-tie rows {ties}", flush=True)
+        q, qm, _ = batches[1]
+        psi_q = pool_queries(st.psi, q, qm)
+        cand = port_candidates(torch, st, q, qm, kp, False)
+        rows.append(rerank_gather_row(
+            torch, "fp32", (q, qm, cand, st.doc_tokens, st.doc_mask, None),
+            {"rerank_gather_scores": launches["rerank_gather_scores"]}, ragged,
+            note=f" over the fp32 block of the first {FP32_CUT} slots"))
+        del res, src, st, cand, psi_q
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the same cut base: sharded (k'_loc = 1024) against its exact scan
+        s1 = rc.shard(mesh, sq8=False, k_prime_local=p0.k_prime)
+        pb = rc.resolve(params)
+        cmp = {"rows_differing": 0, "sharded_near_ties": {"candidates": 0, "final": 0},
+               "base_near_ties": {"candidates": 0, "final": 0}}
+        for q, qm, _ in batches:
+            ss, si = s1.search(q, qm, params)
+            bs, bi = rc.search(q, qm, params)
+            plain = sharded_plain(torch, s1.state, q, qm, p0.k_prime, p0.k)
+            cand = None
+            if bool((si != plain["ids"]).any()):
+                cand = port_candidates(torch, s1.state, q, qm, p0.k_prime, False)
+            for kk, v in classify_exact(torch, s1.state.W, s1.state.W_scales, si, ss, cand,
+                                          plain).items():
+                cmp["sharded_near_ties"][kk] += v
+            cand = first_stage(rc.index, q, qm, pb) if bool((bi != plain["ids"]).any()) else None
+            for kk, v in classify_exact(torch, s1.state.W, s1.state.W_scales, bi, bs, cand,
+                                          plain).items():
+                cmp["base_near_ties"][kk] += v
+            # rows whose ids agree agree in score (a k' boundary near-tie
+            # lets another candidate in, which may move the whole row)
+            same = (si == bi).all(1)
+            cmp["rows_differing"] += int((~same).sum())
+            torch.testing.assert_close(ss[same], bs[same], rtol=1e-5, atol=1e-4)
+        explained = sum(cmp["sharded_near_ties"].values()) + sum(cmp["base_near_ties"].values())
+        require(cmp["rows_differing"] <= explained,
+                f"sharded and base ids differ on rows that match the plain composition: {cmp}")
+        line["fp32_cut_vs_base_exact_scan"] = dict(k_prime_local=p0.k_prime,
+                                                   rows_checked=args.batch * len(batches), **cmp)
+        print(f"sharded fp32 (k'_loc {p0.k_prime}) against the base's exact scan: {cmp}",
+              flush=True)
+        del s1, rc
+    line.update(card=card_line(), ragged_max_abs_err=ragged,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return line, rows
+
+
+def rerank_gather_row(torch, variant, args_k, launches_by_kernel, ragged, note=""):
+    """rerank_gather_scores at the served shape against its plain version:
+    max abs error, kernel and plain times, the bound."""
+    from repro_torch.kernels import gather_scan, ref
+
+    q, qm, cand, toks, dm, scales = args_k
+    got = gather_scan.rerank_gather_scores(*args_k)
+    want = ref.rerank_scores_ref(*args_k, chunk=128)
+    err = float((got - want).abs().max())
+    require(err <= 1e-4 + 1e-5 * float(want.abs().max()),
+            f"rerank_gather_scores {variant}: max abs err {err}")
+    del got, want
+    ms = time_ms(torch, lambda: gather_scan.rerank_gather_scores(*args_k))
+    plain_ms = time_ms(torch, lambda: ref.rerank_scores_ref(*args_k, chunk=128), n=3, warmup=1)
+    sq8 = scales is not None
+    nbytes, flops = rerank_gather_cost(torch, q, qm, cand, dm, q.shape[2] * (1 if sq8 else 4)
+                                       + (4 if sq8 else 0))
+    b_ms, b_by = bound(nbytes, flops)
+    B, Tq, d = q.shape
+    print(f"rerank_gather_scores ({variant}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by})", flush=True)
+    return dict(
+        name="rerank_gather_scores", variant=variant, route="cuda",
+        source="src/repro_torch/csrc/rerank_gather.cu",
+        replaces="src/repro/kernels/gather_scan.py:183",
+        launches=launches_by_kernel["rerank_gather_scores"], max_abs_err=err,
+        ragged_max_abs_err=ragged[f"rerank_gather_{variant}"],
+        tolerance="1e-4 + 1e-5 x max|plain|",
+        shape=f"B {B} x k'_loc {cand.shape[1]} candidates, Tq {Tq}, Td {toks.shape[1]}, "
+              f"d {d}, {variant} tokens{note}", ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes), flops=int(flops), library_ms=None,
+        launches_per_search=1, cuda_launches_per_call=1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -1492,13 +2011,14 @@ def main():
     print(json.dumps({"build": build_line}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    serving, routes, residual, kernels = serve_and_check(torch, args)
+    serving, routes, residual, sharded, kernels = serve_and_check(torch, args)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
     kernels.append(maxsim_row)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1506,8 +2026,8 @@ def main():
 
 
 def serve_and_check(torch, args):
-    """Phases 2-7 on the card; returns (serving numbers, routes line,
-    residual line, kernel rows)."""
+    """Phases 2-8 on the card; returns (serving numbers, routes line,
+    residual line, sharded line, kernel rows)."""
     import gc
 
     from repro_torch.anns.ivf import default_nlist
@@ -1705,7 +2225,13 @@ def serve_and_check(torch, args):
     torch.cuda.empty_cache()
     residual, res_rows = residual_phase(torch, args, r, batches, truth,
                                         routes["default_ivf"]["recall_at_10"], res_ragged)
-    return serving, routes, residual, kernels + new_rows + res_rows
+
+    # -- 8. sharded serving, the residual tier freed -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sharded, sh_rows = sharded_phase(torch, args, r, batches)
+    return serving, routes, residual, sharded, kernels + new_rows + res_rows + sh_rows
 
 
 if __name__ == "__main__":

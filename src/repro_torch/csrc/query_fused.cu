@@ -46,7 +46,8 @@
 //    rows to NEG (their positions kept), and a warp folds each query's
 //    entries that beat its list into the list (k' pairs a query in shared
 //    memory); a second launch merges each query's splits.  The lists cap a
-//    block at one an SM and 8 queries, so W is read 32 times from L2 at
+//    block at one an SM and 8 queries (4 above k' = 2048, up to 4096, the
+//    sharded path's default on one shard), so W is read 32 times from L2 at
 //    B = 256: this pass serves small inputs and the sample below.
 //  - filtered (mips_topk_filtered), past 128 k' rows: the exact pass over
 //    every 32nd row (the wrapper slices it) gives each query a score its
@@ -67,6 +68,10 @@
 namespace {
 
 constexpr int kMaxKp = 2048;  // the largest k' a list holds (the wrapper's MAX_KP)
+// The dense scan's largest k' (the wrapper's MAX_KP_DENSE).  Its exact pass
+// keeps a list a query in shared memory for kTileQ queries a block up to
+// kMaxKp, and for kTileQ / 2 above (4096 x 8 bytes x 8 queries would not fit).
+constexpr int kMaxKpDense = 4096;
 constexpr int kChunk = 256;  // slots scored between two folds (a power of two)
 constexpr int kWarps = kPsiThreads / 32;
 constexpr int kRowsAtOnce = 4;  // rows a warp scores together
@@ -344,23 +349,24 @@ __global__ void __launch_bounds__(kTileThreads)
 mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
                        const float* __restrict__ scales, const uint8_t* __restrict__ valid,
                        float* __restrict__ part_s, int* __restrict__ part_p, int B, int m,
-                       int D, int kp, int rows_per_split, int vec) {
+                       int D, int kp, int nq, int rows_per_split, int vec) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int n_in[kTileQ];
   __shared__ float th_s[kTileQ];
   __shared__ int th_p[kTileQ];
   constexpr int kSplitWarps = kTileThreads / 32;
-  float* ts = sm + kTileSmemFloats;                         // kTileQ lists of kp
-  int* tp = reinterpret_cast<int*>(ts + kTileQ * kp);
-  float* es = reinterpret_cast<float*>(tp + kTileQ * kp);   // a tile's entries
-  int* ep = reinterpret_cast<int*>(es + kTileQ * kTileRows);
+  float* ts = sm + kTileSmemFloats;                         // nq lists of kp
+  int* tp = reinterpret_cast<int*>(ts + nq * kp);
+  float* es = reinterpret_cast<float*>(tp + nq * kp);       // a tile's entries
+  int* ep = reinterpret_cast<int*>(es + nq * kTileRows);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b0 = blockIdx.x * kTileQ, split = blockIdx.y, S = gridDim.y;
+  const int b0 = blockIdx.x * nq, split = blockIdx.y, S = gridDim.y;
+  const int b_end = min(B, b0 + nq);  // the tile scores no query past this block's
   const int row0 = split * rows_per_split;
   const int row1 = min(m, row0 + rows_per_split);
   const WarpGroup g;
   // warp w owns the lists of queries b0 + w, b0 + w + kSplitWarps, ...
-  for (int i = warp; i < kTileQ; i += kSplitWarps) {
+  for (int i = warp; i < nq; i += kSplitWarps) {
     topk_clear(ts + i * kp, tp + i * kp, kp, g);
     if (lane == 0) {
       n_in[i] = 0;
@@ -372,7 +378,7 @@ mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
 
   for (int r0 = row0; r0 < row1; r0 += kTileRows) {
     float acc[kTileQ][kTileRowsPerThread];
-    score_tile<T>(q, B, b0, Wr, row1, r0, D, vec != 0, sm, acc);
+    score_tile<T>(q, b_end, b0, Wr, row1, r0, D, vec != 0, sm, acc);
 #pragma unroll
     for (int j = 0; j < kTileRowsPerThread; ++j) {
       const int row = r0 + kTileRowsPerThread * tid + j;
@@ -381,7 +387,7 @@ mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
       const bool ok = valid == nullptr || valid[row] != 0;
 #pragma unroll
       for (int i = 0; i < kTileQ; ++i) {
-        if (b0 + i >= B) break;
+        if (b0 + i >= b_end) break;
         float s = scales != nullptr ? acc[i][j] * sc : acc[i][j];
         if (!ok) s = LEMUR_NEG;
         if (better(s, row, th_s[i], th_p[i])) {
@@ -392,7 +398,7 @@ mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
       }
     }
     __syncthreads();
-    for (int i = warp; i < kTileQ; i += kSplitWarps) {
+    for (int i = warp; i < nq; i += kSplitWarps) {
       const int n = n_in[i];
       if (n == 0) continue;                                 // warp-uniform
       float* e_s = es + i * kTileRows;
@@ -407,7 +413,7 @@ mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
     }
     __syncthreads();
   }
-  for (int i = warp; i < kTileQ; i += kSplitWarps) {
+  for (int i = warp; i < nq; i += kSplitWarps) {
     if (b0 + i >= B) break;
     const size_t o = ((size_t)(b0 + i) * S + split) * kp;
     for (int e = lane; e < kp; e += 32) {
@@ -418,7 +424,7 @@ mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
 }
 
 constexpr int kMergeThreads = 256;
-constexpr int kMergeMaxPer = kMaxKp / kMergeThreads;
+constexpr int kMergeMaxPer = kMaxKpDense / kMergeThreads;
 
 __global__ void __launch_bounds__(kMergeThreads)
 mips_topk_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_p,
@@ -457,16 +463,17 @@ template <typename T>
 int launch_mips_topk(const float* q, const T* W, const float* scales, const uint8_t* valid,
                      float* part_s, int* part_p, float* out_s, int* out_i, int B, int m,
                      int D, int kp, int S, cudaStream_t stream) {
-  if (kp < 1 || kp > kMaxKp) return (int)cudaErrorInvalidValue;
+  if (kp < 1 || kp > kMaxKpDense) return (int)cudaErrorInvalidValue;
+  const int nq = kp > kMaxKp ? kTileQ / 2 : kTileQ;  // queries a block (the wrapper's too)
   const int tiles = (m + kTileRows - 1) / kTileRows;
   const int rows_per_split = (tiles + S - 1) / S * kTileRows;
-  const size_t smem = (kTileSmemFloats + 2 * (size_t)kTileQ * kp + 2 * (size_t)kTileQ * kTileRows)
+  const size_t smem = (kTileSmemFloats + 2 * (size_t)nq * kp + 2 * (size_t)nq * kTileRows)
                       * sizeof(float);
   cudaError_t err = allow_smem(mips_topk_split_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((B + kTileQ - 1) / kTileQ), (unsigned)S);
+  const dim3 grid((unsigned)((B + nq - 1) / nq), (unsigned)S);
   mips_topk_split_kernel<T><<<grid, kTileThreads, smem, stream>>>(
-      q, W, scales, valid, part_s, part_p, B, m, D, kp, rows_per_split,
+      q, W, scales, valid, part_s, part_p, B, m, D, kp, nq, rows_per_split,
       (int)tile_vectorized(W, D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -593,7 +600,7 @@ int launch_filtered(const float* q, const T* W, const float* scales, const uint8
                     const float* thr, int* cnt, float* buf_s, int* buf_p, int cap,
                     float* out_s, int* out_i, int* overflow, int B, int m, int D, int kp,
                     cudaStream_t stream) {
-  if (kp < 1 || kp > kMaxKp) return (int)cudaErrorInvalidValue;
+  if (kp < 1 || kp > kMaxKpDense) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(cnt, 0, (size_t)B * sizeof(int), stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(overflow, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;

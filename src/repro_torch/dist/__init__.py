@@ -1,0 +1,28 @@
+"""Multi-device layer of the port: the LEMUR corpus-sharded serving and
+indexing steps on ``torch.distributed`` (:mod:`repro_torch.dist.serve`);
+the user-facing wrapper is :meth:`repro_torch.retriever.LemurRetriever.shard`.
+The JAX package's sharding rule tables (``repro/dist/sharding.py``) serve
+its model cells and wait for them (ROADMAP Queue 1 item 10)."""
+from repro_torch.dist.serve import (
+    ShardedRetrievalState,
+    corpus_axes,
+    default_k_prime_local,
+    local_rows,
+    make_index_step,
+    make_serve_step,
+    merge,
+    n_corpus_shards,
+    shard_index,
+)
+
+__all__ = [
+    "ShardedRetrievalState",
+    "corpus_axes",
+    "default_k_prime_local",
+    "local_rows",
+    "make_index_step",
+    "make_serve_step",
+    "merge",
+    "n_corpus_shards",
+    "shard_index",
+]

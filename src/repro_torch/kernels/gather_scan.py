@@ -1,12 +1,14 @@
-"""Gather-at-source serving kernels: the IVF probe scan and the paged
-MaxSim rerank, over fp32/SQ8 data and over the residual codec's packed
-codes (twins of ``repro/kernels/gather_scan.py``).
+"""Gather-at-source serving kernels: the IVF probe scan, the paged MaxSim
+rerank and the dense-store rerank of the sharded path, over fp32/SQ8 data
+and over the residual codec's packed codes (twins of
+``repro/kernels/gather_scan.py``).
 
 Each wrapper takes the plain version in :mod:`repro_torch.kernels.ref` for
 tensors on the CPU and launches its CUDA kernel (``csrc/ivf_probe_scan.cu``,
-``csrc/rerank_paged.cu``, ``csrc/ivf_probe_res_scan.cu``,
-``csrc/rerank_paged_res.cu``) for tensors on a CUDA device; there is no
-fall-back between the two.  ``<wrapper>.launches`` counts kernel launches.
+``csrc/rerank_paged.cu``, ``csrc/rerank_gather.cu``,
+``csrc/ivf_probe_res_scan.cu``, ``csrc/rerank_paged_res.cu``) for tensors on
+a CUDA device; there is no fall-back between the two.
+``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -101,6 +103,56 @@ def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
 
 
 rerank_paged_scores.launches = 0
+
+
+def rerank_gather_scores(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=None):
+    """Exact MaxSim of each query against its own candidates in a dense
+    (m, Td, d) token store, each candidate's slab read at the source.
+
+    q: (B, Tq, d) fp32; q_mask: (B, Tq) bool; cand_ids: (B, k') int32 (-1
+    padded: pads score doc 0 and are masked by the caller); doc_tokens: (m,
+    Td, d) fp32, or int8 codes with doc_scales (m, Td) fp32 folded into the
+    score rows; doc_mask: (m, Td) bool, any pattern -> (B, k') fp32 raw pair
+    scores.  The kernel takes d % 4 == 0 (fp32) or d % 16 == 0 (SQ8)."""
+    if q.device.type == "cpu":
+        return ref.rerank_scores_ref(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales)
+    B, Tq, d = q.shape
+    kp = cand_ids.shape[1]
+    m, Td, _ = doc_tokens.shape
+    dev = q.device
+    sq8 = doc_scales is not None
+    if d % (16 if sq8 else 4) or B > 65535 or m == 0:
+        raise ValueError(f"rerank_gather_scores kernel takes d % {16 if sq8 else 4} == 0, "
+                         f"B <= 65535 and m > 0 (got d={d}, B={B}, m={m})")
+    build.expect(q, "q", torch.float32, (B, Tq, d), dev)
+    build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev, align=1)
+    build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev, align=4)
+    build.expect(doc_tokens, "doc_tokens", torch.int8 if sq8 else torch.float32, (m, Td, d),
+                 dev)
+    build.expect(doc_mask, "doc_mask", torch.bool, (m, Td), dev, align=1)
+    if sq8:
+        build.expect(doc_scales, "doc_scales", torch.float32, (m, Td), dev, align=4)
+    out = torch.empty((B, kp), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build.library("rerank_gather")
+    common = (q.data_ptr(), q_mask.data_ptr(), cand_ids.data_ptr(), doc_tokens.data_ptr(),
+              doc_mask.data_ptr())
+    if sq8:
+        fn = lib.rerank_gather_sq8
+        fn.argtypes = [_p] * 7 + [_i] * 6 + [_p]
+        err = fn(*common, doc_scales.data_ptr(), out.data_ptr(), B, Tq, d, kp, Td, m,
+                 build.stream_ptr(q))
+    else:
+        fn = lib.rerank_gather_fp32
+        fn.argtypes = [_p] * 6 + [_i] * 6 + [_p]
+        err = fn(*common, out.data_ptr(), B, Tq, d, kp, Td, m, build.stream_ptr(q))
+    build.check(lib, err, "rerank_gather_scores")
+    rerank_gather_scores.launches += 1
+    return out
+
+
+rerank_gather_scores.launches = 0
 
 
 def residual_bits(values: torch.Tensor, d: int, *, words: bool = False) -> int:

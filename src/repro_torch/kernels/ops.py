@@ -21,7 +21,7 @@ from repro_torch.kernels.ref import NEG
 #: token MaxSim and the unpooled psi (the psi-pool kernel's other form), the
 #: other search routes' one-launch IVF, dense scan and SQ8 scan (both
 #: ``mips_sq8`` entries count on ``mips_sq8``), then the residual tier's
-#: scan, rerank and one-launch IVF
+#: scan, rerank and one-launch IVF, and the sharded path's dense-store rerank
 KERNELS = {
     "fused_psi_pool": _fp.fused_psi_pool,
     "ivf_probe_scan": _gs.ivf_probe_scan,
@@ -34,6 +34,7 @@ KERNELS = {
     "ivf_probe_res_scan": _gs.ivf_probe_res_scan,
     "rerank_paged_res_scores": _gs.rerank_paged_res_scores,
     "query_fused_res": _qf.query_fused_res,
+    "rerank_gather_scores": _gs.rerank_gather_scores,
 }
 
 
@@ -53,6 +54,15 @@ def maxsim_scores(q, q_mask, doc_tokens, doc_mask, *, chunk: int | None = None):
     g = _mx.token_maxsim(q.reshape(B * Tq, d), doc_tokens, doc_mask, chunk=chunk)
     g = g.reshape(B, Tq, doc_tokens.shape[0])
     return torch.where(q_mask[:, :, None], g, 0.0).sum(1)
+
+
+def fused_rerank(q, q_mask, cand_ids, doc_tokens, doc_mask, k: int, *, doc_scales=None):
+    """Dense-store exact-MaxSim rerank -> (scores, ids), (B, k): each
+    candidate's (Td, d) slab read at the source, fp32 or SQ8 codes with
+    ``doc_scales`` (m, Td) folded into the score rows.  The pad rules of
+    :func:`fused_rerank_paged` (``repro/kernels/ops.py:138-165``)."""
+    s = _gs.rerank_gather_scores(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales)
+    return _rerank_topk(s, cand_ids, k)
 
 
 def fused_rerank_paged(q, q_mask, cand_ids, tok_pages, page_table, n_tokens,

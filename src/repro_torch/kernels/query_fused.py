@@ -23,15 +23,18 @@ from repro_torch.kernels.gather_scan import residual_bits
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-#: the largest k' the kernels keep in shared memory (the dense scan keeps 8
-#: queries' lists of k' (score, position) pairs, 128 KB at 2048)
+#: the largest k' the one-launch IVF kernels keep in shared memory
 MAX_KP = 2048
+#: the dense scan's: its exact pass keeps 8 queries' lists of k' (score,
+#: position) pairs a block up to MAX_KP (128 KB at 2048) and 4 queries' above
+#: (128 KB at 4096, the sharded path's default k' on one shard)
+MAX_KP_DENSE = 4096
 MAX_D_PRIME = 4096   # the psi-pool's register tile, as in fused_psi
 
 
-def _check_kp(kp: int, what: str) -> None:
-    if not 1 <= kp <= MAX_KP:
-        raise ValueError(f"{what} kernel keeps 1 <= kp <= {MAX_KP} in shared "
+def _check_kp(kp: int, what: str, limit: int = MAX_KP) -> None:
+    if not 1 <= kp <= limit:
+        raise ValueError(f"{what} kernel keeps 1 <= kp <= {limit} in shared "
                          f"memory, got kp={kp}")
 
 
@@ -167,11 +170,13 @@ def _mips_exact(lib, q, W, W_scales, valid, kp):
     """The exact pass: row splits, each a carried top-kp, then their merge."""
     B, dp = q.shape
     m = W.shape[0]
-    # row splits: one wave of blocks (8 queries x a split each, one block an
-    # SM for its shared memory), and no split without a 512-row tile
+    # row splits: one wave of blocks (8 queries x a split each, 4 above
+    # MAX_KP, one block an SM for its shared memory), and no split without a
+    # 512-row tile
     tiles = max(1, -(-m // 512))
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    S = max(1, min(tiles, sms // -(-B // 8)))
+    nq = 8 if kp <= MAX_KP else 4
+    S = max(1, min(tiles, sms // -(-B // nq)))
     part_s = torch.empty((B, S, kp), dtype=torch.float32, device=q.device)
     part_p = torch.empty((B, S, kp), dtype=torch.int32, device=q.device)
     out_s = torch.empty((B, kp), dtype=torch.float32, device=q.device)
@@ -192,7 +197,7 @@ def mips_topk(q, W, W_scales=None, valid=None, *, kp: int, chunk: int | None = N
     q: (B, d') fp32; W: (m, d') fp32, or int8 codes with W_scales (m,) fp32;
     valid: (m,) bool or None, invalid rows scored NEG with their positions
     kept -> (scores (B, kp) fp32, row positions (B, kp) int32), short rows
-    padded with (-inf, -1).  The kernel takes kp <= MAX_KP; ``chunk`` bounds
+    padded with (-inf, -1).  The kernel takes kp <= MAX_KP_DENSE; ``chunk`` bounds
     the plain version's score matrix (query rows at a time).
 
     On the card, past FILTER_MIN_ROWS x kp rows: the exact pass over every
@@ -207,7 +212,7 @@ def mips_topk(q, W, W_scales=None, valid=None, *, kp: int, chunk: int | None = N
     B, dp = q.shape
     m = W.shape[0]
     dev = q.device
-    _check_kp(kp, "mips_topk")
+    _check_kp(kp, "mips_topk", MAX_KP_DENSE)
     if m >= 2 ** 31 - 1:
         raise ValueError(f"mips_topk kernel takes m < 2^31 - 1, got {m}")
     build.expect(q, "q", torch.float32, (B, dp), dev, align=4)

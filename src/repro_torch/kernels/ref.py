@@ -6,9 +6,10 @@ for CPU tensors, the CPU tests hold them against the JAX oracles, and
 here materialise what the kernels stream; at the serving shapes the scan's
 gather alone is (B, nprobe, cap, d') fp32 — tens of GB — so the scans, the
 reranks, the pool, the one-launch first stages, the dense scan and the
-batched SQ8 scan take ``chunk``: that many query rows at a time.  The token
-MaxSim twins materialise (n, m, T) scores and take ``chunk`` over docs
-instead.  The residual twins decode what they gather with
+batched SQ8 scan take ``chunk``: that many query rows at a time.  The dense
+rerank over an (m, Td, d) store takes ``chunk`` candidates a query at a
+time, and the token MaxSim twins, which materialise (n, m, T) scores,
+``chunk`` docs.  The residual twins decode what they gather with
 ``quantization.residual_decode`` (one fp32 add an element, the kernels'
 decode) and then score as the fp32 twins do.
 """
@@ -113,6 +114,30 @@ def ivf_scan_res_ref(q, probe, ids, codes, centroids, values, *,
         sc = torch.einsum("bd,bpcd->bpc", q[s:e].float(), v)
         out.append(torch.where(gids >= 0, sc, float("-inf")))
     return torch.cat(out, 0)
+
+
+def rerank_scores_ref(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=None, *,
+                      chunk: int | None = None):
+    """Exact MaxSim of each query against its own candidates in a dense
+    store: gather the (B, k', Td, d) candidate slab and contract it.  SQ8
+    tokens (int8 codes with doc_scales (m, Td)) score the fp32 dot with the
+    widened codes times the token's scale.  Masked tokens score NEG, masked
+    query tokens add 0; ``-1`` candidates score doc 0 and are masked by the
+    caller.  q: (B, Tq, d); cand_ids: (B, k') -> (B, k') fp32.  ``chunk``
+    bounds the slab: that many candidates a query at a time."""
+    B, kp = cand_ids.shape
+    safe_all = cand_ids.clamp_min(0).long()
+    out = []
+    for s, e in _chunks(kp, chunk):
+        safe = safe_all[:, s:e]
+        cd = doc_tokens[safe]                            # (B, c, Td, d)
+        sc = torch.einsum("bqd,bmtd->bmqt", q, cd.to(q.dtype))
+        if doc_scales is not None:
+            sc = sc * doc_scales[safe].float()[:, :, None, :]
+        sc = torch.where(doc_mask[safe].bool()[:, :, None, :], sc, NEG)
+        best = torch.where(q_mask[:, None, :].bool(), sc.amax(-1), 0.0)   # (B, c, Tq)
+        out.append(best.sum(-1))
+    return torch.cat(out, 1) if out else q.new_empty((B, 0))
 
 
 def rerank_scores_paged_ref(q, q_mask, cand_ids, tok_pages, page_table,

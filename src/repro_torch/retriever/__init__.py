@@ -1,7 +1,10 @@
-"""Serving API of the port: :class:`LemurRetriever` and its typed
-:class:`SearchParams` (the JAX package's ``repro.retriever`` surface)."""
+"""Serving API of the port: :class:`LemurRetriever`, its typed
+:class:`SearchParams` and the corpus-sharded :class:`ShardedLemurRetriever`
+(the JAX package's ``repro.retriever`` surface)."""
 from repro_torch.anns.params import IVFBackendConfig, IVFSearchParams
 from repro_torch.retriever.facade import LemurRetriever
 from repro_torch.retriever.params import SearchParams
+from repro_torch.retriever.sharded import ShardedLemurRetriever
 
-__all__ = ["IVFBackendConfig", "IVFSearchParams", "LemurRetriever", "SearchParams"]
+__all__ = ["IVFBackendConfig", "IVFSearchParams", "LemurRetriever", "SearchParams",
+           "ShardedLemurRetriever"]

@@ -5,6 +5,7 @@
     scores, ids = r.search(q_tokens, q_mask, SearchParams(k=10))
     r.save("my_index/")                                # the JAX package loads it
     r = LemurRetriever.load("my_index/")               # either package's save
+    sr = r.shard(mesh)                                 # torch.distributed DeviceMesh
 
 The build is the JAX build's pipeline: training tokens (§4.2) -> token
 MaxSim targets over m' sampled docs (kernel) -> psi pre-training (Adam,
@@ -311,6 +312,18 @@ class LemurRetriever:
             resolved = (params or SearchParams()).resolve(self.cfg, self.backend)
             self._resolve_memo[params] = resolved
         return resolved
+
+    def shard(self, mesh, *, sq8: bool | None = None, k_prime_local: int | None = None):
+        """Corpus-sharded serving over a ``torch.distributed`` DeviceMesh: a
+        :class:`~repro_torch.retriever.sharded.ShardedLemurRetriever` holding
+        this rank's block of the corpus (every mesh axis shards it).  Call
+        it on every rank with the same retriever, on the mesh's device type.
+        ``sq8`` keeps the block as SQ8 codes (default ``cfg.ivf.sq8``);
+        ``k_prime_local`` is the per-shard candidate budget (default
+        ``dist.default_k_prime_local``: a 4x oversample of k' / n_shards)."""
+        from repro_torch.retriever.sharded import ShardedLemurRetriever
+
+        return ShardedLemurRetriever(self, mesh, sq8=sq8, k_prime_local=k_prime_local)
 
     def launches(self, params: SearchParams | None = None) -> dict[str, int]:
         return launch_plan(self.resolve(params))

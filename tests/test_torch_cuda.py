@@ -119,6 +119,102 @@ def test_rerank_paged_kernel(cuda, B, C, Tq, d, kp, pmax):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,m,Tq,Td,d,kp", [
+    (3, 12, 4, 5, 16, 8), (1, 9, 6, 77, 128, 40),    # B = 1, Td off every tile
+    (2, 300, 32, 80, 128, 300), (2, 20, 40, 16, 32, 7)])   # Tq > 32
+@pytest.mark.parametrize("sq8", [False, True])
+def test_rerank_gather_kernel(cuda, B, m, Tq, Td, d, kp, sq8):
+    """-1 candidates (doc 0), a doc with no valid token, duplicated
+    candidates, a partial query mask; the top-k wrapper with k above k'."""
+    rng = np.random.default_rng(B * m + Td)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    docs = g(rng.standard_normal((m, Td, d)), torch.float32)
+    dm = rng.random((m, Td)) > 0.4
+    dm[3] = False
+    cand = rng.integers(-1, m, (B, kp)).astype(np.int32)
+    cand[0, :2] = 3
+    cand[-1, -1] = cand[-1, 0]
+    args = [g(rng.standard_normal((B, Tq, d)), torch.float32), g(rng.random((B, Tq)) > 0.3),
+            g(cand), *(sq8_quant(docs) if sq8 else (docs, None))]
+    args = args[:4] + [g(dm)] + args[4:]
+    n0 = gather_scan.rerank_gather_scores.launches
+    got = gather_scan.rerank_gather_scores(*args)
+    want = ref.rerank_scores_ref(*args, chunk=64)
+    assert gather_scan.rerank_gather_scores.launches == n0 + 1
+    real = want > ref.NEG / 2
+    torch.testing.assert_close(got[real], want[real], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[~real], want[~real], rtol=1e-6, atol=0.0)
+    s, i = ops.fused_rerank(*args[:5], kp + 3, doc_scales=args[5])
+    s0, i0 = ops.fused_rerank(*(None if a is None else a.cpu() for a in args[:5]), kp + 3,
+                              doc_scales=None if args[5] is None else args[5].cpu())
+    torch.testing.assert_close(s.cpu(), s0, rtol=1e-5, atol=1e-4)
+    assert int((i.cpu() != i0).sum()) <= 1
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group on the card and its ("model",) mesh."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg", world_size=1,
+                             rank=0)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [{}, {"use_one_launch": True}, {"use_fused_gather": False}],
+                         ids=["fused", "one_launch", "legacy"])
+@pytest.mark.parametrize("sq8", [True, False])
+def test_sharded_search_on_card_matches_cpu(nccl_mesh, route, sq8):
+    """LemurRetriever.shard on a one-rank NCCL mesh: the kernels' route
+    (mips_topk, rerank_gather_scores) against the same state's plain
+    composition on the CPU; ids up to near-ties, scores rtol 1e-5."""
+    from repro_torch.dist import ShardedRetrievalState
+    from repro_torch.dist.serve import _local_retrieve
+    from repro_torch.core.model import pool_queries
+
+    rng = np.random.default_rng(9)
+    m, T, d, dp = 700, 37, 128, 256
+    tok = torch.nn.functional.normalize(torch.as_tensor(
+        rng.standard_normal((m, T, d)), dtype=torch.float32), dim=-1)
+    mask = torch.as_tensor(rng.random((m, T)) > 0.3)
+    W = torch.as_tensor(rng.standard_normal((m, dp)), dtype=torch.float32)
+    store, _ = pages.from_dense(W.cuda(), tok.cuda(), mask.cuda())
+    store.alive[[4, 8]] = False
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(0), device="cuda")
+    r = LemurRetriever.from_arrays(LemurConfig(d=d, d_prime=dp, k=20, k_prime=64), psi, store,
+                                   generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="cpu"):
+        LemurRetriever(r.index._replace(store=store.to("cpu"))).shard(nccl_mesh)
+    sr = r.shard(nccl_mesh, sq8=sq8)
+    assert sr.state.W.is_cuda and sr.rows_per_shard == 1024
+    q = torch.as_tensor(rng.standard_normal((16, 8, d)), dtype=torch.float32)
+    qm = torch.as_tensor(rng.random((16, 8)) > 0.2)
+    qm[:, 0] = True
+    params = SearchParams(**route)
+    ops.reset_launch_counts()
+    s1, i1 = sr.search(q, qm, params)
+    c = ops.launch_counts()
+    assert c["fused_psi_pool"] == 1
+    assert c["mips_topk"] == int(bool(route.get("use_one_launch")))
+    assert c["rerank_gather_scores"] == int(route.get("use_fused_gather", True))
+    st = sr.state
+    cpu = ShardedRetrievalState(copy.deepcopy(st.psi).cpu(),
+                                *(None if t is None else t.cpu() for t in st[1:]))
+    p = sr.resolve(params)
+    s0, i0 = _local_retrieve(pool_queries(cpu.psi, q, qm), cpu, q, qm, k=p.k, k_prime=256,
+                             use_fused_gather=p.use_fused_gather,
+                             use_one_launch=p.use_one_launch)
+    torch.testing.assert_close(s1.cpu(), s0, rtol=1e-5, atol=1e-4)
+    assert int((i1.cpu() != i0).sum()) <= 2
+    assert not bool(torch.isin(i1.cpu(), torch.tensor([4, 8])).any())
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_validate_arguments(cuda):
     q = torch.zeros(2, 8, device=cuda)
     ids = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
@@ -278,7 +374,9 @@ def test_query_fused_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, sq8):
 @pytest.mark.parametrize("B,m,dp,kp", [(1, 7, 16, 5), (9, 1500, 64, 100),
                                        (20, 3000, 2048, 1024), (3, 40, 20, 64),
                                        (70, 40000, 48, 100),    # the filtered pass
-                                       (5, 70001, 20, 300)])    # ... d off the vector width
+                                       (5, 70001, 20, 300),     # ... d off the vector width
+                                       (9, 5000, 64, 4096),     # k' of the sharded default
+                                       (5, 600000, 32, 4096)])  # ... through the filter
 @pytest.mark.parametrize("sq8", [False, True])
 def test_mips_topk_kernel(cuda, B, m, dp, kp, sq8):
     """valid holes, kp above the valid rows and above m, m off the tile, and
@@ -304,7 +402,7 @@ def test_mips_topk_kernel(cuda, B, m, dp, kp, sq8):
     else:    # integer products: every sum is exact, so are the ids
         assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
     with pytest.raises(ValueError, match="kp"):
-        qf.mips_topk(q, *args, valid, kp=qf.MAX_KP + 1)
+        qf.mips_topk(q, *args, valid, kp=qf.MAX_KP_DENSE + 1)
 
 
 @pytest.mark.gpu

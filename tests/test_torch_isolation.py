@@ -32,7 +32,28 @@ def test_importing_every_module_pulls_in_no_jax():
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 36     # with mips_sq8, query_fused, bruteforce
+    assert int(r.stdout.strip()) >= 39     # with dist, dist.serve, retriever.sharded
+
+
+@pytest.mark.parametrize("module", ["repro_torch.dist", "repro_torch.dist.serve",
+                                    "repro_torch.retriever.sharded"])
+def test_sharded_serving_pulls_in_no_jax(module):
+    """The multi-device modules stand alone too: torch.distributed, never
+    jax, never the JAX package, and no kernel build at import."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module("{module}")
+        bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+               or k == "repro" or k.startswith("repro.")]
+        assert not bad, bad
+        assert "torch.distributed" in sys.modules and "triton" not in sys.modules
+        from repro_torch.kernels import build
+        assert not build._loaded
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
@@ -52,7 +73,8 @@ def test_no_jax_or_repro_import_in_source(path):
 
 @pytest.mark.parametrize("name", ["fused_psi_pool", "ivf_probe_scan", "mips_sq8",
                                   "query_fused", "rerank_paged", "token_maxsim",
-                                  "ivf_probe_res_scan", "rerank_paged_res"])
+                                  "ivf_probe_res_scan", "rerank_paged_res",
+                                  "rerank_gather"])
 def test_kernel_source_names_what_it_replaces_and_its_bound(name):
     """Each CUDA source names the TPU kernel it replaces and what bounds it
     on the card, and the build finds it."""
@@ -65,13 +87,14 @@ def test_kernel_source_names_what_it_replaces_and_its_bound(name):
 
 def test_every_kernel_counts_its_launches():
     """ops.KERNELS lists every kernel, the search routes' and the residual
-    tier's included, and reset_launch_counts sets every counter to 0."""
+    tier's and the sharded path's included, and reset_launch_counts sets every
+    counter to 0."""
     from repro_torch.kernels import ops
 
     assert set(ops.launch_counts()) == {
         "fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores", "token_maxsim",
         "fused_psi", "query_fused", "mips_topk", "mips_sq8", "ivf_probe_res_scan",
-        "rerank_paged_res_scores", "query_fused_res"}
+        "rerank_paged_res_scores", "query_fused_res", "rerank_gather_scores"}
     saved = ops.launch_counts()
     try:
         for fn in ops.KERNELS.values():

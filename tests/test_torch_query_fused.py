@@ -221,14 +221,40 @@ def test_mips_topk_fused_is_the_blocked_scan():
 @pytest.mark.parametrize("kp", [0, qf.MAX_KP + 1])
 def test_kernels_refuse_kp_past_their_limit(kp):
     """The CUDA path checks kp before it touches the card; tensors on the
-    meta device take that path here."""
+    meta device take that path here.  The dense scan takes kp up to
+    MAX_KP_DENSE (4096), the one-launch IVF up to MAX_KP (2048); the
+    message names the limit."""
     meta = torch.device("meta")
     q = torch.empty((2, 64), device=meta)
-    with pytest.raises(ValueError, match="kp"):
-        qf.mips_topk(q, torch.empty((4096, 64), device=meta), kp=kp)
+    dense_kp = kp if kp == 0 else qf.MAX_KP_DENSE + 1
+    with pytest.raises(ValueError, match=f"kp <= {qf.MAX_KP_DENSE}"):
+        qf.mips_topk(q, torch.empty((8192, 64), device=meta), kp=dense_kp)
     qt = torch.empty((2, 3, 8), device=meta)
     w = (torch.empty((8, 64), device=meta), *[torch.empty(64, device=meta)] * 3)
-    with pytest.raises(ValueError, match="kp"):
+    with pytest.raises(ValueError, match=f"kp <= {qf.MAX_KP}"):
         qf.query_fused(qt, None, *w, torch.empty((2, 2), dtype=torch.int32, device=meta),
                        torch.empty((4, 1024), dtype=torch.int32, device=meta),
                        torch.empty((4, 1024, 64), device=meta), kp=kp)
+
+
+def test_mips_topk_at_the_sharded_default_kp():
+    """k' = 4096, the sharded path's per-shard default on one shard
+    (``default_k_prime_local(100, 1024, 1)``), within the dense scan's
+    limit: the port's plain version against JAX's oracle."""
+    assert qf.MAX_KP_DENSE == 4096
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((3, 32)).astype(np.float32)
+    W = rng.standard_normal((6000, 32)).astype(np.float32)
+    valid = rng.random(6000) > 0.1
+    for sq8 in (False, True):
+        args = [W, None]
+        if sq8:
+            codes, scales = sq8_quant(T(W))
+            args = [codes.numpy(), scales.numpy()]
+        got = qf.mips_topk(T(q), *(None if a is None else T(a) for a in args), T(valid),
+                           kp=4096)
+        want = jax_ref.mips_topk_ref(jnp.asarray(q), *(None if a is None else jnp.asarray(a)
+                                                       for a in args),
+                                     jnp.asarray(valid), kp=4096)
+        assert got[0].shape == (3, 4096)
+        assert_same_topk(*want, *got)
