@@ -47,10 +47,16 @@ script
    (``IVFSearchParams(use_one_launch=True)``) and the exact latent scan over
    W's full slot capacity, in one launch and blocked
    (``use_ann=False``), at the batch size, and the legacy gathered scan and
-   rerank (``use_fused_gather=False``) at 64 queries; holds each batch
+   rerank (``use_fused_gather=False``) at 64 queries, and above the card's
+   old k' caps the one-launch IVF at k'=4,096 and the one-launch exact scan
+   at k'=8,192 (a warm-up and two timed batches each); holds each batch
    against the plain composition and exact MaxSim, and 32 queries' top-10
-   against exact MaxSim over the whole corpus (recall); then times the
-   three kernels against their plain versions at the served shapes;
+   against exact MaxSim over the whole corpus (recall), and ``mips_topk`` to
+   no rescan; then times the three kernels against their plain versions
+   and the nearest PyTorch call at the served shapes, after checking the
+   tensor-core product of ``mips_topk`` against an fp64 product (65,536
+   rows, within ``ref.TF32_SPLIT_RTOL``) and its sampled pass against its
+   full pass bit for bit;
 6. times each serving kernel and its plain version at the served shapes;
 7. **residual**: holds ``ivf_probe_res_scan``, ``query_fused_res`` and
    ``rerank_paged_res_scores`` against their plain versions on a small
@@ -60,8 +66,9 @@ script
    the pages), encodes the page pool a chunk of docs at a time (held to
    ``from_dense(codec=)`` on the first 500 docs) and builds 4-bit residual
    IVF lists over the same W with the served index's centroids; serves the
-   same batches through the residual default route and the one-launch IVF,
-   counters set to 0 just before each and read just after, holds every
+   same batches through the residual default route and the one-launch IVF
+   (and that at k'=4,096, three batches), counters set to 0 just before
+   each and read just after, holds every
    batch against the plain composition, the scores against exact MaxSim
    over the decoded tokens and 32 queries' top-10 against the fp32 exact
    top-10 (recall, beside the SQ8 route's); times the three kernels against
@@ -75,8 +82,8 @@ script
    the served index with ``LemurRetriever.shard`` (its SQ8 block of 2^20
    rows, filled 25,000 slots at a time; k'_loc = 4096) and serves the same
    batches through the fused route (``SearchParams(use_ann=False)``), the
-   one-launch route and the legacy route (16 queries), counters from 0
-   around each: every row against the plain composition (near-ties
+   one-launch route (and that at k'=2,048, k'_loc = 8,192, three batches)
+   and the legacy route (16 queries), counters from 0 around each: every row against the plain composition (near-ties
    counted), its scores against exact MaxSim over the stored SQ8 tokens,
    no free or tombstoned row; times the latent product, its sort and the
    two kernels; then an fp32 block over a base cut to the first 100,000
@@ -105,6 +112,8 @@ MSMARCO_DOCS = 8_841_823
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_TF32_S = 495e12             # tensor cores, dense
+KP_BATCHES = 3                   # a route above the old k' caps: a warm-up and 2 timed
 DOC_CHUNK = 25_000               # docs generated on the card at a time
 SQ8_RTOL = 2 ** -16 * 4          # the JAX suite's SQ8 tolerance
 NEAR_TIE = 1e-5                  # relative score gap allowed for an id swap
@@ -153,8 +162,10 @@ def time_ms(torch, fn, n=20, warmup=3):
     return float(np.median(times))
 
 
-def bound(nbytes, flops):
-    t_mem, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+def bound(nbytes, flops, peak=PEAK_FP32_S):
+    """The least time for the work: bytes over the memory rate against
+    operations over ``peak`` (fp32 CUDA cores, or the TF32 tensor cores)."""
+    t_mem, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -921,7 +932,7 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
     from repro_torch.anns.base import stable_topk
     from repro_torch.core import maxsim
     from repro_torch.core.model import pool_queries
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, query_fused, ref
     from repro_torch.retriever import IVFSearchParams, SearchParams
     from repro_torch.retriever.facade import first_stage
 
@@ -936,6 +947,13 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
         "exact_blocked": (SearchParams(use_ann=False), args.batch,
                           ("fused_psi_pool", "rerank_paged_scores")),
         "legacy_gathered": (legacy, LEGACY_BATCH, ("fused_psi_pool", "mips_sq8")),
+        # above the old card caps (one-launch IVF 2,048, the exact scan 4,096)
+        "one_launch_ivf_kp4096": (SearchParams(k_prime=4096, backend=IVFSearchParams(
+            use_one_launch=True)), args.batch,
+            ("fused_psi_pool", "query_fused", "rerank_paged_scores")),
+        "exact_one_launch_kp8192": (SearchParams(use_ann=False, use_one_launch=True,
+                                                 k_prime=8192), args.batch,
+                                    ("fused_psi_pool", "mips_topk", "rerank_paged_scores")),
     }
     nq = RECALL_QUERIES
     q1, qm1, _ = batches[1]
@@ -945,11 +963,14 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
     line = {"recall_queries": nq, "truth_s": time.time() - t0,
             "default_ivf": {"recall_at_10": float(maxsim.recall_at(default_ids[1][:nq, :10],
                                                                 truth).mean())}}
+    p0 = r.resolve(SearchParams())
     for name, (params, B, kernels) in routes.items():
         p = r.resolve(params)
+        bs = batches if p.k_prime == p0.k_prime else batches[:KP_BATCHES]
         ops.reset_launch_counts()
+        rescans = query_fused.mips_topk.rescans
         lat, outs = [], []
-        for i, (q, qm, _) in enumerate(batches):
+        for i, (q, qm, _) in enumerate(bs):
             q, qm = q[:B], qm[:B]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -959,17 +980,26 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
                 lat.append(time.perf_counter() - t0)
             outs.append((s, ids))
         launches = ops.launch_counts()
-        want = {k: (len(batches) if k in kernels else 0) for k in launches}
+        want = {k: (len(bs) if k in kernels else 0) for k in launches}
         require(launches == want, f"route {name}: launches {launches}, expected {want}")
+        rescans = query_fused.mips_topk.rescans - rescans
+        require(rescans == 0, f"route {name}: mips_topk rescanned {rescans} times")
         ties = {}
         differ = 0
-        for i, ((q, qm, _), (s, ids)) in enumerate(zip(batches, outs)):
+        for i, ((q, qm, _), (s, ids)) in enumerate(zip(bs, outs)):
             q, qm = q[:B], qm[:B]
             require(s.shape == (B, p.k) and bool(torch.isfinite(s).all())
                     and bool((ids >= 0).all()), f"route {name}: scores or ids malformed")
             require(bool(st.alive[ids.long()].all()), f"route {name}: a tombstoned doc")
             cand = first_stage(index, q, qm, p)
-            if p.use_ann:
+            if p.use_ann and p.k_prime != p0.k_prime:
+                plain = plain_search(torch, index, q, qm, p)
+                probe = stable_topk(pool_queries(index.psi, q, qm) @ index.ann.centroids.T,
+                                    p.backend.nprobe)[1].int()
+                kinds = classify_rows(torch, ids, s, plain, {"probe": probe, "cand": cand},
+                                      p.k_prime)
+                del plain
+            elif p.use_ann:
                 plain = {k: v[:B] for k, v in plains[i].items()}
                 probe = stable_topk(pool_queries(index.psi, q, qm) @ index.ann.centroids.T,
                                     p.backend.nprobe)[1].int()
@@ -988,11 +1018,11 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
         lat_ms = [1e3 * x for x in lat]
         line[name] = dict(
             params=repr(params), batch=B, batches=len(lat), p50_ms=float(np.median(lat_ms)),
-            max_ms=float(np.max(lat_ms)), qps=B * len(lat) / sum(lat),
+            max_ms=float(np.max(lat_ms)), qps=B * len(lat) / sum(lat), k_prime=p.k_prime,
             launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
-            rows_checked=B * len(batches),
+            rows_checked=B * len(bs), mips_topk_rescans=rescans,
             recall_at_10=float(maxsim.recall_at(outs[1][1][:nq, :10], truth).mean()))
-        if p.use_ann:
+        if p.use_ann and p.k_prime == p0.k_prime:
             line[name]["rows_differing_from_default"] = differ
         print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, "
               f"near-tie rows {ties}", flush=True)
@@ -1018,11 +1048,11 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
     rows = []
 
     def row(name, variant, source, replaces, err, tol, fn, plain_fn, lib_fn, nbytes, flops,
-            shape, n=20, ragged_key=None, **extra):
+            shape, n=20, ragged_key=None, peak=PEAK_FP32_S, **extra):
         ms = time_ms(torch, fn, n=n)
         plain_ms = time_ms(torch, plain_fn, n=max(3, n // 4), warmup=1)
         lib_ms = time_ms(torch, lib_fn, n=n) if lib_fn else None
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, peak)
         rows.append(dict(
             name=name, variant=variant, route="cuda", source=source, replaces=replaces,
             launches=launches_by_kernel[name], max_abs_err=err,
@@ -1079,29 +1109,54 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         cuda_launches_per_call=1)
     del vec32, ids32, fargs
 
-    # mips_topk over W's full slot capacity, fp32 and SQ8
+    # mips_topk over W's full slot capacity, fp32 and SQ8: the tensor-core
+    # product's error against an fp64 product (the first 65,536 rows), the
+    # sample's scores against the full pass's bit for bit, no rescan
     C = st.W.shape[0]
     live = int(st.alive.sum())
     valid = st.alive
+    codes = torch.empty(st.W.shape, dtype=torch.int8, device=st.W.device)
+    wsc = torch.empty((C,), dtype=torch.float32, device=st.W.device)
+    for s0 in range(0, C, 65536):
+        codes[s0:s0 + 65536], wsc[s0:s0 + 65536] = sq8_quant(st.W[s0:s0 + 65536])
+    checks = {}
+    for variant, Wv, sv in (("fp32", st.W, None), ("sq8", codes, wsc)):
+        full = query_fused.tc_scores(psi_q, Wv, sv, valid)
+        sample = query_fused.tc_scores(psi_q, Wv, sv, valid, stride=query_fused.SAMPLE_STRIDE)
+        require(torch.equal(sample, full[:, ::query_fused.SAMPLE_STRIDE]),
+                f"mips_topk {variant}: the sampled rows score apart from the full pass")
+        n64 = 65536
+        ex = psi_q.double() @ Wv[:n64].double().T
+        if sv is not None:
+            ex = ex * sv[:n64].double()[None, :]
+        ok = valid[:n64]
+        split_err = float((full[:, :n64][:, ok].double() - ex[:, ok]).abs().max())
+        scale = max(1.0, float(ex[:, ok].abs().max()))
+        require(split_err <= ref.TF32_SPLIT_RTOL * scale,
+                f"mips_topk {variant}: split product error {split_err} > "
+                f"{ref.TF32_SPLIT_RTOL} x {scale}")
+        checks[variant] = dict(sample_bits_equal=True, split_max_abs_err_vs_fp64=split_err,
+                               split_tolerance=ref.TF32_SPLIT_RTOL * scale)
+        del full, sample, ex
+    rescans = query_fused.mips_topk.rescans
     margs = (psi_q, st.W, None, valid)
     err, near_ties, _ = same_topk(torch, *query_fused.mips_topk(*margs, kp=kp),
                                   *ref.mips_topk_ref(*margs, kp=kp, chunk=32), 1e-4,
                                   "mips_topk fp32", exact_ties=False)
     shape = (f"B {B} x {C} slots ({live} live) x d' {dp}, k' {kp}; bound counts the "
              f"live rows")
+    cuda_bound = bound(psi_q.numel() * 4 + live * dp * 4 + C + 2 * B * kp * 4,
+                       2 * B * live * dp)[0]
     row("mips_topk", "fp32", "src/repro_torch/csrc/query_fused.cu",
         "src/repro/kernels/query_fused.py:354", err, "1e-4 x max(1, max|plain|)",
         lambda: query_fused.mips_topk(*margs, kp=kp),
         lambda: ref.mips_topk_ref(*margs, kp=kp, chunk=32),
         lambda: torch.topk(psi_q @ st.W.T, kp),
-        psi_q.numel() * 4 + live * dp * 4 + C + 2 * B * kp * 4, 2 * B * live * dp, shape,
-        n=10, near_tie_ids=near_ties,
+        psi_q.numel() * 4 + live * dp * 4 + C + 2 * B * kp * 4, 3 * 2 * B * live * dp, shape,
+        n=10, near_tie_ids=near_ties, peak=PEAK_TF32_S, bound_split="3xTF32",
+        bound_ms_fp32_cuda_cores=cuda_bound, product_checks=checks["fp32"],
         launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
-        cuda_launches_per_call=2)
-    codes = torch.empty(st.W.shape, dtype=torch.int8, device=st.W.device)
-    wsc = torch.empty((C,), dtype=torch.float32, device=st.W.device)
-    for s0 in range(0, C, 65536):
-        codes[s0:s0 + 65536], wsc[s0:s0 + 65536] = sq8_quant(st.W[s0:s0 + 65536])
+        cuda_launches_per_call=5)
     sargs = (psi_q, codes, wsc, valid)
     err, near_ties, _ = same_topk(torch, *query_fused.mips_topk(*sargs, kp=kp),
                                   *ref.mips_topk_ref(*sargs, kp=kp, chunk=32), SQ8_RTOL,
@@ -1109,12 +1164,24 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
     row("mips_topk", "sq8", "src/repro_torch/csrc/query_fused.cu",
         "src/repro/kernels/query_fused.py:354", err, f"{SQ8_RTOL} x max(1, max|plain|)",
         lambda: query_fused.mips_topk(*sargs, kp=kp),
-        lambda: ref.mips_topk_ref(*sargs, kp=kp, chunk=32), None,
-        psi_q.numel() * 4 + live * (dp + 4) + C + 2 * B * kp * 4, 2 * B * live * dp,
+        lambda: ref.mips_topk_ref(*sargs, kp=kp, chunk=32),
+        lambda: torch.topk((psi_q @ codes.float().T) * wsc, kp),
+        psi_q.numel() * 4 + live * (dp + 4) + C + 2 * B * kp * 4, 2 * 2 * B * live * dp,
         shape + ", W quantized by sq8_quant (the sharded path's layout)",
-        n=10, near_tie_ids=near_ties,
+        n=10, near_tie_ids=near_ties, peak=PEAK_TF32_S, bound_split="2xTF32 (q split)",
+        bound_ms_fp32_cuda_cores=bound(psi_q.numel() * 4 + live * (dp + 4) + C
+                                       + 2 * B * kp * 4, 2 * B * live * dp)[0],
+        product_checks=checks["sq8"],
         launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
-        cuda_launches_per_call=2)
+        cuda_launches_per_call=5)
+    rescans = query_fused.mips_topk.rescans - rescans
+    require(rescans == 0, f"mips_topk rescanned {rescans} times at the served shape")
+    # the library call at the sharded route's k'_loc on the same (2^20 x d')
+    # int8 rows, for its row in the sharded phase (no room for the widened
+    # copy beside the SQ8 block there)
+    rows[-1]["library_ms_kp4096"] = time_ms(
+        torch, lambda: torch.topk((psi_q @ codes.float().T) * wsc, 4096), n=5)
+    rows[-1]["library_kp4096_shape"] = f"B {B} x {C} rows x d' {dp} int8, k' 4096"
     del codes, wsc, sargs
 
     # mips_sq8: the legacy route's batched strips, and all pairs
@@ -1147,10 +1214,13 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         lambda: mips_sq8.mips_sq8(psi_q, pc, ps), lambda: ref.mips_sq8_ref(psi_q, pc, ps),
         lambda: (psi_q @ pc.float().T) * ps,
         pc.numel() + ps.numel() * 4 + psi_q.numel() * 4 + B * pc.shape[0] * 4,
-        2 * B * pc.shape[0] * dp,
+        2 * 2 * B * pc.shape[0] * dp,
         f"B {B} x {pc.shape[0]} rows (the first 32 lists) x {dp} int8; this entry runs "
         f"on no route (launches: the kernel's, from the legacy route's batched entry)",
-        cuda_launches_per_call=1)
+        peak=PEAK_TF32_S, bound_split="2xTF32 (q split)",
+        bound_ms_fp32_cuda_cores=bound(pc.numel() + ps.numel() * 4 + psi_q.numel() * 4
+                                       + B * pc.shape[0] * 4, 2 * B * pc.shape[0] * dp)[0],
+        cuda_launches_per_call=2)
     return rows
 
 
@@ -1159,11 +1229,15 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
 # --------------------------------------------------------------------------
 
 RES_SCAN_RTOL = 1e-5   # residual scans: x max(1, max|plain|) (another sum order)
-RES_ROUTES = {   # name: (params, kernels launched once a search)
-    "residual_default": ({}, ("fused_psi_pool", "ivf_probe_res_scan",
-                              "rerank_paged_res_scores")),
-    "residual_one_launch": ({"use_one_launch": True},
+RES_ROUTES = {   # name: (IVF params, k' or None, kernels launched once a search)
+    "residual_default": ({}, None, ("fused_psi_pool", "ivf_probe_res_scan",
+                                    "rerank_paged_res_scores")),
+    "residual_one_launch": ({"use_one_launch": True}, None,
                             ("fused_psi_pool", "query_fused_res", "rerank_paged_res_scores")),
+    # above the old card cap of the one-launch kernels (2,048)
+    "residual_one_launch_kp4096": ({"use_one_launch": True}, 4096,
+                                   ("fused_psi_pool", "query_fused_res",
+                                    "rerank_paged_res_scores")),
 }
 
 
@@ -1339,13 +1413,14 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
     del sample
     plains = {}
     outs_by_route = {}
-    for name, (bp, kernels) in RES_ROUTES.items():
-        params = SearchParams(backend=IVFSearchParams(**bp)) if bp else SearchParams()
+    for name, (bp, kprime, kernels) in RES_ROUTES.items():
+        params = SearchParams(k_prime=kprime, backend=IVFSearchParams(**bp) if bp else None)
         p = rr.resolve(params)
         require(p.use_residual and p.use_fused_gather, f"{name}: resolved {p}")
+        bs = batches if kprime is None else batches[:KP_BATCHES]
         ops.reset_launch_counts()
         lat, outs = [], []
-        for i, (q, qm, _) in enumerate(batches):
+        for i, (q, qm, _) in enumerate(bs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             s, ids = rr.search(q, qm, params)
@@ -1354,19 +1429,23 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
                 lat.append(time.perf_counter() - t0)
             outs.append((s, ids))
         launches = ops.launch_counts()
-        want = {k: (len(batches) if k in kernels else 0) for k in launches}
+        want = {k: (len(bs) if k in kernels else 0) for k in launches}
         require(launches == want, f"route {name}: launches {launches}, expected {want}")
         ties = {"probe": 0, "candidates": 0, "final": 0}
-        for i, ((q, qm, _), (s, ids)) in enumerate(zip(batches, outs)):
+        for i, ((q, qm, _), (s, ids)) in enumerate(zip(bs, outs)):
             require(s.shape == (q.shape[0], p.k) and bool(torch.isfinite(s).all())
                     and bool((ids >= 0).all()), f"route {name}: scores or ids malformed")
             require(bool(rstore.alive[ids.long()].all()), f"route {name}: a tombstoned doc")
-            if i not in plains:
-                plains[i] = plain_search(torch, rr.index, q, qm, p)
+            if kprime is not None:
+                plain = plain_search(torch, rr.index, q, qm, p)
+            else:
+                if i not in plains:
+                    plains[i] = plain_search(torch, rr.index, q, qm, p)
+                plain = plains[i]
             probe = stable_topk(pool_queries(index.psi, q, qm) @ ann.centroids.T,
                                 p.backend.nprobe)[1].int()
             cand = first_stage(rr.index, q, qm, p)
-            for kk, v in classify_rows(torch, ids, s, plains[i], {"probe": probe, "cand": cand},
+            for kk, v in classify_rows(torch, ids, s, plain, {"probe": probe, "cand": cand},
                                        p.k_prime).items():
                 ties[kk] += v
             exact = plain_pair_scores(torch, rstore, q, qm, ids, chunk=32)
@@ -1376,9 +1455,9 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         line[name] = dict(
             params=repr(params), batch=args.batch, batches=len(lat),
             p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
-            qps=args.batch * len(lat) / sum(lat),
+            qps=args.batch * len(lat) / sum(lat), k_prime=p.k_prime,
             launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
-            rows_checked=args.batch * len(batches),
+            rows_checked=args.batch * len(bs),
             recall_at_10=float(maxsim.recall_at(outs[1][1][:nq, :10], truth).mean()))
         outs_by_route[name] = outs
         print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, near-tie rows {ties}",
@@ -1498,6 +1577,10 @@ SHARD_ROUTES = {   # name: (SearchParams keywords, batch or None, kernels a sear
                       ("fused_psi_pool", "rerank_gather_scores")),
     "sharded_one_launch": (dict(use_ann=False, use_one_launch=True), None,
                            ("fused_psi_pool", "mips_topk", "rerank_gather_scores")),
+    # k' 2,048 on one rank: k'_loc = 8,192, above the old cap of mips_topk (4,096)
+    "sharded_one_launch_kp2048": (dict(use_ann=False, use_one_launch=True, k_prime=2048),
+                                  None, ("fused_psi_pool", "mips_topk",
+                                         "rerank_gather_scores")),
     # the gathered slab at 256 queries x 4,096 candidates would be 43 GB
     "sharded_legacy": (dict(use_ann=False, use_fused_gather=False), 16, ("fused_psi_pool",)),
 }
@@ -1696,7 +1779,7 @@ def sharded_ragged_case(torch, seed, mesh):
     return errs
 
 
-def sharded_phase(torch, args, r, batches):
+def sharded_phase(torch, args, r, batches, library_ms_kp4096=None):
     """Corpus-sharded serving (``LemurRetriever.shard``) on one rank of an
     NCCL process group over the served index at full width: the SQ8 block
     of 2^20 rows through three routes, then an fp32 block of a base cut to
@@ -1751,9 +1834,13 @@ def sharded_phase(torch, args, r, batches):
         for name, (kw, batch, kernels) in SHARD_ROUTES.items():
             params = SearchParams(**kw)
             B = min(batch or args.batch, args.batch)
+            pk = sr.resolve(params)
+            kp_r = dist.default_k_prime_local(pk.k, pk.k_prime, 1)
+            bs = batches if kp_r == kp else batches[:KP_BATCHES]
             ops.reset_launch_counts()
+            rescans = query_fused.mips_topk.rescans
             lat, res = [], []
-            for i, (q, qm, _) in enumerate(batches):
+            for i, (q, qm, _) in enumerate(bs):
                 q, qm = q[:B], qm[:B]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1763,11 +1850,15 @@ def sharded_phase(torch, args, r, batches):
                     lat.append(time.perf_counter() - t0)
                 res.append((s, ids))
             launches = ops.launch_counts()
-            want = {k: (len(batches) if k in kernels else 0) for k in launches}
+            want = {k: (len(bs) if k in kernels else 0) for k in launches}
             require(launches == want, f"route {name}: launches {launches}, expected {want}")
+            rescans = query_fused.mips_topk.rescans - rescans
+            require(rescans == 0, f"route {name}: mips_topk rescanned {rescans} times")
             ties = {"candidates": 0, "final": 0}
-            for (q, qm, _), (s, ids), plain in zip(batches, res, plains):
+            for (q, qm, _), (s, ids), plain in zip(bs, res, plains):
                 q, qm = q[:B], qm[:B]
+                if kp_r != kp:
+                    plain = sharded_plain(torch, st, q, qm, kp_r, p0.k)
                 plain = {k: v[:B] for k, v in plain.items()}
                 require(s.shape == (B, p0.k) and bool(torch.isfinite(s).all())
                         and bool((ids >= 0).all()) and bool((ids < m).all()),
@@ -1776,7 +1867,7 @@ def sharded_phase(torch, args, r, batches):
                         f"route {name}: a free or tombstoned row in the top-k")
                 cand = None
                 if bool((ids != plain["ids"]).any()):
-                    cand = port_candidates(torch, st, q, qm, kp, "one_launch" in name)
+                    cand = port_candidates(torch, st, q, qm, kp_r, "one_launch" in name)
                 kinds = classify_exact(torch, st.W, st.W_scales, ids, s, cand, plain)
                 for kk, v in kinds.items():
                     ties[kk] += v
@@ -1787,10 +1878,10 @@ def sharded_phase(torch, args, r, batches):
                 require(bool((s[:, :-1] >= s[:, 1:]).all()), f"route {name}: not sorted")
             lat_ms = [1e3 * x for x in lat]
             line[name] = dict(
-                params=repr(params), batch=B, batches=len(lat),
+                params=repr(params), batch=B, batches=len(lat), k_prime_local=kp_r,
                 p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
                 qps=B * len(lat) / sum(lat), launches={k: v for k, v in launches.items() if v},
-                near_tie_rows=ties, rows_checked=B * len(batches))
+                near_tie_rows=ties, rows_checked=B * len(bs), mips_topk_rescans=rescans)
             outs[name] = res
             print(f"route {name} ok: p50 {line[name]['p50_ms']:.3f} ms, near-tie rows {ties}",
                   flush=True)
@@ -1828,7 +1919,7 @@ def sharded_phase(torch, args, r, batches):
         plain_ms = time_ms(torch, lambda: ref.mips_topk_ref(*margs, kp=kp, chunk=64), n=3,
                            warmup=1)
         b_ms, b_by = bound(psi_q.numel() * 4 + live * (st.W.shape[1] + 4) + n_rows
-                           + 2 * B * kp * 4, 2 * B * live * st.W.shape[1])
+                           + 2 * B * kp * 4, 2 * 2 * B * live * st.W.shape[1], PEAK_TF32_S)
         rows.append(dict(
             name="mips_topk", variant="sq8, k' 4096 (sharded one-launch route)", route="cuda",
             source="src/repro_torch/csrc/query_fused.cu",
@@ -1838,7 +1929,13 @@ def sharded_phase(torch, args, r, batches):
             tolerance=f"{SQ8_RTOL} x max(1, max|plain|)",
             shape=f"B {B} x {n_rows} block rows ({live} valid) x d' {st.W.shape[1]} int8, "
                   f"k' {kp}", ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, near_tie_ids=near_ties, library_ms=None,
+            bound_by=b_by, bound_split="2xTF32 (q split)",
+            bound_ms_fp32_cuda_cores=bound(psi_q.numel() * 4 + live * (st.W.shape[1] + 4)
+                                           + n_rows + 2 * B * kp * 4,
+                                           2 * B * live * st.W.shape[1])[0],
+            near_tie_ids=near_ties, library_ms=library_ms_kp4096,
+            library_note="torch.topk((q @ codes.float().T) * s, 4096), timed in the routes "
+                         "phase on the index's W quantized (the same 2^20 x d' int8 rows)",
             launches_per_search=launches_by_kernel["mips_topk"] // len(batches)))
         print(f"mips_topk (sq8, kp {kp}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_by})", flush=True)
@@ -2230,7 +2327,9 @@ def serve_and_check(torch, args):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sharded, sh_rows = sharded_phase(torch, args, r, batches)
+    lib_kp4096 = next(rw.get("library_ms_kp4096") for rw in new_rows
+                      if rw["name"] == "mips_topk" and rw["variant"] == "sq8")
+    sharded, sh_rows = sharded_phase(torch, args, r, batches, lib_kp4096)
     return serving, routes, residual, sharded, kernels + new_rows + res_rows + sh_rows
 
 

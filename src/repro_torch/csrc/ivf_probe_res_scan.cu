@@ -25,13 +25,14 @@
 // on their own banks (the table's columns are padded).  Pad slots (id < 0)
 // are not read and score -inf.  The decoded element is the host decoder's
 // bits; the sum runs in another order than the plain version's, so scores
-// agree to fp32 rounding.  A packed row must be whole 4-byte words (d' a
-// multiple of 8 at 4 bits, 16 at 2 bits); the wrapper raises otherwise.
+// agree to fp32 rounding.  Any d' that quantization.pack_codes takes (even
+// at 4 bits, a multiple of 4 at 2): a packed row that is not whole 4-byte
+// words is read a byte at a time (residual.cuh), with the same sums.
 #include "residual.cuh"
 
 namespace {
 
-template <int BITS>
+template <int BITS, bool WHOLE>
 __global__ void __launch_bounds__(kResThreads)
 ivf_scan_res_kernel(const float* __restrict__ q, const int* __restrict__ probe,
                     const int* __restrict__ ids, const uint8_t* __restrict__ codes,
@@ -51,21 +52,21 @@ ivf_scan_res_kernel(const float* __restrict__ q, const int* __restrict__ probe,
   const float* acc = sm + ResCodes<BITS>::kLevels * kResTileStride;
   for (int c0 = 0; c0 < cap; c0 += kResChunk) {
     const int c1 = min(c0 + kResChunk, cap);
-    res_score_chunk<BITS>(codes + (size_t)cl * cap * db, lid, c0, c1,
+    res_score_chunk<BITS, WHOLE>(codes + (size_t)cl * cap * db, lid, c0, c1,
                           centroids + (size_t)cl * D, values, q + (size_t)b * D, D, sm);
     for (int r = c0 + threadIdx.x; r < c1; r += kResThreads)
       o[r] = lid[r] >= 0 ? acc[r - c0] : -INFINITY;
   }
 }
 
-template <int BITS>
+template <int BITS, bool WHOLE>
 int launch(const float* q, const int* probe, const int* ids, const uint8_t* codes,
            const float* centroids, const float* values, float* out, int B, int P,
            int cap, int D, int nlist, cudaStream_t stream) {
   const size_t smem = res_smem_floats(BITS) * sizeof(float);
-  cudaError_t err = allow_smem(ivf_scan_res_kernel<BITS>, smem);
+  cudaError_t err = allow_smem(ivf_scan_res_kernel<BITS, WHOLE>, smem);
   if (err != cudaSuccess) return (int)err;
-  ivf_scan_res_kernel<BITS><<<(unsigned)(B * P), kResThreads, smem, stream>>>(
+  ivf_scan_res_kernel<BITS, WHOLE><<<(unsigned)(B * P), kResThreads, smem, stream>>>(
       q, probe, ids, codes, centroids, values, out, P, cap, D, nlist);
   return (int)cudaGetLastError();
 }
@@ -80,10 +81,10 @@ extern "C" int ivf_probe_res_scan(const void* q, const void* probe, const void* 
                                   const void* values, void* out, int B, int P, int cap,
                                   int D, int nlist, int bits, void* stream) {
 #define LEMUR_RES_SCAN(BITS)                                                         \
-  return launch<BITS>((const float*)q, (const int*)probe, (const int*)ids,           \
-                      (const uint8_t*)codes, (const float*)centroids,                \
-                      (const float*)values, (float*)out, B, P, cap, D, nlist,        \
-                      (cudaStream_t)stream)
+  return (res_whole_words(codes, D, BITS) ? launch<BITS, true> : launch<BITS, false>)( \
+      (const float*)q, (const int*)probe, (const int*)ids, (const uint8_t*)codes,     \
+      (const float*)centroids, (const float*)values, (float*)out, B, P, cap, D, nlist, \
+      (cudaStream_t)stream)
   if (bits == 4) LEMUR_RES_SCAN(4);
   if (bits == 2) LEMUR_RES_SCAN(2);
 #undef LEMUR_RES_SCAN

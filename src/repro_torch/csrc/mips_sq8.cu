@@ -9,9 +9,10 @@
 //   to the plain einsum.
 //
 // Numerics: the fp32 dot with the widened codes, then the row scale, as the
-// CPU oracle and the port's probe scan compute it (no hi/lo split: it only
-// worked around the MXU).  Sums run in another order than the plain
-// versions, so results agree to fp32 rounding.
+// CPU oracle and the port's probe scan compute it; the all-pairs entry
+// reaches it on the tensor cores through an error-compensated split of q
+// (tc_scan.cuh).  Sums run in another order than the plain versions, so
+// results agree to fp32 rounding.
 //
 // Two entry points:
 //  - batched strips, the legacy IVF scan: q (B, d) against each query's own
@@ -20,10 +21,13 @@
 //    One block per (query, tile of kRowsPerBlock rows), q in shared memory,
 //    a warp a row through the probe scan's row dot (common.cuh), 16 bytes a
 //    lane a load; no B-fold waste.
-//  - all pairs: q (B, d) against (m, d) rows -> (B, m).  Bound: fp32
-//    operations once B is past about 20 (2 B operations a byte of codes).
-//    One block per tile of 128 rows x 64 queries (tile.cuh: gemm_tile).
-#include "tile.cuh"
+//  - all pairs: q (B, d) against (m, d) rows -> (B, m).  Bound: tensor-core
+//    operations once B is past about 40 (2 TF32 products of 2 B m d at
+//    495 TFLOP/s against the codes' bytes at 3.35 TB/s).  The dense scan's product on
+//    the tensor cores (tc_scan.cuh: wgmma, q split in two TF32 pieces, the
+//    int8 codes exact in TF32, the row scale after the sum) in its store
+//    mode; two launches (q's split image, then the product).
+#include "tc_scan.cuh"
 
 namespace {
 
@@ -49,25 +53,6 @@ mips_sq8_batched_kernel(const float* __restrict__ q, const int8_t* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(kGemmThreads)
-mips_sq8_pairs_kernel(const float* __restrict__ q, const int8_t* __restrict__ codes,
-                      const float* __restrict__ scales, float* __restrict__ out, int B,
-                      int m, int D, int vec_w, int vec_q) {
-  const int b0 = blockIdx.x * kGemmQ, r0 = blockIdx.y * kGemmRows;
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  float acc[8][8];
-  gemm_tile<int8_t>(q, B, b0, codes, m, r0, D, vec_w != 0, vec_q != 0, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = r0 + ty * 8 + i;
-    if (row >= m) break;
-    const float sc = scales[row];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (b0 + tx * 8 + j < B) out[(size_t)(b0 + tx * 8 + j) * m + row] = acc[i][j] * sc;
-  }
-}
-
 }  // namespace
 
 extern "C" int mips_sq8_batched(const void* q, const void* codes, const void* scales,
@@ -83,12 +68,21 @@ extern "C" int mips_sq8_batched(const void* q, const void* codes, const void* sc
   return (int)cudaGetLastError();
 }
 
+// img: scratch for q's split image (tc_scan.cuh: ceil(B / 128) x ceil(D /
+// 32) x 8,192 floats).
 extern "C" int mips_sq8_pairs(const void* q, const void* codes, const void* scales,
-                              void* out, int B, int m, int D, void* stream) {
-  const dim3 grid((unsigned)((B + kGemmQ - 1) / kGemmQ), (unsigned)((m + kGemmRows - 1) / kGemmRows));
-  mips_sq8_pairs_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)codes, (const float*)scales, (float*)out, B, m, D,
-      (int)tile_vectorized((const int8_t*)codes, D),
-      (int)(D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0));
-  return (int)cudaGetLastError();
+                              void* out, void* img, int B, int m, int D, void* stream) {
+  int err = launch_tc_q_image((const float*)q, (float*)img, B, D, (cudaStream_t)stream);
+  if (err != 0) return err;
+  TcScan a{};
+  a.img = (const float*)img;
+  a.W = codes;
+  a.scales = (const float*)scales;
+  a.B = B;
+  a.m = m;
+  a.D = D;
+  a.rs = 1;
+  a.out = (float*)out;
+  a.ldo = m;
+  return launch_tc_scan<int8_t, false>(a, (cudaStream_t)stream);
 }

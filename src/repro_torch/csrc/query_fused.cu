@@ -10,69 +10,61 @@
 //   axis (probes, or row tiles) and merge each step's strip into it with the
 //   carried entries first, so that earlier flat positions win ties.
 //
-// Hopper has no sequential grid axis, so the carry becomes a loop inside a
-// block, and the tie rule becomes the (score desc, position asc) key of
-// topk.cuh, which gives the stable flat top-k's ids whatever the order the
-// entries are folded in.
+// Hopper has no sequential grid axis and its blocks cannot hold a carry
+// of any k' (227 KB of shared memory a block), so the port splits each
+// first stage in two: a kernel writes every probed slot's score to a
+// per-query strip in device memory (pads -inf), and select.cuh's
+// topk_select takes each query's exact top-k' by the key (score desc, flat
+// position asc), the stable flat top-k's order, whatever k'.  On the
+// served index this is faster than a list kept in shared memory and folded
+// a chunk at a time (the earlier design, capped at k' = 2,048): query_fused
+// over SQ8 lists 3.66 ms against 4.04-4.07 at k' = 1,024, the same ids
+// (chip_smoke.py, one H100; PERF.md).
 //
 // query_fused.  Bound on the H100: device-memory bytes, as the probe scan
 // (ivf_probe_scan.cu: about one operation per byte of the lists), plus the
 // psi-pool's operations.  Design: one block per query.  The block pools its
 // query's tokens with the psi kernel's own code (psi.cuh) into shared
 // memory (the (d',) latent, 8 KB at d' = 2048), then walks its nprobe
-// probes in order, kChunk slots at a time: each warp scores whole rows, four
-// at once for more loads in flight, with the probe scan's row dot
-// (common.cuh: the same bits as the scan), pad slots (id < 0) are not
-// read, and a slot enters the chunk's fold only if
-// it beats the list's k'-th entry (position p * cap + slot), which makes
-// most folds empty once the list has filled.  The list, k' (score,
-// position) pairs, stays in shared memory; the ids are looked up once at
-// the end.  One CUDA launch a call.
+// probes in order: each warp scores whole rows, four at once for more loads
+// in flight, with the probe scan's row dot (common.cuh: the same bits as
+// the scan), pad slots (id < 0) are not read; lane 0 writes each score to
+// the strip (nprobe x cap x 4 bytes a query, 128 KB at 32 x 1024).  Two
+// launches a call, the strip's ids looked up by the selection.
 //
 // query_fused_res.  Bound on the H100: the decode's instructions, as the
 // residual probe scan (ivf_probe_res_scan.cu), plus the psi-pool.  Design:
-// query_fused's block per query, psi-pool and top-k' fold, with the lists
-// scored kResChunk = 1024 slots at a time by the residual scan's own
-// scorer (residual.cuh: res_score_chunk, each tile of d' decoded once into
-// a table of products), so its candidates are the residual scan's bit for
-// bit; the fold after each chunk takes the rows that beat the list's k'-th.
+// query_fused's block per query and psi-pool, with the lists scored
+// kResChunk = 1024 slots at a time by the residual scan's own scorer
+// (residual.cuh: res_score_chunk, each tile of d' decoded once into a table
+// of products), so its scores are the residual scan's bit for bit; the
+// strip and the selection as query_fused's.
 //
-// mips_topk.  Bound on the H100: fp32 operations (2 B m d': 12.5 ms at
-// B = 256 over 800k live rows of d' = 2048, against 2 ms for their bytes in
-// fp32, at the data sheet's 67 TFLOP/s and 3.35 TB/s).  Two passes:
-//  - exact (mips_topk_exact): the rows are split over blocks, a block owns
-//    kTileQ = 8 queries and one split, scores them a tile of kTileRows rows
-//    at a time (tile.cuh: score_tile), scales SQ8 rows and pins invalid
-//    rows to NEG (their positions kept), and a warp folds each query's
-//    entries that beat its list into the list (k' pairs a query in shared
-//    memory); a second launch merges each query's splits.  The lists cap a
-//    block at one an SM and 8 queries (4 above k' = 2048, up to 4096, the
-//    sharded path's default on one shard), so W is read 32 times from L2 at
-//    B = 256: this pass serves small inputs and the sample below.
-//  - filtered (mips_topk_filtered), past 128 k' rows: the exact pass over
-//    every 32nd row (the wrapper slices it) gives each query a score its
-//    final k'-th cannot fall below; a 128-row x 64-query tile
-//    (tile.cuh: gemm_tile, no per-query state) scores every row and
-//    appends those at or above the bound to the query's candidates; one
-//    block a query folds its candidates into the exact top-k'.  Both tiles
-//    sum over k in the same order, so the bound holds to the bit.  A query
-//    with more candidates than its buffer sets a flag and the wrapper runs
-//    the exact pass over every row.
-// CUDA launches a call: 2 for the exact pass alone; 4 and 2 memsets with the
-// filtered pass (the sample's exact pass, the filter, the selection).
+// mips_topk.  Bound on the H100: tensor-core operations (tc_scan.cuh: 3
+// TF32 products of 2 B m d', 5.1 ms at B = 256 over 800k live fp32 rows of
+// d' = 2048; 2 for SQ8 rows), against 2 ms for the fp32 rows' bytes.  The
+// product runs on the tensor cores (tc_scan.cuh), and no pass keeps a
+// per-query list, so k' is not capped:
+//  - small inputs (fewer than 128 k' rows; the wrapper's FILTER_MIN_ROWS):
+//    the product stores the (B, m) scores, 256 queries at a time, and
+//    topk_select takes each query's top-k';
+//  - large ones: the product over every 32nd row (a row stride, no copy)
+//    stores the sample's scores, and topk_select's bound mode takes each
+//    query's k'-th: a score the final k'-th cannot fall below, since the
+//    filter scores those rows to the bit.  The filtered pass, the same
+//    product, appends every (row, score) at or above the bound to the
+//    query's candidates; topk_select finishes.  A query with more
+//    candidates than its buffer sets a flag and the wrapper runs the small
+//    inputs' path over every row.
+// CUDA launches a call: the q image (tc_q_image), then 2 a query chunk
+// (small), or 4 and a memset (large).
 #include "psi.cuh"
 #include "residual.cuh"
-#include "tile.cuh"
-#include "topk.cuh"
+#include "select.cuh"
+#include "tc_scan.cuh"
 
 namespace {
 
-constexpr int kMaxKp = 2048;  // the largest k' a list holds (the wrapper's MAX_KP)
-// The dense scan's largest k' (the wrapper's MAX_KP_DENSE).  Its exact pass
-// keeps a list a query in shared memory for kTileQ queries a block up to
-// kMaxKp, and for kTileQ / 2 above (4096 x 8 bytes x 8 queries would not fit).
-constexpr int kMaxKpDense = 4096;
-constexpr int kChunk = 256;  // slots scored between two folds (a power of two)
 constexpr int kWarps = kPsiThreads / 32;
 constexpr int kRowsAtOnce = 4;  // rows a warp scores together
 
@@ -83,13 +75,11 @@ query_fused_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    const int* __restrict__ probe, const int* __restrict__ ids,
                    const T* __restrict__ vecs, const float* __restrict__ scales,
-                   float* __restrict__ out_s, int* __restrict__ out_i, int B, int Tq,
-                   int D, int Dp, int P, int cap, int nlist, int kp, float eps,
-                   int vectorized) {
+                   float* __restrict__ strips, int B, int Tq, int D, int Dp, int P, int cap,
+                   int nlist, float eps, int vectorized) {
   extern __shared__ __align__(16) float sm[];
-  __shared__ int n_in;
   float* qs = sm;                           // the pooled latent, (Dp,)
-  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then the top-k
+  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch
   const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   {
     float pooled[C];
@@ -103,105 +93,97 @@ query_fused_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
       if (j < Dp) qs[j] = pooled[c];
     }
   }
-  float* ts = work;                         // the list: kp scores ...
-  int* tp = reinterpret_cast<int*>(ts + kp);  // ... and kp flat positions
-  float* es = reinterpret_cast<float*>(tp + kp);  // a chunk's entries
-  int* ep = reinterpret_cast<int*>(es + kChunk);
-  const BlockGroup g;
-  __syncthreads();                          // psi's scratch is free
-  topk_clear(ts, tp, kp, g);
-  if (tid == 0) n_in = 0;
-  __syncthreads();
-
+  __syncthreads();                          // the latent is in
+  float* strip = strips + (size_t)b * P * cap;
   for (int p = 0; p < P; ++p) {
     const int cl = probe[(size_t)b * P + p];
-    if (cl < 0 || cl >= nlist) continue;    // block-uniform
-    for (int c0 = 0; c0 < cap; c0 += kChunk) {
-      const float th_s = ts[kp - 1];
-      const int th_p = tp[kp - 1];
-      const int c1 = min(c0 + kChunk, cap);
-      // kRowsAtOnce rows a warp at a time (slots r, r + kWarps, ...), pad
-      // slots unread
-      for (int r = c0 + warp; r < c1; r += kRowsAtOnce * kWarps) {
-        const T* rows[kRowsAtOnce];
-        bool any = false;
+    float* sp = strip + (size_t)p * cap;
+    if (cl < 0 || cl >= nlist) {            // block-uniform: every slot a pad
+      for (int r = tid; r < cap; r += kPsiThreads) sp[r] = -INFINITY;
+      continue;
+    }
+    // kRowsAtOnce rows a warp at a time (slots r, r + kWarps, ...); pad
+    // slots are not read and score -inf
+    for (int r = warp; r < cap; r += kRowsAtOnce * kWarps) {
+      const T* rows[kRowsAtOnce];
+      bool any = false;
 #pragma unroll
-        for (int h = 0; h < kRowsAtOnce; ++h) {
-          const int rh = r + h * kWarps;
-          const size_t slot = (size_t)cl * cap + rh;
-          rows[h] = rh < c1 && ids[slot] >= 0 ? vecs + slot * Dp : nullptr;
-          any |= rows[h] != nullptr;
-        }
-        if (!any) continue;                 // warp-uniform
-        float s[kRowsAtOnce];
-        warp_rows_dot<kRowsAtOnce, T>(rows, qs, Dp, vectorized, lane, s);
+      for (int h = 0; h < kRowsAtOnce; ++h) {
+        const int rh = r + h * kWarps;
+        const size_t slot = (size_t)cl * cap + rh;
+        const bool live = rh < cap && ids[slot] >= 0;
+        rows[h] = live ? vecs + slot * Dp : nullptr;
+        any |= live;
+        if (rh < cap && !live && lane == 0) sp[rh] = -INFINITY;
+      }
+      if (!any) continue;                   // warp-uniform
+      float s[kRowsAtOnce];
+      warp_rows_dot<kRowsAtOnce, T>(rows, qs, Dp, vectorized, lane, s);
 #pragma unroll
-        for (int h = 0; h < kRowsAtOnce; ++h) {
-          const int rh = r + h * kWarps;
-          if (rows[h] == nullptr) continue;
-          if (scales != nullptr) s[h] = s[h] * scales[(size_t)cl * cap + rh];
-          const int pos = p * cap + rh;
-          if (lane == 0 && better(s[h], pos, th_s, th_p)) {
-            const int at = atomicAdd(&n_in, 1);
-            es[at] = s[h];
-            ep[at] = pos;
-          }
-        }
+      for (int h = 0; h < kRowsAtOnce; ++h) {
+        const int rh = r + h * kWarps;
+        if (rows[h] == nullptr || lane != 0) continue;
+        sp[rh] = scales != nullptr ? s[h] * scales[(size_t)cl * cap + rh] : s[h];
       }
-      __syncthreads();                      // the chunk's entries are in
-      const int n = n_in;
-      __syncthreads();                      // every thread has read n
-      if (tid == 0) n_in = 0;
-      if (n > 0) {
-        bitonic_sort(es, ep, n, g);
-        topk_merge<kChunk / kPsiThreads>(ts, tp, kp, es, ep, n, g);
-      }
-      __syncthreads();                      // n_in = 0 before the next chunk
     }
   }
-  for (int i = tid; i < kp; i += kPsiThreads) {
-    const int pos = tp[i];
-    int id = -1;
-    if (pos != kNoPos) id = ids[(size_t)probe[(size_t)b * P + pos / cap] * cap + pos % cap];
-    out_s[(size_t)b * kp + i] = ts[i];
-    out_i[(size_t)b * kp + i] = id;
-  }
+}
+
+// The second launch: the exact top-kp of each query's strip (pads -inf),
+// positions mapped to ids.
+int finish_strip(float* strips, sel_key_t* scratch, float* out_s, int* out_i,
+                 const int* probe, const int* ids, int B, int P, int cap, int kp,
+                 cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  SelArgs a{};
+  a.s = strips;
+  a.ld = (long long)P * cap;
+  a.n = P * cap;
+  a.kp = kp;
+  a.scratch = scratch;
+  a.out_s = out_s;
+  a.out_i = out_i;
+  a.probe = probe;
+  a.ids = ids;
+  a.P = P;
+  a.lcap = cap;
+  return launch_topk_select(a, B, stream);
 }
 
 template <typename T, int C>
 int launch_query_fused(const float* qt, const uint8_t* qm, const float* W,
                        const float* bias, const float* gamma, const float* beta,
                        const int* probe, const int* ids, const T* vecs,
-                       const float* scales, float* out_s, int* out_i, int B, int Tq,
-                       int D, int Dp, int P, int cap, int nlist, int kp, float eps,
-                       cudaStream_t stream) {
-  if (kp < 1 || kp > kMaxKp) return (int)cudaErrorInvalidValue;
+                       const float* scales, float* out_s, int* out_i, float* strips,
+                       sel_key_t* scratch, int B, int Tq, int D, int Dp, int P, int cap,
+                       int nlist, int kp, float eps, cudaStream_t stream) {
+  if (kp < 1) return (int)cudaErrorInvalidValue;
   const int vectorized = (Dp % (16 / (int)sizeof(T)) == 0) &&
                          (reinterpret_cast<uintptr_t>(vecs) % 16 == 0);
-  const size_t topk_floats = 2 * (size_t)kp + 2 * kChunk;
-  const size_t psi_floats = psi_smem_floats(D, Dp);
-  const size_t smem = ((Dp + 3) / 4 * 4 + (psi_floats > topk_floats ? psi_floats : topk_floats))
-                      * sizeof(float);
+  const size_t smem = ((Dp + 3) / 4 * 4 + psi_smem_floats(D, Dp)) * sizeof(float);
   cudaError_t err = allow_smem(query_fused_kernel<T, C>, smem);
   if (err != cudaSuccess) return (int)err;
   query_fused_kernel<T, C><<<B, kPsiThreads, smem, stream>>>(
-      qt, qm, W, bias, gamma, beta, probe, ids, vecs, scales, out_s, out_i, B, Tq, D,
-      Dp, P, cap, nlist, kp, eps, vectorized);
-  return (int)cudaGetLastError();
+      qt, qm, W, bias, gamma, beta, probe, ids, vecs, scales, strips, B, Tq, D, Dp, P, cap,
+      nlist, eps, vectorized);
+  return finish_strip(strips, scratch, out_s, out_i, probe, ids, B, P, cap, kp, stream);
 }
 
 template <typename T>
 int dispatch_query_fused(const void* qt, const void* qm, const void* W, const void* bias,
                          const void* gamma, const void* beta, const void* probe,
                          const void* ids, const void* vecs, const void* scales,
-                         void* out_s, void* out_i, int B, int Tq, int D, int Dp, int P,
-                         int cap, int nlist, int kp, float eps, void* stream) {
+                         void* out_s, void* out_i, void* strips, void* scratch, int B, int Tq,
+                         int D, int Dp, int P, int cap, int nlist, int kp, float eps,
+                         void* stream) {
 #define LEMUR_QF(C)                                                                   \
   return launch_query_fused<T, C>(                                                    \
       (const float*)qt, (const uint8_t*)qm, (const float*)W, (const float*)bias,      \
       (const float*)gamma, (const float*)beta, (const int*)probe, (const int*)ids,    \
-      (const T*)vecs, (const float*)scales, (float*)out_s, (int*)out_i, B, Tq, D, Dp, \
-      P, cap, nlist, kp, eps, (cudaStream_t)stream)
+      (const T*)vecs, (const float*)scales, (float*)out_s, (int*)out_i,               \
+      (float*)strips, (sel_key_t*)scratch, B, Tq, D, Dp, P, cap, nlist, kp, eps,      \
+      (cudaStream_t)stream)
   const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
   if (cols <= 1) LEMUR_QF(1);
   if (cols <= 2) LEMUR_QF(2);
@@ -218,20 +200,18 @@ int dispatch_query_fused(const void* qt, const void* qm, const void* W, const vo
 
 static_assert(kResThreads == kPsiThreads, "the residual scorer runs on the psi block");
 
-template <int BITS, int C>
+template <int BITS, int C, bool WHOLE>
 __global__ void __launch_bounds__(kPsiThreads)
 query_fused_res_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
                        const float* __restrict__ W, const float* __restrict__ bias,
                        const float* __restrict__ gamma, const float* __restrict__ beta,
                        const int* __restrict__ probe, const int* __restrict__ ids,
                        const uint8_t* __restrict__ codes, const float* __restrict__ centroids,
-                       const float* __restrict__ values, float* __restrict__ out_s,
-                       int* __restrict__ out_i, int B, int Tq, int D, int Dp, int P, int cap,
-                       int nlist, int kp, float eps) {
+                       const float* __restrict__ values, float* __restrict__ strips, int B,
+                       int Tq, int D, int Dp, int P, int cap, int nlist, float eps) {
   extern __shared__ __align__(16) float sm[];
-  __shared__ int n_in;
   float* qs = sm;                           // the pooled latent, (Dp,)
-  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then the top-k and a tile
+  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then res_score_chunk's
   const int b = blockIdx.x, tid = threadIdx.x;
   {
     float pooled[C];
@@ -245,91 +225,65 @@ query_fused_res_kernel(const float* __restrict__ qt, const uint8_t* __restrict__
       if (j < Dp) qs[j] = pooled[c];
     }
   }
-  float* ts = work;                         // the list: kp scores ...
-  int* tp = reinterpret_cast<int*>(ts + kp);  // ... and kp flat positions
-  float* es = reinterpret_cast<float*>(tp + kp);  // a chunk's entries
-  int* ep = reinterpret_cast<int*>(es + kResChunk);
-  float* rs = reinterpret_cast<float*>(ep + kResChunk);  // res_score_chunk's
-  const float* acc = rs + ResCodes<BITS>::kLevels * kResTileStride;
-  const BlockGroup g;
-  __syncthreads();                          // psi's scratch is free
-  topk_clear(ts, tp, kp, g);
-  if (tid == 0) n_in = 0;
-  __syncthreads();
-
-  const size_t db = Dp / ResCodes<BITS>::kPer;
+  const float* acc = work + ResCodes<BITS>::kLevels * kResTileStride;
+  float* strip = strips + (size_t)b * P * cap;
+  const size_t db = (size_t)Dp / ResCodes<BITS>::kPer;
   for (int p = 0; p < P; ++p) {
     const int cl = probe[(size_t)b * P + p];
-    if (cl < 0 || cl >= nlist) continue;    // block-uniform
+    float* sp = strip + (size_t)p * cap;
+    if (cl < 0 || cl >= nlist) {            // block-uniform: every slot a pad
+      for (int r = tid; r < cap; r += kPsiThreads) sp[r] = -INFINITY;
+      continue;
+    }
     const int* lid = ids + (size_t)cl * cap;
     for (int c0 = 0; c0 < cap; c0 += kResChunk) {
-      const float th_s = ts[kp - 1];
-      const int th_p = tp[kp - 1];
       const int c1 = min(c0 + kResChunk, cap);
-      res_score_chunk<BITS>(codes + (size_t)cl * cap * db, lid, c0, c1,
-                            centroids + (size_t)cl * Dp, values, qs, Dp, rs);
-      for (int r = c0 + tid; r < c1; r += kPsiThreads) {
-        const int pos = p * cap + r;
-        if (lid[r] >= 0 && better(acc[r - c0], pos, th_s, th_p)) {
-          const int at = atomicAdd(&n_in, 1);
-          es[at] = acc[r - c0];
-          ep[at] = pos;
-        }
-      }
-      __syncthreads();                      // the chunk's entries are in
-      const int n = n_in;
-      __syncthreads();                      // every thread has read n
-      if (tid == 0) n_in = 0;
-      if (n > 0) {
-        bitonic_sort(es, ep, n, g);
-        topk_merge<kResChunk / kPsiThreads>(ts, tp, kp, es, ep, n, g);
-      }
-      __syncthreads();                      // n_in = 0 before the next chunk
+      // (its first barrier also ends the psi-pool's use of work)
+      res_score_chunk<BITS, WHOLE>(codes + (size_t)cl * cap * db, lid, c0, c1,
+                            centroids + (size_t)cl * Dp, values, qs, Dp, work);
+      for (int r = c0 + tid; r < c1; r += kPsiThreads)
+        sp[r] = lid[r] >= 0 ? acc[r - c0] : -INFINITY;
     }
-  }
-  for (int i = tid; i < kp; i += kPsiThreads) {
-    const int pos = tp[i];
-    int id = -1;
-    if (pos != kNoPos) id = ids[(size_t)probe[(size_t)b * P + pos / cap] * cap + pos % cap];
-    out_s[(size_t)b * kp + i] = ts[i];
-    out_i[(size_t)b * kp + i] = id;
   }
 }
 
-template <int BITS, int C>
+template <int BITS, int C, bool WHOLE>
 int launch_query_fused_res(const float* qt, const uint8_t* qm, const float* W,
                            const float* bias, const float* gamma, const float* beta,
                            const int* probe, const int* ids, const uint8_t* codes,
                            const float* centroids, const float* values, float* out_s,
-                           int* out_i, int B, int Tq, int D, int Dp, int P, int cap,
-                           int nlist, int kp, float eps, cudaStream_t stream) {
-  if (kp < 1 || kp > kMaxKp) return (int)cudaErrorInvalidValue;
-  const size_t list_floats = 2 * (size_t)kp + 2 * kResChunk + res_smem_floats(BITS);
+                           int* out_i, float* strips, sel_key_t* scratch, int B, int Tq, int D,
+                           int Dp, int P, int cap, int nlist, int kp, float eps,
+                           cudaStream_t stream) {
+  if (kp < 1) return (int)cudaErrorInvalidValue;
+  const size_t res_floats = res_smem_floats(BITS);
   const size_t psi_floats = psi_smem_floats(D, Dp);
-  const size_t smem = ((Dp + 3) / 4 * 4 + (psi_floats > list_floats ? psi_floats : list_floats))
+  const size_t smem = ((Dp + 3) / 4 * 4 + (psi_floats > res_floats ? psi_floats : res_floats))
                       * sizeof(float);
-  cudaError_t err = allow_smem(query_fused_res_kernel<BITS, C>, smem);
+  cudaError_t err = allow_smem(query_fused_res_kernel<BITS, C, WHOLE>, smem);
   if (err != cudaSuccess) return (int)err;
-  query_fused_res_kernel<BITS, C><<<B, kPsiThreads, smem, stream>>>(
-      qt, qm, W, bias, gamma, beta, probe, ids, codes, centroids, values, out_s, out_i, B,
-      Tq, D, Dp, P, cap, nlist, kp, eps);
-  return (int)cudaGetLastError();
+  query_fused_res_kernel<BITS, C, WHOLE><<<B, kPsiThreads, smem, stream>>>(
+      qt, qm, W, bias, gamma, beta, probe, ids, codes, centroids, values, strips, B, Tq, D,
+      Dp, P, cap, nlist, eps);
+  return finish_strip(strips, scratch, out_s, out_i, probe, ids, B, P, cap, kp, stream);
 }
 
 template <int BITS>
 int dispatch_query_fused_res(const void* qt, const void* qm, const void* W, const void* bias,
                              const void* gamma, const void* beta, const void* probe,
                              const void* ids, const void* codes, const void* centroids,
-                             const void* values, void* out_s, void* out_i, int B, int Tq,
-                             int D, int Dp, int P, int cap, int nlist, int kp, float eps,
-                             void* stream) {
+                             const void* values, void* out_s, void* out_i, void* strips,
+                             void* scratch, int B, int Tq, int D, int Dp, int P, int cap,
+                             int nlist, int kp, float eps, void* stream) {
+  const bool whole = res_whole_words(codes, Dp, BITS);
 #define LEMUR_QFR(C)                                                                  \
-  return launch_query_fused_res<BITS, C>(                                             \
+  return (whole ? launch_query_fused_res<BITS, C, true>                               \
+                : launch_query_fused_res<BITS, C, false>)(                            \
       (const float*)qt, (const uint8_t*)qm, (const float*)W, (const float*)bias,      \
       (const float*)gamma, (const float*)beta, (const int*)probe, (const int*)ids,    \
       (const uint8_t*)codes, (const float*)centroids, (const float*)values,           \
-      (float*)out_s, (int*)out_i, B, Tq, D, Dp, P, cap, nlist, kp, eps,               \
-      (cudaStream_t)stream)
+      (float*)out_s, (int*)out_i, (float*)strips, (sel_key_t*)scratch, B, Tq, D, Dp,  \
+      P, cap, nlist, kp, eps, (cudaStream_t)stream)
   const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
   if (cols <= 1) LEMUR_QFR(1);
   if (cols <= 2) LEMUR_QFR(2);
@@ -340,308 +294,32 @@ int dispatch_query_fused_res(const void* qt, const void* qm, const void* W, cons
   return (int)cudaErrorInvalidValue;  // d' > 4096: the wrapper refuses it first
 }
 
-// -------------------------------------------------------------------------
-// mips_topk
-// -------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-mips_topk_split_kernel(const float* __restrict__ q, const T* __restrict__ Wr,
-                       const float* __restrict__ scales, const uint8_t* __restrict__ valid,
-                       float* __restrict__ part_s, int* __restrict__ part_p, int B, int m,
-                       int D, int kp, int nq, int rows_per_split, int vec) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ int n_in[kTileQ];
-  __shared__ float th_s[kTileQ];
-  __shared__ int th_p[kTileQ];
-  constexpr int kSplitWarps = kTileThreads / 32;
-  float* ts = sm + kTileSmemFloats;                         // nq lists of kp
-  int* tp = reinterpret_cast<int*>(ts + nq * kp);
-  float* es = reinterpret_cast<float*>(tp + nq * kp);       // a tile's entries
-  int* ep = reinterpret_cast<int*>(es + nq * kTileRows);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b0 = blockIdx.x * nq, split = blockIdx.y, S = gridDim.y;
-  const int b_end = min(B, b0 + nq);  // the tile scores no query past this block's
-  const int row0 = split * rows_per_split;
-  const int row1 = min(m, row0 + rows_per_split);
-  const WarpGroup g;
-  // warp w owns the lists of queries b0 + w, b0 + w + kSplitWarps, ...
-  for (int i = warp; i < nq; i += kSplitWarps) {
-    topk_clear(ts + i * kp, tp + i * kp, kp, g);
-    if (lane == 0) {
-      n_in[i] = 0;
-      th_s[i] = -INFINITY;
-      th_p[i] = kNoPos;
-    }
-  }
-  __syncthreads();
-
-  for (int r0 = row0; r0 < row1; r0 += kTileRows) {
-    float acc[kTileQ][kTileRowsPerThread];
-    score_tile<T>(q, b_end, b0, Wr, row1, r0, D, vec != 0, sm, acc);
-#pragma unroll
-    for (int j = 0; j < kTileRowsPerThread; ++j) {
-      const int row = r0 + kTileRowsPerThread * tid + j;
-      if (row >= row1) continue;
-      const float sc = scales != nullptr ? scales[row] : 1.f;
-      const bool ok = valid == nullptr || valid[row] != 0;
-#pragma unroll
-      for (int i = 0; i < kTileQ; ++i) {
-        if (b0 + i >= b_end) break;
-        float s = scales != nullptr ? acc[i][j] * sc : acc[i][j];
-        if (!ok) s = LEMUR_NEG;
-        if (better(s, row, th_s[i], th_p[i])) {
-          const int at = atomicAdd(&n_in[i], 1);
-          es[i * kTileRows + at] = s;
-          ep[i * kTileRows + at] = row;
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = warp; i < nq; i += kSplitWarps) {
-      const int n = n_in[i];
-      if (n == 0) continue;                                 // warp-uniform
-      float* e_s = es + i * kTileRows;
-      int* e_p = ep + i * kTileRows;
-      bitonic_sort(e_s, e_p, n, g);
-      topk_merge<kTileRows / 32>(ts + i * kp, tp + i * kp, kp, e_s, e_p, n, g);
-      if (lane == 0) {
-        n_in[i] = 0;
-        th_s[i] = ts[i * kp + kp - 1];
-        th_p[i] = tp[i * kp + kp - 1];
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = warp; i < nq; i += kSplitWarps) {
-    if (b0 + i >= B) break;
-    const size_t o = ((size_t)(b0 + i) * S + split) * kp;
-    for (int e = lane; e < kp; e += 32) {
-      part_s[o + e] = ts[i * kp + e];
-      part_p[o + e] = tp[i * kp + e];
-    }
-  }
-}
-
-constexpr int kMergeThreads = 256;
-constexpr int kMergeMaxPer = kMaxKpDense / kMergeThreads;
-
-__global__ void __launch_bounds__(kMergeThreads)
-mips_topk_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_p,
-                       float* __restrict__ out_s, int* __restrict__ out_i, int S, int kp) {
-  extern __shared__ __align__(16) float sm[];
-  float* ts = sm;
-  int* tp = reinterpret_cast<int*>(ts + kp);
-  float* es = reinterpret_cast<float*>(tp + kp);
-  int* ep = reinterpret_cast<int*>(es + kp);
-  const BlockGroup g;
-  const size_t base = (size_t)blockIdx.x * S * kp;
-  for (int i = g.rank(); i < kp; i += g.size()) {
-    ts[i] = part_s[base + i];
-    tp[i] = part_p[base + i];
-  }
-  g.sync();
-  for (int s = 1; s < S; ++s) {
-    const float* ps = part_s + base + (size_t)s * kp;
-    const int* pp = part_p + base + (size_t)s * kp;
-    // the split's list is sorted: the entries that beat the k'-th are a prefix
-    const int n = count_better(ps, pp, kp, ts[kp - 1], tp[kp - 1]);
-    for (int i = g.rank(); i < n; i += g.size()) {
-      es[i] = ps[i];
-      ep[i] = pp[i];
-    }
-    g.sync();
-    if (n > 0) topk_merge<kMergeMaxPer>(ts, tp, kp, es, ep, n, g);
-  }
-  for (int i = g.rank(); i < kp; i += g.size()) {
-    out_s[(size_t)blockIdx.x * kp + i] = ts[i];
-    out_i[(size_t)blockIdx.x * kp + i] = tp[i] == kNoPos ? -1 : tp[i];
-  }
-}
-
-template <typename T>
-int launch_mips_topk(const float* q, const T* W, const float* scales, const uint8_t* valid,
-                     float* part_s, int* part_p, float* out_s, int* out_i, int B, int m,
-                     int D, int kp, int S, cudaStream_t stream) {
-  if (kp < 1 || kp > kMaxKpDense) return (int)cudaErrorInvalidValue;
-  const int nq = kp > kMaxKp ? kTileQ / 2 : kTileQ;  // queries a block (the wrapper's too)
-  const int tiles = (m + kTileRows - 1) / kTileRows;
-  const int rows_per_split = (tiles + S - 1) / S * kTileRows;
-  const size_t smem = (kTileSmemFloats + 2 * (size_t)nq * kp + 2 * (size_t)nq * kTileRows)
-                      * sizeof(float);
-  cudaError_t err = allow_smem(mips_topk_split_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((B + nq - 1) / nq), (unsigned)S);
-  mips_topk_split_kernel<T><<<grid, kTileThreads, smem, stream>>>(
-      q, W, scales, valid, part_s, part_p, B, m, D, kp, nq, rows_per_split,
-      (int)tile_vectorized(W, D));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t msmem = 4 * (size_t)kp * sizeof(float);
-  err = allow_smem(mips_topk_merge_kernel, msmem);
-  if (err != cudaSuccess) return (int)err;
-  mips_topk_merge_kernel<<<B, kMergeThreads, msmem, stream>>>(part_s, part_p, out_s, out_i,
-                                                              S, kp);
-  return (int)cudaGetLastError();
-}
-
-
-// -------------------------------------------------------------------------
-// mips_topk over many rows: the product in large tiles, filtered against a
-// lower bound of each query's k'-th score, then an exact selection
-// -------------------------------------------------------------------------
-
-// One block: kGemmRows rows x kGemmQ queries (tile.cuh: gemm_tile).  Scores
-// at or above their query's bound are appended to its candidates (one
-// atomic a thread and query).
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-mips_filter_kernel(const float* __restrict__ q, const T* __restrict__ W,
-                   const float* __restrict__ scales, const uint8_t* __restrict__ valid,
-                   const float* __restrict__ thr, int* __restrict__ cnt,
-                   float* __restrict__ buf_s, int* __restrict__ buf_p, int cap, int B, int m,
-                   int D, int vec_w, int vec_q) {
-  __shared__ float th[kGemmQ];
-  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
-  const int b0 = blockIdx.x * kGemmQ, r0 = blockIdx.y * kGemmRows;
-  if (tid < kGemmQ) th[tid] = b0 + tid < B ? thr[b0 + tid] : INFINITY;
-  float acc[8][8];
-  gemm_tile<T>(q, B, b0, W, m, r0, D, vec_w != 0, vec_q != 0, acc);
-  float sc[8];
-  bool ok[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = r0 + ty * 8 + i;
-    ok[i] = row < m && (valid == nullptr || valid[row] != 0);
-    sc[i] = row < m && scales != nullptr ? scales[row] : 1.f;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int b = b0 + tx * 8 + j;
-    if (b >= B) break;
-    const float bound = th[tx * 8 + j];
-    float s[8];
-    int n = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s[i] = scales != nullptr ? acc[i][j] * sc[i] : acc[i][j];
-      if (!ok[i]) s[i] = LEMUR_NEG;
-      n += (r0 + ty * 8 + i < m && s[i] >= bound);
-    }
-    if (n == 0) continue;
-    int at = atomicAdd(&cnt[b], n);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (r0 + ty * 8 + i < m && s[i] >= bound) {
-        if (at < cap) {
-          buf_s[(size_t)b * cap + at] = s[i];
-          buf_p[(size_t)b * cap + at] = r0 + ty * 8 + i;
-        }
-        ++at;
-      }
-    }
-  }
-}
-
-constexpr int kSelThreads = 256;
-constexpr int kSelChunk = 1024;  // candidates read between two folds
-
-// One block a query: the exact top-k' of its candidates, a chunk at a time.
-__global__ void __launch_bounds__(kSelThreads)
-mips_select_kernel(const int* __restrict__ cnt, const float* __restrict__ buf_s,
-                   const int* __restrict__ buf_p, int cap, float* __restrict__ out_s,
-                   int* __restrict__ out_i, int* __restrict__ overflow, int kp) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ int n_in;
-  float* ts = sm;
-  int* tp = reinterpret_cast<int*>(ts + kp);
-  float* es = reinterpret_cast<float*>(tp + kp);
-  int* ep = reinterpret_cast<int*>(es + kSelChunk);
-  const BlockGroup g;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int total = cnt[b];
-  if (total > cap) {                  // block-uniform: the caller rescans
-    if (tid == 0) *overflow = 1;
-    return;
-  }
-  topk_clear(ts, tp, kp, g);
-  if (tid == 0) n_in = 0;
-  __syncthreads();
-  for (int c0 = 0; c0 < total; c0 += kSelChunk) {
-    const float th_s = ts[kp - 1];
-    const int th_p = tp[kp - 1];
-    for (int i = c0 + tid; i < min(c0 + kSelChunk, total); i += kSelThreads) {
-      const float s = buf_s[(size_t)b * cap + i];
-      const int p = buf_p[(size_t)b * cap + i];
-      if (better(s, p, th_s, th_p)) {
-        const int at = atomicAdd(&n_in, 1);
-        es[at] = s;
-        ep[at] = p;
-      }
-    }
-    __syncthreads();
-    const int n = n_in;
-    __syncthreads();
-    if (tid == 0) n_in = 0;
-    if (n > 0) {
-      bitonic_sort(es, ep, n, g);
-      topk_merge<kSelChunk / kSelThreads>(ts, tp, kp, es, ep, n, g);
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < kp; i += kSelThreads) {
-    out_s[(size_t)b * kp + i] = ts[i];
-    out_i[(size_t)b * kp + i] = tp[i] == kNoPos ? -1 : tp[i];
-  }
-}
-
-template <typename T>
-int launch_filtered(const float* q, const T* W, const float* scales, const uint8_t* valid,
-                    const float* thr, int* cnt, float* buf_s, int* buf_p, int cap,
-                    float* out_s, int* out_i, int* overflow, int B, int m, int D, int kp,
-                    cudaStream_t stream) {
-  if (kp < 1 || kp > kMaxKpDense) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(cnt, 0, (size_t)B * sizeof(int), stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(overflow, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  const int vec_w = tile_vectorized(W, D);
-  const int vec_q = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const dim3 grid((unsigned)((B + kGemmQ - 1) / kGemmQ), (unsigned)((m + kGemmRows - 1) / kGemmRows));
-  mips_filter_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
-      q, W, scales, valid, thr, cnt, buf_s, buf_p, cap, B, m, D, vec_w, vec_q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = (2 * (size_t)kp + 2 * kSelChunk) * sizeof(float);
-  err = allow_smem(mips_select_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  mips_select_kernel<<<B, kSelThreads, smem, stream>>>(cnt, buf_s, buf_p, cap, out_s, out_i,
-                                                       overflow, kp);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // scales == nullptr: fp32 lists; else int8 codes with per-slot scales.
 // qm may be null (every token counts).  Outputs (B, kp) scores and ids.
+// strips (B, P * cap) fp32 and scratch (B, kp) 8-byte keys: device memory
+// for the probed strip's scores and the selection.
 extern "C" int query_fused_fp32(const void* qt, const void* qm, const void* W,
                                 const void* bias, const void* gamma, const void* beta,
                                 const void* probe, const void* ids, const void* vecs,
-                                void* out_s, void* out_i, int B, int Tq, int D, int Dp,
-                                int P, int cap, int nlist, int kp, float eps, void* stream) {
+                                void* out_s, void* out_i, void* strips, void* scratch, int B,
+                                int Tq, int D, int Dp, int P, int cap, int nlist, int kp,
+                                float eps, void* stream) {
   return dispatch_query_fused<float>(qt, qm, W, bias, gamma, beta, probe, ids, vecs,
-                                     nullptr, out_s, out_i, B, Tq, D, Dp, P, cap, nlist,
-                                     kp, eps, stream);
+                                     nullptr, out_s, out_i, strips, scratch, B, Tq, D, Dp, P,
+                                     cap, nlist, kp, eps, stream);
 }
 
 extern "C" int query_fused_sq8(const void* qt, const void* qm, const void* W,
                                const void* bias, const void* gamma, const void* beta,
                                const void* probe, const void* ids, const void* codes,
-                               const void* scales, void* out_s, void* out_i, int B, int Tq,
-                               int D, int Dp, int P, int cap, int nlist, int kp, float eps,
-                               void* stream) {
+                               const void* scales, void* out_s, void* out_i, void* strips,
+                               void* scratch, int B, int Tq, int D, int Dp, int P, int cap,
+                               int nlist, int kp, float eps, void* stream) {
   return dispatch_query_fused<int8_t>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
-                                      scales, out_s, out_i, B, Tq, D, Dp, P, cap, nlist,
-                                      kp, eps, stream);
+                                      scales, out_s, out_i, strips, scratch, B, Tq, D, Dp, P,
+                                      cap, nlist, kp, eps, stream);
 }
 
 // codes (nlist, cap, Dp * bits / 8) uint8 against each list's own centroid;
@@ -651,55 +329,96 @@ extern "C" int query_fused_res(const void* qt, const void* qm, const void* W,
                                const void* bias, const void* gamma, const void* beta,
                                const void* probe, const void* ids, const void* codes,
                                const void* centroids, const void* values, void* out_s,
-                               void* out_i, int B, int Tq, int D, int Dp, int P, int cap,
-                               int nlist, int kp, int bits, float eps, void* stream) {
+                               void* out_i, void* strips, void* scratch, int B, int Tq, int D,
+                               int Dp, int P, int cap, int nlist, int kp, int bits, float eps,
+                               void* stream) {
   if (bits == 4)
     return dispatch_query_fused_res<4>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
-                                       centroids, values, out_s, out_i, B, Tq, D, Dp, P,
-                                       cap, nlist, kp, eps, stream);
+                                       centroids, values, out_s, out_i, strips, scratch, B, Tq,
+                                       D, Dp, P, cap, nlist, kp, eps, stream);
   if (bits == 2)
     return dispatch_query_fused_res<2>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
-                                       centroids, values, out_s, out_i, B, Tq, D, Dp, P,
-                                       cap, nlist, kp, eps, stream);
+                                       centroids, values, out_s, out_i, strips, scratch, B, Tq,
+                                       D, Dp, P, cap, nlist, kp, eps, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// W: (m, D) fp32 (scales null) or int8 codes with (m,) scales; valid: (m,)
-// bytes or null.  part_s / part_p: (B, S, kp) scratch.  Outputs (B, kp)
-// scores and row positions.  Two launches.
-extern "C" int mips_topk_exact(const void* q, const void* W, const void* scales,
-                               const void* valid, void* part_s, void* part_p, void* out_s,
-                               void* out_i, int B, int m, int D, int kp, int S, int sq8,
-                               void* stream) {
-  if (sq8)
-    return launch_mips_topk<int8_t>((const float*)q, (const int8_t*)W, (const float*)scales,
-                                    (const uint8_t*)valid, (float*)part_s, (int*)part_p,
-                                    (float*)out_s, (int*)out_i, B, m, D, kp, S,
-                                    (cudaStream_t)stream);
-  return launch_mips_topk<float>((const float*)q, (const float*)W, nullptr,
-                                 (const uint8_t*)valid, (float*)part_s, (int*)part_p,
-                                 (float*)out_s, (int*)out_i, B, m, D, kp, S,
-                                 (cudaStream_t)stream);
+
+// q (B, D) fp32 -> img, tc_scan.cuh's shared-memory image of q's split
+// pieces: ceil(B / 128) x ceil(D / 32) x 8,192 floats.
+extern "C" int tc_q_image(const void* q, void* img, int B, int D, void* stream) {
+  return launch_tc_q_image((const float*)q, (float*)img, B, D, (cudaStream_t)stream);
 }
 
-// The filtered pass: thr (B,) a lower bound of each query's k'-th score
-// (mips_topk_exact over a sample of the rows); cnt (B,) int, buf_s / buf_p
-// (B, cap) candidate scratch; overflow (1,) int, set when a query had more
-// than cap candidates (its outputs are then not written).  Two memsets and
-// two launches.
-extern "C" int mips_topk_filtered(const void* q, const void* W, const void* scales,
-                                  const void* valid, const void* thr, void* cnt, void* buf_s,
-                                  void* buf_p, int cap, void* out_s, void* out_i,
-                                  void* overflow, int B, int m, int D, int kp, int sq8,
-                                  void* stream) {
-  if (sq8)
-    return launch_filtered<int8_t>((const float*)q, (const int8_t*)W, (const float*)scales,
-                                   (const uint8_t*)valid, (const float*)thr, (int*)cnt,
-                                   (float*)buf_s, (int*)buf_p, cap, (float*)out_s,
-                                   (int*)out_i, (int*)overflow, B, m, D, kp,
-                                   (cudaStream_t)stream);
-  return launch_filtered<float>((const float*)q, (const float*)W, nullptr,
-                                (const uint8_t*)valid, (const float*)thr, (int*)cnt,
-                                (float*)buf_s, (int*)buf_p, cap, (float*)out_s, (int*)out_i,
-                                (int*)overflow, B, m, D, kp, (cudaStream_t)stream);
+// The product's store mode: out[b * ldo + r] = q[b] . W[r * rs] (times the
+// row's scale, NEG for an invalid row) for the B queries of img and the m
+// logical rows r.  W (rows, D) fp32 (scales null) or int8 codes with
+// (rows,) scales; valid (rows,) bytes or null.
+extern "C" int mips_scan_store(const void* img, const void* W, const void* scales,
+                               const void* valid, void* out, long long ldo, int B, int m,
+                               int D, int rs, int sq8, void* stream) {
+  TcScan a{};
+  a.img = (const float*)img;
+  a.W = W;
+  a.scales = (const float*)scales;
+  a.valid = (const uint8_t*)valid;
+  a.B = B;
+  a.m = m;
+  a.D = D;
+  a.rs = rs;
+  a.out = (float*)out;
+  a.ldo = ldo;
+  if (sq8) return launch_tc_scan<int8_t, false>(a, (cudaStream_t)stream);
+  return launch_tc_scan<float, false>(a, (cudaStream_t)stream);
+}
+
+// The filtered pass: thr (B,) each query's bound; cnt (B,) int (zeroed
+// here), buf_s / buf_p (B, cap) candidates, the count past cap kept.
+extern "C" int mips_scan_filter(const void* img, const void* W, const void* scales,
+                                const void* valid, const void* thr, void* cnt, void* buf_s,
+                                void* buf_p, int cap, int B, int m, int D, int sq8,
+                                void* stream) {
+  cudaError_t err = cudaMemsetAsync(cnt, 0, (size_t)B * sizeof(int), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  TcScan a{};
+  a.img = (const float*)img;
+  a.W = W;
+  a.scales = (const float*)scales;
+  a.valid = (const uint8_t*)valid;
+  a.B = B;
+  a.m = m;
+  a.D = D;
+  a.rs = 1;
+  a.thr = (const float*)thr;
+  a.cnt = (int*)cnt;
+  a.buf_s = (float*)buf_s;
+  a.buf_p = (int*)buf_p;
+  a.cap = cap;
+  if (sq8) return launch_tc_scan<int8_t, true>(a, (cudaStream_t)stream);
+  return launch_tc_scan<float, true>(a, (cudaStream_t)stream);
+}
+
+// topk_select over B queries' candidates: scores s (B, ld) with positions
+// p (B, ld) (null: the column), n each or cnt (B,) (null: n; past cap the
+// query sets *overflow and writes nothing) -> out_s / out_i (B, kp), or
+// with bound (B,) non-null only each query's kp-th score.  scratch (B, kp)
+// 8-byte keys.
+extern "C" int topk_select(const void* s, const void* p, long long ld, const void* cnt, int n,
+                           int cap, void* scratch, void* out_s, void* out_i, void* bound,
+                           void* overflow, int B, int kp, void* stream) {
+  if (kp < 1) return (int)cudaErrorInvalidValue;
+  SelArgs a{};
+  a.s = (const float*)s;
+  a.p = (const int*)p;
+  a.ld = ld;
+  a.cnt = (const int*)cnt;
+  a.n = n;
+  a.cap = cap;
+  a.kp = kp;
+  a.scratch = (sel_key_t*)scratch;
+  a.out_s = (float*)out_s;
+  a.out_i = (int*)out_i;
+  a.bound = (float*)bound;
+  a.overflow = (int*)overflow;
+  return launch_topk_select(a, B, (cudaStream_t)stream);
 }

@@ -19,7 +19,14 @@
 //
 // A Pages policy has smem_floats(D) (its block-wide tables), stage(tables,
 // D) (fills them, by the whole block) and load(slot, pid, D, lane, tables)
-// (one page into a warp's slot, by the warp).
+// (one page into a warp's slot, by the warp).  A policy with kPadded
+// takes a D that is not whole float4s: its slot's token rows are
+// rerank_stride(D) floats apart, D rounded up, and it writes 0 in the pad
+// dims (q's pad rows are 0 too), so the dot loop runs over whole float4s.
+// Without kPadded the rows are D apart (D % 4 == 0), the code as it was:
+// the padded stride in every instantiation cost the residual rerank a
+// fifth of its time on the served shape (chip_smoke.py: 11.3-11.4 ms
+// against 9.3, one H100).
 #pragma once
 
 #include "common.cuh"
@@ -27,6 +34,8 @@
 constexpr int kRerankWarps = 4;
 constexpr int kCandPerBlock = 32;
 constexpr int kPage = 16;  // TOKENS_PER_PAGE
+
+__host__ __device__ inline int rerank_stride(int D) { return (D + 3) / 4 * 4; }
 
 template <class Pages>
 __global__ void __launch_bounds__(kRerankWarps * 32)
@@ -36,20 +45,28 @@ rerank_paged_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_m
                     float* __restrict__ out, int Tq, int D, int kp, int pmax, int C,
                     long long n_pages) {
   extern __shared__ __align__(16) float sm[];
-  float* qT = sm;                                         // D x Tq
-  float* slots = qT + ((size_t)D * Tq + 3) / 4 * 4;       // kRerankWarps x kPage x D
-  float* best = slots + (size_t)kRerankWarps * kPage * D; // kRerankWarps x Tq
+  const int Ds = Pages::kPadded ? rerank_stride(D) : D;
+  float* qT = sm;                                         // Ds x Tq, rows past D 0
+  float* slots = qT + ((size_t)Ds * Tq + 3) / 4 * 4;      // kRerankWarps x kPage x Ds
+  float* best = slots + (size_t)kRerankWarps * kPage * Ds; // kRerankWarps x Tq
   float* tables = best + (size_t)kRerankWarps * Tq;       // the policy's
 
   const int b = blockIdx.y;
   const float* qb = q + (size_t)b * Tq * D;
-  for (int i = threadIdx.x; i < Tq * D; i += kRerankWarps * 32)
-    qT[(size_t)(i % D) * Tq + i / D] = qb[i];
+  if constexpr (Pages::kPadded) {
+    for (int i = threadIdx.x; i < Tq * Ds; i += kRerankWarps * 32) {
+      const int t = i / Ds, k = i % Ds;
+      qT[(size_t)k * Tq + t] = k < D ? qb[(size_t)t * D + k] : 0.f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < Tq * D; i += kRerankWarps * 32)
+      qT[(size_t)(i % D) * Tq + i / D] = qb[i];
+  }
   pages.stage(tables, D);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* pg = slots + (size_t)warp * kPage * D;
+  float* pg = slots + (size_t)warp * kPage * Ds;
   float* mx = best + (size_t)warp * Tq;
   const int c0 = blockIdx.x * kCandPerBlock;
   const int c1 = min(c0 + kCandPerBlock, kp);
@@ -70,14 +87,14 @@ rerank_paged_kernel(const float* __restrict__ q, const uint8_t* __restrict__ q_m
         float acc[kPage];
 #pragma unroll
         for (int s = 0; s < kPage; ++s) acc[s] = 0.f;
-        for (int k = 0; k < D; k += 4) {
+        for (int k = 0; k < Ds; k += 4) {
           const float q0 = qT[(size_t)(k + 0) * Tq + t];
           const float q1 = qT[(size_t)(k + 1) * Tq + t];
           const float q2 = qT[(size_t)(k + 2) * Tq + t];
           const float q3 = qT[(size_t)(k + 3) * Tq + t];
 #pragma unroll
           for (int s = 0; s < kPage; ++s) {
-            const float4 p = *reinterpret_cast<const float4*>(pg + s * D + k);
+            const float4 p = *reinterpret_cast<const float4*>(pg + s * Ds + k);
             acc[s] = fmaf(q0, p.x, acc[s]);
             acc[s] = fmaf(q1, p.y, acc[s]);
             acc[s] = fmaf(q2, p.z, acc[s]);
@@ -106,7 +123,8 @@ int launch_rerank_paged(Pages pages, const void* q, const void* q_mask, const vo
                         const void* page_table, const void* n_tokens, void* out, int B,
                         int Tq, int D, int kp, int pmax, int C, long long n_pages,
                         void* stream) {
-  const size_t smem = (((size_t)D * Tq + 3) / 4 * 4 + (size_t)kRerankWarps * kPage * D +
+  const size_t Ds = Pages::kPadded ? rerank_stride(D) : D;
+  const size_t smem = ((Ds * Tq + 3) / 4 * 4 + (size_t)kRerankWarps * kPage * Ds +
                        (size_t)kRerankWarps * Tq + Pages::smem_floats(D)) * sizeof(float);
   cudaError_t err = allow_smem(rerank_paged_kernel<Pages>, smem);
   if (err != cudaSuccess) return (int)err;

@@ -23,6 +23,7 @@ namespace {
 // fp32 pages: a page is copied as it is.
 struct Fp32Pages {
   const float* tok_pages;
+  static constexpr bool kPadded = false;  // the wrapper takes d % 4 == 0
   static size_t smem_floats(int) { return 0; }
   __device__ void stage(float*, int) const {}
   __device__ void load(float* pg, long long pid, int D, int lane, const float*) const {

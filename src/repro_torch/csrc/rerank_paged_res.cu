@@ -32,8 +32,11 @@
 
 namespace {
 
-template <int BITS>
+// VEC: D % 4 == 0, a page decoded four dims at a time; else a value at a
+// time into a padded slot (rerank.cuh: kPadded)
+template <int BITS, bool VEC>
 struct ResPages {
+  static constexpr bool kPadded = !VEC;
   const int* cent_pages;        // (P, kPage)
   const uint8_t* code_pages;    // (P, kPage, D / per)
   const float* centroids;       // (ncent, D)
@@ -58,13 +61,31 @@ struct ResPages {
   // before any is used: a float4 of the token's centroid row (512 contiguous
   // bytes a warp) and the 2 or 1 bytes of codes (contiguous too); the decoded
   // float4 goes to the warp's slot.  The 16 centroid ids arrive in one load
-  // and are broadcast by shuffles.  D % 4 == 0.
+  // and are broadcast by shuffles.  A D that is not a multiple of 4 (even
+  // at 4 bits, as pack_codes takes) is decoded a value at a time instead,
+  // the slot's pad dims 0 (rerank.cuh).
   __device__ void load(float* pg, long long pid, int D, int lane, const float* vs) const {
     using RC = ResCodes<BITS>;
     constexpr int kBatch = 8;
     const int db = D / RC::kPer, stride = vs_stride(D);
     const uint8_t* src = code_pages + pid * kPage * db;
     const int mine = lane < kPage ? min(max(cent_pages[pid * kPage + lane], 0), ncent - 1) : 0;
+    if constexpr (!VEC) {
+      const int Ds = rerank_stride(D);
+      for (int s = 0; s < kPage; ++s) {
+        const float* crow = centroids + (size_t)__shfl_sync(0xffffffffu, mine, s) * D;
+        const uint8_t* row = src + s * db;
+        for (int k = lane; k < Ds; k += 32) {
+          float o = 0.f;
+          if (k < D)
+            o = res_decode(__ldg(crow + k),
+                           vs[RC::code(__ldg(row + k / RC::kPer), k % RC::kPer) * stride +
+                              vs_col(k)]);
+          pg[s * Ds + k] = o;
+        }
+      }
+      return;
+    }
     for (int s0 = 0; s0 < kPage; s0 += kBatch) {
       const float* crow[kBatch];
 #pragma unroll
@@ -100,7 +121,8 @@ struct ResPages {
 // q (B, Tq, D) fp32; q_mask (B, Tq) bytes; cand (B, kp) int32; cent_pages
 // (n_pages, 16) int32; code_pages (n_pages, 16, D * bits / 8) uint8;
 // page_table (C, pmax) int32; n_tokens (C,) int32; centroids (ncent, D) and
-// values (D, 2^bits) fp32 -> out (B, kp) fp32.  D % 4 == 0; bits 2 or 4.
+// values (D, 2^bits) fp32 -> out (B, kp) fp32.  D * bits / 8 whole bytes;
+// bits 2 or 4.
 extern "C" int rerank_paged_res_scores(const void* q, const void* q_mask, const void* cand,
                                        const void* cent_pages, const void* code_pages,
                                        const void* page_table, const void* n_tokens,
@@ -108,13 +130,14 @@ extern "C" int rerank_paged_res_scores(const void* q, const void* q_mask, const 
                                        int B, int Tq, int D, int kp, int pmax, int C,
                                        long long n_pages, int ncent, int bits,
                                        void* stream) {
-#define LEMUR_RES_RERANK(BITS)                                                           \
+#define LEMUR_RES_RERANK(BITS, VEC)                                                      \
   return launch_rerank_paged(                                                            \
-      ResPages<BITS>{(const int*)cent_pages, (const uint8_t*)code_pages,                 \
-                     (const float*)centroids, (const float*)values, ncent},              \
+      ResPages<BITS, VEC>{(const int*)cent_pages, (const uint8_t*)code_pages,            \
+                          (const float*)centroids, (const float*)values, ncent},         \
       q, q_mask, cand, page_table, n_tokens, out, B, Tq, D, kp, pmax, C, n_pages, stream)
-  if (bits == 4) LEMUR_RES_RERANK(4);
-  if (bits == 2) LEMUR_RES_RERANK(2);
+  if (bits == 4 && D % 4 == 0) LEMUR_RES_RERANK(4, true);
+  if (bits == 4) LEMUR_RES_RERANK(4, false);
+  if (bits == 2) LEMUR_RES_RERANK(2, true);   // whole bytes at 2 bits: D % 4 == 0
 #undef LEMUR_RES_RERANK
   return (int)cudaErrorInvalidValue;
 }

@@ -50,27 +50,71 @@ inline size_t res_smem_floats(int bits) {
   return (size_t)(1 << bits) * kResTileStride + kResChunk;
 }
 
-// Rows [r0, r1) (r1 - r0 <= kResChunk) of one list: codes (cap, D / per)
-// bytes, whole 4-byte words a row (D a multiple of 32 / BITS; the wrappers
-// check it), and ids (cap,) of the list, its centroid (D,) and the codec's
-// values (D, L) in device memory, the query q (D,) in device or shared
-// memory; sm is res_smem_floats(BITS) floats of shared memory.  On return
-// (the block synchronized) sm + L * kResTileStride holds acc[r - r0] =
-// q . decode(row r) for every row with id >= 0.
-//
-// d' is walked a tile of kResTileDims dims at a time.  For a tile the block
-// first writes, coalesced, every product a code can give,
-// T[l][kk] = q[k] * (centroid[k] + values[k][l]) (the decode, then the
-// product, both rounded as the plain version rounds them), then each warp
-// takes kResRowsPerWarp rows (warp w: rows g + w + kResWarps h); lane l
-// loads words l + 32 t of each row's tile, every row's words in flight
-// together (128 contiguous bytes a warp a row), and adds T[code][kk] for
-// the codes they hold; a warp sum ends the row's tile and lane 0 adds it to
-// the row's score in shared memory.  A row sums in this order (tiles in
-// order; in a tile, lane partials over t and the word's codes, then the
-// butterfly) whoever calls, so it gets the same bits.  Pad slots (id < 0)
-// are not read.
+// One tile's rows [r0, r1) of a block's walk when a packed row is not
+// whole 4-byte words (D not a multiple of 32 / BITS; res_score_chunk
+// below, WHOLE false): a lane assembles its words from single bytes, none
+// past the row, and leaves out the codes past the tile's nk dims (the last
+// word of a row).  The sums run in the order of the whole-word walk.
 template <int BITS>
+__device__ __forceinline__ void res_tile_rows_bytes(const uint8_t* __restrict__ codes,
+                                                    const int* __restrict__ ids, int r0, int r1,
+                                                    int k0, int nk, int db, const float* T,
+                                                    float* acc) {
+  using RC = ResCodes<BITS>;
+  constexpr int cpw = 32 / BITS;                         // codes a word
+  constexpr int kWords = kResTileDims / cpw / 32;        // words a lane a row a tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tw = (nk + cpw - 1) / cpw;                   // words of the tile a row
+  const int tb = k0 / cpw * 4;                           // the tile's first byte in a row
+  for (int g = r0; g < r1; g += kResGroup) {
+    int off[kResRowsPerWarp];
+    float part[kResRowsPerWarp];
+    uint32_t w[kResRowsPerWarp][kWords];
+#pragma unroll
+    for (int h = 0; h < kResRowsPerWarp; ++h) {
+      const int r = g + warp + kResWarps * h;
+      off[h] = (r < r1 && ids[r] >= 0) ? r * db + tb : -1;  // a list is under 2^31 bytes
+      part[h] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kWords; ++t) {
+        const int wi = lane + 32 * t;
+        uint32_t x = 0u;
+        if (off[h] >= 0 && wi < tw) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (tb + 4 * wi + j < db) x |= (uint32_t)__ldg(codes + off[h] + 4 * wi + j) << (8 * j);
+        }
+        w[h][t] = x;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kResRowsPerWarp; ++h) {
+      if (off[h] < 0) continue;             // a pad slot (warp-uniform)
+#pragma unroll
+      for (int t = 0; t < kWords; ++t) {
+        const int wi = lane + 32 * t;
+        if (wi >= tw) continue;             // past a short last tile
+#pragma unroll
+        for (int j = 0; j < cpw; ++j)
+          if (wi * cpw + j < nk)
+            part[h] += T[RC::code(w[h][t], j) * kResTileStride + res_col(wi * cpw + j)];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kResRowsPerWarp; ++h) {
+      const float s = warp_sum(part[h]);
+      if (lane == 0 && off[h] >= 0) acc[g + warp + kResWarps * h - r0] += s;
+    }
+  }
+}
+
+// Whether res_score_chunk may load codes (cap, D * bits / 8) a whole
+// 4-byte word at a time: every row whole words, the codes aligned.
+inline bool res_whole_words(const void* codes, int D, int bits) {
+  return D * bits / 8 % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+}
+
+template <int BITS, bool WHOLE>
 __device__ __forceinline__ void res_score_chunk(
     const uint8_t* __restrict__ codes, const int* __restrict__ ids, int r0, int r1,
     const float* __restrict__ centroid, const float* __restrict__ values, const float* q,
@@ -82,7 +126,7 @@ __device__ __forceinline__ void res_score_chunk(
   float* T = sm;
   float* acc = sm + L * kResTileStride;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wpr = D / cpw;                               // words a row
+  const int wpr = D / cpw;                               // words a row (WHOLE)
   const uint32_t* words = reinterpret_cast<const uint32_t*>(codes);
   __syncthreads();                          // the caller has read the last chunk
   for (int i = tid; i < r1 - r0; i += kResThreads) acc[i] = 0.f;
@@ -103,6 +147,10 @@ __device__ __forceinline__ void res_score_chunk(
       }
     }
     __syncthreads();
+    if constexpr (!WHOLE) {
+      res_tile_rows_bytes<BITS>(codes, ids, r0, r1, k0, nk, D * BITS / 8, T, acc);
+      continue;
+    }
     const int tw = nk / cpw;                // words of the tile a row
     for (int g = r0; g < r1; g += kResGroup) {
       int off[kResRowsPerWarp];

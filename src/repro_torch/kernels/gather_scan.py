@@ -155,16 +155,16 @@ def rerank_gather_scores(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=N
 rerank_gather_scores.launches = 0
 
 
-def residual_bits(values: torch.Tensor, d: int, *, words: bool = False) -> int:
+def residual_bits(values: torch.Tensor, d: int) -> int:
     """The code width of a (d, L) residual values table; raises unless L is
-    4 or 16 (2 or 4 bits), or with ``words`` unless a packed row is whole
-    4-byte words (the scans load codes a word at a time)."""
+    4 or 16 (2 or 4 bits) and a packed row is whole bytes (d even at 4 bits,
+    a multiple of 4 at 2, as quantization.pack_codes packs them)."""
     L = values.shape[1]
     if L not in (4, 16) or values.shape[0] != d:
         raise ValueError(f"residual values must be (d={d}, 4 or 16), got {tuple(values.shape)}")
     bits = L.bit_length() - 1
-    if words and d * bits % 32:
-        raise ValueError(f"the residual scans take packed rows of whole 4-byte words: "
+    if d * bits % 8:
+        raise ValueError(f"the residual kernels take packed rows of whole bytes: "
                          f"d={d} at {bits} bits is {d * bits / 8:g} bytes")
     return bits
 
@@ -176,18 +176,19 @@ def ivf_probe_res_scan(q, probe, ids, codes, centroids, values):
     padded); codes: (nlist, cap, d * bits / 8) uint8, each row coded against
     its own list's centroid; centroids: (nlist, d) fp32; values: (d, 2^bits)
     fp32 -> (B, nprobe, cap) fp32, pad slots -inf.  The kernel reads the
-    codes a 4-byte word at a time: d * bits / 8 must be a multiple of 4."""
+    codes a 4-byte word at a time where a row is whole words, else a byte
+    at a time."""
     if q.device.type == "cpu":
         return ref.ivf_scan_res_ref(q, probe, ids, codes, centroids, values)
     B, d = q.shape
     nlist, cap = ids.shape
     P = probe.shape[1]
     dev = q.device
-    bits = residual_bits(values, d, words=True)
+    bits = residual_bits(values, d)
     build.expect(q, "q", torch.float32, (B, d), dev, align=4)
     build.expect(probe, "probe", torch.int32, (B, P), dev, align=4)
     build.expect(ids, "ids", torch.int32, (nlist, cap), dev, align=4)
-    build.expect(codes, "codes", torch.uint8, (nlist, cap, d * bits // 8), dev, align=4)
+    build.expect(codes, "codes", torch.uint8, (nlist, cap, d * bits // 8), dev, align=1)
     build.expect(centroids, "centroids", torch.float32, (nlist, d), dev, align=4)
     build.expect(values, "values", torch.float32, (d, 1 << bits), dev)
     if cap * (d * bits // 8) >= 2 ** 31:
@@ -228,9 +229,9 @@ def rerank_paged_res_scores(q, q_mask, cand_ids, cent_pages, code_pages, page_ta
     ncent = centroids.shape[0]
     dev = q.device
     bits = residual_bits(values, d)
-    if page != 16 or d % 4 or B > 65535:
-        raise ValueError(f"rerank kernel takes 16-token pages, d % 4 == 0 and "
-                         f"B <= 65535 (got page={page}, d={d}, B={B})")
+    if page != 16 or B > 65535:
+        raise ValueError(f"rerank kernel takes 16-token pages and B <= 65535 "
+                         f"(got page={page}, B={B})")
     build.expect(q, "q", torch.float32, (B, Tq, d), dev)
     build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev)
     build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev)

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.query_fused import tc_image_floats
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -30,22 +31,25 @@ def _check(q, codes, scales, rows_shape):
 
 def mips_sq8(q, codes, scales):
     """All pairs: q (B, d) fp32 x codes (m, d) int8 with scales (m,) fp32 ->
-    (B, m) fp32, the fp32 dot with the widened codes times the row scale."""
+    (B, m) fp32, the fp32 dot with the widened codes times the row scale (on
+    the card: the dense scan's tensor-core product, q split in two TF32
+    pieces, csrc/tc_scan.cuh)."""
     if q.device.type == "cpu":
         return ref.mips_sq8_ref(q, codes, scales)
     B, d = q.shape
     m = codes.shape[0]
     _check(q, codes, scales, (m,))
-    if -(-m // 128) > MAX_GRID_Y:
-        raise ValueError(f"mips_sq8 kernel takes m <= {128 * MAX_GRID_Y}, got {m}")
+    if m >= 2 ** 31 - 1:
+        raise ValueError(f"mips_sq8 kernel takes m < 2^31 - 1, got {m}")
     out = torch.empty((B, m), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or d == 0:
         return out.zero_()
+    img = torch.empty((tc_image_floats(B, d),), dtype=torch.float32, device=q.device)
     lib = build.library("mips_sq8")
     fn = lib.mips_sq8_pairs
-    fn.argtypes = [_p] * 4 + [_i] * 3 + [_p]
-    err = fn(q.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), B, m, d,
-             build.stream_ptr(q))
+    fn.argtypes = [_p] * 5 + [_i] * 3 + [_p]
+    err = fn(q.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), img.data_ptr(),
+             B, m, d, build.stream_ptr(q))
     build.check(lib, err, "mips_sq8")
     mips_sq8.launches += 1
     return out

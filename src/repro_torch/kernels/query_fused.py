@@ -1,16 +1,16 @@
 """One-launch first stages (twin of ``repro/kernels/query_fused.py``; CUDA
 kernels in ``csrc/query_fused.cu``).
 
-``query_fused``: psi-pool + IVF probe scan + top-k' of each query, one CUDA
-launch a call; ``query_fused_res`` the same over residual lists.  ``mips_topk``: dense latent scan + top-k', fp32 or SQ8 rows:
-an exact pass (row splits, each a carried top-k', then their merge: two
-launches) on small inputs, and on large ones that pass over a sample of the
-rows, then a filtered pass and a selection (four launches and two memsets;
-see the function).  Both order
-the top-k by score descending, then flat position ascending, so the ids
-equal a stable top-k over the flat strip.  CPU tensors take the plain
-versions in :mod:`repro_torch.kernels.ref`; CUDA tensors launch the kernel
-or raise.  ``<wrapper>.launches`` counts calls that launched.
+``query_fused``: psi-pool + IVF probe scan + top-k' of each query, the
+probed strip's scores through device memory and an exact selection (two
+launches a call, any k'); ``query_fused_res`` the same over residual lists.
+``mips_topk``: dense latent scan + top-k', fp32 or SQ8 rows, the product on
+the tensor cores (``csrc/tc_scan.cuh``) and the selection in device memory
+(``csrc/select.cuh``), for any k' (see the function).  All order the top-k
+by score descending, then flat position ascending, so the ids equal a
+stable top-k over the flat strip.  CPU tensors take the plain versions in
+:mod:`repro_torch.kernels.ref`; CUDA tensors launch the kernels or raise.
+``<wrapper>.launches`` counts calls that launched.
 """
 from __future__ import annotations
 
@@ -23,32 +23,37 @@ from repro_torch.kernels.gather_scan import residual_bits
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-#: the largest k' the one-launch IVF kernels keep in shared memory
-MAX_KP = 2048
-#: the dense scan's: its exact pass keeps 8 queries' lists of k' (score,
-#: position) pairs a block up to MAX_KP (128 KB at 2048) and 4 queries' above
-#: (128 KB at 4096, the sharded path's default k' on one shard)
-MAX_KP_DENSE = 4096
+_ll = ctypes.c_longlong
 MAX_D_PRIME = 4096   # the psi-pool's register tile, as in fused_psi
 
 
-def _check_kp(kp: int, what: str, limit: int = MAX_KP) -> None:
-    if not 1 <= kp <= limit:
-        raise ValueError(f"{what} kernel keeps 1 <= kp <= {limit} in shared "
-                         f"memory, got kp={kp}")
+def _check_kp(kp: int, what: str) -> None:
+    if kp < 1:
+        raise ValueError(f"{what} kernel takes kp >= 1, got kp={kp}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _strip(B: int, P: int, cap: int, kp: int, dev):
+    """Device memory of the one-launch IVF kernels: the (B, P cap) strip of
+    probed scores and the selection's (B, kp) keys."""
+    return (torch.empty((B, P * cap), dtype=torch.float32, device=dev),
+            torch.empty((B, kp), dtype=torch.int64, device=dev))
 
 
 def query_fused(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
                 vecs, scales=None, *, kp: int, eps: float = 1e-5,
                 chunk: int | None = None):
-    """Pooled psi(X), the probed lists' scores and their top-kp, in one launch.
+    """Pooled psi(X), the probed lists' scores and their top-kp.
 
     q_tokens: (B, Tq, d) fp32; q_mask: (B, Tq) bool or None; kernel, bias,
     ln_scale, ln_bias: psi's weights (d, d') / (d',); probe: (B, nprobe)
     int32 cluster ids; ids: (nlist, cap) int32, -1 padded; vecs: (nlist,
     cap, d') fp32, or int8 codes with scales (nlist, cap) -> (scores (B, kp)
     fp32, ids (B, kp) int32), short rows padded with (-inf, -1).  The kernel
-    takes kp <= MAX_KP and d' <= MAX_D_PRIME; ``chunk`` bounds the plain
+    takes any kp >= 1 and d' <= MAX_D_PRIME; ``chunk`` bounds the plain
     version's gather (query rows at a time) and the kernel ignores it."""
     if q_tokens.device.type == "cpu":
         return ref.query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
@@ -76,23 +81,23 @@ def query_fused(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
     if B == 0:
         return out_s, out_i
     lib = build.library("query_fused")
-    common = (q_tokens.data_ptr(), None if q_mask is None else q_mask.data_ptr(),
-              kernel.data_ptr(), bias.data_ptr(), ln_scale.data_ptr(),
-              ln_bias.data_ptr(), probe.data_ptr(), ids.data_ptr(), vecs.data_ptr())
-    shape = (B, Tq, d, dp, P, cap, nlist, kp)
+    common = (q_tokens.data_ptr(), _ptr(q_mask), kernel.data_ptr(), bias.data_ptr(),
+              ln_scale.data_ptr(), ln_bias.data_ptr(), probe.data_ptr(), ids.data_ptr(),
+              vecs.data_ptr())
+    strips, scratch = _strip(B, P, cap, kp, dev)
+    tail = (out_s.data_ptr(), out_i.data_ptr(), strips.data_ptr(), scratch.data_ptr(),
+            B, Tq, d, dp, P, cap, nlist, kp, float(eps), build.stream_ptr(q_tokens))
     if scales is not None:
         build.expect(vecs, "vecs", torch.int8, (nlist, cap, dp), dev, align=1)
         build.expect(scales, "scales", torch.float32, (nlist, cap), dev, align=4)
         fn = lib.query_fused_sq8
-        fn.argtypes = [_p] * 12 + [_i] * 8 + [ctypes.c_float, _p]
-        err = fn(*common, scales.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape,
-                 float(eps), build.stream_ptr(q_tokens))
+        fn.argtypes = [_p] * 14 + [_i] * 8 + [ctypes.c_float, _p]
+        err = fn(*common, scales.data_ptr(), *tail)
     else:
         build.expect(vecs, "vecs", torch.float32, (nlist, cap, dp), dev, align=4)
         fn = lib.query_fused_fp32
-        fn.argtypes = [_p] * 11 + [_i] * 8 + [ctypes.c_float, _p]
-        err = fn(*common, out_s.data_ptr(), out_i.data_ptr(), *shape, float(eps),
-                 build.stream_ptr(q_tokens))
+        fn.argtypes = [_p] * 13 + [_i] * 8 + [ctypes.c_float, _p]
+        err = fn(*common, *tail)
     build.check(lib, err, "query_fused")
     query_fused.launches += 1
     return out_s, out_i
@@ -106,9 +111,10 @@ def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, id
                     chunk: int | None = None):
     """:func:`query_fused` over residual lists: codes (nlist, cap, d' * bits
     / 8) uint8 against each list's own centroid, centroids (nlist, d') and
-    values (d', 2^bits) fp32, d' * bits / 8 a multiple of 4.  The rows score
-    as ``ivf_probe_res_scan`` scores them (the same row code), so the ids
-    equal that scan's followed by the stable flat top-kp."""
+    values (d', 2^bits) fp32 (rows of whole bytes, as pack_codes packs
+    them).  The rows score as ``ivf_probe_res_scan`` scores them (the same
+    row code), so the ids equal that scan's followed by the stable flat
+    top-kp."""
     if q_tokens.device.type == "cpu":
         return ref.query_fused_res_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
                                        probe, ids, codes, centroids, values, kp=kp,
@@ -118,7 +124,7 @@ def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, id
     P = probe.shape[1]
     dp = kernel.shape[1]
     dev = q_tokens.device
-    bits = residual_bits(values, dp, words=True)
+    bits = residual_bits(values, dp)
     _check_kp(kp, "query_fused_res")
     if dp > MAX_D_PRIME:
         raise ValueError(f"query_fused_res kernel takes d' <= {MAX_D_PRIME}, got {dp}")
@@ -132,7 +138,7 @@ def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, id
         build.expect(t, name, torch.float32, (dp,), dev, align=4)
     build.expect(probe, "probe", torch.int32, (B, P), dev, align=4)
     build.expect(ids, "ids", torch.int32, (nlist, cap), dev, align=4)
-    build.expect(codes, "codes", torch.uint8, (nlist, cap, dp * bits // 8), dev, align=4)
+    build.expect(codes, "codes", torch.uint8, (nlist, cap, dp * bits // 8), dev, align=1)
     build.expect(centroids, "centroids", torch.float32, (nlist, dp), dev, align=4)
     build.expect(values, "values", torch.float32, (dp, 1 << bits), dev)
     if cap * (dp * bits // 8) >= 2 ** 31:
@@ -143,13 +149,14 @@ def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, id
     if B == 0:
         return out_s, out_i
     lib = build.library("query_fused")
+    strips, scratch = _strip(B, P, cap, kp, dev)
     fn = lib.query_fused_res
-    fn.argtypes = [_p] * 13 + [_i] * 9 + [ctypes.c_float, _p]
-    err = fn(q_tokens.data_ptr(), None if q_mask is None else q_mask.data_ptr(),
-             kernel.data_ptr(), bias.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-             probe.data_ptr(), ids.data_ptr(), codes.data_ptr(), centroids.data_ptr(),
-             values.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, Tq, d, dp, P, cap,
-             nlist, kp, bits, float(eps), build.stream_ptr(q_tokens))
+    fn.argtypes = [_p] * 15 + [_i] * 9 + [ctypes.c_float, _p]
+    err = fn(q_tokens.data_ptr(), _ptr(q_mask), kernel.data_ptr(), bias.data_ptr(),
+             ln_scale.data_ptr(), ln_bias.data_ptr(), probe.data_ptr(), ids.data_ptr(),
+             codes.data_ptr(), centroids.data_ptr(), values.data_ptr(), out_s.data_ptr(),
+             out_i.data_ptr(), strips.data_ptr(), scratch.data_ptr(), B, Tq, d, dp, P, cap, nlist, kp,
+             bits, float(eps), build.stream_ptr(q_tokens))
     build.check(lib, err, "query_fused_res")
     query_fused_res.launches += 1
     return out_s, out_i
@@ -160,59 +167,111 @@ query_fused_res.launches = 0
 
 #: the dense scan's filtered pass samples every SAMPLE_STRIDE-th row for
 #: its bound and keeps up to FILTER_SLACK x SAMPLE_STRIDE x kp candidates a
-#: query; below FILTER_MIN_ROWS x kp rows the exact pass alone runs
+#: query; below FILTER_MIN_ROWS x kp rows the product stores every score
 SAMPLE_STRIDE = 32
 FILTER_SLACK = 4
 FILTER_MIN_ROWS = 4 * SAMPLE_STRIDE
+#: the tensor-core product's query tile and column chunk (csrc/tc_scan.cuh)
+TC_Q, TC_K = 128, 32
+#: bytes of (query, row) scores the stored path holds at a time
+STORE_BYTES = 2 ** 30
 
 
-def _mips_exact(lib, q, W, W_scales, valid, kp):
-    """The exact pass: row splits, each a carried top-kp, then their merge."""
+def tc_image_floats(B: int, D: int) -> int:
+    """Floats of q's split image (csrc/tc_scan.cuh: tc_q_image)."""
+    return -(-B // TC_Q) * -(-D // TC_K) * 2 * TC_Q * TC_K
+
+
+def _select(lib, s, p, ld, cnt, n, cap, out, B, kp, *, bound=None, overflow=None, stream):
+    """topk_select over B queries' candidates into ``out`` (scores, ids) or,
+    with ``bound``, each query's kp-th score."""
+    scratch = None
+    if bound is None:
+        scratch = torch.empty((B, kp), dtype=torch.int64, device=s.device)
+    fn = lib.topk_select
+    fn.argtypes = [_p, _p, _ll, _p, _i, _i] + [_p] * 5 + [_i, _i, _p]
+    err = fn(s.data_ptr(), _ptr(p), ld, _ptr(cnt), n, cap, _ptr(scratch),
+             None if out is None else out[0].data_ptr(),
+             None if out is None else out[1].data_ptr(), _ptr(bound), _ptr(overflow), B, kp,
+             stream)
+    build.check(lib, err, "mips_topk (selection)")
+
+
+def _scan_store(lib, img_ptr, W, W_scales, valid, out, B, m, rs, stream):
+    """The tensor-core product's store mode: out[b, r] = q[b] . W[r rs]."""
+    fn = lib.mips_scan_store
+    fn.argtypes = [_p] * 5 + [_ll] + [_i] * 5 + [_p]
+    err = fn(img_ptr, W.data_ptr(), _ptr(W_scales), _ptr(valid), out.data_ptr(),
+             out.shape[1], B, m, W.shape[1], rs, int(W_scales is not None), stream)
+    build.check(lib, err, "mips_topk (product)")
+
+
+def _mips_stored(lib, img, q, W, W_scales, valid, kp):
+    """Every (query, row) score stored, TC_Q queries or more at a time
+    (STORE_BYTES), and each query's top-kp selected from them."""
+    B, D = q.shape
+    m = W.shape[0]
+    stream = build.stream_ptr(q)
+    out = (torch.empty((B, kp), dtype=torch.float32, device=q.device),
+           torch.empty((B, kp), dtype=torch.int32, device=q.device))
+    Bc = max(TC_Q, STORE_BYTES // (4 * max(m, 1)) // TC_Q * TC_Q)
+    sc = torch.empty((min(Bc, B), m), dtype=torch.float32, device=q.device)
+    tile_bytes = tc_image_floats(TC_Q, D) * 4               # the image of one query tile
+    for b0 in range(0, B, Bc):
+        nb = min(Bc, B - b0)
+        _scan_store(lib, img.data_ptr() + b0 // TC_Q * tile_bytes, W, W_scales, valid, sc,
+                    nb, m, 1, stream)
+        _select(lib, sc, None, m, None, m, 0, (out[0][b0:b0 + nb], out[1][b0:b0 + nb]), nb,
+                kp, stream=stream)
+    return out
+
+
+def tc_scores(q, W, W_scales=None, valid=None, *, stride: int = 1):
+    """The scores mips_topk's passes compute on the card, stored: (B,
+    ceil(m / stride)) for rows 0, stride, 2 stride, ... of W (CUDA tensors
+    only; no launch is counted).  The checks of the product use it: against
+    an fp64 product, and the sample's scores against the full pass's."""
     B, dp = q.shape
     m = W.shape[0]
-    # row splits: one wave of blocks (8 queries x a split each, 4 above
-    # MAX_KP, one block an SM for its shared memory), and no split without a
-    # 512-row tile
-    tiles = max(1, -(-m // 512))
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nq = 8 if kp <= MAX_KP else 4
-    S = max(1, min(tiles, sms // -(-B // nq)))
-    part_s = torch.empty((B, S, kp), dtype=torch.float32, device=q.device)
-    part_p = torch.empty((B, S, kp), dtype=torch.int32, device=q.device)
-    out_s = torch.empty((B, kp), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, kp), dtype=torch.int32, device=q.device)
-    fn = lib.mips_topk_exact
-    fn.argtypes = [_p] * 8 + [_i] * 6 + [_p]
-    err = fn(q.data_ptr(), W.data_ptr(), W_scales.data_ptr() if W_scales is not None else None,
-             None if valid is None else valid.data_ptr(), part_s.data_ptr(),
-             part_p.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, m, dp, kp, S,
-             int(W_scales is not None), build.stream_ptr(q))
-    build.check(lib, err, "mips_topk")
-    return out_s, out_i
+    build.expect(q, "q", torch.float32, (B, dp), q.device, align=4)
+    ms = -(-m // stride)
+    lib = build.library("query_fused")
+    stream = build.stream_ptr(q)
+    img = torch.empty((tc_image_floats(B, dp),), dtype=torch.float32, device=q.device)
+    fn = lib.tc_q_image
+    fn.argtypes = [_p, _p, _i, _i, _p]
+    build.check(lib, fn(q.data_ptr(), img.data_ptr(), B, dp, stream), "tc_scores (q image)")
+    out = torch.empty((B, ms), dtype=torch.float32, device=q.device)
+    _scan_store(lib, img.data_ptr(), W, W_scales, valid, out, B, ms, stride, stream)
+    return out
 
 
 def mips_topk(q, W, W_scales=None, valid=None, *, kp: int, chunk: int | None = None):
-    """Dense latent scan and its top-kp without the (B, m) score matrix.
+    """Dense latent scan and its top-kp, without a (B, m) score matrix on
+    large inputs.
 
     q: (B, d') fp32; W: (m, d') fp32, or int8 codes with W_scales (m,) fp32;
     valid: (m,) bool or None, invalid rows scored NEG with their positions
     kept -> (scores (B, kp) fp32, row positions (B, kp) int32), short rows
-    padded with (-inf, -1).  The kernel takes kp <= MAX_KP_DENSE; ``chunk`` bounds
+    padded with (-inf, -1).  The kernels take any kp >= 1; ``chunk`` bounds
     the plain version's score matrix (query rows at a time).
 
-    On the card, past FILTER_MIN_ROWS x kp rows: the exact pass over every
-    SAMPLE_STRIDE-th row gives each query a bound its kp-th score cannot be
-    below, the filtered pass scores every row in large tiles and keeps
-    those at or above the bound, and the kp best of those are the result.
-    A query with more candidates than its buffer holds sends the call to
-    the exact pass over all rows (``mips_topk.rescans`` counts them): one
+    On the card, q is split into its TF32 pieces once (csrc/tc_scan.cuh).
+    Below FILTER_MIN_ROWS x kp rows the tensor-core product stores every
+    score and csrc/select.cuh selects each query's top-kp.  Past it, the
+    product over every SAMPLE_STRIDE-th row gives each query a bound its
+    kp-th score cannot be below (the sample's kp-th, scored to the bit as
+    the full pass scores those rows), the filtered pass scores every row
+    and keeps those at or above the bound, and the selection takes their kp
+    best.  A query with more candidates than its buffer sends the call to
+    the stored path over all rows (``mips_topk.rescans`` counts them): one
     host read a call says which."""
     if q.device.type == "cpu":
         return ref.mips_topk_ref(q, W, W_scales, valid, kp=kp, chunk=chunk)
     B, dp = q.shape
     m = W.shape[0]
     dev = q.device
-    _check_kp(kp, "mips_topk", MAX_KP_DENSE)
+    _check_kp(kp, "mips_topk")
     if m >= 2 ** 31 - 1:
         raise ValueError(f"mips_topk kernel takes m < 2^31 - 1, got {m}")
     build.expect(q, "q", torch.float32, (B, dp), dev, align=4)
@@ -226,31 +285,38 @@ def mips_topk(q, W, W_scales=None, valid=None, *, kp: int, chunk: int | None = N
         return (torch.empty((0, kp), dtype=torch.float32, device=dev),
                 torch.empty((0, kp), dtype=torch.int32, device=dev))
     lib = build.library("query_fused")
-    if m < FILTER_MIN_ROWS * kp or -(-m // 128) > 65535:
-        out = _mips_exact(lib, q, W, W_scales, valid, kp)
+    stream = build.stream_ptr(q)
+    img = torch.empty((tc_image_floats(B, dp),), dtype=torch.float32, device=dev)
+    fn = lib.tc_q_image
+    fn.argtypes = [_p, _p, _i, _i, _p]
+    build.check(lib, fn(q.data_ptr(), img.data_ptr(), B, dp, stream), "mips_topk (q image)")
+    if m < FILTER_MIN_ROWS * kp:
+        out = _mips_stored(lib, img, q, W, W_scales, valid, kp)
     else:
-        sample = slice(None, None, SAMPLE_STRIDE)
-        bound = _mips_exact(lib, q, W[sample].contiguous(),
-                            None if W_scales is None else W_scales[sample].contiguous(),
-                            None if valid is None else valid[sample].contiguous(), kp)[0]
-        bound = bound[:, kp - 1].contiguous()
+        ms = -(-m // SAMPLE_STRIDE)
+        sample = torch.empty((B, ms), dtype=torch.float32, device=dev)
+        _scan_store(lib, img.data_ptr(), W, W_scales, valid, sample, B, ms, SAMPLE_STRIDE,
+                    stream)
+        bound = torch.empty((B,), dtype=torch.float32, device=dev)
+        _select(lib, sample, None, ms, None, ms, 0, None, B, kp, bound=bound, stream=stream)
         cap = min(m, FILTER_SLACK * SAMPLE_STRIDE * kp)
         cnt = torch.empty((B,), dtype=torch.int32, device=dev)
         buf_s = torch.empty((B, cap), dtype=torch.float32, device=dev)
         buf_p = torch.empty((B, cap), dtype=torch.int32, device=dev)
-        overflow = torch.empty((1,), dtype=torch.int32, device=dev)
+        fn = lib.mips_scan_filter
+        fn.argtypes = [_p] * 8 + [_i] * 5 + [_p]
+        err = fn(img.data_ptr(), W.data_ptr(), _ptr(W_scales), _ptr(valid), bound.data_ptr(),
+                 cnt.data_ptr(), buf_s.data_ptr(), buf_p.data_ptr(), cap, B, m, dp, int(sq8),
+                 stream)
+        build.check(lib, err, "mips_topk (filter)")
+        overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
         out = (torch.empty((B, kp), dtype=torch.float32, device=dev),
                torch.empty((B, kp), dtype=torch.int32, device=dev))
-        fn = lib.mips_topk_filtered
-        fn.argtypes = [_p] * 8 + [_i] + [_p] * 3 + [_i] * 5 + [_p]
-        err = fn(q.data_ptr(), W.data_ptr(), W_scales.data_ptr() if sq8 else None,
-                 None if valid is None else valid.data_ptr(), bound.data_ptr(),
-                 cnt.data_ptr(), buf_s.data_ptr(), buf_p.data_ptr(), cap,
-                 out[0].data_ptr(), out[1].data_ptr(), overflow.data_ptr(), B, m, dp, kp,
-                 int(sq8), build.stream_ptr(q))
-        build.check(lib, err, "mips_topk")
+        _select(lib, buf_s, buf_p, cap, cnt, 0, cap, out, B, kp, overflow=overflow,
+                stream=stream)
         if int(overflow.item()):
-            out = _mips_exact(lib, q, W, W_scales, valid, kp)
+            del buf_s, buf_p
+            out = _mips_stored(lib, img, q, W, W_scales, valid, kp)
             mips_topk.rescans += 1
     mips_topk.launches += 1
     return out

@@ -267,3 +267,52 @@ def mips_topk_ref(q, W, W_scales=None, valid=None, *, kp: int,
         out_s.append(top)
         out_i.append(pos)
     return torch.cat(out_s, 0), torch.cat(out_i, 0)
+
+
+# -- the tensor-core product's arithmetic (csrc/tc_scan.cuh) ------------------
+
+#: the card checks of the tensor-core product against an fp64 product: max
+#: abs error <= TF32_SPLIT_RTOL x max(1, max |exact score|).  The CPU test
+#: (tests/test_torch_query_fused.py::test_tf32_split_error) shows the split
+#: with fp32 sums under it at d' = 2048 on the served query distribution.
+TF32_SPLIT_RTOL = 1e-5
+
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32: fp32 ``x`` rounded to TF32 (10 explicit mantissa
+    bits), to nearest with ties away from zero, kept as fp32 (the low 13
+    bits zero)."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    sign = b & -2 ** 31
+    mag = ((b & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
+
+
+def tf32_split_scores(q, W, W_scales=None, *, chunk: int | None = None):
+    """The tensor-core product's scores as its split computes them: q = qh +
+    ql and fp32 rows W = Wh + Wl (x = tf32_rna(x) + tf32_rna(x -
+    tf32_rna(x))), Wl.qh + Wh.ql + Wh.qh (3xTF32); int8 rows are exact in
+    TF32, W.ql + W.qh (q split only); then times the row scale.  Every piece
+    product is exact.  ``chunk`` None: summed in fp64 and rounded once (the
+    split's own error); ``chunk`` = 64: as the kernel sums, each chunk of
+    that many columns in fp64 rounded to fp32, the chunks added in order in
+    fp32.  q: (B, d); W: (m, d) -> (B, m) fp32."""
+    qh = tf32_rna(q)
+    ql = tf32_rna(q - qh)
+    if W.dtype == torch.int8:
+        pieces = [(ql, W.double()), (qh, W.double())]
+    else:
+        Wh = tf32_rna(W)
+        pieces = [(qh, tf32_rna(W - Wh).double()), (ql, Wh.double()), (qh, Wh.double())]
+    d = q.shape[1]
+    step = chunk or d
+    sc = None
+    for k0 in range(0, d, step):
+        part = sum(a[:, k0:k0 + step].double() @ b[:, k0:k0 + step].T for a, b in pieces)
+        part = part.to(torch.float32)
+        sc = part if sc is None else sc + part
+    if sc is None:
+        sc = q.new_zeros((q.shape[0], W.shape[0]))
+    if W_scales is not None:
+        sc = sc * W_scales[None, :].float()
+    return sc

@@ -331,6 +331,9 @@ def _same_topk(got_s, got_i, want_s, want_i, tol):
     (1, 5, 16, 64, 6, 7, 2, 9),          # B=1, cap odd, kp > valid slots
     (3, 32, 128, 2048, 8, 300, 4, 256),  # full widths, cap past a chunk
     (4, 6, 20, 300, 5, 11, 5, 60),       # d' off every tile, kp > the strip
+    (2, 6, 16, 64, 8, 3000, 4, 4096),    # k' past the old shared-memory list's cap
+    (2, 6, 16, 64, 8, 3000, 4, 4097),
+    (2, 6, 16, 64, 8, 3000, 4, 8192),    # ... and kp > the valid slots
 ])
 @pytest.mark.parametrize("sq8", [False, True])
 def test_query_fused_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, sq8):
@@ -359,15 +362,12 @@ def test_query_fused_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, sq8):
     want = ref.query_fused_ref(*args, kp=kp)
     _same_topk(*got, *want, SQ8_RTOL if sq8 else 1e-4)
     # the kernel's own pool and scan: the default route's kernels, same bits
-    from repro_torch.kernels import query_fused as qf
     psi_q = fused_psi.fused_psi_pool(q, qm, *w)
     s = gather_scan.ivf_probe_scan(psi_q, g(probe), g(ids), *lists).reshape(B, -1)
     flat_i = g(ids)[g(probe).long()].reshape(B, -1)
     top, pos = stable_topk(s, min(kp, s.shape[1]))
     top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
     assert torch.equal(got[1], idx) and torch.equal(got[0], top)
-    with pytest.raises(ValueError, match="kp"):
-        qf.query_fused(*args, kp=qf.MAX_KP + 1)
 
 
 @pytest.mark.gpu
@@ -376,12 +376,18 @@ def test_query_fused_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, sq8):
                                        (70, 40000, 48, 100),    # the filtered pass
                                        (5, 70001, 20, 300),     # ... d off the vector width
                                        (9, 5000, 64, 4096),     # k' of the sharded default
-                                       (5, 600000, 32, 4096)])  # ... through the filter
+                                       (5, 600000, 32, 4096),   # ... through the filter
+                                       (5, 9000, 64, 4097),     # past the old limit
+                                       (3, 600000, 32, 4097),   # ... through the filter
+                                       (3, 40000, 64, 8192),
+                                       (2, 60000, 32, 32768)])  # 4 sorted chunks a query
 @pytest.mark.parametrize("sq8", [False, True])
 def test_mips_topk_kernel(cuda, B, m, dp, kp, sq8):
     """valid holes, kp above the valid rows and above m, m off the tile, and
-    exact ties from integer-valued duplicated rows (ids equal exactly); past
-    FILTER_MIN_ROWS x kp rows the sampled bound, filter and selection."""
+    exact ties from integer-valued duplicated rows (ids equal exactly: small
+    integers are exact in TF32 and every sum is exact); past
+    FILTER_MIN_ROWS x kp rows the sampled bound, filter and selection; k'
+    past any shared-memory list."""
     from repro_torch.kernels import query_fused as qf
 
     rng = np.random.default_rng(m + kp)
@@ -401,8 +407,42 @@ def test_mips_topk_kernel(cuda, B, m, dp, kp, sq8):
         _same_topk(got_s, got_i, want_s, want_i, SQ8_RTOL)
     else:    # integer products: every sum is exact, so are the ids
         assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
-    with pytest.raises(ValueError, match="kp"):
-        qf.mips_topk(q, *args, valid, kp=qf.MAX_KP_DENSE + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,dp", [(256, 5000, 2048), (7, 1000, 48), (300, 900, 20)])
+@pytest.mark.parametrize("sq8", [False, True])
+def test_tc_product_against_fp64(cuda, B, m, dp, sq8):
+    """The tensor-core product (csrc/tc_scan.cuh) and mips_sq8's all pairs
+    against an fp64 product: within ref.TF32_SPLIT_RTOL x max(1, max
+    |exact|), the bound the CPU emulation of the split shows
+    (tests/test_torch_query_fused.py::test_tf32_split_error); the sample's
+    scores (every 32nd row, a row stride) equal the full pass's at those
+    rows bit for bit, so the filtered pass can trust the sampled bound."""
+    from repro_torch.kernels import mips_sq8 as mq
+    from repro_torch.kernels import query_fused as qf
+
+    rng = np.random.default_rng(B + m + dp)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    q = g(rng.standard_normal((B, dp)) * 5, torch.float32)
+    W = g(rng.standard_normal((m, dp)), torch.float32)
+    valid = g(rng.random(m) > 0.1)
+    args = list(sq8_quant(W)) if sq8 else [W, None]
+    got = qf.tc_scores(q, *args, valid)
+    exact = q.double() @ args[0].double().T
+    if sq8:
+        exact = exact * args[1].double()[None, :]
+    assert bool((got[:, ~valid] == ref.NEG).all())
+    exact = exact[:, valid]
+    tol = ref.TF32_SPLIT_RTOL * max(1.0, float(exact.abs().max()))
+    assert float((got[:, valid].double() - exact).abs().max()) <= tol
+    assert torch.equal(qf.tc_scores(q, *args, valid, stride=qf.SAMPLE_STRIDE),
+                       got[:, ::qf.SAMPLE_STRIDE])
+    if sq8:
+        pairs = mq.mips_sq8(q, *args)
+        ex = (q.double() @ args[0].double().T) * args[1].double()[None, :]
+        assert float((pairs.double() - ex).abs().max()) <= (
+            ref.TF32_SPLIT_RTOL * max(1.0, float(ex.abs().max())))
 
 
 @pytest.mark.gpu
@@ -520,7 +560,9 @@ def _close(got, want, tol, exact):
     (1, 8, 5, 16, 3),           # B=1, cap below a warp's rows
     (3, 16, 9, 32, 8),
     (2, 4, 1100, 2048, 3),      # full d', cap past a 1024-slot chunk
-    (2, 6, 130, 1008, 4)])      # d' off the 512-dim tile
+    (2, 6, 130, 1008, 4),       # d' off the 512-dim tile
+    (2, 4, 130, 2044, 3),       # rows not whole words (1,022 / 511 bytes)
+    (2, 4, 130, 2040, 3)])      # (1,020 / 510 bytes)
 @pytest.mark.parametrize("bits", [2, 4])
 @pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
 def test_ivf_res_scan_kernel(cuda, B, nlist, cap, d, nprobe, bits, exact):
@@ -542,16 +584,17 @@ def test_ivf_res_scan_kernel(cuda, B, nlist, cap, d, nprobe, bits, exact):
     _close(got, ref.ivf_scan_res_ref(*args), 1e-5, exact)
     with pytest.raises(ValueError, match="uint8"):
         gather_scan.ivf_probe_res_scan(*args[:3], args[3].to(torch.int8), *args[4:])
-    # the scans load codes a word at a time: rows of 20 dims at 2 bits are 5 bytes
-    with pytest.raises(ValueError, match="4-byte words"):
-        gather_scan.ivf_probe_res_scan(torch.zeros(1, 20, device=cuda), *args[1:5],
-                                       torch.zeros(20, 4, device=cuda))
+    # pack_codes packs whole bytes: rows of 18 dims at 2 bits would be 4.5 bytes
+    with pytest.raises(ValueError, match="whole bytes"):
+        gather_scan.ivf_probe_res_scan(torch.zeros(1, 18, device=cuda), *args[1:5],
+                                       torch.zeros(18, 4, device=cuda))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,C,Tq,d,kp,pmax,ncent", [
     (3, 12, 4, 16, 5, 2, 10), (1, 8, 3, 20, 6, 1, 3), (2, 40, 32, 128, 64, 5, 256),
-    (2, 10, 40, 8, 9, 3, 7)])
+    (2, 10, 40, 8, 9, 3, 7),
+    (2, 12, 8, 116, 20, 2, 16)])    # token rows not whole words (58 / 29 bytes)
 @pytest.mark.parametrize("bits", [2, 4])
 @pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
 def test_rerank_paged_res_kernel(cuda, B, C, Tq, d, kp, pmax, ncent, bits, exact):
@@ -587,18 +630,49 @@ def test_rerank_paged_res_kernel(cuda, B, C, Tq, d, kp, pmax, ncent, bits, exact
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [130, 66])
+@pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
+def test_rerank_paged_res_kernel_at_widths_off_float4(cuda, d, exact):
+    """Token widths pack_codes takes at 4 bits but not whole float4s (d % 4
+    == 2, rows of 65 and 33 bytes): the page is decoded a value at a time
+    into a slot padded to whole float4s; scores as the plain version's
+    (equal on integer tables)."""
+    rng = np.random.default_rng(d + exact)
+    B, C, Tq, kp, pmax, ncent, bits = 2, 10, 5, 12, 2, 6, 4
+    n_tokens = rng.integers(1, pmax * 16 + 1, C).astype(np.int32)
+    table = rng.permutation(C * pmax).reshape(C, pmax).astype(np.int32)
+    cent, values = _residual_tables(rng, ncent, d, bits, exact)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    q = rng.integers(-2, 3, (B, Tq, d)) if exact else rng.standard_normal((B, Tq, d))
+    args = (g(q, torch.float32), g(rng.random((B, Tq)) > 0.3),
+            g(rng.integers(-1, C, (B, kp)), torch.int32),
+            g(rng.integers(0, ncent, (C * pmax, 16)), torch.int32),
+            g(rng.integers(0, 256, (C * pmax, 16, d * bits // 8)), torch.uint8),
+            g(table), g(n_tokens), g(cent), g(values))
+    got = gather_scan.rerank_paged_res_scores(*args)
+    want = ref.rerank_scores_paged_res_ref(*args)
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,Tq,d,dp,nlist,cap,nprobe,kp", [
     (1, 5, 16, 64, 6, 7, 2, 9),          # B=1, cap odd, kp > valid slots
     (3, 32, 128, 2048, 8, 300, 4, 256),  # full widths, cap past a pass of 128
     (4, 6, 20, 1008, 5, 11, 5, 60),      # d' off the 512-dim tile, kp > the strip
     (2, 8, 16, 256, 3, 1100, 2, 1500),   # cap past a 1024-slot chunk
+    (2, 8, 16, 256, 3, 4000, 3, 4097),   # k' past the old shared-memory list's cap
+    (2, 8, 16, 256, 3, 4000, 3, 8192),   # ... and kp > the valid slots
+    (2, 8, 16, 2044, 4, 300, 3, 100),    # rows not whole words
+    (2, 8, 16, 2040, 4, 300, 3, 100),
 ])
 @pytest.mark.parametrize("bits", [2, 4])
 def test_query_fused_res_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, bits):
     """Pads, an empty list and duplicated rows (exact ties); the result
     equals the residual default route's kernels (psi-pool, residual scan,
     stable top-k) bit for bit."""
-    from repro_torch.kernels import query_fused as qf
 
     rng = np.random.default_rng(B * cap + dp + bits)
     g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
@@ -626,5 +700,3 @@ def test_query_fused_res_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, bits
     top, pos = stable_topk(s, min(kp, s.shape[1]))
     top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
     assert torch.equal(got[1], idx) and torch.equal(got[0], top)
-    with pytest.raises(ValueError, match="kp"):
-        qf.query_fused_res(*args, kp=qf.MAX_KP + 1)

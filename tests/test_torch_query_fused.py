@@ -218,30 +218,40 @@ def test_mips_topk_fused_is_the_blocked_scan():
     assert_same_topk(s0, i0, s1, i1)
 
 
-@pytest.mark.parametrize("kp", [0, qf.MAX_KP + 1])
-def test_kernels_refuse_kp_past_their_limit(kp):
+@pytest.mark.parametrize("kp", [0, 8192])
+def test_kernels_take_any_kp_from_one(kp, monkeypatch):
     """The CUDA path checks kp before it touches the card; tensors on the
-    meta device take that path here.  The dense scan takes kp up to
-    MAX_KP_DENSE (4096), the one-launch IVF up to MAX_KP (2048); the
-    message names the limit."""
+    meta device take that path here.  kp = 0 is refused; k' = 8192, past
+    the shared-memory lists' old limits (4,096 dense, 2,048 one-launch),
+    passes every argument check and reaches the kernels' library."""
+    from repro_torch.kernels import build
+
+    class Reached(Exception):
+        pass
+
+    def library(name):
+        raise Reached(name)
+
+    monkeypatch.setattr(build, "library", library)
     meta = torch.device("meta")
     q = torch.empty((2, 64), device=meta)
-    dense_kp = kp if kp == 0 else qf.MAX_KP_DENSE + 1
-    with pytest.raises(ValueError, match=f"kp <= {qf.MAX_KP_DENSE}"):
-        qf.mips_topk(q, torch.empty((8192, 64), device=meta), kp=dense_kp)
     qt = torch.empty((2, 3, 8), device=meta)
     w = (torch.empty((8, 64), device=meta), *[torch.empty(64, device=meta)] * 3)
-    with pytest.raises(ValueError, match=f"kp <= {qf.MAX_KP}"):
-        qf.query_fused(qt, None, *w, torch.empty((2, 2), dtype=torch.int32, device=meta),
-                       torch.empty((4, 1024), dtype=torch.int32, device=meta),
-                       torch.empty((4, 1024, 64), device=meta), kp=kp)
+    calls = [lambda: qf.mips_topk(q, torch.empty((20000, 64), device=meta), kp=kp),
+             lambda: qf.query_fused(qt, None, *w,
+                                    torch.empty((2, 16), dtype=torch.int32, device=meta),
+                                    torch.empty((4, 1024), dtype=torch.int32, device=meta),
+                                    torch.empty((4, 1024, 64), device=meta), kp=kp)]
+    for call in calls:
+        with pytest.raises(ValueError if kp == 0 else Reached,
+                           match="kp >= 1" if kp == 0 else "query_fused"):
+            call()
 
 
 def test_mips_topk_at_the_sharded_default_kp():
     """k' = 4096, the sharded path's per-shard default on one shard
-    (``default_k_prime_local(100, 1024, 1)``), within the dense scan's
-    limit: the port's plain version against JAX's oracle."""
-    assert qf.MAX_KP_DENSE == 4096
+    (``default_k_prime_local(100, 1024, 1)``): the port's plain version
+    against JAX's oracle."""
     rng = np.random.default_rng(11)
     q = rng.standard_normal((3, 32)).astype(np.float32)
     W = rng.standard_normal((6000, 32)).astype(np.float32)
@@ -258,3 +268,80 @@ def test_mips_topk_at_the_sharded_default_kp():
                                      jnp.asarray(valid), kp=4096)
         assert got[0].shape == (3, 4096)
         assert_same_topk(*want, *got)
+
+
+@pytest.mark.parametrize("case", ["mips_fp32", "mips_sq8", "query_fused", "query_fused_sq8"])
+def test_plain_versions_past_the_old_caps(case):
+    """k' = 8,192 over 20,000 rows (the dense scan) and over a 10,000-slot
+    strip (the one-launch IVF), above both old card limits: the port's plain
+    versions against JAX's oracles."""
+    rng = np.random.default_rng(len(case))
+    kp = 8192
+    if case.startswith("mips"):
+        q = rng.standard_normal((3, 32)).astype(np.float32)
+        W = rng.standard_normal((20000, 32)).astype(np.float32)
+        W[12345] = W[7]                       # an exact tie
+        valid = rng.random(20000) > 0.2
+        args = [W, None]
+        if case == "mips_sq8":
+            codes, scales = sq8_quant(T(W))
+            args = [codes.numpy(), scales.numpy()]
+        got = qf.mips_topk(T(q), *(None if a is None else T(a) for a in args), T(valid),
+                           kp=kp)
+        want = jax_ref.mips_topk_ref(jnp.asarray(q), *(None if a is None else jnp.asarray(a)
+                                                       for a in args),
+                                     jnp.asarray(valid), kp=kp)
+    else:
+        w, qt, qm, ids, vecs, _, probe = _setup(rng, 3, 4, 16, 32, 10, 1000, 100, 4, 10)
+        lists = [vecs]
+        if case == "query_fused_sq8":
+            codes, scales = sq8_quant(T(vecs))
+            lists = [codes.numpy(), scales.numpy()]
+        got = qf.query_fused(T(qt), T(qm), *map(T, w), T(probe), T(ids), *map(T, lists),
+                             kp=kp)
+        want = jax_ref.query_fused_ref(jnp.asarray(qt), jnp.asarray(qm), *map(jnp.asarray, w),
+                                       jnp.asarray(probe), jnp.asarray(ids),
+                                       *map(jnp.asarray, lists), kp=kp)
+    assert got[0].shape == (3, kp) and got[1].dtype == torch.int32
+    assert_same_topk(*want, *got)
+
+
+@pytest.mark.parametrize("sq8", [False, True], ids=["3xtf32", "q_split"])
+def test_tf32_split_error(sq8):
+    """The tensor-core product's split (csrc/tc_scan.cuh), emulated: the
+    pieces by ref.tf32_rna (cvt.rna.tf32.f32), at d' = 2048 on the served
+    query distribution (psi-pooled queries of 32 unit-norm tokens against
+    rows of psi of a normalised mean token, the chip smoke's index).  Against
+    an fp64 product: the split alone stays within its analytic bound, 3 x
+    2^-22 x sum_k |q_k W_k| (each piece leaves 2^-22 of its value, and the
+    dropped Wl.ql is as small), and summed as the kernel sums (64-column
+    chunks, added in fp32) within ref.TF32_SPLIT_RTOL x max(1, max |score|),
+    the tolerance of the card's checks."""
+    from repro_torch.core.model import Psi, pool_queries
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(3)
+    d, dp = 128, 2048
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(0), device="cpu")
+    tok = torch.nn.functional.normalize(T(rng.standard_normal((64, 32, d)).astype(np.float32)),
+                                        dim=-1)
+    q = pool_queries(psi, tok, torch.ones(64, 32, dtype=torch.bool))
+    docs = torch.nn.functional.normalize(
+        T(rng.standard_normal((3000, d)).astype(np.float32)), dim=-1)
+    W = psi(docs)
+    scales = None
+    if sq8:
+        W, scales = sq8_quant(W)
+    exact = q.double() @ (W.double() if not sq8 else W.double()).T
+    if sq8:
+        exact = exact * scales.double()[None, :]
+    split = ref.tf32_split_scores(q, W, scales).double()
+    mag = q.double().abs() @ W.double().abs().T
+    if sq8:
+        mag = mag * scales.double()[None, :]
+    # the fp64 sum of the pieces, rounded once to fp32 (half an ulp)
+    assert bool(((split - exact).abs() <= 3 * 2.0 ** -22 * mag
+                 + exact.abs() * 2.0 ** -24).all())
+    fp32 = ref.tf32_split_scores(q, W, scales, chunk=64).double()
+    err = float((fp32 - exact).abs().max())
+    assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact.abs().max())), err

@@ -339,3 +339,51 @@ def test_query_fused_res_ref_vs_jax_interpret(B, nlist, cap, kp, bits):
     assert ties.any() and not diff[ties].any(), "an exact tie broke another way"
     jo_s, jo_i = jax_ref.query_fused_res_ref(*jargs, kp=kp)
     np.testing.assert_allclose(gs.numpy()[fin], np.asarray(jo_s)[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("what", ["codec", "scan", "query_fused"])
+@pytest.mark.parametrize("bits,dp", [(4, 2044), (2, 2040)])
+def test_widths_off_whole_words_match_jax(bits, dp, what):
+    """d' that pack_codes takes but whose packed rows are not whole 4-byte
+    words (1,022 and 510 bytes): the port's codec bit for bit, its plain
+    residual scan and one-launch first stage against JAX's oracles."""
+    rng = np.random.default_rng(dp + bits)
+    if what == "codec":
+        x, jc = jax_codec(rng, 64, dp, bits)
+        c = port_codec(jc)
+        cid, packed = q.residual_encode(c, T(x))
+        jcid, jpacked = jq.residual_encode(jc, jnp.asarray(x))
+        assert packed.shape == (64, dp * bits // 8) and packed.shape[1] % 4
+        np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+        np.testing.assert_array_equal(q.unpack_codes(packed, bits).numpy(),
+                                      np.asarray(jq.unpack_codes(jpacked, bits)))
+        np.testing.assert_array_equal(q.residual_decode(c, cid, packed).numpy(),
+                                      np.asarray(jq.residual_decode(jc, jcid, jpacked)))
+        return
+    nlist, cap, B, nprobe = 5, 9, 3, 3
+    ids = rng.integers(-1, 99, (nlist, cap)).astype(np.int32)
+    ids[1] = -1
+    codes = rng.integers(0, 256, (nlist, cap, dp * bits // 8)).astype(np.uint8)
+    cent, values = _tables(rng, nlist, dp, bits)
+    probe = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]).astype(np.int32)
+    if what == "scan":
+        qv = rng.standard_normal((B, dp)).astype(np.float32)
+        args = (qv, probe, ids, codes, cent, values)
+        got = ref.ivf_scan_res_ref(*(T(a) for a in args)).numpy()
+        want = np.asarray(jax_ref.ivf_scan_res_ref(*[jnp.asarray(a) for a in args]))
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+        return
+    d, Tq = 16, 5
+    w = ((rng.standard_normal((d, dp)) * 0.1).astype(np.float32),
+         (rng.standard_normal(dp) * 0.01).astype(np.float32),
+         (1 + 0.1 * rng.standard_normal(dp)).astype(np.float32),
+         (0.1 * rng.standard_normal(dp)).astype(np.float32))
+    qt = rng.standard_normal((B, Tq, d)).astype(np.float32)
+    qm = rng.random((B, Tq)) > 0.3
+    qm[:, 0] = True
+    args = (qt, qm, *w, probe, ids, codes, cent, values)
+    gs, gi = ref.query_fused_res_ref(*(T(a) for a in args), kp=20)
+    ws, wi = jax_ref.query_fused_res_ref(*[jnp.asarray(a) for a in args], kp=20)
+    assert_same_ids(np.asarray(ws), np.asarray(wi), gs.numpy(), gi.numpy())
