@@ -26,8 +26,16 @@ script
    version on rows of the pre-training launch, at the OLS block (timed) and
    on a ground-truth block; builds at m=2,000 and round-trips
    ``save``/``load`` on the card, then again with the residual tier
-   (``ResidualConfig(enabled=True)``, ``ivf.residual_bits=4``).  Then it
-   frees the build's tensors;
+   (``ResidualConfig(enabled=True)``, ``ivf.residual_bits=4``).  The
+   kernel's row holds it to an fp64 token MaxSim too (512 OLS tokens,
+   within ``ref.TF32_SPLIT_RTOL``: its dots are the tensor cores' TF32
+   split) and gives its bound at the split's rate beside the CUDA cores'.
+   Then it frees the build's tensors;
+3b. **widths**: holds the three reranks and token MaxSim at d=1,024 (the
+   paged reranks at Tq=512 too, the dense rerank at d=130 and 20 and
+   Tq=100 and 512), all three reranks at B=65,539 queries and
+   ``mips_sq8``'s batched entry past 128 x 65,535 rows against their plain
+   versions (widths and batches the card refused before); a few seconds;
 4. **serving path**: holds the three serving kernels against their plain
    versions on a small ragged case (B=1, -1 pads, tiny lists, k > valid, a
    doc with no tokens); builds an index of ``--m`` docs at full width
@@ -86,12 +94,14 @@ script
    and the legacy route (16 queries), counters from 0 around each: every row against the plain composition (near-ties
    counted), its scores against exact MaxSim over the stored SQ8 tokens,
    no free or tombstoned row; times the latent product, its sort and the
-   two kernels; then an fp32 block over a base cut to the first 100,000
+   two kernels (``rerank_gather_scores`` also against fp64 MaxSim on 8
+   queries, and its bound at the TF32 split's rate beside the CUDA
+   cores'); then an fp32 block over a base cut to the first 100,000
    slots, its default route checked the same way, and the same base
    sharded at k'_loc = 1024 against its own exact scan;
-9. prints a ``build`` line, a ``serving`` line, a ``routes`` line, a
-   ``residual`` line, a ``sharded`` line, the ``kernels`` line and last
-   ``{"ok": true, ...}``.
+9. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
+   ``routes`` line, a ``residual`` line, a ``sharded`` line, the
+   ``kernels`` line and last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -468,21 +478,34 @@ def profile_batch(torch, r, q, qm):
 # the build path
 # --------------------------------------------------------------------------
 
-def maxsim_err(torch, got, want):
+def maxsim_err(torch, got, want, exact=None):
     """Max abs error of token MaxSim on the entries the plain version finds
     a valid token for; raises unless the NEG entries match exactly and the
-    rest lie within MAXSIM_RTOL x max(1, max|plain|)."""
+    rest lie within MAXSIM_RTOL x max(1, max|plain|) (``exact``: an fp64
+    reference instead, within ref.TF32_SPLIT_RTOL x max(1, max|exact|))."""
     from repro_torch.kernels import ref
 
     real = want != ref.NEG
     require(torch.equal(got != ref.NEG, real), "token_maxsim: NEG entries differ")
     if not bool(real.any()):
         return 0.0
-    err = float((got[real] - want[real]).abs().max())
-    scale = max(1.0, float(want[real].abs().max()))
-    require(err <= MAXSIM_RTOL * scale, f"token_maxsim: max abs err {err} > "
-                                        f"{MAXSIM_RTOL} x {scale}")
+    ref_t, rtol = (want, MAXSIM_RTOL) if exact is None else (exact, ref.TF32_SPLIT_RTOL)
+    err = float((got[real].to(ref_t.dtype) - ref_t[real]).abs().max())
+    scale = max(1.0, float(ref_t[real].abs().max()))
+    require(err <= rtol * scale, f"token_maxsim: max abs err {err} > {rtol} x {scale}"
+                                 f"{'' if exact is None else ' (against fp64)'}")
     return err
+
+
+def maxsim_fp64(torch, x, docs, mask, chunk=256):
+    """Token MaxSim in fp64, ``chunk`` docs at a time -> (n, m) fp64."""
+    from repro_torch.kernels import ref
+
+    out = []
+    for s0 in range(0, docs.shape[0], chunk):
+        sc = torch.einsum("nd,mtd->nmt", x.double(), docs[s0:s0 + chunk].double())
+        out.append(torch.where(mask[None, s0:s0 + chunk], sc, ref.NEG).amax(-1))
+    return torch.cat(out, 1)
 
 
 def maxsim_ragged_case(torch, seed):
@@ -503,6 +526,104 @@ def maxsim_ragged_case(torch, seed):
     want = ref.token_maxsim_ref(x, docs, mask)
     require(bool((got[:, 5] == ref.NEG).all()), "a doc with no valid token is not NEG")
     return maxsim_err(torch, got, want)
+
+
+def widths_phase(torch, seed):
+    """The widths and batches the card took only in part before: the three
+    reranks and token MaxSim at d = 1,024 against their plain versions,
+    the paged reranks at Tq = 512 too, the dense rerank at d = 130 and 20
+    (off whole float4s and 16-byte rows) and Tq = 100 and 512, the paged
+    fp32 rerank at d = 130, all three reranks at B = 65,539 queries of k' =
+    2, and mips_sq8's batched entry past 128 x 65,535 rows.  A few seconds.
+    Returns max abs errors."""
+    from repro_torch.anns.quantization import sq8_quant
+    from repro_torch.kernels import gather_scan, mips_sq8, ref
+    from repro_torch.kernels import maxsim as kmaxsim
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    norm = lambda t: torch.nn.functional.normalize(t, dim=-1)
+    rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    ints = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g, device=dev,
+                                               dtype=torch.int32)
+    errs = {}
+
+    def rerank_err(what, got, want):
+        real = want > ref.NEG / 2        # pads and docs with no valid token: Tq_valid x NEG
+        require(bool(((got[~real] - want[~real]).abs() <= 1e-6 * want[~real].abs()).all()),
+                f"{what}: NEG-scale scores differ")
+        torch.testing.assert_close(got[real], want[real], rtol=1e-5, atol=1e-4)
+        errs[what] = float((got[real] - want[real]).abs().max())
+
+    # token MaxSim at d = 1,024: the OLS tile's image streams through the ring
+    x = norm(randn(2048 + 5, 1024))
+    docs = norm(randn(300, 77, 1024))
+    mask = rand(300, 77) > 0.2
+    mask[4] = False
+    errs["token_maxsim_d1024"] = maxsim_err(torch, kmaxsim.token_maxsim(x, docs, mask),
+                                            ref.token_maxsim_ref(x, docs, mask, chunk=16))
+    # the dense rerank
+    for d, Tq in ((1024, 32), (128, 512), (130, 100), (20, 32)):
+        docs = norm(randn(500, 80, d))
+        dm = rand(500, 80) > 0.15
+        dm[7] = False
+        q, qm = norm(randn(8, Tq, d)), rand(8, Tq) > 0.1
+        cand = ints(-1, 500, (8, 300))
+        cand[0, 5] = cand[0, 9]
+        for sq8 in (False, True):
+            toks, sc = sq8_quant(docs) if sq8 else (docs, None)
+            args = (q, qm, cand, toks, dm, sc)
+            got = gather_scan.rerank_gather_scores(*args)
+            what = f"rerank_gather_{'sq8' if sq8 else 'fp32'}_d{d}_tq{Tq}"
+            require(bool(got[0, 5] == got[0, 9]), f"{what}: duplicated candidates score apart")
+            rerank_err(what, got, ref.rerank_scores_ref(*args, chunk=32))
+    # the paged reranks (fp32 and 4-bit residual pages)
+    C, pmax, ncent = 400, 5, 64
+    for d, Tq in ((1024, 512), (1024, 32), (128, 512), (130, 32)):
+        n_tokens = ints(0, pmax * 16 + 1, (C,))
+        table = torch.randperm(C * pmax, generator=g, device=dev).int().reshape(C, pmax)
+        q, qm = norm(randn(8, Tq, d)), rand(8, Tq) > 0.1
+        cand = ints(-1, C, (8, 64))
+        args = (q, qm, cand, norm(randn(C * pmax, 16, d)), table, n_tokens)
+        rerank_err(f"rerank_paged_d{d}_tq{Tq}", gather_scan.rerank_paged_scores(*args),
+                   ref.rerank_scores_paged_ref(*args, chunk=1))
+        if d % 2:
+            continue
+        res = (q, qm, cand, ints(0, ncent, (C * pmax, 16)),
+               ints(0, 256, (C * pmax, 16, d // 2)).to(torch.uint8), table, n_tokens,
+               norm(randn(ncent, d)), 0.05 * randn(d, 16).sort(1).values)
+        rerank_err(f"rerank_paged_res_d{d}_tq{Tq}", gather_scan.rerank_paged_res_scores(*res),
+                   ref.rerank_scores_paged_res_ref(*res, chunk=1))
+    # B = 65,539 queries of k' = 2, every rerank
+    B, Tq, d = 65539, 4, 16
+    q, qm, cand = norm(randn(B, Tq, d)), rand(B, Tq) > 0.2, ints(-1, 30, (B, 2))
+    docs, dm = norm(randn(30, 20, d)), rand(30, 20) > 0.2
+    for sq8 in (False, True):
+        args = (q, qm, cand, *(sq8_quant(docs) if sq8 else (docs, None)))
+        args = args[:4] + (dm,) + args[4:]
+        rerank_err(f"rerank_gather_{'sq8' if sq8 else 'fp32'}_b{B}",
+                   gather_scan.rerank_gather_scores(*args), ref.rerank_scores_ref(*args))
+    n_tokens, table = ints(0, 33, (30,)), torch.arange(60, device=dev).int().reshape(30, 2)
+    args = (q, qm, cand, norm(randn(60, 16, d)), table, n_tokens)
+    rerank_err(f"rerank_paged_b{B}", gather_scan.rerank_paged_scores(*args),
+               ref.rerank_scores_paged_ref(*args, chunk=8192))
+    res = (q, qm, cand, ints(0, 8, (60, 16)), ints(0, 256, (60, 16, d // 2)).to(torch.uint8),
+           table, n_tokens, norm(randn(8, d)), 0.05 * randn(d, 16).sort(1).values)
+    rerank_err(f"rerank_paged_res_b{B}", gather_scan.rerank_paged_res_scores(*res),
+               ref.rerank_scores_paged_res_ref(*res, chunk=8192))
+    # mips_sq8's batched entry past 128 x 65,535 rows a query
+    n = 128 * 65535 + 3
+    q = randn(2, 16)
+    codes = torch.randint(-127, 128, (2, n, 16), generator=g, device=dev).to(torch.int8)
+    scales = rand(2, n) + 0.1
+    got = mips_sq8.mips_sq8_batched(q, codes, scales)
+    want = ref.mips_sq8_batched_ref(q, codes, scales, chunk=1)
+    err = float((got - want).abs().max())
+    require(err <= SQ8_RTOL * max(1.0, float(want.abs().max())),
+            f"mips_sq8 batched past 128 x 65,535 rows: max abs err {err}")
+    errs[f"mips_sq8_batched_n{n}"] = err
+    return errs
 
 
 def make_build_corpus(torch, m, seed):
@@ -649,7 +770,12 @@ def build_phase(torch, args, card):
     n_ols, d = x_ols.shape
     nbytes = n_ols * d * 4 + nvalid * d * 4 + blk[1].numel() + n_ols * OLS_BLOCK * 4
     flops = 2 * n_ols * nvalid * d
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, 3 * flops, PEAK_TF32_S)           # 3xTF32
+    b_all_ms = bound(nbytes, 3 * 2 * n_ols * blk[1].numel() * d, PEAK_TF32_S)[0]
+    # the tensor cores' split against fp64 token MaxSim, 512 OLS tokens
+    exact = maxsim_fp64(torch, x_ols[:512], *blk)
+    tc_err = maxsim_err(torch, kmaxsim.token_maxsim(x_ols[:512], *blk), exact.float(),
+                        exact=exact)
 
     # -- ... at the pre-training shape (the build's first draw, its tokens)
     # and at a ground-truth block: rows of the launch against the plain one
@@ -667,13 +793,14 @@ def build_phase(torch, args, card):
     pre_ms = time_ms(torch, lambda: kmaxsim.token_maxsim(x_train, *pre_docs), n=3, warmup=1)
     nvalid_pre = int(pre_docs[1].sum())
     pre_b_ms, pre_b_by = bound(n_tr * d * 4 + nvalid_pre * d * 4 + pre_docs[1].numel()
-                               + n_tr * len(pre) * 4, 2 * n_tr * nvalid_pre * d)
+                               + n_tr * len(pre) * 4, 3 * 2 * n_tr * nvalid_pre * d, PEAK_TF32_S)
     qt = q.reshape(-1, d)
     gt_docs = (corpus.doc_tokens[:16384], corpus.doc_mask[:16384])
     gt_err = maxsim_err(torch, kmaxsim.token_maxsim(qt, *gt_docs),
                         ref.token_maxsim_ref(qt, *gt_docs, chunk=512))
-    print(f"token_maxsim ok at the OLS block ({k_err}), pre-training rows ({pre_err}) "
-          f"and a ground-truth block ({gt_err})", flush=True)
+    print(f"token_maxsim ok at the OLS block ({k_err}; {ms:.3f} ms, bound {b_ms:.3f} ms, "
+          f"against fp64 {tc_err}), pre-training rows ({pre_err}) and a ground-truth block "
+          f"({gt_err})", flush=True)
     row = dict(name="token_maxsim", route="cuda", source="src/repro_torch/csrc/token_maxsim.cu",
                replaces="src/repro/kernels/maxsim.py:47", launches=launches["token_maxsim"],
                launches_per_build=launches["token_maxsim"], max_abs_err=k_err,
@@ -682,7 +809,11 @@ def build_phase(torch, args, card):
                tolerance=f"{MAXSIM_RTOL} x max(1, max|plain|); NEG entries equal",
                shape=f"x ({n_ols}, {d}) x docs ({OLS_BLOCK}, {blk[0].shape[1]}, {d})",
                ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               bytes=int(nbytes), flops=int(flops), library_ms=None,
+               peak=PEAK_TF32_S, bound_split="3xTF32",
+               bound_ms_fp32_cuda_cores=bound(nbytes, flops)[0],
+               bound_ms_all_positions=b_all_ms, tc_max_abs_err_fp64=tc_err,
+               tc_fp64_sample="512 OLS tokens x the block",
+               bytes=int(nbytes), flops=int(flops), library_ms=None, cuda_launches_per_call=2,
                pretrain_shape=f"x ({n_tr}, {d}) x docs ({len(pre)}, {blk[0].shape[1]}, {d})",
                pretrain_ms=pre_ms, pretrain_bound_ms=pre_b_ms, pretrain_bound_by=pre_b_by)
     del x_train, pre, pre_docs, qt, gt_docs
@@ -2038,9 +2169,28 @@ def sharded_phase(torch, args, r, batches, library_ms_kp4096=None):
     return line, rows
 
 
+def rerank_fp64(torch, q, qm, cand, toks, dm, scales, chunk=256):
+    """Exact MaxSim of each query against its own candidates in fp64 (the
+    stored tokens: SQ8 codes times their scales), ``chunk`` candidates at a
+    time."""
+    from repro_torch.kernels import ref
+
+    out = []
+    for s0 in range(0, cand.shape[1], chunk):
+        c = cand[:, s0:s0 + chunk].clamp_min(0).long()
+        sc = torch.einsum("bqd,bktd->bkqt", q.double(), toks[c].double())
+        if scales is not None:
+            sc = sc * scales[c].double()[:, :, None, :]
+        best = torch.where(dm[c][:, :, None, :], sc, ref.NEG).amax(-1)
+        out.append(torch.where(qm[:, None, :], best, 0.0).sum(-1))
+    return torch.cat(out, 1)
+
+
 def rerank_gather_row(torch, variant, args_k, launches_by_kernel, ragged, note=""):
-    """rerank_gather_scores at the served shape against its plain version:
-    max abs error, kernel and plain times, the bound."""
+    """rerank_gather_scores at the served shape against its plain version
+    and, on 8 queries, against fp64 MaxSim (the tensor cores' split within
+    ref.TF32_SPLIT_RTOL): max abs errors, kernel and plain times, the bound
+    at the TF32 split's rate and on the CUDA cores."""
     from repro_torch.kernels import gather_scan, ref
 
     q, qm, cand, toks, dm, scales = args_k
@@ -2049,16 +2199,22 @@ def rerank_gather_row(torch, variant, args_k, launches_by_kernel, ragged, note="
     err = float((got - want).abs().max())
     require(err <= 1e-4 + 1e-5 * float(want.abs().max()),
             f"rerank_gather_scores {variant}: max abs err {err}")
-    del got, want
+    exact = rerank_fp64(torch, q[:8], qm[:8], cand[:8], toks, dm, scales)
+    tc_err = float((got[:8].double() - exact).abs().max())
+    tc_tol = ref.TF32_SPLIT_RTOL * max(1.0, float(exact.abs().max()))
+    require(tc_err <= tc_tol, f"rerank_gather_scores {variant}: max abs err against fp64 "
+                              f"{tc_err} > {tc_tol}")
+    del got, want, exact
     ms = time_ms(torch, lambda: gather_scan.rerank_gather_scores(*args_k))
     plain_ms = time_ms(torch, lambda: ref.rerank_scores_ref(*args_k, chunk=128), n=3, warmup=1)
     sq8 = scales is not None
     nbytes, flops = rerank_gather_cost(torch, q, qm, cand, dm, q.shape[2] * (1 if sq8 else 4)
                                        + (4 if sq8 else 0))
-    b_ms, b_by = bound(nbytes, flops)
+    split = 2 if sq8 else 3
+    b_ms, b_by = bound(nbytes, split * flops, PEAK_TF32_S)
     B, Tq, d = q.shape
     print(f"rerank_gather_scores ({variant}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.3f} ms ({b_by})", flush=True)
+          f"{b_ms:.3f} ms ({b_by}), max abs err against fp64 {tc_err}", flush=True)
     return dict(
         name="rerank_gather_scores", variant=variant, route="cuda",
         source="src/repro_torch/csrc/rerank_gather.cu",
@@ -2066,10 +2222,14 @@ def rerank_gather_row(torch, variant, args_k, launches_by_kernel, ragged, note="
         launches=launches_by_kernel["rerank_gather_scores"], max_abs_err=err,
         ragged_max_abs_err=ragged[f"rerank_gather_{variant}"],
         tolerance="1e-4 + 1e-5 x max|plain|",
+        tc_max_abs_err_fp64=tc_err, tc_tolerance_fp64=tc_tol,
+        tc_fp64_sample="8 queries x all their candidates",
         shape=f"B {B} x k'_loc {cand.shape[1]} candidates, Tq {Tq}, Td {toks.shape[1]}, "
               f"d {d}, {variant} tokens{note}", ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes), flops=int(flops), library_ms=None,
-        launches_per_search=1, cuda_launches_per_call=1)
+        bound_ms=b_ms, bound_by=b_by, peak=PEAK_TF32_S,
+        bound_split="2xTF32 (q split)" if sq8 else "3xTF32",
+        bound_ms_fp32_cuda_cores=bound(nbytes, flops)[0], bytes=int(nbytes),
+        flops=int(flops), library_ms=None, launches_per_search=1, cuda_launches_per_call=2)
 
 
 def main():
@@ -2106,6 +2266,9 @@ def main():
     build_line, maxsim_row, psi_build_launches = build_phase(torch, args, card)
     build_line.update(kernel_build_s=t_build)
     print(json.dumps({"build": build_line}), flush=True)
+    t0 = time.time()
+    widths = widths_phase(torch, args.seed)
+    print(json.dumps({"widths": {"max_abs_err": widths, "s": time.time() - t0}}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     serving, routes, residual, sharded, kernels = serve_and_check(torch, args)

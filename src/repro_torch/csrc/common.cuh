@@ -93,6 +93,22 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The most dynamic shared memory a block may opt into on the card (asked
+// once: every launch of the reranks wants it).
+inline cudaError_t smem_optin(int* bytes) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, v = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    cached = v;
+  }
+  *bytes = cached;
+  return cudaSuccess;
+}
+
 extern "C" const char* lemur_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -37,14 +37,15 @@ constexpr int kRowsPerBlock = 128;
 __global__ void __launch_bounds__(kThreads)
 mips_sq8_batched_kernel(const float* __restrict__ q, const int8_t* __restrict__ codes,
                         const float* __restrict__ scales, float* __restrict__ out,
-                        int n, int D, int vectorized) {
+                        int B, int n, int D, int vectorized) {
   extern __shared__ __align__(16) float qs[];
-  const int b = blockIdx.x;
+  // one grid axis of (row tile, query) blocks, the query fastest (any n)
+  const int tile = blockIdx.x / B, b = blockIdx.x - tile * B;
   for (int i = threadIdx.x; i < D; i += kThreads) qs[i] = q[(size_t)b * D + i];
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r1 = min((int)(blockIdx.y + 1) * kRowsPerBlock, n);
-  for (int r = blockIdx.y * kRowsPerBlock + warp; r < r1; r += kThreads / 32) {
+  const int r1 = min((tile + 1) * kRowsPerBlock, n);
+  for (int r = tile * kRowsPerBlock + warp; r < r1; r += kThreads / 32) {
     const size_t row = (size_t)b * n + r;
     const int8_t* rows[1] = {codes + row * D};
     float acc[1];
@@ -61,9 +62,11 @@ extern "C" int mips_sq8_batched(const void* q, const void* codes, const void* sc
   const size_t smem = (size_t)((D + 3) / 4 * 4) * sizeof(float);
   cudaError_t err = allow_smem(mips_sq8_batched_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)B, (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock));
-  mips_sq8_batched_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)codes, (const float*)scales, (float*)out, n, D,
+  const long long grid = (long long)B * ((n + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (grid == 0) return (int)cudaSuccess;
+  if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  mips_sq8_batched_kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)codes, (const float*)scales, (float*)out, B, n, D,
       vectorized);
   return (int)cudaGetLastError();
 }

@@ -16,20 +16,41 @@
 // at a time, walking its page-table row; each page's 16 x d fp32 tokens are
 // copied into the warp's shared-memory slot with 16-byte loads, and lane t
 // keeps query token t's running max over the candidate's valid positions.
+// Any d: a width off whole float4s is copied into a padded slot, and widths
+// or query lengths past the block's shared memory take the wide walk
+// (rerank.cuh); any B.
 #include "rerank.cuh"
 
 namespace {
 
-// fp32 pages: a page is copied as it is.
+// fp32 pages: a page is copied as it is (VEC: D % 4 == 0, whole float4s; else
+// a value at a time into a slot padded to whole float4s, rerank.cuh).
+template <bool VEC>
 struct Fp32Pages {
   const float* tok_pages;
-  static constexpr bool kPadded = false;  // the wrapper takes d % 4 == 0
+  static constexpr bool kPadded = !VEC;
   static size_t smem_floats(int) { return 0; }
   __device__ void stage(float*, int) const {}
   __device__ void load(float* pg, long long pid, int D, int lane, const float*) const {
-    const float4* src = reinterpret_cast<const float4*>(tok_pages + pid * kPage * D);
-    float4* dst = reinterpret_cast<float4*>(pg);
-    for (int i = lane; i < kPage * D / 4; i += 32) dst[i] = __ldg(src + i);
+    if constexpr (VEC) {
+      const float4* src = reinterpret_cast<const float4*>(tok_pages + pid * kPage * D);
+      float4* dst = reinterpret_cast<float4*>(pg);
+      for (int i = lane; i < kPage * D / 4; i += 32) dst[i] = __ldg(src + i);
+    } else {
+      const float* src = tok_pages + pid * kPage * D;
+      const int Ds = rerank_stride(D);
+      for (int i = lane; i < kPage * Ds; i += 32) {
+        const int s = i / Ds, k = i - s * Ds;
+        pg[i] = k < D ? __ldg(src + s * D + k) : 0.f;
+      }
+    }
+  }
+  __device__ void load_chunk(float* pg, long long pid, int k0, int kn, int D, int lane) const {
+    const float* src = tok_pages + pid * kPage * D + k0;
+    for (int i = lane; i < kPage * kn; i += 32) {
+      const int s = i / kn, k = i - s * kn;
+      pg[s * kWideDims + k] = __ldg(src + (size_t)s * D + k);
+    }
   }
 };
 
@@ -40,7 +61,11 @@ extern "C" int rerank_paged_scores(const void* q, const void* q_mask, const void
                                    const void* n_tokens, void* out, int B, int Tq,
                                    int D, int kp, int pmax, int C, long long n_pages,
                                    void* stream) {
-  return launch_rerank_paged(Fp32Pages{(const float*)tok_pages}, q, q_mask, cand,
+  if (D % 4 == 0)
+    return launch_rerank_paged(Fp32Pages<true>{(const float*)tok_pages}, q, q_mask, cand,
+                               page_table, n_tokens, out, B, Tq, D, kp, pmax, C, n_pages,
+                               stream);
+  return launch_rerank_paged(Fp32Pages<false>{(const float*)tok_pages}, q, q_mask, cand,
                              page_table, n_tokens, out, B, Tq, D, kp, pmax, C, n_pages,
                              stream);
 }

@@ -26,7 +26,10 @@
 // table, (d, L) = 8 KB at d = 128 and 4 bits, is staged once per block in
 // shared memory, level-major; the (ncent, d) centroid table (128 KB at 256
 // x 128) is read a row at a time through the read-only cache and stays in
-// L2.  Centroid ids are clamped to the table, page ids to the pool.
+// L2.  Centroid ids are clamped to the table, page ids to the pool.  Widths
+// or query lengths past the block's shared memory take rerank.cuh's wide
+// walk, decoding a page kWideDims dims at a time from the tables in device
+// memory; any B.
 #include "rerank.cuh"
 #include "residual.cuh"
 
@@ -64,6 +67,25 @@ struct ResPages {
   // and are broadcast by shuffles.  A D that is not a multiple of 4 (even
   // at 4 bits, as pack_codes takes) is decoded a value at a time instead,
   // the slot's pad dims 0 (rerank.cuh).
+  // The wide walk's chunk: dims k0 .. k0 + kn of the page's 16 tokens, a
+  // value at a time, the values table read from device memory (cached).
+  __device__ void load_chunk(float* pg, long long pid, int k0, int kn, int D, int lane) const {
+    using RC = ResCodes<BITS>;
+    const int db = D / RC::kPer;
+    const uint8_t* src = code_pages + pid * kPage * db;
+    const int mine = lane < kPage ? min(max(cent_pages[pid * kPage + lane], 0), ncent - 1) : 0;
+    for (int s = 0; s < kPage; ++s) {
+      const float* crow = centroids + (size_t)__shfl_sync(0xffffffffu, mine, s) * D;
+      const uint8_t* row = src + s * db;
+      for (int k = lane; k < kn; k += 32) {
+        const int kk = k0 + k;
+        const int code = RC::code(__ldg(row + kk / RC::kPer), kk % RC::kPer);
+        pg[s * kWideDims + k] =
+            res_decode(__ldg(crow + kk), __ldg(values + (size_t)kk * RC::kLevels + code));
+      }
+    }
+  }
+
   __device__ void load(float* pg, long long pid, int D, int lane, const float* vs) const {
     using RC = ResCodes<BITS>;
     constexpr int kBatch = 8;

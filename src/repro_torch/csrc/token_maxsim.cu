@@ -6,143 +6,58 @@
 //   tile as one (64 T, d) matrix, runs one MXU matmul against a (256, d)
 //   x tile and takes a masked max over T.
 //
-// Bound on the H100: fp32 operations.  Each (query token, valid doc token)
+// Bound on the H100: tensor-core operations.  Each (OLS token, doc token)
 // pair costs d multiply-adds; at the build's shapes (d = 128, a mean of
 // 67.4 valid tokens of T = 80) one OLS block of n' = 16,384 tokens against
-// 2,048 docs is 579 GFLOP over 226 MB (2,600 operations a byte, against the
-// card's 67 TFLOP/s / 3.35 TB/s = 20): 8.6 ms at the CUDA-core peak.
+// 2,048 docs is 579 GFLOP over 226 MB.  The 3xTF32 split makes that 3
+// TF32 products: 3.51 ms at 495 TFLOP/s (4.17 ms with the masked positions,
+// which the tensor cores compute too), against 8.6 ms for fp32 on the CUDA
+// cores.
 //
-// Design: a block owns a tile of 128 query tokens, staged once in shared
-// memory (transposed to (d, 128): 64 KB at d = 128), and a run of 32 docs.
-// It walks the run 4 docs at a time; for each chunk of 16 token positions
-// it stages the 4 x 16 doc tokens in shared memory (transposed to (d, 64))
-// together with their mask bits, and each of the 256 threads forms an 8 x 4
-// register tile of fp32 FMA dots: 8 query tokens against 4 tokens of one
-// doc, read as float4 from shared memory (3 shared loads for 32 FMAs).  A
-// staged doc value feeds 128 query tokens, so staging costs 1/128 of the
-// FMAs.  The dots of valid tokens fold into a running max per (query
-// token, doc) kept in registers (8 a thread), starting at NEG; after the
-// doc's last chunk the 4 threads sharing a doc combine their maxima with
-// two warp shuffles and one writes the 8 results.  A chunk whose 64
-// positions are all masked is skipped (the result is unchanged); masked
-// positions are never read from device memory.  Row tiles vary fastest over
-// the grid, so the blocks in flight share a doc run and read it from L2.
-// No tensor cores: the sums stay fp32 like the plain version's.
-#include "common.cuh"
+// Design: the MaxSim body of maxsim_tc.cuh.  The OLS tokens are the
+// reused operand: tc_image writes their split pieces once, in tiles of 128
+// tokens, and a block keeps its tile's image in shared memory (d <= 128;
+// wider tiles stream through the ring).  The docs are the streamed operand,
+// (m T, d) rows contiguous per doc: each consumer warp takes one doc of a
+// round of 8, 16 token rows a wgmma, split in registers; masked rows are
+// not read.  The max over a doc's rows ends in registers (a reduce-scatter
+// over the warp's row lanes, a running max across its 16-row slices), and
+// a round's 8 docs leave through shared memory as 8 consecutive floats of
+// each out row.  Tiles vary fastest over the grid, so the blocks in flight
+// share a run of docs and read it from L2.  Two launches: the image, then
+// the product.
+#include "maxsim_tc.cuh"
 
 namespace {
 
-constexpr int kRows = 128;      // query tokens a block
-constexpr int kDocs = 4;        // docs a chunk
-constexpr int kChunk = 16;      // token positions a doc a chunk
-constexpr int kCols = kDocs * kChunk;
-constexpr int kRun = 32;        // docs a block
-constexpr int kThreads = 256;   // 16 x 16, an 8 x 4 tile each
-constexpr int kLdx = kRows + 4; // shared row strides, float4-aligned
-constexpr int kLdd = kCols + 4;
-
-__global__ void __launch_bounds__(kThreads)
-token_maxsim_kernel(const float* __restrict__ x, const float* __restrict__ docs,
-                    const uint8_t* __restrict__ mask, float* __restrict__ out,
-                    int n, int m, int T, int D, int n_runs) {
-  extern __shared__ __align__(16) float sm[];
-  float* xs = sm;                          // D x kLdx: x tile, transposed
-  float* ds = xs + (size_t)D * kLdx;       // D x kLdd: doc chunk, transposed
-  int* mk = reinterpret_cast<int*>(ds + (size_t)D * kLdd);  // kCols mask bits
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;  // rows ty*8.., tokens tx*4..
-  const long long row0 = (long long)blockIdx.x * kRows;
-  // staging walks (column, k) pairs kThreads apart without dividing per element
-  const int c_first = tid / D, k_first = tid - c_first * D;
-  const int c_step = kThreads / D, k_step = kThreads - c_step * D;
-
-  for (int c = c_first, k = k_first; c < kRows;) {
-    xs[(size_t)k * kLdx + c] = row0 + c < n ? x[(size_t)(row0 + c) * D + k] : 0.f;
-    c += c_step;
-    k += k_step;
-    if (k >= D) k -= D, ++c;
-  }
-
-  for (int run = blockIdx.y; run < n_runs; run += gridDim.y) {
-    const int run_end = min(run * kRun + kRun, m);
-    for (int l0 = run * kRun; l0 < run_end; l0 += kDocs) {
-      float best[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) best[r] = LEMUR_NEG;
-      for (int t0 = 0; t0 < T; t0 += kChunk) {
-        __syncthreads();  // the previous chunk's readers are done
-        int any = 0;
-        if (tid < kCols) {
-          const int l = l0 + tid / kChunk, t = t0 + tid % kChunk;
-          any = l < run_end && t < T && mask[(size_t)l * T + t];
-          mk[tid] = any;
-        }
-        if (!__syncthreads_or(any)) continue;
-#pragma unroll 4
-        for (int c = c_first, k = k_first; c < kCols;) {
-          const int l = l0 + c / kChunk, t = t0 + c % kChunk;
-          ds[(size_t)k * kLdd + c] = mk[c] ? docs[((size_t)l * T + t) * D + k] : 0.f;
-          c += c_step;
-          k += k_step;
-          if (k >= D) k -= D, ++c;
-        }
-        __syncthreads();
-        float acc[8][4];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < D; ++k) {
-          const float4 a0 = *reinterpret_cast<const float4*>(xs + (size_t)k * kLdx + ty * 8);
-          const float4 a1 = *reinterpret_cast<const float4*>(xs + (size_t)k * kLdx + ty * 8 + 4);
-          const float4 b = *reinterpret_cast<const float4*>(ds + (size_t)k * kLdd + tx * 4);
-          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int r = 0; r < 8; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (mk[tx * 4 + c]) {
-#pragma unroll
-            for (int r = 0; r < 8; ++r) best[r] = fmaxf(best[r], acc[r][c]);
-          }
-        }
-      }
-      // the 4 threads of a doc are lanes 4q..4q+3 of one warp
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        best[r] = fmaxf(best[r], __shfl_xor_sync(0xffffffffu, best[r], 1));
-        best[r] = fmaxf(best[r], __shfl_xor_sync(0xffffffffu, best[r], 2));
-      }
-      const int l = l0 + (tx >> 2);
-      if ((tx & 3) == 0 && l < run_end) {
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const long long row = row0 + ty * 8 + r;
-          if (row < n) out[(size_t)row * m + l] = best[r];
-        }
-      }
-    }
-  }
-}
+constexpr int kRowsTile = 128;   // OLS tokens a block: wgmma's N
 
 }  // namespace
 
+// x (n, D) fp32; docs (m, T, D) fp32; mask (m, T) bytes; out (n, m) fp32;
+// img: scratch for x's image (ceil(n / 128) x ceil(D / 32) x 8,192 floats).
 extern "C" int token_maxsim(const void* x, const void* docs, const void* mask, void* out,
-                            int n, int m, int T, int D, void* stream) {
-  const size_t smem = (size_t)D * (kLdx + kLdd) * sizeof(float) + kCols * sizeof(int);
-  cudaError_t err = allow_smem(token_maxsim_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_runs = (m + kRun - 1) / kRun;
-  const dim3 grid((unsigned)((n + kRows - 1) / kRows),
-                  (unsigned)(n_runs < 65535 ? n_runs : 65535));
-  token_maxsim_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)docs, (const uint8_t*)mask, (float*)out, n, m, T, D,
-      n_runs);
-  return (int)cudaGetLastError();
+                            void* img, int n, int m, int T, int D, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_tc_image<kRowsTile>((const float*)x, (float*)img, 1, n, D, s);
+  if (err != 0) return err;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  MxArgs a{};
+  a.img = (const float*)img;
+  a.tok = docs;
+  a.mask = (const uint8_t*)mask;
+  a.out = (float*)out;
+  a.D = D;
+  a.Tr = T;
+  a.NT = 1;
+  a.n = n;
+  a.items = m;
+  a.groups = (n + kRowsTile - 1) / kRowsTile;
+  a.rounds = (m + kMxWarps - 1) / kMxWarps;
+  // about two blocks an SM in all, each with as long a run of docs as that allows
+  a.runs = (2 * sms + a.groups - 1) / a.groups;
+  return launch_maxsim_tc<float, kRowsTile, kMxTokenMaxSim>(a, s);
 }

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.maxsim import tc_image_floats
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -79,13 +80,14 @@ def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
     n_pages, page, _ = tok_pages.shape
     C, pmax = page_table.shape
     dev = q.device
-    if page != 16 or d % 4 or B > 65535:
-        raise ValueError(f"rerank kernel takes 16-token pages, d % 4 == 0 and "
-                         f"B <= 65535 (got page={page}, d={d}, B={B})")
+    if page != 16 or B * -(-kp // 32) >= 2 ** 31:
+        raise ValueError(f"rerank kernel takes 16-token pages and B ceil(k' / 32) < 2^31 "
+                         f"(got page={page}, B={B}, k'={kp})")
     build.expect(q, "q", torch.float32, (B, Tq, d), dev)
     build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev)
     build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev)
-    build.expect(tok_pages, "tok_pages", torch.float32, (n_pages, page, d), dev)
+    build.expect(tok_pages, "tok_pages", torch.float32, (n_pages, page, d), dev,
+                 align=16 if d % 4 == 0 else 4)
     build.expect(page_table, "page_table", torch.int32, (C, pmax), dev)
     build.expect(n_tokens, "n_tokens", torch.int32, (C,), dev)
     out = torch.empty((B, kp), dtype=torch.float32, device=dev)
@@ -105,6 +107,12 @@ def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
 rerank_paged_scores.launches = 0
 
 
+def rerank_gather_width(Tq: int) -> int:
+    """The query tile of the dense rerank's tensor-core product: 32, 64 or
+    128 tokens, the smallest that holds Tq (or rounds of 128)."""
+    return 32 if Tq <= 32 else 64 if Tq <= 64 else 128
+
+
 def rerank_gather_scores(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=None):
     """Exact MaxSim of each query against its own candidates in a dense
     (m, Td, d) token store, each candidate's slab read at the source.
@@ -113,7 +121,8 @@ def rerank_gather_scores(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=N
     padded: pads score doc 0 and are masked by the caller); doc_tokens: (m,
     Td, d) fp32, or int8 codes with doc_scales (m, Td) fp32 folded into the
     score rows; doc_mask: (m, Td) bool, any pattern -> (B, k') fp32 raw pair
-    scores.  The kernel takes d % 4 == 0 (fp32) or d % 16 == 0 (SQ8)."""
+    scores.  On the card the dots are the tensor cores' TF32 split
+    (csrc/tc_common.cuh): an fp32 product's up to fp32 rounding."""
     if q.device.type == "cpu":
         return ref.rerank_scores_ref(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales)
     B, Tq, d = q.shape
@@ -121,32 +130,37 @@ def rerank_gather_scores(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=N
     m, Td, _ = doc_tokens.shape
     dev = q.device
     sq8 = doc_scales is not None
-    if d % (16 if sq8 else 4) or B > 65535 or m == 0:
-        raise ValueError(f"rerank_gather_scores kernel takes d % {16 if sq8 else 4} == 0, "
-                         f"B <= 65535 and m > 0 (got d={d}, B={B}, m={m})")
-    build.expect(q, "q", torch.float32, (B, Tq, d), dev)
+    if m == 0 or max(B, m * Td) >= 2 ** 31:
+        raise ValueError(f"rerank_gather_scores kernel takes 0 < m and B, m Td < 2^31 "
+                         f"(got B={B}, m={m}, Td={Td})")
+    build.expect(q, "q", torch.float32, (B, Tq, d), dev, align=4)
     build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev, align=1)
     build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev, align=4)
     build.expect(doc_tokens, "doc_tokens", torch.int8 if sq8 else torch.float32, (m, Td, d),
-                 dev)
+                 dev, align=1 if sq8 else 4)
     build.expect(doc_mask, "doc_mask", torch.bool, (m, Td), dev, align=1)
     if sq8:
         build.expect(doc_scales, "doc_scales", torch.float32, (m, Td), dev, align=4)
     out = torch.empty((B, kp), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    if Tq == 0:                                  # no query token: every sum is empty
+        return out.zero_()
+    N = rerank_gather_width(Tq)
+    img = torch.empty((tc_image_floats(B, Tq, d, N),), dtype=torch.float32, device=dev)
     lib = build.library("rerank_gather")
     common = (q.data_ptr(), q_mask.data_ptr(), cand_ids.data_ptr(), doc_tokens.data_ptr(),
               doc_mask.data_ptr())
     if sq8:
         fn = lib.rerank_gather_sq8
-        fn.argtypes = [_p] * 7 + [_i] * 6 + [_p]
-        err = fn(*common, doc_scales.data_ptr(), out.data_ptr(), B, Tq, d, kp, Td, m,
-                 build.stream_ptr(q))
+        fn.argtypes = [_p] * 8 + [_i] * 7 + [_p]
+        err = fn(*common, doc_scales.data_ptr(), out.data_ptr(), img.data_ptr(), B, Tq, d, kp,
+                 Td, m, N, build.stream_ptr(q))
     else:
         fn = lib.rerank_gather_fp32
-        fn.argtypes = [_p] * 6 + [_i] * 6 + [_p]
-        err = fn(*common, out.data_ptr(), B, Tq, d, kp, Td, m, build.stream_ptr(q))
+        fn.argtypes = [_p] * 7 + [_i] * 7 + [_p]
+        err = fn(*common, out.data_ptr(), img.data_ptr(), B, Tq, d, kp, Td, m, N,
+                 build.stream_ptr(q))
     build.check(lib, err, "rerank_gather_scores")
     rerank_gather_scores.launches += 1
     return out
@@ -229,9 +243,9 @@ def rerank_paged_res_scores(q, q_mask, cand_ids, cent_pages, code_pages, page_ta
     ncent = centroids.shape[0]
     dev = q.device
     bits = residual_bits(values, d)
-    if page != 16 or B > 65535:
-        raise ValueError(f"rerank kernel takes 16-token pages and B <= 65535 "
-                         f"(got page={page}, B={B})")
+    if page != 16 or B * -(-kp // 32) >= 2 ** 31:
+        raise ValueError(f"rerank kernel takes 16-token pages and B ceil(k' / 32) < 2^31 "
+                         f"(got page={page}, B={B}, k'={kp})")
     build.expect(q, "q", torch.float32, (B, Tq, d), dev)
     build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev)
     build.expect(cand_ids, "cand_ids", torch.int32, (B, kp), dev)

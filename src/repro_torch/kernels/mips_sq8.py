@@ -18,7 +18,6 @@ from repro_torch.kernels.query_fused import tc_image_floats
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-MAX_GRID_Y = 65535
 
 
 def _check(q, codes, scales, rows_shape):
@@ -67,8 +66,9 @@ def mips_sq8_batched(q, codes, scales, *, chunk: int | None = None):
     B, d = q.shape
     n = codes.shape[1]
     _check(q, codes, scales, (B, n))
-    if -(-n // 128) > MAX_GRID_Y:
-        raise ValueError(f"mips_sq8 batched kernel takes n <= {128 * MAX_GRID_Y}, got {n}")
+    if B * -(-n // 128) >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"mips_sq8 batched kernel takes B ceil(n / 128) < 2^31, got B={B}, "
+                         f"n={n}")
     out = torch.empty((B, n), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or d == 0:
         return out.zero_()

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.gather_scan import residual_bits
+from repro_torch.kernels.maxsim import tc_image_floats as _image_floats
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -171,15 +172,15 @@ query_fused_res.launches = 0
 SAMPLE_STRIDE = 32
 FILTER_SLACK = 4
 FILTER_MIN_ROWS = 4 * SAMPLE_STRIDE
-#: the tensor-core product's query tile and column chunk (csrc/tc_scan.cuh)
-TC_Q, TC_K = 128, 32
+#: the tensor-core product's query tile (csrc/tc_scan.cuh)
+TC_Q = 128
 #: bytes of (query, row) scores the stored path holds at a time
 STORE_BYTES = 2 ** 30
 
 
 def tc_image_floats(B: int, D: int) -> int:
     """Floats of q's split image (csrc/tc_scan.cuh: tc_q_image)."""
-    return -(-B // TC_Q) * -(-D // TC_K) * 2 * TC_Q * TC_K
+    return _image_floats(1, B, D, TC_Q)
 
 
 def _select(lib, s, p, ld, cnt, n, cap, out, B, kp, *, bound=None, overflow=None, stream):

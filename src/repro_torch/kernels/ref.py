@@ -294,7 +294,7 @@ def tf32_split_scores(q, W, W_scales=None, *, chunk: int | None = None):
     tf32_rna(x))), Wl.qh + Wh.ql + Wh.qh (3xTF32); int8 rows are exact in
     TF32, W.ql + W.qh (q split only); then times the row scale.  Every piece
     product is exact.  ``chunk`` None: summed in fp64 and rounded once (the
-    split's own error); ``chunk`` = 64: as the kernel sums, each chunk of
+    split's own error); ``chunk`` = 64: as the kernels sum, each chunk of
     that many columns in fp64 rounded to fp32, the chunks added in order in
     fp32.  q: (B, d); W: (m, d) -> (B, m) fp32."""
     qh = tf32_rna(q)
@@ -316,3 +316,33 @@ def tf32_split_scores(q, W, W_scales=None, *, chunk: int | None = None):
     if W_scales is not None:
         sc = sc * W_scales[None, :].float()
     return sc
+
+
+def tf32_split_maxsim(x, doc_tokens, doc_mask, doc_scales=None, *, chunk: int | None = 64):
+    """The token MaxSim body's arithmetic on the card (csrc/maxsim_tc.cuh),
+    emulated: every dot of x's rows with the docs' token rows as
+    :func:`tf32_split_scores` sums it (the split pieces; ``chunk``-column
+    sums added in fp32, 64 as the kernel sums), times the token's scale
+    (int8 codes with ``doc_scales`` (m, T)), masked tokens at NEG, then the
+    max over each doc's tokens.  x: (n, d); doc_tokens: (m, T, d) fp32 or
+    int8 -> (n, m) fp32."""
+    m, T, d = doc_tokens.shape
+    sc = tf32_split_scores(x, doc_tokens.reshape(m * T, d),
+                           None if doc_scales is None else doc_scales.reshape(m * T),
+                           chunk=chunk).reshape(x.shape[0], m, T)
+    return torch.where(doc_mask[None].bool(), sc, NEG).amax(-1)
+
+
+def tf32_split_rerank(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=None, *,
+                      chunk: int | None = 64):
+    """The dense rerank's arithmetic on the card, emulated: per query,
+    :func:`tf32_split_maxsim` of its tokens against its own candidates'
+    slabs (-1 clamped to doc 0), summed over its valid tokens.  q: (B, Tq,
+    d); cand_ids: (B, k') -> (B, k') fp32."""
+    out = []
+    for b in range(q.shape[0]):
+        c = cand_ids[b].clamp_min(0).long()
+        g = tf32_split_maxsim(q[b], doc_tokens[c], doc_mask[c],
+                              None if doc_scales is None else doc_scales[c], chunk=chunk)
+        out.append(torch.where(q_mask[b][:, None].bool(), g, 0.0).sum(0))
+    return torch.stack(out) if out else q.new_empty((0, cand_ids.shape[1]))

@@ -112,3 +112,38 @@ def test_true_topk_and_recall_match_jax():
         maxsim.recall_at(T(retrieved), got_i).numpy(),
         np.asarray(jax_maxsim.recall_at(jnp.asarray(retrieved), want_i)), rtol=1e-6)
     assert float(maxsim.recall_at(T(retrieved), got_i)[0]) == 1.0
+
+
+def served_corpus(m, d, seed):
+    """The chip smoke's corpus distribution (data/synthetic.make_corpus at
+    the build cell's settings: Poisson(67.5) lengths clipped to [4, 80],
+    unit tokens at topic weight 1.2), at m docs of width d."""
+    from repro_torch.data import synthetic
+
+    return synthetic.make_corpus(m=m, d=d, avg_tokens=67.5, max_tokens=80, n_centers=256,
+                                 seed=seed)
+
+
+@pytest.mark.parametrize("n,m,d", [(512, 64, 128), (96, 24, 1024), (256, 64, 20)],
+                         ids=["served", "d1024", "d20"])
+def test_maxsim_split_error(n, m, d):
+    """The token MaxSim kernel's arithmetic (csrc/maxsim_tc.cuh), emulated by
+    ref.tf32_split_maxsim: the split pieces (ref.tf32_rna), sums restarted
+    every 64 columns and added in fp32, the masked max over each doc's 80
+    token rows; OLS tokens drawn from the corpus as the build draws them.
+    Against fp64 token MaxSim: within ref.TF32_SPLIT_RTOL x max(1, max
+    |score|), the tolerance of the card's check; NEG where a doc has no
+    valid token, exactly."""
+    corpus = served_corpus(m, d, seed=d)
+    rng = np.random.default_rng(d + 1)
+    docs, mask = T(corpus.doc_tokens), T(corpus.doc_mask)
+    mask[1] = False                                   # a doc with no valid token
+    flat = corpus.doc_tokens[corpus.doc_mask]
+    x = T(flat[rng.integers(0, len(flat), n)])
+    got = ref.tf32_split_maxsim(x, docs, mask)
+    sc = torch.einsum("nd,mtd->nmt", x.double(), docs.double())
+    exact = torch.where(mask[None], sc, ref.NEG).amax(-1)
+    real = exact > ref.NEG / 2
+    assert torch.equal(got > ref.NEG / 2, real) and bool((got[~real] == ref.NEG).all())
+    err = float((got.double() - exact)[real].abs().max())
+    assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[real].abs().max())), err

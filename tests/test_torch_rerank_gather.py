@@ -124,3 +124,45 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     gather_scan.rerank_gather_scores(*map(T, make_case(6, True)))
     assert gather_scan.rerank_gather_scores.launches == n0
     assert ops.KERNELS["rerank_gather_scores"] is gather_scan.rerank_gather_scores
+
+
+@pytest.mark.parametrize("d", [128, 1024, 20], ids=["served", "d1024", "d20"])
+@pytest.mark.parametrize("sq8", [False, True], ids=["fp32", "sq8"])
+def test_rerank_split_error(sq8, d):
+    """The dense rerank kernel's arithmetic (csrc/maxsim_tc.cuh), emulated by
+    ref.tf32_split_rerank: 3xTF32 pieces for fp32 tokens, 2xTF32 for SQ8
+    codes (q split, the codes exact, the token's scale after the sum), sums
+    restarted every 64 columns and added in fp32, the masked max over each
+    candidate's 80 rows, the masked sum over 32 query tokens; queries drawn
+    as the chip smoke draws them (a doc's tokens plus encoder noise), -1
+    and duplicated candidates.  Against fp64 MaxSim over the same stored
+    tokens: within ref.TF32_SPLIT_RTOL x max(1, max |score|), the tolerance
+    of the card's check."""
+    from repro_torch.data import synthetic
+
+    # the chip smoke's corpus distribution: Poisson(67.5) lengths clipped to
+    # [4, 80], unit tokens at topic weight 1.2
+    corpus = synthetic.make_corpus(m=48, d=d, avg_tokens=67.5, max_tokens=80, n_centers=256,
+                                   seed=d + 7)
+    rng = np.random.default_rng(d)
+    B, Tq, kp = 6, 32, 40
+    q = T(synthetic.queries_from_corpus_query(corpus, B, q_tokens=Tq, seed=d))
+    qm = torch.ones(B, Tq, dtype=torch.bool)
+    qm[0, 20:] = False                                 # a short query
+    cand = T(rng.integers(-1, 48, (B, kp)).astype(np.int32))
+    cand[1, 3] = cand[1, 4]
+    docs, mask = T(corpus.doc_tokens), T(corpus.doc_mask)
+    scales = None
+    if sq8:
+        codes, sc = jax_sq8_quant(jnp.asarray(corpus.doc_tokens))
+        docs, scales = T(codes), T(sc)
+    got = ref.tf32_split_rerank(q, qm, cand, docs, mask, scales)
+    c = cand.clamp_min(0).long()
+    s = torch.einsum("bqd,bktd->bkqt", q.double(), docs[c].double())
+    if sq8:
+        s = s * scales[c].double()[:, :, None, :]
+    best = torch.where(mask[c][:, :, None, :], s, ref.NEG).amax(-1)
+    exact = torch.where(qm[:, None, :], best, 0.0).sum(-1)
+    err = float((got.double() - exact).abs().max())
+    assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact.abs().max())), err
+    assert bool(got[1, 3] == got[1, 4])
