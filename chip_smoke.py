@@ -80,7 +80,12 @@ script
    batch against the plain composition, the scores against exact MaxSim
    over the decoded tokens and 32 queries' top-10 against the fp32 exact
    top-10 (recall, beside the SQ8 route's); times the three kernels against
-   their plain versions and reports token bytes per doc of both tiers;
+   their plain versions (the rerank also against fp64 MaxSim over the
+   decoded tokens on 8 queries, within ``ref.TF32_SPLIT_RTOL``: its dots
+   run on the tensor cores; its bound at the split's rate beside the CUDA
+   cores', the scans' beside the floor of a lookup a code), traces a batch
+   (with the host's activity in the device's idle gaps) and reports token
+   bytes per doc of both tiers;
 8. **sharded**: on a one-rank NCCL process group and its ("model",)
    DeviceMesh, holds ``rerank_gather_scores`` (fp32 and SQ8) against its
    plain version on a ragged case (B=1, Td=77, -1 candidates, a doc with no
@@ -451,9 +456,12 @@ def ragged_case(torch, seed):
 
 
 def profile_batch(torch, r, q, qm):
-    """One more batch under torch.profiler: device time by kernel and the
+    """One more batch under torch.profiler: device time by kernel, the
     device's busy share of the traced wall time (tracing adds host cost, so
-    these are not the latency numbers above)."""
+    these are not the latency numbers above), and what the host was doing
+    while the device was idle: the gaps between the device's kernels (from
+    the first host op to the last kernel's end), each top-level host op's
+    and each CUDA runtime call's overlap with them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -471,7 +479,42 @@ def profile_batch(torch, r, q, qm):
     busy = sum(x[1] for x in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall_ms) if wall_ms else None,
-            "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]]}
+            "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]],
+            "idle_gaps": idle_gaps(torch, prof.events())}
+
+
+def idle_gaps(torch, events):
+    """The device's idle gaps in a traced window and the host activity in
+    them: ms of each top-level host op and of each CUDA runtime call that
+    overlaps a gap (nested calls overlap their op), largest first."""
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    if not dev or not cpu:
+        return None
+    gaps, t = [], min(e.time_range.start for e in cpu)
+    for a, b in dev:
+        if a > t:
+            gaps.append((t, a))
+        t = max(t, b)
+
+    def overlap(e):
+        return sum(max(0.0, min(b, e.time_range.end) - max(a, e.time_range.start))
+                   for a, b in gaps)
+
+    ops, runtime = {}, {}
+    for e in cpu:
+        o = overlap(e)
+        if o <= 0:
+            continue
+        if e.name.startswith("cuda"):
+            runtime[e.name] = runtime.get(e.name, 0.0) + o / 1e3
+        elif e.cpu_parent is None:
+            ops[e.name[:60]] = ops.get(e.name[:60], 0.0) + o / 1e3
+    top = lambda d: [{"name": k, "ms": v} for k, v in sorted(d.items(), key=lambda x: -x[1])[:8]]
+    return {"gaps": len(gaps), "idle_ms": sum(b - a for a, b in gaps) / 1e3,
+            "largest_ms": max((b - a for a, b in gaps), default=0.0) / 1e3,
+            "host_ops": top(ops), "runtime_calls": top(runtime)}
 
 
 # --------------------------------------------------------------------------
@@ -1618,19 +1661,32 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         ("residual_one_launch", "query_fused_res"))}
     rows = []
 
-    def row(name, source, replaces, err, tol, fn, plain_fn, nbytes, flops, shape, **extra):
+    def row(name, source, replaces, err, tol, fn, plain_fn, nbytes, flops, shape, *,
+            peak=PEAK_FP32_S, split=1, cuda_launches=1, **extra):
+        # flops: the function's operations; split: the products a split
+        # (3xTF32) makes of each, counted in the bound at ``peak``
         ms = time_ms(torch, fn)
         plain_ms = time_ms(torch, plain_fn, n=5, warmup=1)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, split * flops, peak)
         rows.append(dict(
             name=name, variant="residual 4-bit", route="cuda", source=source,
             replaces=replaces, launches=launches[name],
             launches_per_search=launches[name] // len(batches), max_abs_err=err,
             ragged_max_abs_err=ragged[name], tolerance=tol, shape=shape, ms=ms,
             kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes),
-            flops=int(flops), library_ms=None, cuda_launches_per_call=1, **extra))
+            flops=int(flops), library_ms=None, cuda_launches_per_call=cuda_launches, **extra))
         print(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
               flush=True)
+
+    # a design built on lookups (the residual scans: a shared-memory lookup
+    # a code) issues at most 32 a clock an SM: its floor on this card
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+    def lookup_floor_ms(codes):
+        return codes / (32 * props.multi_processor_count * sm_mhz * 1e6) * 1e3
 
     lists = (rann.ids, rann.vecs, rann.centroids, rann.rq_values)
     got = gather_scan.ivf_probe_res_scan(psi_q, probe, *lists)
@@ -1650,7 +1706,8 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         len(uniq) * cap * 4 + rows_u * db + table_bytes + psi_q.numel() * 4
         + probe.numel() * 4 + B * P * cap * 4, 2 * rows_p * dp,
         f"B {B} x nprobe {P} of {rann.nlist} lists of cap {cap}, {db} B a row (4 bits), "
-        f"{rows_p / B:.0f} rows scanned a query")
+        f"{rows_p / B:.0f} rows scanned a query", lookup_floor_ms=lookup_floor_ms(rows_p * dp),
+        sm_clock_max_mhz=sm_mhz)
 
     qargs = (q, qm, *w, probe, *lists)
     err, near_ties, _ = same_topk(torch, *query_fused.query_fused_res(*qargs, kp=kp),
@@ -1665,30 +1722,49 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         + rows_u * db + table_bytes + probe.numel() * 4 + 2 * B * kp * 4,
         2 * nq_valid * d * dp + 2 * rows_p * dp,
         f"B {B} x Tq {Tq}, nprobe {P} of {rann.nlist} residual lists of cap {cap}, "
-        f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties)
+        f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
+        cuda_launches=2, lookup_floor_ms=lookup_floor_ms(rows_p * dp), sm_clock_max_mhz=sm_mhz)
 
     cand = first_stage(rr.index, q, qm, rr.resolve(SearchParams()))
     pargs = (q, qm, cand, rstore.cent_pages, rstore.code_pages, rstore.page_table,
              rstore.n_tokens, codec.centroids, codec.values)
     valid = cand >= 0
     got = torch.where(valid, gather_scan.rerank_paged_res_scores(*pargs), 0.0)
+    rr_path = gather_scan.rerank_paged_res_scores.last_path
+    require(rr_path == "tensor cores",
+            f"rerank_paged_res_scores: the served shape ran on the {rr_path}")
     want = torch.where(valid, ref.rerank_scores_paged_res_ref(*pargs, chunk=16), 0.0)
     err = float((got - want).abs().max())
     require(err <= 1e-4 + 1e-5 * float(want.abs().max()),
             f"rerank_paged_res_scores: max abs err {err}")
+    # the tensor cores' split against fp64 MaxSim over the decoded tokens, 8 queries
+    n8 = 8
+    toks, tmask = pages.gather_docs(rstore, cand[:n8].clamp_min(0))
+    sc = torch.einsum("bqd,bktd->bkqt", q[:n8].double(), toks.double())
+    best = torch.where(tmask[:, :, None, :], sc, ref.NEG).amax(-1)
+    exact = torch.where(qm[:n8, None, :], best, 0.0).sum(-1)
+    ok8 = valid[:n8]
+    err64 = float((got[:n8][ok8].double() - exact[ok8]).abs().max())
+    require(err64 <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[ok8].abs().max())),
+            f"rerank_paged_res_scores: max abs err against fp64 {err64}")
+    del toks, tmask, sc, best, exact
     ntok = torch.where(valid, rstore.n_tokens[cand.clamp_min(0).long()], 0).long()
     uc = cand[valid].long().unique()
     pages_u = int(((rstore.n_tokens[uc].long() + 15) // 16).sum())
+    rr_flops = 2 * int((ntok * qm.sum(1, keepdim=True)).sum()) * d
+    rr_bytes = (pages_u * 16 * (4 + codec.packed_width) + len(uc) * (rstore.pages_per_doc * 4 + 4)
+                + codec.ncent * d * 4 + d * L * 4 + q.numel() * 4 + qm.numel()
+                + 2 * cand.numel() * 4)
     row("rerank_paged_res_scores", "src/repro_torch/csrc/rerank_paged_res.cu",
         "src/repro/kernels/gather_scan.py:456", err, "1e-4 + 1e-5 x max|plain|",
         lambda: gather_scan.rerank_paged_res_scores(*pargs),
-        lambda: ref.rerank_scores_paged_res_ref(*pargs, chunk=16),
-        pages_u * 16 * (4 + codec.packed_width) + len(uc) * (rstore.pages_per_doc * 4 + 4)
-        + codec.ncent * d * 4 + d * L * 4 + q.numel() * 4 + qm.numel()
-        + 2 * cand.numel() * 4, 2 * int((ntok * qm.sum(1, keepdim=True)).sum()) * d,
+        lambda: ref.rerank_scores_paged_res_ref(*pargs, chunk=16), rr_bytes, rr_flops,
         f"B {B} x k' {cand.shape[1]} candidates of the residual default route, Tq {Tq}, "
         f"16-token pages of {codec.packed_width} B codes + int32 centroid ids, "
-        f"codec {codec.ncent} x {d}")
+        f"codec {codec.ncent} x {d}", peak=PEAK_TF32_S, split=3, cuda_launches=3,
+        path=rr_path, bound_split="3xTF32", max_abs_err_fp64=err64,
+        tolerance_fp64="ref.TF32_SPLIT_RTOL x max(1, max|exact|)",
+        bound_ms_fp32_cuda_cores=bound(rr_bytes, rr_flops)[0])
     # the tier shares W and the tombstones with the fp32 tier and fits beside
     # it, so nothing of the earlier phases is freed first
     line.update(card=card_line(), freed=[], traced_batch=profile_batch(torch, rr, q, qm),

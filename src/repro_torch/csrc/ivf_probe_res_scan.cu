@@ -8,55 +8,39 @@
 //   VMEM, decodes them there (a select-sum over the levels) and scores the
 //   list on the MXU.
 //
-// Bound on the H100: the decode's instructions.  A probed row is d' / 2
+// Bound on the H100: the lookups' instructions.  A probed row is d' / 2
 // bytes at 4 bits (1 KB at d' = 2048), a quarter of the SQ8 row, and costs d'
-// lookups and adds, so the bytes' bound is about a quarter of the SQ8
-// scan's while each byte carries four times the work: the kernel is bounded
-// by its issue rate (a shared-memory lookup a code), not by device memory.
+// lookups and adds, so the bytes' bound (0.26 ms at the served shape) is
+// out of reach of a design built on lookups: each code costs a shift, a
+// lookup and an add, about 4 instructions, so 256 queries x 12,471 rows x
+// 2,048 codes take at least about 0.9 ms at 4 instructions a clock an SM on
+// 132 SMs (the lookup floor).
 //
 // Design: one block per (query b, probe p), which reads probe[b, p] itself
-// and scores the list kResChunk = 1024 slots at a time with residual.cuh's
-// res_score_chunk: d' is walked in tiles of 512 dims, and for each tile the
-// block writes every product a code can give, q[k] * (centroid[k] +
-// values[k][l]), to shared memory (34 KB at 4 bits; the whole (2048, 16)
-// table would take 128 KB and one block an SM), read coalesced from L2 once
-// a tile a block; a warp's rows arrive as 4-byte words, all in flight
-// together, and each code then costs a shift, one lookup and one add, lanes
-// on their own banks (the table's columns are padded).  Pad slots (id < 0)
-// are not read and score -inf.  The decoded element is the host decoder's
-// bits; the sum runs in another order than the plain version's, so scores
-// agree to fp32 rounding.  Any d' that quantization.pack_codes takes (even
-// at 4 bits, a multiple of 4 at 2): a packed row that is not whole 4-byte
-// words is read a byte at a time (residual.cuh), with the same sums.
+// and runs residual.cuh's res_scan over the list: its 8 warps split the
+// list's slots, a ballot keeps the live ones (pads are never read; they
+// score -inf) and the block scores them 1,024 at a time against a table of
+// q[k] values[k][l] built a tile of 512 dims at a time, then adds q . c of
+// the list's centroid (one warp dot).  query_fused_res scores rows with the
+// same code, so a row gets the same bits on both residual routes.  The sum
+// runs in another order than the plain version's decode-then-score, so
+// scores agree to fp32 rounding.  Any d' that quantization.pack_codes takes
+// (even at 4 bits, a multiple of 4 at 2): a packed row that is not whole
+// 4-byte words is read a byte at a time (residual.cuh), with the same sums.
 #include "residual.cuh"
 
 namespace {
 
 template <int BITS, bool WHOLE>
-__global__ void __launch_bounds__(kResThreads)
+__global__ void __launch_bounds__(kResThreads, 2)
 ivf_scan_res_kernel(const float* __restrict__ q, const int* __restrict__ probe,
                     const int* __restrict__ ids, const uint8_t* __restrict__ codes,
                     const float* __restrict__ centroids, const float* __restrict__ values,
                     float* __restrict__ out, int P, int cap, int D, int nlist) {
   extern __shared__ __align__(16) float sm[];
   const int bp = blockIdx.x;                 // b * P + p
-  const int b = bp / P;
-  const int cl = probe[bp];
-  float* o = out + (size_t)bp * cap;
-  if (cl < 0 || cl >= nlist) {               // block-uniform: every slot a pad
-    for (int r = threadIdx.x; r < cap; r += kResThreads) o[r] = -INFINITY;
-    return;
-  }
-  const int* lid = ids + (size_t)cl * cap;
-  const size_t db = D / ResCodes<BITS>::kPer;
-  const float* acc = sm + ResCodes<BITS>::kLevels * kResTileStride;
-  for (int c0 = 0; c0 < cap; c0 += kResChunk) {
-    const int c1 = min(c0 + kResChunk, cap);
-    res_score_chunk<BITS, WHOLE>(codes + (size_t)cl * cap * db, lid, c0, c1,
-                          centroids + (size_t)cl * D, values, q + (size_t)b * D, D, sm);
-    for (int r = c0 + threadIdx.x; r < c1; r += kResThreads)
-      o[r] = lid[r] >= 0 ? acc[r - c0] : -INFINITY;
-  }
+  res_scan<BITS, WHOLE>(probe + bp, kResWarps, kResWarps, 1, 0, q + (size_t)(bp / P) * D, ids,
+                        codes, centroids, values, out + (size_t)bp * cap, cap, D, nlist, sm);
 }
 
 template <int BITS, bool WHOLE>

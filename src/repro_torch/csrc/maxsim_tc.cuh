@@ -1,7 +1,8 @@
 // The token MaxSim body on Hopper's tensor cores, shared by token_maxsim.cu
-// (the max over each doc's tokens) and rerank_gather.cu (then the masked sum
-// over each query's tokens); each file's header says what it replaces and
-// what bounds it.
+// (the max over each doc's tokens), rerank_gather.cu (then the masked sum
+// over each query's tokens) and rerank_paged_res.cu (the same over
+// compressed token pages, decoded by the producer warps); each file's
+// header says what it replaces and what bounds it.
 //
 // An item is a doc (token MaxSim) or a candidate (the rerank): Tr token
 // rows, contiguous in an (items, Tr, D) store, fp32 or int8 codes with a
@@ -35,7 +36,17 @@
 //    slices' mask bytes and scales and bring each slice's rows, from its
 //    first valid one to its last, with one bulk copy into a ring of slots a
 //    consumer warp, a slice ahead: the row addresses, masks and scales are
-//    off the consumer warps, whose instructions bound the rerank.
+//    off the consumer warps, whose instructions bound the rerank;
+//  - the paged residual rerank (kMxRerankRes): an item is a candidate's
+//    pages, a page one 16-row slice.  Each producer warp serves two
+//    consumer warps: it copies a page's packed codes and centroid ids into
+//    a staging ring (cp.async, kMxPgStages pages ahead) and decodes the
+//    residual part values[k][code] of its 16 rows into the consumer's
+//    slot, from a values table in shared memory; the centroid part enters
+//    the epilogue from a (ncent x Tq) table of q_t . centroid (built by a
+//    launch before), so no centroid row is read.  Rows at or past the
+//    candidate's n_tokens are masked by position; a round walks as many
+//    slices as the most pages among its 8 candidates (at least one).
 // The consumers split the rows in registers (int8 widened exactly) and
 // issue the products against the B chunk in shared memory, the producer
 // warpgroup's registers given to them (setmaxnreg).  A commit group holds
@@ -56,6 +67,8 @@
 // places of the same sums whichever warp takes it, so duplicated
 // candidates score alike to the bit.
 #pragma once
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -78,7 +91,8 @@ struct MxTile {
   static constexpr int kR = N / 32;                     // ... after the max over its row lanes
 };
 
-enum { kMxTokenMaxSim = 0, kMxRerank = 1 };
+enum { kMxTokenMaxSim = 0, kMxRerank = 1, kMxRerankRes = 2 };
+constexpr int kMxPgStages = 3;              // (paged) pages a producer warp stages
 
 
 struct MxArgs {
@@ -94,6 +108,18 @@ struct MxArgs {
   const int* cand;        // rerank: (groups, kp) candidates, clamped to the items
   const uint8_t* q_mask;  // rerank: (groups, Tq)
   int Tq, kp;
+};
+
+// The paged residual rerank's arguments (its kernels alone take them: a
+// larger argument block changes how the other clients' kernels compile).
+struct MxResArgs : MxArgs {
+  const int* gpt;         // (groups, kp, pmax) each candidate's page ids, clamped, -1 past them
+  const int* gnt;         // (groups, kp) each candidate's token count (0: a pad)
+  const int* cent_pages;  // (n_pages, 16) centroid ids
+  const uint8_t* code_pages;  // (n_pages, 16, db) packed codes
+  const float* qc;        // (groups, ncent, qcs): q_t . centroid in column t
+  const float* values;    // (D, 2^bits) the codec's residual values
+  int pmax, ncent, qcs, db, vstride, stage_bytes;
 };
 
 // v: a thread's V column values (its two rows' max) -> w: the max over the
@@ -148,12 +174,192 @@ __device__ __forceinline__ void mx_read_slot(const uint8_t* row0p, int pitch, in
   }
 }
 
-template <typename T, int N, int KIND, bool BULK>
-__global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a) {
-  static_assert(!BULK || KIND == kMxRerank, "the bulk path feeds the rerank");
+// (paged) The shared memory after the slots' valid bits: each slot's round
+// length, the q . centroid table, the values table and the producer warps'
+// staging rings (msc holds the slots' centroid ids).  The staging offset is
+// taken from the shared array, not by an integer cast, so that the compiler
+// keeps the producers' accesses in the shared window.
+struct MxResSmem {
+  int* mS;
+  float* qct;
+  float* vs;
+  uint8_t* stg;
+};
+
+template <int BITS>
+__device__ __forceinline__ MxResSmem mx_res_smem(const MxResArgs& a, uint32_t* mbits,
+                                                 float* base) {
+  MxResSmem r;
+  r.mS = reinterpret_cast<int*>(mbits + kMxWarps * a.R);
+  r.qct = reinterpret_cast<float*>(r.mS + kMxWarps * a.R);
+  r.vs = r.qct + (size_t)a.ncent * a.qcs;
+  uint8_t* const b8 = reinterpret_cast<uint8_t*>(base);
+  r.stg = b8 + ((reinterpret_cast<uint8_t*>(r.vs + (size_t)(1 << BITS) * a.vstride) - b8 + 15) &
+                ~(ptrdiff_t)15);
+  return r;
+}
+
+// The paged residual rerank's producer warp pw (0 .. 3), for consumer warps
+// 2 pw and 2 pw + 1 and their slices in the consumers' order (each round:
+// its S slices, the two warps' in turn).  A lookahead cursor reads each
+// round's token counts and page ids (the launch before gathered them a
+// candidate a row) a round ahead, and starts the copies of each page (its
+// packed codes, then its 16 centroid ids) into the warp's staging ring
+// (cp.async) kMxPgStages - 1 pages ahead, with a header: the slot, its
+// use, the round's S and the rows in the page (0: no page).  The decoder
+// waits for a page's copies and its slot, writes values[k][code] of its 16
+// rows there (lane l takes dims 4 l .. 4 l + 3, from vs:
+// each lane on its own bank; 8 rows' codes, then their lookups, in flight
+// together), the centroid ids (clamped) into msc, the valid rows' bits and
+// S, and arrives on the slot's barrier.
+template <int BITS>
+__device__ __forceinline__ void mx_res_producer(const MxResArgs& a, int gi, int r0, int r1, int pw,
+                                                int lane, uint8_t* area, float* msc,
+                                                uint32_t* mbits, int* mS, const float* vs,
+                                                uint8_t* stg, uint64_t* sfull,
+                                                uint64_t* sempty) {
+  constexpr int kLv = 1 << BITS, kPer = 8 / BITS;
+  constexpr unsigned kAll = 0xffffffffu;
+  uint8_t* ring = stg + (size_t)pw * kMxPgStages * a.stage_bytes;
+  // the lookahead cursor: tile, round, slice, which warp, the warps' slices
+  // so far; the round's S, the two candidates' token counts and page ids
+  // (lane j: page j), and the next round's, in flight
+  int L_nt = 0, L_r = r0, L_s = 0, L_h = 0, L_us = 0, L_S = 1;
+  int L_tok[2] = {0, 0}, L_pt[2] = {-1, -1};
+  int nx_tok = 0, nx_pt[2] = {-1, -1};
+  bool L_end = false;
+  auto round_load = [&](int r) {
+    const int i = r * kMxWarps + lane;
+    nx_tok = lane < kMxWarps && i < a.kp ? __ldg(a.gnt + (size_t)gi * a.kp + i) : 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ih = r * kMxWarps + 2 * pw + h;
+      nx_pt[h] = ih < a.kp && lane < a.pmax
+                     ? __ldg(a.gpt + ((size_t)gi * a.kp + ih) * a.pmax + lane) : -1;
+    }
+  };
+  auto enter = [&](int r) {                     // round r's info in; the next one's loads out
+    int npg = min((nx_tok + kMxSlice - 1) / kMxSlice, a.pmax);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) npg = max(npg, __shfl_xor_sync(kAll, npg, o));
+    L_S = max(npg, 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      L_tok[h] = __shfl_sync(kAll, nx_tok, 2 * pw + h);
+      L_pt[h] = nx_pt[h];
+    }
+    round_load(r + 1 == r1 ? r0 : r + 1);
+  };
+  auto issue = [&](int buf) {
+    uint8_t* sb = ring + (size_t)buf * a.stage_bytes;
+    int* hdr = reinterpret_cast<int*>(sb + a.stage_bytes - 16);
+    if (L_end) {
+      if (lane == 0) hdr[3] = -2;
+      cp_async_commit();
+      return;
+    }
+    const int nv = min(kMxSlice, (L_h ? L_tok[1] : L_tok[0]) - kMxSlice * L_s);
+    if (nv > 0) {                                // warp-uniform
+      const int pid = L_s < 32 ? __shfl_sync(kAll, L_h ? L_pt[1] : L_pt[0], L_s)
+                               : __ldg(a.gpt + ((size_t)gi * a.kp + (size_t)L_r * kMxWarps +
+                                                2 * pw + L_h) * a.pmax + L_s);
+      const uint8_t* codes = a.code_pages + (size_t)pid * kMxSlice * a.db;
+      const int* cents = a.cent_pages + (size_t)pid * kMxSlice;
+      for (int c = lane; c < a.db + 4; c += 32)  // 16 x db bytes of codes, 64 of ids
+        cp_async(sb + 16 * c, c < a.db ? static_cast<const void*>(codes + 16 * c)
+                                       : static_cast<const void*>(cents + 4 * (c - a.db)),
+                 16, true);
+    }
+    if (lane == 0) {
+      hdr[0] = (2 * pw + L_h) * a.R + L_us % a.R;
+      hdr[1] = L_us / a.R;
+      hdr[2] = L_S;
+      hdr[3] = max(nv, 0);
+    }
+    cp_async_commit();
+    if (++L_h == 2) {
+      L_h = 0;
+      ++L_us;
+      if (++L_s == L_S) {
+        L_s = 0;
+        if (++L_r == r1) {
+          L_r = r0;
+          L_end = ++L_nt == a.NT;
+        }
+        if (!L_end) enter(L_r);
+      }
+    }
+  };
+  round_load(r0);
+  enter(r0);
+  const int pf = a.pitch / 4;                   // floats between a slot's rows
+  for (int i = 0; i < kMxPgStages - 1; ++i) issue(i);
+  for (int n = 0;; ++n) {
+    issue((n + kMxPgStages - 1) % kMxPgStages);  // the page decoded last round is free
+    cp_async_wait<kMxPgStages - 1>();
+    __syncwarp();
+    const uint8_t* sb = ring + (size_t)(n % kMxPgStages) * a.stage_bytes;
+    const int* hdr = reinterpret_cast<const int*>(sb + a.stage_bytes - 16);
+    const int sw = hdr[0], use = hdr[1], S = hdr[2], nv = hdr[3];
+    if (nv == -2) break;
+    if (use > 0) mbar_wait(&sempty[sw], (use - 1) & 1);
+    float* slot = reinterpret_cast<float*>(area + (size_t)sw * kMxSlice * a.pitch);
+    if (nv > 0 && a.D % 4 == 0) {                 // (no page: the slot's rows are masked)
+      // 8 rows at a time: their codes, then their 32 lookups, in flight together
+      for (int k4 = lane; k4 < a.D / 4; k4 += 32) {
+        const int k = 4 * k4;
+        const float* v0 = vs + k + (k >> 5);
+#pragma unroll
+        for (int r0 = 0; r0 < kMxSlice; r0 += 8) {
+          uint32_t c4[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const uint8_t* cr = sb + (r0 + i) * a.db;
+            c4[i] = BITS == 4 ? *reinterpret_cast<const uint16_t*>(cr + 2 * k4) : cr[k4];
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float4 o;
+            o.x = v0[((c4[i] >> (0 * BITS)) & (kLv - 1)) * a.vstride];
+            o.y = v0[((c4[i] >> (1 * BITS)) & (kLv - 1)) * a.vstride + 1];
+            o.z = v0[((c4[i] >> (2 * BITS)) & (kLv - 1)) * a.vstride + 2];
+            o.w = v0[((c4[i] >> (3 * BITS)) & (kLv - 1)) * a.vstride + 3];
+            *reinterpret_cast<float4*>(slot + (r0 + i) * pf + k) = o;
+          }
+        }
+      }
+    } else if (nv > 0) {
+      for (int row = 0; row < kMxSlice; ++row) {
+        const uint8_t* cr = sb + row * a.db;
+        for (int k = lane; k < a.D; k += 32) {
+          const int code = (cr[k / kPer] >> (BITS * (k % kPer))) & (kLv - 1);
+          slot[row * pf + k] = vs[code * a.vstride + k + (k >> 5)];
+        }
+      }
+    }
+    if (lane < kMxSlice) {                        // (no page: 0, never read)
+      const int cid = nv > 0 ? reinterpret_cast<const int*>(sb + kMxSlice * a.db)[lane] : 0;
+      msc[sw * kMxSlice + lane] = __int_as_float(min(max(cid, 0), a.ncent - 1));
+    }
+    if (lane == 0) {
+      mbits[sw] = nv >= kMxSlice ? 0xffffu : (1u << nv) - 1u;
+      mS[sw] = S;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sfull[sw]);
+  }
+}
+
+template <typename T, int N, int KIND, bool BULK, int BITS = 0>
+__global__ void __launch_bounds__(kTcThreads, 1)
+maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArgs> a) {
+  static_assert(!BULK || KIND != kMxTokenMaxSim, "the bulk path feeds the reranks");
+  static_assert(KIND != kMxRerankRes || (BULK && sizeof(T) == 4 && (BITS == 2 || BITS == 4)),
+                "the paged residual rerank decodes fp32 slots");
+  constexpr bool RES = KIND == kMxRerankRes;
   using Tl = MxTile<N>;
   // producer and consumer registers: 128 x P + 256 x C <= 65,536
-  constexpr int kProducerRegs = BULK ? 56 : 40;
+  constexpr int kProducerRegs = RES ? 88 : (BULK ? 56 : 40);
   extern __shared__ __align__(128) float mx_sm[];
   const int nst = a.resident ? a.NT * a.KC : Tl::kStages;
   float* stages = mx_sm;
@@ -192,6 +398,16 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (RES) {                             // the query's tables, by every thread
+    const MxResSmem rs = mx_res_smem<BITS>(a, mbits, mx_sm);
+    const float* qg = a.qc + (size_t)gi * a.ncent * a.qcs;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < a.ncent * a.qcs; i += kTcThreads) rs.qct[i] = __ldg(qg + i);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < (1 << BITS) * a.D; i += kTcThreads)
+      rs.vs[(i / a.D) * a.vstride + (i % a.D) + (i % a.D) / 32] =
+          __ldg(a.values + (size_t)(i % a.D) * (1 << BITS) + i / a.D);
+  }
   __syncthreads();
 
   // the warp's item of round r (consumer warp w): its candidate as stored
@@ -200,6 +416,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
     const int i = r * kMxWarps + w;
     if constexpr (KIND == kMxTokenMaxSim) {
       return i;
+    } else if constexpr (RES) {
+      return 0;                                   // (the producers walk the pages)
     } else {
       return i < a.kp ? __ldg(a.cand + (size_t)gi * a.kp + i) : 0;
     }
@@ -236,7 +454,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
         }
       }
     }
-    if constexpr (BULK) {
+    if constexpr (RES) {
+      const MxResSmem rs = mx_res_smem<BITS>(a, mbits, mx_sm);
+      mx_res_producer<BITS>(a, gi, r0, r1, warp - kMxWarps, lane, area, msc, mbits, rs.mS, rs.vs,
+                            rs.stg, sfull, sempty);
+    } else if constexpr (BULK) {
       // A (the bulk path; B is resident): lanes 16 h + i of producer warp p
       // read row i's mask byte and scale of consumer warp 2p + h's slices,
       // in the consumers' order, and lane 16 h sends the slice's rows from
@@ -367,6 +589,16 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
   for (int i = 0; i < N / 2; ++i) acc[i] = tot[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < Tl::kR; ++i) run[i] = LEMUR_NEG;
+  // (paged residual) a candidate without tokens scores the query's Tq_valid
+  // NEGs summed in the CUDA-core kernel's order (lane l adds tokens l, l +
+  // 32, .., then warp_sum), not in this body's column order, so that a pad
+  // has the same bits whichever path its width takes
+  float pad = 0.f;
+  if constexpr (RES) {
+    for (int tq = lane; tq < a.Tq; tq += 32)
+      if (a.q_mask[(size_t)gi * a.Tq + tq]) pad += LEMUR_NEG;
+    pad = warp_sum(pad);
+  }
   float cur[2][8];
   uint32_t A[2][Tl::kKsg][2][4];                   // [group & 1][k-step][hi, lo][register]
   int it = 0, us = 0, bst = 0, bpar = 0;       // steps; slices; (streaming) B stage, parity
@@ -375,7 +607,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
   for (int nt = 0; nt < a.NT; ++nt) {
     for (int r = r0; r < r1; ++r) {
       const long long row0 = item_row0(r, warp, item_raw(r, warp));
-      for (int s = 0; s < a.S; ++s, ++us) {
+      int S = a.S;                                 // (paged: the round's, from its first slot)
+      for (int s = 0; s < (RES ? S : a.S); ++s, ++us) {
         // the slice's mask bytes and scales, for its epilogue: loaded now,
         // used after its last chunk (the bulk path: its slot's, later)
         bool e_in[2] = {false, false};
@@ -385,6 +618,9 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
         const uint8_t* srow = area + ((size_t)sw * kMxSlice + g) * a.pitch;
         if constexpr (BULK) {
           mbar_wait(&sfull[sw], (us / a.R) & 1);
+          if constexpr (RES) {
+            if (s == 0) S = mx_res_smem<BITS>(a, mbits, mx_sm).mS[sw];
+          }
         } else {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -478,7 +714,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             float x0 = LEMUR_NEG, x1 = LEMUR_NEG;
-            if constexpr (sizeof(T) == 1) {
+            if constexpr (RES) {                   // the rows' q . centroid, two columns a load
+              const float* qct = mx_res_smem<BITS>(a, mbits, mx_sm).qct + nt * N + 8 * j + 2 * t;
+              const float2 q0 =
+                  *reinterpret_cast<const float2*>(qct + (size_t)__float_as_int(sc[0]) * a.qcs);
+              const float2 q1 =
+                  *reinterpret_cast<const float2*>(qct + (size_t)__float_as_int(sc[1]) * a.qcs);
+              if (ok[0]) x0 = tot[4 * j + c] + (c ? q0.y : q0.x);
+              if (ok[1]) x1 = tot[4 * j + 2 + c] + (c ? q1.y : q1.x);
+            } else if constexpr (sizeof(T) == 1) {
               if (ok[0]) x0 = tot[4 * j + c] * sc[0];
               if (ok[1]) x1 = tot[4 * j + 2 + c] * sc[1];
             } else {
@@ -492,7 +736,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
         mx_max_over_rows<Tl::kV>(v, lane, w);
 #pragma unroll
         for (int i = 0; i < Tl::kR; ++i) run[i] = s == 0 ? w[i] : fmaxf(run[i], w[i]);
-        if (s < a.S - 1) continue;
+        if (s < (RES ? S : a.S) - 1) continue;
 
         // the item's end; a lane holds columns 8 (e >> 1) + 2t + (e & 1), e = g kR + i
         if constexpr (KIND == kMxTokenMaxSim) {
@@ -524,9 +768,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) maxsim_tc_kernel(const MxArgs a
           const int ci = r * kMxWarps + warp;
           if (lane == 0 && ci < a.kp) {
             float* p = ebuf + (r - r0) * kMxWarps + warp;   // this warp's own slot
-            const float sum = nt == 0 ? ps : *p + ps;
-            if (nt == a.NT - 1) a.out[(size_t)gi * a.kp + ci] = sum;
-            else *p = sum;
+            float sum = nt == 0 ? ps : *p + ps;
+            if (nt < a.NT - 1) {
+              *p = sum;
+            } else {
+              if constexpr (RES) {
+                if (__ldg(a.gnt + (size_t)gi * a.kp + ci) == 0) sum = pad;
+              }
+              a.out[(size_t)gi * a.kp + ci] = sum;
+            }
           }
         }
       }
@@ -584,6 +834,52 @@ static int launch_maxsim_tc(MxArgs a, cudaStream_t stream) {
   auto kernel = bulk ? maxsim_tc_kernel<T, N, KIND, KIND == kMxRerank>
                      : maxsim_tc_kernel<T, N, KIND, false>;
   err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)grid, kTcThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The paged residual rerank's layout (a.D, a.Tq, a.NT, a.ncent, a.db, a.kp
+// and the counts set): B resident, kMxPgStages staging pages a producer
+// warp, a.R slots a consumer warp (2 to 4, as many as fit).  Returns the
+// block's shared memory in bytes, or 0 where the layout does not fit the
+// card's (the caller takes the CUDA-core rerank).
+template <int N>
+static size_t mx_res_layout(MxResArgs& a, int bits, int optin) {
+  using Tl = MxTile<N>;
+  a.KC = tc_chunks(a.D) > 0 ? tc_chunks(a.D) : 1;
+  a.S = 1;
+  a.resident = a.NT * a.KC <= Tl::kStages;
+  if (!a.resident || a.D <= 0) return 0;
+  a.runs = a.runs < 1 ? 1 : (a.runs > a.rounds ? a.rounds : a.runs);
+  const int per_block = (a.rounds + a.runs - 1) / a.runs;
+  a.ebuf = (per_block * kMxWarps + 1) / 2 * 2;
+  a.pitch = (a.KC * kTcK + 4) * (int)sizeof(float);  // whole chunks and a pad: rows off banks
+  a.vec = a.D % kTcK == 0;
+  a.qcs = a.NT * N + 2;                      // even: two columns a load, rows off banks
+  a.vstride = (a.D + a.D / 32 + 31) / 32 * 32;
+  a.stage_bytes = (kMxSlice * a.db + 64 + 15) / 16 * 16 + 16;
+  const size_t fixed = (size_t)a.NT * a.KC * Tl::kChunk * sizeof(float) +
+                       a.ebuf * sizeof(float) + 2 * (size_t)a.NT * a.KC * 8;
+  const size_t tables = ((size_t)a.ncent * a.qcs + (size_t)(1 << bits) * a.vstride) * 4 + 16 +
+                        (size_t)(kTcThreads - kTcConsumers) / 32 * kMxPgStages * a.stage_bytes;
+  const size_t per_r = (size_t)kMxWarps * (kMxSlice * a.pitch + kMxSlice * 4 + 8 + 16);
+  const long long room = (long long)optin - (long long)(fixed + tables) - 1024;
+  const long long R = room > 0 ? room / (long long)per_r : 0;
+  if (R < 2) return 0;
+  a.R = R < 4 ? (int)R : 4;
+  a.abytes = (int)((a.R * (size_t)kMxWarps * (kMxSlice * a.pitch + kMxSlice * 4 + 8) + tables +
+                    15) / 16 * 16);
+  return fixed + a.abytes + 2 * (size_t)kMxWarps * a.R * 8;
+}
+
+template <int N, int BITS>
+static int launch_maxsim_tc_res(MxResArgs a, size_t smem, cudaStream_t stream) {
+  if (a.groups <= 0 || a.rounds <= 0) return (int)cudaSuccess;
+  const long long grid = (long long)a.groups * a.runs;
+  if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  auto kernel = maxsim_tc_kernel<float, N, kMxRerankRes, true, BITS>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, kTcThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();

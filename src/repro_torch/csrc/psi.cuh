@@ -1,9 +1,20 @@
 // psi(x) = LN(GELU_tanh(x W' + b)) over one segment of rows, by a whole
 // block of kPsiThreads threads: the body of the fused psi kernel
 // (fused_psi_pool.cu, where the design is described), shared with the
-// one-launch query kernel (query_fused.cu), which pools each query's tokens
-// with it.  The same code in both gives the same bits for the same query.
+// one-launch query kernels (query_fused.cu), which pool each query's tokens
+// with it.  The same code in all gives the same bits for the same query.
+//
+// A cluster of CS blocks may pool one segment together (query_fused_res):
+// block `rank` of the cluster computes the product and GELU of columns
+// tid + 256 c for c = rank, rank + CS, ... (each column's fmaf chain over
+// x's row as the single block runs it) and writes them into every block's
+// GELU tile through distributed shared memory; after a cluster barrier
+// each block takes the LayerNorm statistics and the pool over the full
+// rows with the single block's code, so every block holds the single
+// block's pooled latent, bit for bit.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -22,8 +33,10 @@ inline size_t psi_smem_floats(int D, int Dp) {
 
 // Rows [seg0, seg0 + seg_len) (those < n_rows): written to out when pool is
 // false; otherwise mask_t * psi(x_t) is added into pooled (column
-// tid + kPsiThreads * c of d').  sm: psi_smem_floats(D, Dp) floats.
-template <int C>
+// tid + kPsiThreads * c of d').  sm: psi_smem_floats(D, Dp) floats.  CS > 1:
+// the blocks of a cluster of CS pool the segment together (pool only; every
+// block of the cluster calls this with the same arguments).
+template <int C, int CS = 1>
 __device__ __forceinline__ void psi_segment(
     const float* __restrict__ x, const uint8_t* __restrict__ mask,
     const float* __restrict__ W, const float* __restrict__ bias,
@@ -31,10 +44,16 @@ __device__ __forceinline__ void psi_segment(
     float* __restrict__ out, float (&pooled)[C], int seg0, int seg_len,
     int n_rows, int D, int Dp, bool pool, float eps, float* sm) {
   constexpr int kThreads = kPsiThreads, kRows = kPsiRows;
+  constexpr int CC = (C + CS - 1) / CS;  // product columns a thread takes
   float* xs = sm;                       // kRows x D
   float* hs = xs + kRows * D;           // kRows x Dp
   float* stats = hs + (size_t)kRows * Dp;  // kRows x (mean, 1/std)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int rank = 0;
+  if constexpr (CS > 1) {
+    rank = (int)cooperative_groups::this_cluster().block_rank();
+    cooperative_groups::this_cluster().sync();   // every block of the cluster has started
+  }
 
   for (int r0 = 0; r0 < seg_len; r0 += kRows) {
     for (int i = tid; i < kRows * D; i += kThreads) {
@@ -43,35 +62,66 @@ __device__ __forceinline__ void psi_segment(
     }
     __syncthreads();
 
-    float acc[kRows][C];
+    float acc[kRows][CC];
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
-    for (int k = 0; k < D; ++k) {
-      float w[C];
+      for (int c = 0; c < CC; ++c) acc[r][c] = 0.f;
+    if constexpr (CS == 1) {
+      for (int k = 0; k < D; ++k) {
+        float w[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = tid + c * kThreads;
-        w[c] = j < Dp ? __ldg(W + (size_t)k * Dp + j) : 0.f;
+        for (int c = 0; c < C; ++c) {
+          const int j = tid + c * kThreads;
+          w[c] = j < Dp ? __ldg(W + (size_t)k * Dp + j) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float xv = xs[r * D + k];
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[r][c] = fmaf(xv, w[c], acc[r][c]);
+        }
       }
+    } else {
+      // the block's columns c = rank, rank + CS, ..., each column's fmaf
+      // chain as above; 8 steps of k unrolled, their loads of W' in flight
+      // together (a block's few columns would wait on them one by one)
+#pragma unroll 8
+      for (int k = 0; k < D; ++k) {
+        float w[CC];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float xv = xs[r * D + k];
+        for (int c = 0; c < CC; ++c) {
+          const int j = tid + (rank + CS * c) * kThreads;
+          w[c] = rank + CS * c < C && j < Dp ? __ldg(W + (size_t)k * Dp + j) : 0.f;
+        }
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(xv, w[c], acc[r][c]);
+        for (int r = 0; r < kRows; ++r) {
+          const float xv = xs[r * D + k];
+#pragma unroll
+          for (int c = 0; c < CC; ++c) acc[r][c] = fmaf(xv, w[c], acc[r][c]);
+        }
       }
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = tid + c * kThreads;
-      if (j < Dp) {
+    for (int c = 0; c < CC; ++c) {
+      const int j = tid + (rank + CS * c) * kThreads;
+      if (rank + CS * c < C && j < Dp) {
         const float bj = bias[j];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) hs[(size_t)r * Dp + j] = gelu_tanh(acc[r][c] + bj);
+        for (int r = 0; r < kRows; ++r) {
+          const float h = gelu_tanh(acc[r][c] + bj);
+          if constexpr (CS == 1) {
+            hs[(size_t)r * Dp + j] = h;
+          } else {
+#pragma unroll
+            for (int q = 0; q < CS; ++q)
+              cooperative_groups::this_cluster().map_shared_rank(hs, q)[(size_t)r * Dp + j] = h;
+          }
+        }
       }
     }
-    __syncthreads();
+    if constexpr (CS == 1) __syncthreads();
+    else cooperative_groups::this_cluster().sync();   // every block's columns are in
 
     {  // LayerNorm statistics of row `warp` over the full d'
       const float* h = hs + (size_t)warp * Dp;
@@ -106,6 +156,8 @@ __device__ __forceinline__ void psi_segment(
         }
       }
     }
-    __syncthreads();
+    // the tile is read (CS > 1: in every block, before the next is written)
+    if constexpr (CS == 1) __syncthreads();
+    else cooperative_groups::this_cluster().sync();
   }
 }

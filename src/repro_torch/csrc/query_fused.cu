@@ -32,13 +32,23 @@
 // the strip (nprobe x cap x 4 bytes a query, 128 KB at 32 x 1024).  Two
 // launches a call, the strip's ids looked up by the selection.
 //
-// query_fused_res.  Bound on the H100: the decode's instructions, as the
-// residual probe scan (ivf_probe_res_scan.cu), plus the psi-pool.  Design:
-// query_fused's block per query and psi-pool, with the lists scored
-// kResChunk = 1024 slots at a time by the residual scan's own scorer
-// (residual.cuh: res_score_chunk, each tile of d' decoded once into a table
-// of products), so its scores are the residual scan's bit for bit; the
-// strip and the selection as query_fused's.
+// query_fused_res.  Bound on the H100: the lookups' instructions, as the
+// residual probe scan's (ivf_probe_res_scan.cu: about 4 instructions a
+// code, a floor of about 0.8 ms at the served shape against 0.26 ms for the
+// bytes), plus the psi-pool's fp32 operations.  One block a query, walking
+// every slot of its lists, waits on loads (the pad slots' ids alone cost a
+// third of its time: PERF.md §6).  Design: a cluster of kQfrCluster = 2
+// blocks a query (1, 4 and 8 measured slower: kernels/residual_ablation.py).
+// The blocks split the psi-pool's product by columns and share the GELU
+// rows through distributed shared memory (psi.cuh), so each block holds the
+// single block's pooled latent, bit for bit; then block r takes, in every
+// probed list, the live slots whose rank among the list's live slots is r
+// mod 2 (residual.cuh: res_scan; pads are not read, and block r writes -inf
+// at the pad slots = r mod 2), and scores them against one table of q[k]
+// values[k][l] that serves every list, plus q . c a probe, with the
+// residual scan's own code, so its scores are the residual scan's bit for
+// bit; the strip and the selection as query_fused's.  What bounds it now:
+// the lookups (about a third of its time) and the walk's loads.
 //
 // mips_topk.  Bound on the H100: tensor-core operations (tc_scan.cuh: 3
 // TF32 products of 2 B m d', 5.1 ms at B = 256 over 800k live fp32 rows of
@@ -199,9 +209,10 @@ int dispatch_query_fused(const void* qt, const void* qm, const void* W, const vo
 // -------------------------------------------------------------------------
 
 static_assert(kResThreads == kPsiThreads, "the residual scorer runs on the psi block");
+constexpr int kQfrCluster = 2;              // blocks a query
 
 template <int BITS, int C, bool WHOLE>
-__global__ void __launch_bounds__(kPsiThreads)
+__global__ void __cluster_dims__(kQfrCluster, 1, 1) __launch_bounds__(kPsiThreads, 2)
 query_fused_res_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
                        const float* __restrict__ W, const float* __restrict__ bias,
                        const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -211,40 +222,23 @@ query_fused_res_kernel(const float* __restrict__ qt, const uint8_t* __restrict__
                        int Tq, int D, int Dp, int P, int cap, int nlist, float eps) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                           // the pooled latent, (Dp,)
-  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then res_score_chunk's
-  const int b = blockIdx.x, tid = threadIdx.x;
+  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then res_scan's
+  const int b = blockIdx.x / kQfrCluster, rank = blockIdx.x % kQfrCluster;
   {
     float pooled[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) pooled[c] = 0.f;
-    psi_segment<C>(qt, qm, W, bias, gamma, beta, nullptr, pooled, b * Tq, Tq, B * Tq,
-                   D, Dp, true, eps, work);
+    psi_segment<C, kQfrCluster>(qt, qm, W, bias, gamma, beta, nullptr, pooled, b * Tq, Tq,
+                                B * Tq, D, Dp, true, eps, work);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int j = tid + c * kPsiThreads;
+      const int j = threadIdx.x + c * kPsiThreads;
       if (j < Dp) qs[j] = pooled[c];
     }
   }
-  const float* acc = work + ResCodes<BITS>::kLevels * kResTileStride;
-  float* strip = strips + (size_t)b * P * cap;
-  const size_t db = (size_t)Dp / ResCodes<BITS>::kPer;
-  for (int p = 0; p < P; ++p) {
-    const int cl = probe[(size_t)b * P + p];
-    float* sp = strip + (size_t)p * cap;
-    if (cl < 0 || cl >= nlist) {            // block-uniform: every slot a pad
-      for (int r = tid; r < cap; r += kPsiThreads) sp[r] = -INFINITY;
-      continue;
-    }
-    const int* lid = ids + (size_t)cl * cap;
-    for (int c0 = 0; c0 < cap; c0 += kResChunk) {
-      const int c1 = min(c0 + kResChunk, cap);
-      // (its first barrier also ends the psi-pool's use of work)
-      res_score_chunk<BITS, WHOLE>(codes + (size_t)cl * cap * db, lid, c0, c1,
-                            centroids + (size_t)cl * Dp, values, qs, Dp, work);
-      for (int r = c0 + tid; r < c1; r += kPsiThreads)
-        sp[r] = lid[r] >= 0 ? acc[r - c0] : -INFINITY;
-    }
-  }
+  __syncthreads();                          // the latent is in
+  res_scan<BITS, WHOLE>(probe + (size_t)b * P, P, 1, kQfrCluster, rank, qs, ids, codes,
+                        centroids, values, strips + (size_t)b * P * cap, cap, Dp, nlist, work);
 }
 
 template <int BITS, int C, bool WHOLE>
@@ -255,14 +249,14 @@ int launch_query_fused_res(const float* qt, const uint8_t* qm, const float* W,
                            int* out_i, float* strips, sel_key_t* scratch, int B, int Tq, int D,
                            int Dp, int P, int cap, int nlist, int kp, float eps,
                            cudaStream_t stream) {
-  if (kp < 1) return (int)cudaErrorInvalidValue;
+  if (kp < 1 || (long long)B * kQfrCluster >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const size_t res_floats = res_smem_floats(BITS);
   const size_t psi_floats = psi_smem_floats(D, Dp);
   const size_t smem = ((Dp + 3) / 4 * 4 + (psi_floats > res_floats ? psi_floats : res_floats))
                       * sizeof(float);
   cudaError_t err = allow_smem(query_fused_res_kernel<BITS, C, WHOLE>, smem);
   if (err != cudaSuccess) return (int)err;
-  query_fused_res_kernel<BITS, C, WHOLE><<<B, kPsiThreads, smem, stream>>>(
+  query_fused_res_kernel<BITS, C, WHOLE><<<B * kQfrCluster, kPsiThreads, smem, stream>>>(
       qt, qm, W, bias, gamma, beta, probe, ids, codes, centroids, values, strips, B, Tq, D,
       Dp, P, cap, nlist, eps);
   return finish_strip(strips, scratch, out_s, out_i, probe, ids, B, P, cap, kp, stream);

@@ -205,9 +205,9 @@ def ivf_probe_res_scan(q, probe, ids, codes, centroids, values):
     build.expect(codes, "codes", torch.uint8, (nlist, cap, d * bits // 8), dev, align=1)
     build.expect(centroids, "centroids", torch.float32, (nlist, d), dev, align=4)
     build.expect(values, "values", torch.float32, (d, 1 << bits), dev)
-    if cap * (d * bits // 8) >= 2 ** 31:
-        raise ValueError(f"ivf_probe_res_scan kernel takes a list under 2^31 bytes, "
-                         f"got cap {cap} x {d * bits // 8}")
+    if nlist * cap >= 2 ** 31:
+        raise ValueError(f"ivf_probe_res_scan kernel takes nlist * cap < 2^31 slots, "
+                         f"got {nlist} x {cap}")
     out = torch.empty((B, P, cap), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -232,7 +232,14 @@ def rerank_paged_res_scores(q, q_mask, cand_ids, cent_pages, code_pages, page_ta
     cent_pages: (P, 16) int32 centroid ids; code_pages: (P, 16, d * bits /
     8) uint8; centroids: (ncent, d), values: (d, 2^bits) fp32, the codec's
     tables; the rest as :func:`rerank_paged_scores` -> (B, k') fp32 raw pair
-    scores."""
+    scores.  On the card, where a block's shared memory holds the layout
+    (csrc/rerank_paged_res.cu: rerank_paged_res_plan; the served widths),
+    the dots run on the tensor cores: each token's residual part as the
+    TF32 split of the dense rerank, plus a table of q_t . centroid, within
+    ``ref.TF32_SPLIT_RTOL`` of the fp64 dot (``ref.tf32_split_rerank_res``
+    emulates it); other widths take the CUDA-core kernel, which scores the
+    host decoder's tokens.  ``rerank_paged_res_scores.last_path`` names the
+    path the last launch took: ``"tensor cores"`` or ``"cuda cores"``."""
     if q.device.type == "cpu":
         return ref.rerank_scores_paged_res_ref(q, q_mask, cand_ids, cent_pages, code_pages,
                                                page_table, n_tokens, centroids, values)
@@ -260,15 +267,31 @@ def rerank_paged_res_scores(q, q_mask, cand_ids, cent_pages, code_pages, page_ta
     if out.numel() == 0:
         return out
     lib = build.library("rerank_paged_res")
+    plan = (ctypes.c_int * 2)()
+    fn = lib.rerank_paged_res_plan
+    fn.argtypes = [_i] * 7 + [_p, _p, ctypes.POINTER(ctypes.c_int)]
+    build.check(lib, fn(B, Tq, d, kp, pmax, ncent, bits, cent_pages.data_ptr(),
+                        code_pages.data_ptr(), plan), "rerank_paged_res_scores (plan)")
+    N, Bc = plan[0], plan[1]
+    scratch = [None] * 4
+    if N:
+        scratch = [torch.empty((tc_image_floats(Bc, Tq, d, N),), dtype=torch.float32,
+                               device=dev),
+                   torch.empty((Bc, ncent, N + 2), dtype=torch.float32, device=dev),
+                   torch.empty((Bc, kp, pmax), dtype=torch.int32, device=dev),
+                   torch.empty((Bc, kp), dtype=torch.int32, device=dev)]
     fn = lib.rerank_paged_res_scores
-    fn.argtypes = [_p] * 10 + [_i] * 6 + [ctypes.c_longlong, _i, _i, _p]
+    fn.argtypes = [_p] * 14 + [_i] * 6 + [ctypes.c_longlong] + [_i] * 4 + [_p]
     err = fn(q.data_ptr(), q_mask.data_ptr(), cand_ids.data_ptr(), cent_pages.data_ptr(),
              code_pages.data_ptr(), page_table.data_ptr(), n_tokens.data_ptr(),
-             centroids.data_ptr(), values.data_ptr(), out.data_ptr(), B, Tq, d, kp, pmax,
-             C, n_pages, ncent, bits, build.stream_ptr(q))
+             centroids.data_ptr(), values.data_ptr(), out.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in scratch), B, Tq, d, kp, pmax,
+             C, n_pages, ncent, bits, N, Bc, build.stream_ptr(q))
     build.check(lib, err, "rerank_paged_res_scores")
     rerank_paged_res_scores.launches += 1
+    rerank_paged_res_scores.last_path = "tensor cores" if N else "cuda cores"
     return out
 
 
 rerank_paged_res_scores.launches = 0
+rerank_paged_res_scores.last_path = None

@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 from repro_torch.anns.quantization import sq8_quant
 from repro_torch.kernels import build
+from repro_torch.kernels._ablation import build_variants, card, time_ms
 from repro_torch.kernels.maxsim import tc_image_floats
 
 VARIANTS = {
@@ -46,39 +46,6 @@ VARIANTS = {
                                      "constexpr int kTcFlush = 4;")]},
 }
 B, TQ, KP, TD, D = 256, 32, 4096, 80, 128
-
-
-def build_variant(name: str, edits: dict) -> ctypes.CDLL:
-    out = build.BUILD_DIR.parent / "ablation" / name
-    out.mkdir(parents=True, exist_ok=True)
-    for src in build.CSRC.glob("*.cu*"):
-        text = src.read_text()
-        for old, new in edits.get(src.name, []):
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} not in {src.name}")
-            text = text.replace(old, new)
-        (out / src.name).write_text(text)
-    so = out / "librerank_gather.so"
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                    str(out / "rerank_gather.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.lemur_error_string.argtypes = [ctypes.c_int]
-    lib.lemur_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def time_ms(fn, n=10):
-    for _ in range(2):
-        fn()
-    ts = []
-    for _ in range(n):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1))
-    return float(np.median(ts))
 
 
 def store(m, sq8, gen, rng):
@@ -99,10 +66,8 @@ def store(m, sq8, gen, rng):
 
 def main():
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
-    libs = {name: build_variant(name, edits) for name, edits in VARIANTS.items()}
+    libs = {name: lib for (_, name), lib in build_variants(
+        {("rerank_gather", name): edits for name, edits in VARIANTS.items()}).items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     q = torch.nn.functional.normalize(torch.randn(B, TQ, D, generator=gen, device=dev), dim=-1)
@@ -131,7 +96,7 @@ def main():
             res[f"{'sq8' if sq8 else 'fp32'}_m{m}_{name}_ms"] = time_ms(lambda: fn(*args))
         del toks, mask, scales
         torch.cuda.empty_cache()
-    print(json.dumps({"card": card, "shape": f"B {B} x k' {KP}, Tq {TQ}, Td {TD}, d {D}",
+    print(json.dumps({"card": card(), "shape": f"B {B} x k' {KP}, Tq {TQ}, Td {TD}, d {D}",
                       **res}))
 
 

@@ -142,9 +142,9 @@ def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, id
     build.expect(codes, "codes", torch.uint8, (nlist, cap, dp * bits // 8), dev, align=1)
     build.expect(centroids, "centroids", torch.float32, (nlist, dp), dev, align=4)
     build.expect(values, "values", torch.float32, (dp, 1 << bits), dev)
-    if cap * (dp * bits // 8) >= 2 ** 31:
-        raise ValueError(f"query_fused_res kernel takes a list under 2^31 bytes, "
-                         f"got cap {cap} x {dp * bits // 8}")
+    if nlist * cap >= 2 ** 31:
+        raise ValueError(f"query_fused_res kernel takes nlist * cap < 2^31 slots, "
+                         f"got {nlist} x {cap}")
     out_s = torch.empty((B, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, kp), dtype=torch.int32, device=dev)
     if B == 0:

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.anns.base import pad_topk, stable_topk
-from repro_torch.anns.quantization import ResidualCodec, residual_decode
+from repro_torch.anns.quantization import ResidualCodec, residual_decode, unpack_codes
 
 NEG = -1e30
 
@@ -346,3 +346,78 @@ def tf32_split_rerank(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=None
                               None if doc_scales is None else doc_scales[c], chunk=chunk)
         out.append(torch.where(q_mask[b][:, None].bool(), g, 0.0).sum(0))
     return torch.stack(out) if out else q.new_empty((0, cand_ids.shape[1]))
+
+
+# -- the residual tier's arithmetic on the card (csrc/residual.cuh,
+#    csrc/rerank_paged_res.cu) ------------------------------------------------
+
+#: the residual scans' scorer walks d' in tiles of this many dims
+RES_TILE_DIMS = 512
+
+
+def _residual_part(values, packed):
+    """values[k][code_k] of packed rows (..., db) -> (..., d) fp32."""
+    idx = unpack_codes(packed, values.shape[1].bit_length() - 1)
+    return values.float()[torch.arange(values.shape[0], device=packed.device), idx]
+
+
+def res_scan_split(q, probe, ids, codes, centroids, values):
+    """The residual scans' arithmetic on the card (residual.cuh: res_scan,
+    shared by ivf_probe_res_scan and query_fused_res), emulated: a row of
+    list c scores q . c (fp64, rounded to fp32: the kernel's one-warp fmaf
+    dot differs by rounding) plus, tile of RES_TILE_DIMS dims by tile, the
+    sum of the table entries fp32(q[k] * values[k][code_k]) (fp64 within
+    the tile, rounded to fp32; the tiles added in fp32 in order), never the
+    decoded row.  Pad slots -inf.  q: (B, d); probe: (B, nprobe) -> (B,
+    nprobe, cap) fp32."""
+    B, d = q.shape
+    probe = probe.long()
+    out = []
+    for b in range(B):
+        pr = probe[b]
+        v = _residual_part(values, codes[pr])                  # (P, cap, d)
+        t = (q[b].float() * v).double()                        # the table's entries
+        acc = None
+        for k0 in range(0, d, RES_TILE_DIMS):
+            part = t[..., k0:k0 + RES_TILE_DIMS].sum(-1).float()
+            acc = part if acc is None else acc + part
+        qc = (centroids[pr].double() @ q[b].double()).float()  # (P,)
+        sc = acc + qc[:, None]
+        out.append(torch.where(ids[pr] >= 0, sc, float("-inf")))
+    return torch.stack(out) if out else q.new_empty((0, probe.shape[1], ids.shape[1]))
+
+
+def tf32_split_rerank_res(q, q_mask, cand_ids, cent_pages, code_pages, page_table, n_tokens,
+                          centroids, values, *, chunk: int | None = 64):
+    """The paged residual rerank's tensor-core arithmetic on the card
+    (csrc/rerank_paged_res.cu), emulated: a token's dot with query token t
+    is the table entry q_t . centroid (fp64 rounded to fp32; the kernel's
+    fmaf chain differs by rounding) plus the residual part values[k][code_k]
+    as :func:`tf32_split_scores` sums it (``chunk``-column sums added in
+    fp32, 64 as the kernel sums), the two added in fp32; positions >=
+    n_tokens at NEG (the walk stops at ceil(n_tokens / page) pages, page
+    ids clamped to the pool, centroid ids to the table), the max over the
+    candidate's positions, the sum over the query's valid tokens.  A -1
+    candidate (or one past the slots) has no token and scores Tq_valid x
+    NEG.  q: (B, Tq, d); cand_ids: (B, k') -> (B, k') fp32."""
+    B, Tq, d = q.shape
+    kp = cand_ids.shape[1]
+    C, pmax = page_table.shape
+    n_pages, page = cent_pages.shape
+    out = []
+    for b in range(B):
+        cand = cand_ids[b].long()
+        real = (cand >= 0) & (cand < C)
+        safe = torch.where(real, cand, 0)
+        nt = torch.where(real, n_tokens[safe].long(), 0)                    # (k',)
+        table = page_table[safe].long().clamp(0, n_pages - 1)               # (k', pmax)
+        v = _residual_part(values, code_pages[table])                       # (k', pmax, page, d)
+        cid = cent_pages[table].long().clamp(0, centroids.shape[0] - 1)     # (k', pmax, page)
+        part = tf32_split_scores(q[b], v.reshape(-1, d), chunk=chunk)       # (Tq, k' pmax page)
+        qc = (q[b].double() @ centroids.double().T).float()                 # (Tq, ncent)
+        sc = (part + qc[:, cid.reshape(-1)]).reshape(Tq, kp, pmax * page)
+        pos = torch.arange(pmax * page, device=q.device)
+        sc = torch.where((pos[None, :] < nt[:, None])[None], sc, NEG)
+        best = sc.amax(-1)                                                  # (Tq, k')
+        out.append(torch.where(q_mask[b][:, None].bool(), best, 0.0).sum(0))
+    return torch.stack(out) if out else q.new_empty((0, kp))

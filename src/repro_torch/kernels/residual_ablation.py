@@ -1,0 +1,221 @@
+"""What the parts of the residual tier's kernels cost, on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.residual_ablation
+
+Builds ``csrc/query_fused.cu`` (``query_fused_res``),
+``csrc/ivf_probe_res_scan.cu`` and ``csrc/rerank_paged_res.cu`` several
+ways into ``build/ablation/`` (all nvcc processes started together), each
+variant a copy of the sources with a few lines edited, and times each
+(CUDA events, median of 10) through the port's own wrappers at the served
+shapes:
+
+- ``query_fused_res`` and ``ivf_probe_res_scan``: 256 queries x 32 tokens,
+  d 128, nprobe 32 distinct lists a query drawn at random from 2,048
+  residual lists of cap 1,024, d' 2,048 at 4 bits, list lengths drawn
+  from a gamma distribution of mean 390 (the served index scans about
+  12,471 rows a query), k' 1,024;
+- ``rerank_paged_res_scores``: the same queries x 1,024 candidates drawn
+  from 800,000 docs of Poisson(67.5) tokens in [4, 80], 16-token pages of
+  64 B of codes and 16 centroid ids, a codec of 256 centroids.
+
+The variants of each kernel are in ``VARIANTS`` (file: edits); only
+``as_built`` computes the kernel's function, the others measure and
+nothing else.  ``select`` times the one-launch kernel's selection alone,
+over the same probes' strip.  Prints one JSON object with the card's
+name and power limit.
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.core.model import Psi
+from repro_torch.kernels import build, gather_scan, query_fused
+from repro_torch.kernels._ablation import build_variants, card, time_ms
+
+# source -> variant -> {file: [(old, new), ...]}
+VARIANTS = {
+    "query_fused": {
+        "as_built": {},
+        # the psi-pool and the selection: no list is walked
+        "pool_only": {"query_fused.cu": [
+            ("res_scan<BITS, WHOLE>(probe + (size_t)b * P, P, 1,",
+             "res_scan<BITS, WHOLE>(probe + (size_t)b * P, 0, 1,")]},
+        # the live rows gathered and written, no chunk scored
+        "walk_only": {"residual.cuh": [
+            ("res_score_rows<BITS, WHOLE>(codes, e_row, n, q, values, D, T, acc);",
+             "(void)values;")]},
+        # the table of q[k] values[k][l] not built
+        "no_table": {"residual.cuh": [
+            ("for (int kk = tid; kk < nk; kk += kResThreads) {\n      const int k = k0 + kk;",
+             "for (int kk = tid; kk < 0; kk += kResThreads) {\n      const int k = k0 + kk;")]},
+        # each code's lookup replaced by a shift of its word (loads, adds and
+        # warp sums kept)
+        "no_lookups": {"residual.cuh": [
+            ("part[h] += T[RC::code(w[h][t], j) * kResTileStride + res_col(wi * cpw + j)];",
+             "part[h] += __uint_as_float(w[h][t] >> j);")]},
+        # each block of the cluster pools the whole query alone (the
+        # alternative: blocks that each re-pool), the scan split as built
+        "repool": {"query_fused.cu": [
+            ("psi_segment<C, kQfrCluster>(", "psi_segment<C, 1>(")]},
+        # clusters of 1, 4 and 8 blocks a query
+        "cluster_1": {"query_fused.cu": [("constexpr int kQfrCluster = 2;",
+                                          "constexpr int kQfrCluster = 1;")]},
+        "cluster_4": {"query_fused.cu": [("constexpr int kQfrCluster = 2;",
+                                          "constexpr int kQfrCluster = 4;")]},
+        "cluster_8": {"query_fused.cu": [("constexpr int kQfrCluster = 2;",
+                                          "constexpr int kQfrCluster = 8;")]},
+    },
+    "ivf_probe_res_scan": {
+        "as_built": {},
+    },
+    "rerank_paged_res": {
+        "as_built": {},
+        # the CUDA-core kernel at the served widths (the parent's design)
+        "cuda_cores": {"rerank_paged_res.cu": [("  plan[0] = N;\n", "  plan[0] = 0;\n")]},
+        # the wgmmas left out (every other instruction kept)
+        "no_products": {"maxsim_tc.cuh": [
+            ("wgmma_tf32(acc, A[buf][kk][1], dh, sd);", "(void)dh;"),
+            ("wgmma_tf32(acc, A[buf][kk][0], dl, 1);", "(void)dl;"),
+            ("wgmma_tf32(acc, A[buf][kk][0], dh, 1);", "(void)dh;")]},
+        # the producers copy each page but do not decode it
+        "no_decode": {"maxsim_tc.cuh": [
+            ("      for (int k4 = lane; k4 < a.D / 4; k4 += 32) {\n        const int k = 4 * k4;",
+             "      for (int k4 = lane; k4 < 0; k4 += 32) {\n        const int k = 4 * k4;")]},
+        # the producers neither copy nor decode (the page walk and slots kept)
+        "no_pages": {"maxsim_tc.cuh": [
+            ("      for (int k4 = lane; k4 < a.D / 4; k4 += 32) {\n        const int k = 4 * k4;",
+             "      for (int k4 = lane; k4 < 0; k4 += 32) {\n        const int k = 4 * k4;"),
+            ("    if (nv > 0) {                                // warp-uniform",
+             "    if (nv > 1000) {")]},
+        # 128 candidates a block, not 512 (more block prologues)
+        "rounds_16": {"rerank_paged_res.cu": [("constexpr int kResRoundsPerBlock = 64;",
+                                               "constexpr int kResRoundsPerBlock = 16;")]},
+        # the producers' lookups replaced by the codes' bits (the rest kept)
+        "decode_no_lookups": {"maxsim_tc.cuh": [
+            ("            o.x = v0[((c4[i] >> (0 * BITS)) & (kLv - 1)) * a.vstride];",
+             "            o.x = __uint_as_float(c4[i]);"),
+            ("            o.y = v0[((c4[i] >> (1 * BITS)) & (kLv - 1)) * a.vstride + 1];",
+             "            o.y = __uint_as_float(c4[i] >> 1);"),
+            ("            o.z = v0[((c4[i] >> (2 * BITS)) & (kLv - 1)) * a.vstride + 2];",
+             "            o.z = __uint_as_float(c4[i] >> 2);"),
+            ("            o.w = v0[((c4[i] >> (3 * BITS)) & (kLv - 1)) * a.vstride + 3];",
+             "            o.w = __uint_as_float(c4[i] >> 3);")]},
+        # the epilogue without the rows' q . centroid
+        "no_centroid_part": {"maxsim_tc.cuh": [
+            ("if (ok[0]) x0 = tot[4 * j + c] + (c ? q0.y : q0.x);",
+             "if (ok[0]) x0 = tot[4 * j + c];"),
+            ("if (ok[1]) x1 = tot[4 * j + 2 + c] + (c ? q1.y : q1.x);",
+             "if (ok[1]) x1 = tot[4 * j + 2 + c];")]},
+        # the tensor cores' sums restarted every 128 columns, not 64 (one
+        # drain a slice at d = 128)
+        "flush_128": {"tc_common.cuh": [("constexpr int kTcFlush = 2;",
+                                         "constexpr int kTcFlush = 4;")]},
+    },
+}
+B, TQ, D, DP, NLIST, CAP, P, KP, BITS = 256, 32, 128, 2048, 2048, 1024, 32, 1024, 4
+M_DOCS, NCENT, MEAN_LIST = 800_000, 256, 390.0
+
+
+def lists(gen, rng, dev):
+    """Residual lists at the served widths, filled from the front."""
+    counts = np.minimum(rng.gamma(2.0, MEAN_LIST / 2.0, NLIST).astype(np.int64), CAP)
+    slot = torch.arange(CAP, device=dev)[None]
+    live = slot < torch.as_tensor(counts, device=dev)[:, None]
+    ids = torch.where(live, torch.arange(NLIST * CAP, device=dev).reshape(NLIST, CAP),
+                      -1).int()
+    codes = torch.randint(0, 256, (NLIST, CAP, DP * BITS // 8), generator=gen, device=dev,
+                          dtype=torch.uint8) * live[..., None].to(torch.uint8)
+    cent = torch.randn(NLIST, DP, generator=gen, device=dev) * 0.05
+    values = (torch.randn(DP, 1 << BITS, generator=gen, device=dev) * 0.02).sort(1).values
+    return ids, codes, cent, values
+
+
+def pages(gen, rng, dev):
+    """A compressed page pool of M_DOCS docs, pages in doc order."""
+    nt = torch.as_tensor(np.clip(rng.poisson(67.5, M_DOCS), 4, 80), device=dev).int()
+    npg = (nt + 15) // 16
+    first = torch.cumsum(npg, 0) - npg
+    pmax = int(npg.max())
+    table = first[:, None] + torch.arange(pmax, device=dev)[None]
+    table = torch.where(torch.arange(pmax, device=dev)[None] < npg[:, None], table, -1).int()
+    n_pages = int(npg.sum())
+    cent_pages = torch.randint(0, NCENT, (n_pages, 16), generator=gen, device=dev,
+                               dtype=torch.int32)
+    code_pages = torch.randint(0, 256, (n_pages, 16, D * BITS // 8), generator=gen,
+                               device=dev, dtype=torch.uint8)
+    centroids = torch.nn.functional.normalize(torch.randn(NCENT, D, generator=gen, device=dev),
+                                              dim=-1)
+    values = (torch.randn(D, 1 << BITS, generator=gen, device=dev) * 0.05).sort(1).values
+    return cent_pages, code_pages, table, nt, centroids, values
+
+
+def with_lib(name, lib, fn):
+    """Call ``fn`` with the wrappers' library ``name`` swapped for ``lib``."""
+    def run():
+        saved = build._loaded.get(name)
+        build._loaded[name] = lib
+        try:
+            return fn()
+        finally:
+            if saved is None:
+                build._loaded.pop(name, None)
+            else:
+                build._loaded[name] = saved
+    return run
+
+
+def main():
+    dev = torch.device("cuda")
+    libs = build_variants({(source, name): edits for source, variants in VARIANTS.items()
+                           for name, edits in variants.items()})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    q = torch.nn.functional.normalize(torch.randn(B, TQ, D, generator=gen, device=dev), dim=-1)
+    qm = torch.ones(B, TQ, dtype=torch.bool, device=dev)
+    psi = Psi.init(D, DP, torch.Generator().manual_seed(0), device=dev)
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    lst = lists(gen, rng, dev)
+    probe = torch.rand(B, NLIST, generator=gen, device=dev).argsort(1)[:, :P].int().contiguous()
+    rows = int((lst[0][probe.long()] >= 0).sum()) / B
+    psi_q = torch.nn.functional.normalize(torch.randn(B, DP, generator=gen, device=dev), dim=-1)
+    res = {}
+    for (source, name), lib in libs.items():
+        if source == "query_fused":
+            fn = with_lib(source, lib, lambda: query_fused.query_fused_res(
+                q, qm, *w, probe, *lst, kp=KP))
+        elif source == "ivf_probe_res_scan":
+            fn = with_lib(source, lib, lambda: gather_scan.ivf_probe_res_scan(psi_q, probe, *lst))
+        else:
+            continue
+        res[f"{source}_{name}_ms"] = time_ms(fn)
+    strip = gather_scan.ivf_probe_res_scan(psi_q, probe, *lst).reshape(B, P * CAP)
+    out = (torch.empty(B, KP, device=dev), torch.empty(B, KP, dtype=torch.int32, device=dev))
+    sel_lib = libs[("query_fused", "as_built")]
+    res["select_ms"] = time_ms(lambda: query_fused._select(
+        sel_lib, strip, None, P * CAP, None, P * CAP, 0, out, B, KP,
+        stream=build.stream_ptr(strip)))
+    del lst, strip
+    torch.cuda.empty_cache()
+    pg = pages(gen, rng, dev)
+    cand = torch.randint(0, M_DOCS, (B, KP), generator=gen, device=dev, dtype=torch.int32)
+    for (source, name), lib in libs.items():
+        if source != "rerank_paged_res":
+            continue
+        fn = with_lib(source, lib, lambda: gather_scan.rerank_paged_res_scores(
+            q, qm, cand, pg[0], pg[1], pg[2], pg[3], pg[4], pg[5]))
+        res[f"{source}_{name}_ms"] = time_ms(fn)
+    print(json.dumps({
+        "card": card(),
+        "shapes": {"query_fused_res": f"B {B} x Tq {TQ}, d {D}, nprobe {P} of {NLIST} lists "
+                                      f"of cap {CAP}, d' {DP} at {BITS} bits, {rows:.0f} "
+                                      f"live rows a query, k' {KP}",
+                   "rerank_paged_res_scores": f"B {B} x k' {KP}, Tq {TQ}, d {D}, 16-token "
+                                              f"pages, {BITS} bits, {NCENT} centroids"},
+        **res}))
+
+
+if __name__ == "__main__":
+    main()

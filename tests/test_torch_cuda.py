@@ -12,10 +12,13 @@ largest score, the rerank to rtol 1e-5 / atol 1e-4, token MaxSim to
 1e-5 x max(1, max|plain|) with NEG entries exactly equal; the one-launch
 and SQ8 scans as the psi-pool and the scan, with ids equal up to near-ties
 (relative gap 1e-5) and exactly equal on integer-valued rows.  The residual
-kernels (2 and 4 bits) decode the host decoder's bits and sum in another
-order: scores to 1e-5 x max(1, max|plain|) (the rerank as the fp32 one),
-and exactly equal where the codec's tables, the centroids and the queries
-are small integers (every product and sum exact).
+kernels (2 and 4 bits) sum in another order: scores to 1e-5 x max(1,
+max|plain|) (the rerank as the fp32 one), and exactly equal where the
+codec's tables, the centroids and the queries are small integers (every
+product and sum exact); the scans and the tensor-core rerank add the
+centroid part apart from the residual part (fp32 rounding), and are held to
+fp64 as well: the scans within 1e-5 x max(1, max|exact|), the rerank
+within ref.TF32_SPLIT_RTOL x max(1, max|exact|).
 """
 import copy
 
@@ -734,6 +737,9 @@ def test_rerank_paged_res_kernel(cuda, B, C, Tq, d, kp, pmax, ncent, bits, exact
     n0 = gather_scan.rerank_paged_res_scores.launches
     got = gather_scan.rerank_paged_res_scores(*args)
     assert gather_scan.rerank_paged_res_scores.launches == n0 + 1
+    # csrc/rerank_paged_res.cu: rerank_paged_res_plan
+    assert gather_scan.rerank_paged_res_scores.last_path == (
+        "tensor cores" if Tq <= 64 and d <= 128 else "cuda cores")
     want = ref.rerank_scores_paged_res_ref(*args)
     if exact and Tq > 64:
         # a pad's score sums Tq_valid NEGs, which rounds by the order of the
@@ -757,9 +763,10 @@ def test_rerank_paged_res_kernel(cuda, B, C, Tq, d, kp, pmax, ncent, bits, exact
 @pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
 def test_rerank_paged_res_kernel_at_widths_off_float4(cuda, d, exact):
     """Token widths pack_codes takes at 4 bits but not whole float4s (d % 4
-    == 2, rows of 65 and 33 bytes): the page is decoded a value at a time
-    into a slot padded to whole float4s; scores as the plain version's
-    (equal on integer tables)."""
+    == 2, rows of 65 and 33 bytes): at d = 130 the CUDA-core kernel decodes
+    the page a value at a time into a slot padded to whole float4s, d = 66
+    runs on the tensor cores; scores as the plain version's (equal on
+    integer tables)."""
     rng = np.random.default_rng(d + exact)
     B, C, Tq, kp, pmax, ncent, bits = 2, 10, 5, 12, 2, 6, 4
     n_tokens = rng.integers(1, pmax * 16 + 1, C).astype(np.int32)
@@ -773,6 +780,8 @@ def test_rerank_paged_res_kernel_at_widths_off_float4(cuda, d, exact):
             g(rng.integers(0, 256, (C * pmax, 16, d * bits // 8)), torch.uint8),
             g(table), g(n_tokens), g(cent), g(values))
     got = gather_scan.rerank_paged_res_scores(*args)
+    assert gather_scan.rerank_paged_res_scores.last_path == (
+        "tensor cores" if d == 66 else "cuda cores")
     want = ref.rerank_scores_paged_res_ref(*args)
     if exact:
         assert torch.equal(got, want)
@@ -823,3 +832,124 @@ def test_query_fused_res_kernel(cuda, B, Tq, d, dp, nlist, cap, nprobe, kp, bits
     top, pos = stable_topk(s, min(kp, s.shape[1]))
     top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
     assert torch.equal(got[1], idx) and torch.equal(got[0], top)
+
+
+def _res_pages(rng, cuda, B, C, Tq, d, kp, pmax, ncent, bits):
+    """Compressed pages at served-like values (unit query tokens and
+    centroids, residual values of 0.05), a doc without tokens, table pads,
+    -1 candidates and a duplicated candidate (row 0, columns 1 and 4)."""
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    n_tokens = rng.integers(1, pmax * 16 + 1, C).astype(np.int32)
+    n_tokens[1] = 0
+    table = rng.permutation(C * pmax).reshape(C, pmax).astype(np.int32)
+    table[np.arange(pmax)[None, :] >= (-(-n_tokens // 16))[:, None]] = -1
+    cand = rng.integers(-1, C, (B, kp)).astype(np.int32)
+    cand[0, 1] = cand[0, 4] = 0
+    qm = rng.random((B, Tq)) > 0.3
+    qm[:, 0] = True
+    return (g(unit(rng.standard_normal((B, Tq, d))), torch.float32), g(qm), g(cand),
+            g(rng.integers(0, ncent, (C * pmax, 16)), torch.int32),
+            g(rng.integers(0, 256, (C * pmax, 16, d * bits // 8)), torch.uint8),
+            g(table), g(n_tokens), g(unit(rng.standard_normal((ncent, d))), torch.float32),
+            g(np.sort(rng.standard_normal((d, 1 << bits)) * 0.05, axis=1), torch.float32))
+
+
+def _rerank_res_fp64(args):
+    """Exact MaxSim in fp64 over the host decoder's tokens."""
+    from repro_torch.anns.quantization import ResidualCodec, residual_decode
+    q, qm, cand, cent_pages, code_pages, table, n_tokens, cent, values = args
+    toks = residual_decode(ResidualCodec(cent, None, values), cent_pages, code_pages).double()
+    c = cand.long()
+    real = c >= 0
+    safe = c.clamp_min(0)
+    tk = toks[table[safe].long().clamp_min(0)]               # (B, k', pmax, 16, d)
+    B, kp, pmax, page, d = tk.shape
+    sc = torch.einsum("bqd,bktd->bkqt", q.double(), tk.reshape(B, kp, pmax * page, d))
+    nt = torch.where(real, n_tokens[safe], 0)
+    pos = torch.arange(pmax * page, device=q.device)
+    sc = torch.where((pos < nt[..., None])[:, :, None, :], sc, ref.NEG)
+    return torch.where(qm[:, None, :], sc.amax(-1), 0.0).sum(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,Tq,d,kp,pmax,ncent,bits,path", [
+    (4, 300, 32, 128, 256, 5, 256, 4, "tensor cores"),   # the served widths
+    (4, 300, 32, 128, 256, 5, 256, 2, "tensor cores"),
+    (3, 40, 1, 128, 37, 5, 256, 4, "tensor cores"),      # Tq = 1
+    (2, 40, 100, 128, 20, 3, 64, 4, "cuda cores"),       # Tq = 100: the table past a block
+    (2, 40, 512, 128, 20, 3, 16, 4, "cuda cores"),       # Tq = 512
+    (3, 40, 32, 20, 40, 3, 16, 4, "tensor cores"),       # d = 20, off a 32-column chunk
+    (2, 40, 32, 130, 20, 3, 16, 4, "cuda cores"),        # d = 130, off float4s
+    (2, 40, 32, 768, 20, 3, 16, 4, "cuda cores"),        # d = 768
+    (2, 40, 32, 1024, 20, 3, 16, 4, "cuda cores"),       # d = 1,024: the wide walk
+])
+def test_rerank_paged_res_against_fp64(cuda, B, C, Tq, d, kp, pmax, ncent, bits, path):
+    """rerank_paged_res_scores on both of its paths against fp64 MaxSim
+    over the host decoder's tokens (ref.TF32_SPLIT_RTOL x max(1,
+    max|exact|)), against its plain version (1e-4 + 1e-5 x max|plain|, the
+    smoke's check) and, on the tensor cores' path, against the emulation
+    of its arithmetic (ref.tf32_split_rerank_res); a duplicated candidate
+    scores alike to the bit; pads at Tq_valid x NEG."""
+    rng = np.random.default_rng(B * C + Tq + d + bits)
+    args = _res_pages(rng, cuda, B, C, Tq, d, kp, pmax, ncent, bits)
+    got = gather_scan.rerank_paged_res_scores(*args)
+    assert gather_scan.rerank_paged_res_scores.last_path == path
+    exact = _rerank_res_fp64(args)
+    plain = ref.rerank_scores_paged_res_ref(*args, chunk=1)
+    real = exact > ref.NEG / 2
+    assert torch.equal(got > ref.NEG / 2, real)
+    assert bool(got[0, 1] == got[0, 4])
+    err = float((got[real].double() - exact[real]).abs().max())
+    assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[real].abs().max()))
+    err = float((got[real] - plain[real]).abs().max())
+    assert err <= 1e-4 + 1e-5 * float(plain[real].abs().max())
+    torch.testing.assert_close(got[~real], plain[~real], rtol=1e-6, atol=0.0)
+    if path == "tensor cores":
+        emu = ref.tf32_split_rerank_res(*args)
+        err = float((got[real] - emu[real]).abs().max())
+        assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[real].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp,bits", [(2048, 4), (2048, 2), (2044, 4), (2040, 2)])
+def test_residual_scans_against_fp64(cuda, dp, bits):
+    """ivf_probe_res_scan and query_fused_res (a cluster of blocks a query,
+    live rows only) at the served list shape: scores within 1e-5 x max(1,
+    max|exact|) of the fp64 dot with the host decoder's rows (pads -inf),
+    and of the emulation of the scorer (ref.res_scan_split); the one-launch
+    kernel's ids and scores equal the psi-pool, the residual scan and a
+    stable top-k' bit for bit."""
+    from repro_torch.anns.quantization import ResidualCodec, residual_decode
+    rng = np.random.default_rng(dp + bits)
+    B, Tq, d, nlist, cap, nprobe, kp = 4, 32, 128, 48, 1024, 32, 1024
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    counts = rng.integers(0, cap + 1, nlist)
+    ids = np.where(np.arange(cap)[None] < counts[:, None],
+                   rng.permutation(nlist * cap).reshape(nlist, cap), -1).astype(np.int32)
+    ids[5, 7] = -1                                   # a hole among live slots
+    codes = g(rng.integers(0, 256, (nlist, cap, dp * bits // 8)), torch.uint8)
+    cent = rng.standard_normal((nlist, dp))
+    cent = g(cent / np.linalg.norm(cent, axis=1, keepdims=True), torch.float32)
+    values = g(np.sort(rng.standard_normal((dp, 1 << bits)) * 0.02, axis=1), torch.float32)
+    probe = g(np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]), torch.int32)
+    probe[0, 0] = 5
+    lists = (g(ids), codes, cent, values)
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    q = g(rng.standard_normal((B, Tq, d)), torch.float32)
+    qm = g(rng.random((B, Tq)) > 0.3)
+    psi_q = fused_psi.fused_psi_pool(q, qm, *w)
+    got = gather_scan.ivf_probe_res_scan(psi_q, probe, *lists)
+    rows = residual_decode(ResidualCodec(cent, None, values),
+                           probe[..., None].expand(B, nprobe, cap), codes[probe.long()])
+    exact = torch.einsum("bd,bpcd->bpc", psi_q.double(), rows.double())
+    fin = lists[0][probe.long()] >= 0
+    assert torch.equal(torch.isfinite(got), fin)
+    tol = 1e-5 * max(1.0, float(exact[fin].abs().max()))
+    assert float((got[fin].double() - exact[fin]).abs().max()) <= tol
+    emu = ref.res_scan_split(psi_q, probe, *lists)
+    assert float((got[fin] - emu[fin]).abs().max()) <= tol
+    s, i = ops.KERNELS["query_fused_res"](q, qm, *w, probe, *lists, kp=kp)
+    top, pos = stable_topk(got.reshape(B, -1), kp)
+    top, idx = pad_topk(top, torch.gather(lists[0][probe.long()].reshape(B, -1), 1, pos), kp)
+    assert torch.equal(s, top) and torch.equal(i, idx)

@@ -26,6 +26,7 @@ from repro.kernels import query_fused as jax_qf
 from repro.kernels import ref as jax_ref
 
 from repro_torch.anns import ivf, quantization as q
+from repro_torch.anns.base import pad_topk, stable_topk
 from repro_torch.core import pages
 from repro_torch.kernels import ref
 
@@ -387,3 +388,108 @@ def test_widths_off_whole_words_match_jax(bits, dp, what):
     gs, gi = ref.query_fused_res_ref(*(T(a) for a in args), kp=20)
     ws, wi = jax_ref.query_fused_res_ref(*[jnp.asarray(a) for a in args], kp=20)
     assert_same_ids(np.asarray(ws), np.asarray(wi), gs.numpy(), gi.numpy())
+
+
+# --------------------------------------------------------------------------
+# the card's arithmetic, emulated (ref.res_scan_split, ref.tf32_split_rerank_res)
+# --------------------------------------------------------------------------
+
+#: the residual scans' card checks: max abs error <= RES_SCAN_RTOL x max(1,
+#: max |exact|) (chip_smoke.py's RES_SCAN_RTOL)
+RES_SCAN_RTOL = 1e-5
+
+
+def _unit(rng, *shape):
+    x = rng.standard_normal(shape)
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dp,bits", [(2048, 4), (2048, 2), (2044, 4), (2040, 2)])
+def test_res_scan_split_error(dp, bits):
+    """The residual scans' scorer on the card (q . c of the list plus a
+    table of q[k] values[k][l], never the decoded row), emulated by
+    ref.res_scan_split: within RES_SCAN_RTOL of the fp64 dot with the host
+    decoder's rows, and with JAX's ivf_probe_res_scan and query_fused_res
+    (interpret mode), ids equal up to near-ties."""
+    rng = np.random.default_rng(dp + bits)
+    B, nlist, cap, nprobe, d, Tq = 2, 4, 8, 3, 16, 5
+    ids = rng.permutation(1000)[:nlist * cap].reshape(nlist, cap).astype(np.int32)
+    ids[:, cap - 3:] = -1
+    ids[1] = -1
+    codes = rng.integers(0, 256, (nlist, cap, dp * bits // 8)).astype(np.uint8)
+    cent = _unit(rng, nlist, dp)
+    values = np.sort(rng.standard_normal((dp, 1 << bits)) * 0.02, axis=1).astype(np.float32)
+    probe = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]).astype(np.int32)
+    probe[0, 0] = 1
+    qv = _unit(rng, B, dp)
+    args = (qv, probe, ids, codes, cent, values)
+    got = ref.res_scan_split(*(T(a) for a in args)).numpy()
+    rows = q.residual_decode(q.ResidualCodec(T(cent), None, T(values)),
+                             T(probe)[..., None].expand(B, nprobe, cap), T(codes)[T(probe).long()])
+    exact = np.einsum("bd,bpcd->bpc", qv.astype(np.float64), rows.double().numpy())
+    fin = ids[probe] >= 0
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert np.abs(got[fin] - exact[fin]).max() <= RES_SCAN_RTOL * max(1.0, np.abs(exact[fin]).max())
+    want = np.asarray(jax_gs.ivf_probe_res_scan(*[jnp.asarray(a) for a in args], interpret=True))
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+    # the one-launch first stage: psi-pool, this scorer, the stable flat top-k'
+    w = ((rng.standard_normal((d, dp)) * 0.1).astype(np.float32),
+         (rng.standard_normal(dp) * 0.01).astype(np.float32),
+         (1 + 0.1 * rng.standard_normal(dp)).astype(np.float32),
+         (0.1 * rng.standard_normal(dp)).astype(np.float32))
+    qt = rng.standard_normal((B, Tq, d)).astype(np.float32)
+    qm = rng.random((B, Tq)) > 0.3
+    qm[:, 0] = True
+    kp = 12
+    psi_q = ref.psi_pool_ref(T(qt), T(qm), *(T(a) for a in w))
+    sc = ref.res_scan_split(psi_q, *(T(a) for a in args[1:])).reshape(B, -1)
+    top, pos = stable_topk(sc, kp)
+    gs, gi = pad_topk(top, torch.gather(T(ids)[T(probe).long()].reshape(B, -1), 1, pos), kp)
+    qargs = [jnp.asarray(a) for a in (qt, qm, *w, probe, ids, codes, cent, values)]
+    ws, wi = jax_qf.query_fused_res(*qargs, kp=kp, interpret=True)
+    assert_same_ids(np.asarray(ws), np.asarray(wi), gs.numpy(), gi.numpy())
+
+
+@pytest.mark.parametrize("d,Tq,bits,ncent", [(128, 32, 4, 256), (128, 32, 2, 64),
+                                             (20, 32, 4, 16), (1024, 32, 4, 16)])
+def test_rerank_res_split_error(d, Tq, bits, ncent):
+    """The paged residual rerank's tensor-core arithmetic (a q . centroid
+    table plus the 3xTF32 product of the residual part), emulated by
+    ref.tf32_split_rerank_res: within ref.TF32_SPLIT_RTOL of the fp64 MaxSim
+    over the host decoder's tokens, and with JAX's rerank_paged_res_scores
+    (interpret mode); pads (-1, a doc without tokens) at Tq_valid x NEG."""
+    rng = np.random.default_rng(d + Tq + bits + ncent)
+    B, C, kp, pmax, page = 2, 10, 6, 3, 16
+    P = C * pmax
+    cent_pages = rng.integers(0, ncent, (P, page)).astype(np.int32)
+    code_pages = rng.integers(0, 256, (P, page, d * bits // 8)).astype(np.uint8)
+    cent = _unit(rng, ncent, d)
+    values = np.sort(rng.standard_normal((d, 1 << bits)) * 0.05, axis=1).astype(np.float32)
+    table = rng.permutation(P).reshape(C, pmax).astype(np.int32)
+    n_tokens = rng.integers(1, pmax * page + 1, C).astype(np.int32)
+    n_tokens[2] = 0
+    table[np.arange(pmax)[None, :] >= (-(-n_tokens // page))[:, None]] = -1
+    qv = _unit(rng, B, Tq, d)
+    qm = rng.random((B, Tq)) > 0.3
+    qm[:, 0] = True
+    cand = rng.integers(-1, C, (B, kp)).astype(np.int32)
+    cand[0, 4] = cand[0, 1] = 3
+    args = (qv, qm, cand, cent_pages, code_pages, table, n_tokens, cent, values)
+    got = ref.tf32_split_rerank_res(*(T(a) for a in args)).numpy()
+    toks = q.residual_decode(q.ResidualCodec(T(cent), None, T(values)), T(cent_pages),
+                             T(code_pages)).double().numpy()               # (P, page, d)
+    exact = np.zeros((B, kp))
+    for b in range(B):
+        for i, c in enumerate(cand[b]):
+            nt = n_tokens[c] if c >= 0 else 0
+            pages = np.clip(table[c if c >= 0 else 0], 0, P - 1)
+            tk = toks[pages].reshape(pmax * page, d)[:nt]
+            best = (qv[b].astype(np.float64) @ tk.T).max(1) if nt else np.full(Tq, ref.NEG)
+            exact[b, i] = best[qm[b]].sum()
+    real = exact > ref.NEG / 2
+    assert np.abs(got[real] - exact[real]).max() <= (
+        ref.TF32_SPLIT_RTOL * max(1.0, np.abs(exact[real]).max()))
+    np.testing.assert_allclose(got[~real], exact[~real], rtol=1e-6)
+    want = np.asarray(jax_gs.rerank_paged_res_scores(*[jnp.asarray(a) for a in args],
+                                                     interpret=True))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
