@@ -45,7 +45,8 @@ script
    with a few slots tombstoned, the counters set to 0 just before and read
    just after; checks every batch against a composition of the plain
    versions and the returned scores against exact MaxSim recomputed
-   plainly;
+   plainly, and that the paged rerank ran on the tensor cores
+   (``rerank_paged_scores.last_path``);
 5. **routes**: holds ``query_fused``, ``mips_topk`` and ``mips_sq8`` against
    their plain versions on a small ragged case (B=1, an empty probed list,
    k' above the valid slots and rows, exact ties from duplicated rows and
@@ -65,7 +66,12 @@ script
    tensor-core product of ``mips_topk`` against an fp64 product (65,536
    rows, within ``ref.TF32_SPLIT_RTOL``) and its sampled pass against its
    full pass bit for bit;
-6. times each serving kernel and its plain version at the served shapes;
+6. times each serving kernel and its plain version at the served shapes:
+   first a line with the probes' spread over the lists (rows read probe
+   by probe, distinct live rows, readers a list, the largest work item of
+   the scan's grid by list); the paged rerank also against fp64 MaxSim on
+   8 queries (within ``ref.TF32_SPLIT_RTOL``: its dots run on the tensor
+   cores), its bound at the split's rate beside the CUDA cores';
 7. **residual**: holds ``ivf_probe_res_scan``, ``query_fused_res`` and
    ``rerank_paged_res_scores`` against their plain versions on a small
    ragged case at 2 and 4 bits (with the other ragged cases, before the
@@ -2361,6 +2367,34 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def scan_spread(torch, probe, ids):
+    """How the probes spread over the lists: rows read probe by probe, the
+    distinct live rows, readers a probed list (max, mean) and the largest
+    work item of ivf_probe_scan's grid by list (pairs: a chunk's queries x
+    the live rows of its range of slots)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    shape = (ctypes.c_int * 2)()
+    build.library("ivf_probe_scan").ivf_probe_scan_item(shape)
+    per_q, per_r = shape[0], shape[1]
+    nlist, cap = ids.shape
+    pr = probe.long().flatten()
+    pr = pr[(pr >= 0) & (pr < nlist)]
+    readers = torch.bincount(pr, minlength=nlist)
+    live = ids >= 0
+    nr = -(-cap // per_r)
+    live_r = torch.nn.functional.pad(live, (0, nr * per_r - cap)).reshape(nlist, nr, per_r)
+    live_r = live_r.sum(-1).amax(-1)                       # the fullest range a list
+    probed = readers > 0
+    return dict(rows_read_probe_by_probe=int(live.sum(1)[pr].sum()),
+                distinct_live_rows=int(live.sum(1)[probed].sum()),
+                readers_max=int(readers.max()), readers_mean=float(readers[probed].float().mean()),
+                item_queries=per_q, item_slots=per_r,
+                largest_item_pairs=int((readers.clamp(max=per_q) * live_r).max()))
+
+
 def serve_and_check(torch, args):
     """Phases 2-8 on the card; returns (serving numbers, routes line,
     residual line, sharded line, kernel rows)."""
@@ -2426,6 +2460,9 @@ def serve_and_check(torch, args):
     for i, c in enumerate(per_batch):
         require(all(v == (i + 1 if k in SERVE_KERNELS else 0) for k, v in c.items()),
                 f"launch counters after batch {i}: {c}")
+    rr_path = gather_scan.rerank_paged_scores.last_path
+    require(rr_path == "tensor cores", f"rerank_paged_scores: the served shape ran on the "
+                                       f"{rr_path}")
 
     # -- 5. checks -----------------------------------------------------------
     ties = {"probe": 0, "candidates": 0, "final": 0}
@@ -2475,20 +2512,23 @@ def serve_and_check(torch, args):
     cand = st["cand"]
     kernels = []
 
-    def entry(name, source, replaces, out, want, tol, fn, plain_fn, nbytes, flops):
+    def entry(name, source, replaces, out, want, tol, fn, plain_fn, nbytes, flops, *,
+              peak=PEAK_FP32_S, split=1, **extra):
+        # flops: the function's operations; split: the products a split
+        # (3xTF32) makes of each, counted in the bound at ``peak``
         fin = torch.isfinite(want)
         require(torch.equal(torch.isfinite(out), fin), f"{name}: pad pattern differs")
         err = float((out[fin] - want[fin]).abs().max())
         scale = max(1.0, float(want[fin].abs().max()))
         require(err <= tol * scale, f"{name}: max abs err {err} > {tol} x {scale}")
         ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain_fn)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, split * flops, peak)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], launches_per_search=launches[name] // len(batches),
             max_abs_err=err, tolerance=f"{tol} x max(1, max|plain|)",
-            ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            bytes=int(nbytes), flops=int(flops), library_ms=None))
+            ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, peak=peak,
+            bytes=int(nbytes), flops=int(flops), library_ms=None, **extra))
 
     nq_valid = int(qm.sum())
     entry("fused_psi_pool", "src/repro_torch/csrc/fused_psi_pool.cu",
@@ -2506,6 +2546,8 @@ def serve_and_check(torch, args):
                   + psi_q.numel() * 4 + probe.numel() * 4 + B * P * cap * 4)
     rows_p = int(ann.counts[probe.long()].sum())      # rows read, probe by probe
     scan_ops = 2 * rows_p * dp
+    spread = scan_spread(torch, probe, ann.ids)
+    print(f"ivf_probe_scan spread: {json.dumps(spread)}", flush=True)
     entry("ivf_probe_scan", "src/repro_torch/csrc/ivf_probe_scan.cu",
           "src/repro/kernels/gather_scan.py:103",
           gather_scan.ivf_probe_scan(psi_q, probe, ann.ids, ann.vecs, ann.scales),
@@ -2513,24 +2555,45 @@ def serve_and_check(torch, args):
           SQ8_RTOL,
           lambda: gather_scan.ivf_probe_scan(psi_q, probe, ann.ids, ann.vecs, ann.scales),
           lambda: ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4),
-          scan_bytes, scan_ops)
+          scan_bytes, scan_ops, cuda_launches_per_call=2, **spread)
 
     pargs = (q, qm, cand, store.tok_pages, store.page_table, store.n_tokens)
     valid = cand >= 0
     nt = torch.where(valid, store.n_tokens[cand.clamp_min(0).long()], 0).long()
-    uc = cand[valid].long().unique()
-    pages_u = int(((store.n_tokens[uc].long() + 15) // 16).sum())
-    rr_bytes = (pages_u * 16 * d * 4 + len(uc) * (store.pages_per_doc * 4 + 4)
+    # each distinct candidate once: its valid rows (not the rest of its last
+    # page), its count and the page-table entries under ceil(n_tokens / 16)
+    nt_u = store.n_tokens[cand[valid].long().unique()].long()
+    rr_bytes = (int(nt_u.sum()) * d * 4 + int(((nt_u + 15) // 16).sum()) * 4 + len(nt_u) * 4
                 + q.numel() * 4 + qm.numel() + 2 * cand.numel() * 4)
     rr_ops = 2 * int((nt * qm.sum(1, keepdim=True)).sum()) * d
     rr_plain = ref.rerank_scores_paged_ref(*pargs, chunk=16)
+    rr_got = torch.where(valid, gather_scan.rerank_paged_scores(*pargs), 0.0)
+    require(gather_scan.rerank_paged_scores.last_path == "tensor cores",
+            "rerank_paged_scores: the served shape left the tensor cores")
+    # the tensor cores' split against fp64 MaxSim over the stored tokens, 8 queries
+    n8 = 8
+    toks = store.tok_pages[store.page_table[cand[:n8].clamp_min(0).long()].long().clamp_min(0)]
+    toks = toks.reshape(n8, cand.shape[1], -1, d)
+    sc = torch.einsum("bqd,bktd->bkqt", q[:n8].double(), toks.double())
+    pos = torch.arange(toks.shape[2], device=dev)
+    sc = torch.where((pos < nt[:n8, :, None])[:, :, None, :], sc, ref.NEG)
+    exact = torch.where(qm[:n8, None, :], sc.amax(-1), 0.0).sum(-1)
+    ok8 = valid[:n8]
+    rr_err64 = float((rr_got[:n8][ok8].double() - exact[ok8]).abs().max())
+    require(rr_err64 <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[ok8].abs().max())),
+            f"rerank_paged_scores: max abs err against fp64 {rr_err64}")
+    del toks, sc, exact
     entry("rerank_paged_scores", "src/repro_torch/csrc/rerank_paged.cu",
-          "src/repro/kernels/gather_scan.py:261",
-          torch.where(valid, gather_scan.rerank_paged_scores(*pargs), 0.0),
+          "src/repro/kernels/gather_scan.py:261", rr_got,
           torch.where(valid, rr_plain, 0.0), 1e-5,
           lambda: gather_scan.rerank_paged_scores(*pargs),
           lambda: ref.rerank_scores_paged_ref(*pargs, chunk=16),
-          rr_bytes, rr_ops)
+          rr_bytes, rr_ops, peak=PEAK_TF32_S, split=3, bound_split="3xTF32",
+          # as in every tensor-core row: the bound had the products run on the
+          # CUDA cores, the larger of the bytes and ops_ms_fp32
+          bound_ms_fp32_cuda_cores=bound(rr_bytes, rr_ops)[0], path=rr_path,
+          ops_ms_3xtf32=3 * rr_ops / PEAK_TF32_S * 1e3, ops_ms_fp32=rr_ops / PEAK_FP32_S * 1e3,
+          max_abs_err_fp64=rr_err64, cuda_launches_per_call=3)
 
     trace = profile_batch(torch, r, q, qm)
     lat_ms = [1e3 * x for x in lat]

@@ -1,6 +1,7 @@
 // The token MaxSim body on Hopper's tensor cores, shared by token_maxsim.cu
 // (the max over each doc's tokens), rerank_gather.cu (then the masked sum
-// over each query's tokens) and rerank_paged_res.cu (the same over
+// over each query's tokens), rerank_paged.cu (the same over fp32 token
+// pages, copied by the producer warps) and rerank_paged_res.cu (over
 // compressed token pages, decoded by the producer warps); each file's
 // header says what it replaces and what bounds it.
 //
@@ -46,7 +47,11 @@
 //    the epilogue from a (ncent x Tq) table of q_t . centroid (built by a
 //    launch before), so no centroid row is read.  Rows at or past the
 //    candidate's n_tokens are masked by position; a round walks as many
-//    slices as the most pages among its 8 candidates (at least one).
+//    slices as the most pages among its 8 candidates (at least one);
+//  - the paged fp32 rerank (kMxRerankPaged): the same walk, each producer
+//    warp bringing a page's valid rows straight into the consumer's slot
+//    with one bulk copy (no staging, no decode), kMxPgSlots slots a
+//    consumer warp.
 // The consumers split the rows in registers (int8 widened exactly) and
 // issue the products against the B chunk in shared memory, the producer
 // warpgroup's registers given to them (setmaxnreg).  A commit group holds
@@ -91,8 +96,9 @@ struct MxTile {
   static constexpr int kR = N / 32;                     // ... after the max over its row lanes
 };
 
-enum { kMxTokenMaxSim = 0, kMxRerank = 1, kMxRerankRes = 2 };
-constexpr int kMxPgStages = 3;              // (paged) pages a producer warp stages
+enum { kMxTokenMaxSim = 0, kMxRerank = 1, kMxRerankRes = 2, kMxRerankPaged = 3 };
+constexpr int kMxPgStages = 3;              // (paged residual) pages a producer warp stages
+constexpr int kMxPgSlots = 3;               // (paged fp32) the most slots a consumer warp
 
 
 struct MxArgs {
@@ -110,8 +116,9 @@ struct MxArgs {
   int Tq, kp;
 };
 
-// The paged residual rerank's arguments (its kernels alone take them: a
-// larger argument block changes how the other clients' kernels compile).
+// The paged reranks' arguments (their kernels alone take them: a larger
+// argument block changes how the other clients' kernels compile); the fp32
+// pages are a.tok, and take gpt, gnt and pmax.
 struct MxResArgs : MxArgs {
   const int* gpt;         // (groups, kp, pmax) each candidate's page ids, clamped, -1 past them
   const int* gnt;         // (groups, kp) each candidate's token count (0: a pad)
@@ -174,7 +181,7 @@ __device__ __forceinline__ void mx_read_slot(const uint8_t* row0p, int pitch, in
   }
 }
 
-// (paged) The shared memory after the slots' valid bits: each slot's round
+// (paged residual) The shared memory after the slots' valid bits: each slot's round
 // length, the q . centroid table, the values table and the producer warps'
 // staging rings (msc holds the slots' centroid ids).  The staging offset is
 // taken from the shared array, not by an integer cast, so that the compiler
@@ -350,13 +357,89 @@ __device__ __forceinline__ void mx_res_producer(const MxResArgs& a, int gi, int 
   }
 }
 
+// The paged fp32 rerank's producer warp pw (0 .. 3), for consumer warps
+// 2 pw and 2 pw + 1 and their slices in the consumers' order (each round:
+// its S slices, the two warps' in turn).  Each round's token counts and
+// page ids (the launch before gathered them a candidate a row) are read a
+// round ahead.  For each slice the warp waits for the consumer's slot,
+// writes its valid rows' bits and the round's S, and brings the page's
+// valid rows into the slot with one bulk copy on the slot's barrier.  A
+// slice with no page (a candidate with fewer pages than the round's S) is
+// only marked: no valid row.
+__device__ __forceinline__ void mx_pg_producer(const MxResArgs& a, int gi, int r0, int r1, int pw,
+                                               int lane, uint8_t* area, uint32_t* mbits, int* mS,
+                                               uint64_t* sfull, uint64_t* sempty) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const uint8_t* tok = static_cast<const uint8_t*>(a.tok);
+  const int rowbytes = a.pitch;                  // a slot holds the page as it lies
+  int nx_tok = 0, nx_pt[2] = {-1, -1};
+  auto round_load = [&](int r) {
+    const int i = r * kMxWarps + lane;
+    nx_tok = lane < kMxWarps && i < a.kp ? __ldg(a.gnt + (size_t)gi * a.kp + i) : 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ih = r * kMxWarps + 2 * pw + h;
+      nx_pt[h] = ih < a.kp && lane < a.pmax
+                     ? __ldg(a.gpt + ((size_t)gi * a.kp + ih) * a.pmax + lane) : -1;
+    }
+  };
+  round_load(r0);
+  int us = 0;
+  for (int nt = 0; nt < a.NT; ++nt) {
+    for (int r = r0; r < r1; ++r) {
+      int npg = min((nx_tok + kMxSlice - 1) / kMxSlice, a.pmax);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) npg = max(npg, __shfl_xor_sync(kAll, npg, o));
+      const int S = max(npg, 1);
+      int tok2[2], pt[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tok2[h] = __shfl_sync(kAll, nx_tok, 2 * pw + h);
+        pt[h] = nx_pt[h];
+      }
+      round_load(r + 1 == r1 ? r0 : r + 1);     // the next round's, in flight
+      for (int s = 0; s < S; ++s, ++us) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int sw = (2 * pw + h) * a.R + us % a.R;
+          const int nv = min(kMxSlice, tok2[h] - kMxSlice * s);
+          int pid = s < 32 ? __shfl_sync(kAll, pt[h], s) : 0;
+          if (s >= 32 && nv > 0)
+            pid = __ldg(a.gpt + ((size_t)gi * a.kp + (size_t)r * kMxWarps + 2 * pw + h) * a.pmax +
+                        s);
+          if (us >= a.R) mbar_wait(&sempty[sw], ((us / a.R) - 1) & 1);
+          if (lane == 0) {
+            mbits[sw] = nv >= kMxSlice ? 0xffffu : (nv > 0 ? (1u << nv) - 1u : 0u);
+            mS[sw] = S;
+          }
+          __syncwarp();
+          if (lane == 0) {
+            if (nv > 0) {
+              mbar_expect_tx(&sfull[sw], (uint32_t)(nv * rowbytes));
+              bulk_copy_g2s(area + (size_t)sw * kMxSlice * rowbytes,
+                            tok + (size_t)pid * kMxSlice * rowbytes, (uint32_t)(nv * rowbytes),
+                            &sfull[sw]);
+            } else {
+              mbar_arrive(&sfull[sw]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int N, int KIND, bool BULK, int BITS = 0>
 __global__ void __launch_bounds__(kTcThreads, 1)
-maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArgs> a) {
+maxsim_tc_kernel(const std::conditional_t<KIND >= kMxRerankRes, MxResArgs, MxArgs> a) {
   static_assert(!BULK || KIND != kMxTokenMaxSim, "the bulk path feeds the reranks");
   static_assert(KIND != kMxRerankRes || (BULK && sizeof(T) == 4 && (BITS == 2 || BITS == 4)),
                 "the paged residual rerank decodes fp32 slots");
+  static_assert(KIND != kMxRerankPaged || (BULK && sizeof(T) == 4 && BITS == 0),
+                "the paged fp32 rerank copies fp32 pages");
   constexpr bool RES = KIND == kMxRerankRes;
+  constexpr bool PG = KIND == kMxRerankPaged;
+  constexpr bool WALK = RES || PG;                 // the producers walk candidates' pages
   using Tl = MxTile<N>;
   // producer and consumer registers: 128 x P + 256 x C <= 65,536
   constexpr int kProducerRegs = RES ? 88 : (BULK ? 56 : 40);
@@ -369,7 +452,8 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
   // valid bits
   float* wring = reinterpret_cast<float*>(area);
   float* msc = reinterpret_cast<float*>(area + (size_t)kMxWarps * a.R * kMxSlice * a.pitch);
-  uint32_t* mbits = reinterpret_cast<uint32_t*>(msc + kMxWarps * a.R * kMxSlice);
+  uint32_t* mbits = reinterpret_cast<uint32_t*>(msc + (PG ? 0 : kMxWarps * a.R * kMxSlice));
+  int* pg_S = reinterpret_cast<int*>(mbits + kMxWarps * a.R);   // (paged fp32) a slot's round S
   float* ebuf = reinterpret_cast<float*>(area + a.abytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(ebuf + a.ebuf);
   uint64_t* empty = full + nst;
@@ -416,7 +500,7 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
     const int i = r * kMxWarps + w;
     if constexpr (KIND == kMxTokenMaxSim) {
       return i;
-    } else if constexpr (RES) {
+    } else if constexpr (WALK) {
       return 0;                                   // (the producers walk the pages)
     } else {
       return i < a.kp ? __ldg(a.cand + (size_t)gi * a.kp + i) : 0;
@@ -458,6 +542,8 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
       const MxResSmem rs = mx_res_smem<BITS>(a, mbits, mx_sm);
       mx_res_producer<BITS>(a, gi, r0, r1, warp - kMxWarps, lane, area, msc, mbits, rs.mS, rs.vs,
                             rs.stg, sfull, sempty);
+    } else if constexpr (PG) {
+      mx_pg_producer(a, gi, r0, r1, warp - kMxWarps, lane, area, mbits, pg_S, sfull, sempty);
     } else if constexpr (BULK) {
       // A (the bulk path; B is resident): lanes 16 h + i of producer warp p
       // read row i's mask byte and scale of consumer warp 2p + h's slices,
@@ -594,7 +680,7 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
   // 32, .., then warp_sum), not in this body's column order, so that a pad
   // has the same bits whichever path its width takes
   float pad = 0.f;
-  if constexpr (RES) {
+  if constexpr (WALK) {
     for (int tq = lane; tq < a.Tq; tq += 32)
       if (a.q_mask[(size_t)gi * a.Tq + tq]) pad += LEMUR_NEG;
     pad = warp_sum(pad);
@@ -608,7 +694,7 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
     for (int r = r0; r < r1; ++r) {
       const long long row0 = item_row0(r, warp, item_raw(r, warp));
       int S = a.S;                                 // (paged: the round's, from its first slot)
-      for (int s = 0; s < (RES ? S : a.S); ++s, ++us) {
+      for (int s = 0; s < (WALK ? S : a.S); ++s, ++us) {
         // the slice's mask bytes and scales, for its epilogue: loaded now,
         // used after its last chunk (the bulk path: its slot's, later)
         bool e_in[2] = {false, false};
@@ -620,6 +706,8 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
           mbar_wait(&sfull[sw], (us / a.R) & 1);
           if constexpr (RES) {
             if (s == 0) S = mx_res_smem<BITS>(a, mbits, mx_sm).mS[sw];
+          } else if constexpr (PG) {
+            if (s == 0) S = pg_S[sw];
           }
         } else {
 #pragma unroll
@@ -697,7 +785,7 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             ok[h] = (bits >> (g + 8 * h)) & 1u;
-            sc[h] = msc[sw * kMxSlice + g + 8 * h];
+            sc[h] = PG ? 1.f : msc[sw * kMxSlice + g + 8 * h];
           }
           __syncwarp();                            // the slot is read: free it
           if (lane == 0) mbar_arrive(&sempty[sw]);
@@ -736,7 +824,7 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
         mx_max_over_rows<Tl::kV>(v, lane, w);
 #pragma unroll
         for (int i = 0; i < Tl::kR; ++i) run[i] = s == 0 ? w[i] : fmaxf(run[i], w[i]);
-        if (s < (RES ? S : a.S) - 1) continue;
+        if (s < (WALK ? S : a.S) - 1) continue;
 
         // the item's end; a lane holds columns 8 (e >> 1) + 2t + (e & 1), e = g kR + i
         if constexpr (KIND == kMxTokenMaxSim) {
@@ -772,7 +860,7 @@ maxsim_tc_kernel(const std::conditional_t<KIND == kMxRerankRes, MxResArgs, MxArg
             if (nt < a.NT - 1) {
               *p = sum;
             } else {
-              if constexpr (RES) {
+              if constexpr (WALK) {
                 if (__ldg(a.gnt + (size_t)gi * a.kp + ci) == 0) sum = pad;
               }
               a.out[(size_t)gi * a.kp + ci] = sum;
@@ -879,6 +967,46 @@ static int launch_maxsim_tc_res(MxResArgs a, size_t smem, cudaStream_t stream) {
   const long long grid = (long long)a.groups * a.runs;
   if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   auto kernel = maxsim_tc_kernel<float, N, kMxRerankRes, true, BITS>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)grid, kTcThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The paged fp32 rerank's layout (a.D, a.NT, a.kp and the counts set): B
+// resident, a.R slots a consumer warp (2 to kMxPgSlots, as many as fit), a
+// slot's rows D x 4 bytes apart, as in the page (one bulk copy: D % 4 == 0).
+// Returns the block's shared memory in bytes, or 0 where the layout does
+// not fit the card's (the caller takes the CUDA-core rerank).
+template <int N>
+static size_t mx_pg_layout(MxResArgs& a, int optin) {
+  using Tl = MxTile<N>;
+  a.KC = tc_chunks(a.D) > 0 ? tc_chunks(a.D) : 1;
+  a.S = 1;
+  a.resident = a.NT * a.KC <= Tl::kStages;
+  if (!a.resident || a.D <= 0 || a.D % 4) return 0;
+  a.runs = a.runs < 1 ? 1 : (a.runs > a.rounds ? a.rounds : a.runs);
+  const int per_block = (a.rounds + a.runs - 1) / a.runs;
+  a.ebuf = a.NT > 1 ? (per_block * kMxWarps + 1) / 2 * 2 : 2;   // (sums across query tiles)
+  a.pitch = a.D * (int)sizeof(float);
+  a.vec = a.D % kTcK == 0;
+  const size_t fixed = (size_t)a.NT * a.KC * Tl::kChunk * sizeof(float) +
+                       a.ebuf * sizeof(float) + 2 * (size_t)a.NT * a.KC * 8;
+  const size_t per_r = (size_t)kMxWarps * (kMxSlice * a.pitch + 4 + 4 + 16);
+  const long long room = (long long)optin - (long long)fixed - 1024;
+  const long long R = room > 0 ? room / (long long)per_r : 0;
+  if (R < 2) return 0;
+  a.R = R < kMxPgSlots ? (int)R : kMxPgSlots;
+  a.abytes = (int)(((size_t)a.R * kMxWarps * (kMxSlice * a.pitch + 4 + 4) + 15) / 16 * 16);
+  return fixed + a.abytes + 2 * (size_t)kMxWarps * a.R * 8;
+}
+
+template <int N>
+static int launch_maxsim_tc_pg(MxResArgs a, size_t smem, cudaStream_t stream) {
+  if (a.groups <= 0 || a.rounds <= 0) return (int)cudaSuccess;
+  const long long grid = (long long)a.groups * a.runs;
+  if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  auto kernel = maxsim_tc_kernel<float, N, kMxRerankPaged, true>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, kTcThreads, smem, stream>>>(a);

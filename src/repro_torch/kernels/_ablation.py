@@ -1,7 +1,7 @@
-"""What the ablation scripts (``maxsim_ablation``, ``residual_ablation``)
-share: build a kernel source several ways, each variant a copy of
-``csrc/`` with a few lines edited, into ``build/ablation/``, and time a
-call on the card."""
+"""What the ablation scripts (``maxsim_ablation``, ``residual_ablation``,
+``serve_ablation``) share: build a kernel source several ways, each
+variant a copy of ``csrc/`` with a few lines edited, into
+``build/ablation/``, and time a call on the card."""
 from __future__ import annotations
 
 import ctypes

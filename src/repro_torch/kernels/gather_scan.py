@@ -28,7 +28,12 @@ def ivf_probe_scan(q, probe, ids, vecs, scales=None):
 
     q: (B, d) fp32; probe: (B, nprobe) int32 cluster ids; ids: (nlist, cap)
     int32 (-1 padded); vecs: (nlist, cap, d) fp32, or int8 codes with
-    scales: (nlist, cap) fp32 -> (B, nprobe, cap) fp32, pad slots -inf."""
+    scales: (nlist, cap) fp32 -> (B, nprobe, cap) fp32, pad slots -inf (a
+    probe outside [0, nlist): its whole strip).  On the card the (b, p)
+    pairs are grouped by list first (csrc/ivf_probe_scan.cu; plain twin
+    ``ref.probe_groups``), so each live row is read once for a chunk of the
+    queries that probe its list; each score has the bits of
+    ``query_fused``'s scorer."""
     if q.device.type == "cpu":
         return ref.ivf_scan_ref(q, probe, ids, vecs, scales)
     B, d = q.shape
@@ -42,20 +47,24 @@ def ivf_probe_scan(q, probe, ids, vecs, scales=None):
     if out.numel() == 0:
         return out
     lib = build.library("ivf_probe_scan")
+    lib.ivf_probe_scan_scratch.argtypes = [_i] * 3
+    lib.ivf_probe_scan_scratch.restype = ctypes.c_longlong
+    scratch = torch.empty((lib.ivf_probe_scan_scratch(B, P, nlist),), dtype=torch.int32,
+                          device=dev)
     if scales is not None:
         build.expect(vecs, "vecs", torch.int8, (nlist, cap, d), dev)
         build.expect(scales, "scales", torch.float32, (nlist, cap), dev)
         fn = lib.ivf_probe_scan_sq8
-        fn.argtypes = [_p] * 6 + [_i] * 5 + [_p]
+        fn.argtypes = [_p] * 7 + [_i] * 5 + [_p]
         err = fn(q.data_ptr(), probe.data_ptr(), ids.data_ptr(), vecs.data_ptr(),
-                 scales.data_ptr(), out.data_ptr(), B, P, cap, d, nlist,
+                 scales.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, P, cap, d, nlist,
                  build.stream_ptr(q))
     else:
         build.expect(vecs, "vecs", torch.float32, (nlist, cap, d), dev)
         fn = lib.ivf_probe_scan_fp32
-        fn.argtypes = [_p] * 5 + [_i] * 5 + [_p]
+        fn.argtypes = [_p] * 6 + [_i] * 5 + [_p]
         err = fn(q.data_ptr(), probe.data_ptr(), ids.data_ptr(), vecs.data_ptr(),
-                 out.data_ptr(), B, P, cap, d, nlist, build.stream_ptr(q))
+                 out.data_ptr(), scratch.data_ptr(), B, P, cap, d, nlist, build.stream_ptr(q))
     build.check(lib, err, "ivf_probe_scan")
     ivf_probe_scan.launches += 1
     return out
@@ -71,7 +80,13 @@ def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
     q: (B, Tq, d) fp32; q_mask: (B, Tq) bool; cand_ids: (B, k') int32 (-1
     padded: pads score Tq_valid * NEG and are masked by the caller);
     tok_pages: (P, 16, d) fp32; page_table: (C, pmax) int32; n_tokens: (C,)
-    int32 -> (B, k') fp32 raw pair scores."""
+    int32 -> (B, k') fp32 raw pair scores.  On the card, where a block's
+    shared memory holds the layout (csrc/rerank_paged.cu: rerank_paged_plan;
+    the served widths), the dots run on the tensor cores, the TF32 split of
+    the dense rerank, within ``ref.TF32_SPLIT_RTOL`` of the fp64 dot
+    (``ref.tf32_split_rerank_paged`` emulates it); other widths take the
+    CUDA-core kernel.  ``rerank_paged_scores.last_path`` names the path the
+    last launch took: ``"tensor cores"`` or ``"cuda cores"``."""
     if q.device.type == "cpu":
         return ref.rerank_scores_paged_ref(q, q_mask, cand_ids, tok_pages,
                                            page_table, n_tokens)
@@ -94,17 +109,32 @@ def rerank_paged_scores(q, q_mask, cand_ids, tok_pages, page_table, n_tokens):
     if out.numel() == 0:
         return out
     lib = build.library("rerank_paged")
+    plan = (ctypes.c_int * 2)()
+    fn = lib.rerank_paged_plan
+    fn.argtypes = [_i] * 5 + [_p, ctypes.POINTER(ctypes.c_int)]
+    build.check(lib, fn(B, Tq, d, kp, pmax, tok_pages.data_ptr(), plan),
+                "rerank_paged_scores (plan)")
+    N, Bc = plan[0], plan[1]
+    scratch = [None] * 3
+    if N:
+        scratch = [torch.empty((tc_image_floats(Bc, Tq, d, N),), dtype=torch.float32,
+                               device=dev),
+                   torch.empty((Bc, kp, pmax), dtype=torch.int32, device=dev),
+                   torch.empty((Bc, kp), dtype=torch.int32, device=dev)]
     fn = lib.rerank_paged_scores
-    fn.argtypes = [_p] * 7 + [_i] * 6 + [ctypes.c_longlong, _p]
+    fn.argtypes = [_p] * 10 + [_i] * 6 + [ctypes.c_longlong] + [_i] * 2 + [_p]
     err = fn(q.data_ptr(), q_mask.data_ptr(), cand_ids.data_ptr(),
              tok_pages.data_ptr(), page_table.data_ptr(), n_tokens.data_ptr(),
-             out.data_ptr(), B, Tq, d, kp, pmax, C, n_pages, build.stream_ptr(q))
+             out.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
+             B, Tq, d, kp, pmax, C, n_pages, N, Bc, build.stream_ptr(q))
     build.check(lib, err, "rerank_paged_scores")
     rerank_paged_scores.launches += 1
+    rerank_paged_scores.last_path = "tensor cores" if N else "cuda cores"
     return out
 
 
 rerank_paged_scores.launches = 0
+rerank_paged_scores.last_path = None
 
 
 def rerank_gather_width(Tq: int) -> int:

@@ -98,6 +98,42 @@ def ivf_scan_ref(q, probe, ids, vecs, scales=None, *, chunk: int | None = None):
     return torch.cat(out, 0)
 
 
+def probe_groups(probe, nlist: int, chunk: int = 8):
+    """The IVF scan's grouping of (b, p) pairs by list (csrc/ivf_probe_scan.cu:
+    scan_group_kernel), plainly: a count, a prefix sum and a scatter.  probe:
+    (B, nprobe) -> (offsets (nlist + 2,) int64, pairs (B * nprobe,) int64 of
+    flat b * nprobe + p, list by list, ascending within a list; probes
+    outside [0, nlist) form group nlist; chunks (n, 3) int64 of (list, first
+    pair, pairs), each list's group cut into runs of at most ``chunk``: the
+    kernel's work items' queries).  The kernel orders a list's pairs as its
+    atomics fall; the groups are the same."""
+    flat = probe.reshape(-1).long()
+    lst = torch.where((flat >= 0) & (flat < nlist), flat, nlist)
+    counts = torch.bincount(lst, minlength=nlist + 1)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    pairs = torch.sort(lst, stable=True).indices
+    chunks = [(l, int(offsets[l]) + k, min(chunk, int(counts[l]) - k))
+              for l in range(nlist + 1) for k in range(0, int(counts[l]), chunk)]
+    return offsets, pairs, torch.tensor(chunks, dtype=torch.int64).reshape(-1, 3)
+
+
+def ivf_scan_grouped(q, probe, ids, vecs, scales=None, *, chunk: int = 8):
+    """:func:`ivf_scan_ref` through :func:`probe_groups`: each chunk of a
+    list's pairs scores the list's rows together (the kernel's work items),
+    out-of-range probes a strip of -inf.  Same shapes and values."""
+    B, P = probe.shape
+    nlist, cap = ids.shape
+    _, pairs, chunks = probe_groups(probe, nlist, chunk)
+    out = q.new_full((B * P, cap), float("-inf"))
+    for l, first, n in chunks.tolist():
+        if l == nlist:
+            continue
+        pr = pairs[first:first + n]
+        one = torch.full((n, 1), l, dtype=probe.dtype, device=probe.device)
+        out[pr] = ivf_scan_ref(q[pr // P], one, ids, vecs, scales)[:, 0]
+    return out.reshape(B, P, cap)
+
+
 def ivf_scan_res_ref(q, probe, ids, codes, centroids, values, *,
                      chunk: int | None = None):
     """Decode-then-score IVF probe scan over packed residual lists, each row
@@ -346,6 +382,25 @@ def tf32_split_rerank(q, q_mask, cand_ids, doc_tokens, doc_mask, doc_scales=None
                               None if doc_scales is None else doc_scales[c], chunk=chunk)
         out.append(torch.where(q_mask[b][:, None].bool(), g, 0.0).sum(0))
     return torch.stack(out) if out else q.new_empty((0, cand_ids.shape[1]))
+
+
+def tf32_split_rerank_paged(q, q_mask, cand_ids, tok_pages, page_table, n_tokens, *,
+                            chunk: int | None = 64):
+    """The paged fp32 rerank's tensor-core arithmetic on the card
+    (csrc/rerank_paged.cu), emulated: :func:`tf32_split_rerank` over each
+    doc's pages gathered into a dense (C, pmax x page, d) store (page ids
+    clamped to the pool, positions >= n_tokens masked); a -1 candidate (or
+    one past the slots) has no token and scores Tq_valid x NEG.  q: (B, Tq,
+    d); cand_ids: (B, k') -> (B, k') fp32."""
+    C, pmax = page_table.shape
+    n_pages, page, d = tok_pages.shape
+    toks = tok_pages[page_table.long().clamp(0, n_pages - 1)].reshape(C, pmax * page, d)
+    toks = torch.cat([toks, toks.new_zeros((1, pmax * page, d))])
+    pos = torch.arange(pmax * page, device=q.device)
+    mask = torch.cat([pos[None] < n_tokens.long()[:, None],
+                      torch.zeros((1, pmax * page), dtype=torch.bool, device=q.device)])
+    cand = torch.where((cand_ids >= 0) & (cand_ids < C), cand_ids.long(), C)
+    return tf32_split_rerank(q, q_mask, cand, toks, mask, chunk=chunk)
 
 
 # -- the residual tier's arithmetic on the card (csrc/residual.cuh,

@@ -72,7 +72,10 @@ def test_fused_psi_kernel(cuda, B, Tq, d, dp):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,nlist,cap,d,nprobe", [
-    (4, 8, 5, 12, 3), (1, 16, 9, 32, 8), (3, 4, 1, 20, 4), (2, 4, 64, 2048, 3)])
+    (4, 8, 5, 12, 3), (1, 16, 9, 32, 8), (3, 4, 1, 20, 4), (2, 4, 64, 2048, 3),
+    (3, 4, 40, 4096, 3),        # q from device memory, rows staged
+    (2, 4, 33, 20000, 3),       # fp32 rows past the staging ring; int8 one a window
+    (2, 4, 33, 80000, 3)])      # both past the ring: rows read from device memory
 @pytest.mark.parametrize("sq8", [False, True])
 def test_ivf_scan_kernel(cuda, B, nlist, cap, d, nprobe, sq8):
     rng = np.random.default_rng(B * nlist + cap)
@@ -95,6 +98,13 @@ def test_ivf_scan_kernel(cuda, B, nlist, cap, d, nprobe, sq8):
         assert float((got[fin] - want[fin]).abs().max()) / denom < SQ8_RTOL
 
 
+def _paged_path(Tq, d):
+    """The path rerank_paged_plan takes at these widths: the tensor cores
+    where d is whole float4s and q's image and two 16-row slots a consumer
+    warp fit a block (Tq <= 64 at d <= 128 here), else the CUDA cores."""
+    return "tensor cores" if d % 4 == 0 and d <= 128 and Tq <= 64 else "cuda cores"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,C,Tq,d,kp,pmax", [
     (3, 12, 4, 16, 5, 2), (1, 8, 3, 20, 6, 1), (2, 40, 32, 128, 64, 5),
@@ -104,7 +114,8 @@ def test_ivf_scan_kernel(cuda, B, nlist, cap, d, nprobe, sq8):
     (2, 8, 1, 768, 6, 2),      # Tq = 1; d = 768: q and the slots past shared memory
     (2, 8, 32, 1024, 6, 2),    # the served Tq at d = 1,024 (the wide walk)
     (2, 10, 512, 128, 9, 3),   # Tq = 512 at the served d (the wide walk, one chunk a page)
-    (1, 6, 512, 1024, 5, 2)])  # both
+    (1, 6, 512, 1024, 5, 2),   # both
+    (2, 300, 32, 128, 600, 5)])   # the served widths, k' past a block's 512 candidates
 def test_rerank_paged_kernel(cuda, B, C, Tq, d, kp, pmax):
     rng = np.random.default_rng(B * C + Tq)
     n_tokens = rng.integers(1, pmax * 16 + 1, C).astype(np.int32)
@@ -117,7 +128,11 @@ def test_rerank_paged_kernel(cuda, B, C, Tq, d, kp, pmax):
             g(rng.integers(-1, C, (B, kp)), torch.int32),
             g(rng.standard_normal((C * pmax, 16, d)), torch.float32),
             g(table), g(n_tokens))
+    n0 = gather_scan.rerank_paged_scores.launches
     got = gather_scan.rerank_paged_scores(*args)
+    assert gather_scan.rerank_paged_scores.launches == n0 + 1
+    # csrc/rerank_paged.cu: rerank_paged_plan
+    assert gather_scan.rerank_paged_scores.last_path == _paged_path(Tq, d)
     want = ref.rerank_scores_paged_ref(*args)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     k = kp + 3
@@ -510,6 +525,7 @@ def test_reranks_take_any_batch(cuda, kernel):
         args = (q, qm, cand, g(rng.standard_normal((C * pmax, 16, d)), torch.float32), table,
                 n_tokens)
         got = gather_scan.rerank_paged_scores(*args)
+        assert gather_scan.rerank_paged_scores.last_path == "tensor cores"
         want = ref.rerank_scores_paged_ref(*args, chunk=8192)
     else:
         cent, values = _residual_tables(rng, 6, d, 4, False)
@@ -953,3 +969,132 @@ def test_residual_scans_against_fp64(cuda, dp, bits):
     top, pos = stable_topk(got.reshape(B, -1), kp)
     top, idx = pad_topk(top, torch.gather(lists[0][probe.long()].reshape(B, -1), 1, pos), kp)
     assert torch.equal(s, top) and torch.equal(i, idx)
+
+
+def _fp32_pages(rng, cuda, B, C, Tq, d, kp, pmax):
+    """fp32 pages at served-like values (unit query and page tokens), a doc
+    without tokens, table pads, -1 candidates and a duplicated candidate
+    (row 0, columns 1 and 4)."""
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    n_tokens = rng.integers(1, pmax * 16 + 1, C).astype(np.int32)
+    n_tokens[1] = 0
+    table = rng.permutation(C * pmax).reshape(C, pmax).astype(np.int32)
+    table[np.arange(pmax)[None, :] >= (-(-n_tokens // 16))[:, None]] = -1
+    cand = rng.integers(-1, C, (B, kp)).astype(np.int32)
+    cand[0, 1] = cand[0, 4] = 0
+    qm = rng.random((B, Tq)) > 0.3
+    qm[:, 0] = True
+    return (g(unit(rng.standard_normal((B, Tq, d))), torch.float32), g(qm), g(cand),
+            g(unit(rng.standard_normal((C * pmax, 16, d))), torch.float32), g(table),
+            g(n_tokens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,Tq,d,kp,pmax,path", [
+    (4, 300, 32, 128, 256, 5, "tensor cores"),    # the served widths
+    (3, 40, 1, 128, 37, 5, "tensor cores"),       # Tq = 1
+    (2, 40, 64, 128, 20, 3, "tensor cores"),      # Tq = 64: a 64-token tile, two slots
+    (3, 40, 32, 20, 40, 3, "tensor cores"),       # d = 20, off a 32-column chunk
+    (2, 40, 100, 128, 20, 3, "cuda cores"),       # Tq = 100: the image past a block
+    (2, 40, 512, 128, 20, 3, "cuda cores"),       # Tq = 512
+    (2, 40, 32, 130, 20, 3, "cuda cores"),        # d = 130, off float4s
+    (2, 40, 32, 768, 20, 3, "cuda cores"),        # d = 768
+    (2, 40, 32, 1024, 20, 3, "cuda cores"),       # d = 1,024: the wide walk
+])
+def test_rerank_paged_against_fp64(cuda, B, C, Tq, d, kp, pmax, path):
+    """rerank_paged_scores on both of its paths against fp64 MaxSim
+    (ref.TF32_SPLIT_RTOL x max(1, max|exact|)), against its plain version
+    (1e-4 + 1e-5 x max|plain|, the smoke's check) and, on the tensor cores'
+    path, against the emulation of its arithmetic (ref.tf32_split_rerank_paged);
+    a duplicated candidate scores alike to the bit; pads at Tq_valid x NEG."""
+    rng = np.random.default_rng(B * C + Tq + d)
+    args = _fp32_pages(rng, cuda, B, C, Tq, d, kp, pmax)
+    got = gather_scan.rerank_paged_scores(*args)
+    assert gather_scan.rerank_paged_scores.last_path == path
+    q, qm, cand, pages_, table, n_tokens = args
+    c = cand.long()
+    safe = c.clamp_min(0)
+    tk = pages_[table[safe].long().clamp_min(0)].double()     # (B, k', pmax, 16, d)
+    sc = torch.einsum("bqd,bktd->bkqt", q.double(), tk.reshape(B, kp, pmax * 16, d))
+    nt = torch.where(c >= 0, n_tokens[safe], 0)
+    pos = torch.arange(pmax * 16, device=cuda)
+    sc = torch.where((pos < nt[..., None])[:, :, None, :], sc, ref.NEG)
+    exact = torch.where(qm[:, None, :], sc.amax(-1), 0.0).sum(-1)
+    plain = ref.rerank_scores_paged_ref(*args, chunk=1)
+    real = exact > ref.NEG / 2
+    assert torch.equal(got > ref.NEG / 2, real)
+    assert bool(got[0, 1] == got[0, 4])
+    err = float((got[real].double() - exact[real]).abs().max())
+    assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[real].abs().max()))
+    err = float((got[real] - plain[real]).abs().max())
+    assert err <= 1e-4 + 1e-5 * float(plain[real].abs().max())
+    torch.testing.assert_close(got[~real], plain[~real], rtol=1e-6, atol=0.0)
+    if path == "tensor cores":
+        emu = ref.tf32_split_rerank_paged(*args)
+        err = float((got[real] - emu[real]).abs().max())
+        assert err <= ref.TF32_SPLIT_RTOL * max(1.0, float(exact[real].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,B,nlist,cap,dp,nprobe", [
+    ("one_list", 20, 6, 300, 2048, 3),      # every query probes list 2: 20 readers > 8
+    ("empty_lists", 6, 8, 64, 2048, 4),     # lists 1 and 5 empty
+    ("holes", 5, 6, 300, 2048, 3),          # -1 anywhere among live slots
+    ("dup_out_of_range", 5, 6, 40, 2048, 4),  # a list twice, probes -1 and nlist + 3
+    ("cap_1", 7, 9, 1, 2048, 4),
+    ("cap_off_tile", 4, 5, 300, 20, 3),     # cap off 32 and 256; d' 20: off 16 bytes
+    ("one_list_4096", 20, 6, 300, 4096, 3),  # the skew at d' 4,096: q from device memory
+    ("holes_4096", 5, 6, 300, 4096, 3),
+])
+@pytest.mark.parametrize("sq8", [False, True])
+def test_ivf_scan_grouped_under_skew(cuda, case, B, nlist, cap, dp, nprobe, sq8):
+    """ivf_probe_scan walks lists, not queries: skewed readers, empty lists,
+    holes, duplicate and out-of-range probes, cap 1 and off the row tiles,
+    d' 2,048, 4,096 and off 16 bytes.  Scores as the plain version's (pads and
+    out-of-range strips -inf), and query_fused at k' >= the strip equals
+    psi-pool + ivf_probe_scan + a stable top-k' bit for bit."""
+    rng = np.random.default_rng(nlist * cap + dp + sq8)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    d, Tq = 16, 6
+    ids = rng.permutation(10 ** 6)[:nlist * cap].reshape(nlist, cap).astype(np.int32)
+    live = rng.integers(cap // 2, cap + 1, nlist) if cap > 1 else np.ones(nlist, np.int64)
+    ids[np.arange(cap)[None, :] >= live[:, None]] = -1
+    probe = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]).astype(np.int32)
+    if case.startswith("one_list"):
+        probe[:, 1] = 2
+        probe[probe[:, 0] == 2, 0] = 0
+        probe[probe[:, 2] == 2, 2] = 0
+    elif case == "empty_lists":
+        ids[[1, 5]] = -1
+        probe[0, :2] = [1, 5]
+    elif case.startswith("holes"):
+        ids[rng.random(ids.shape) < 0.2] = -1
+    elif case == "dup_out_of_range":
+        probe[0, 1] = probe[0, 0]
+        probe[1, 2] = -1
+        probe[2, 0] = nlist + 3
+    vecs = g(rng.standard_normal((nlist, cap, dp)) * (ids >= 0)[..., None], torch.float32)
+    lists = list(sq8_quant(vecs)) if sq8 else [vecs]
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    q = g(rng.standard_normal((B, Tq, d)), torch.float32)
+    qm = g(rng.random((B, Tq)) > 0.3)
+    gp, gi = g(probe), g(ids)
+    psi_q = fused_psi.fused_psi_pool(q, qm, *w)
+    n0 = gather_scan.ivf_probe_scan.launches
+    got = gather_scan.ivf_probe_scan(psi_q, gp, gi, *lists)
+    assert gather_scan.ivf_probe_scan.launches == n0 + 1
+    inr = (gp >= 0) & (gp < nlist)                         # (B, nprobe)
+    want = ref.ivf_scan_ref(psi_q, gp.clamp(0, nlist - 1), gi, *lists)
+    want = torch.where(inr[..., None], want, float("-inf"))
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert bool(torch.isneginf(got[~fin]).all())
+    denom = max(1.0, float(want[fin].abs().max()))
+    assert float((got[fin] - want[fin]).abs().max()) / denom < SQ8_RTOL
+    kp = nprobe * cap + 5
+    s, i = ops.KERNELS["query_fused"](q, qm, *w, gp, gi, *lists, kp=kp)
+    flat_i = torch.where(inr[..., None], gi[gp.clamp(0, nlist - 1).long()], -1).reshape(B, -1)
+    top, pos = stable_topk(got.reshape(B, -1), nprobe * cap)
+    top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
+    assert torch.equal(i, idx) and torch.equal(s, top)
