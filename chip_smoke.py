@@ -62,10 +62,11 @@ script
    against the plain composition and exact MaxSim, and 32 queries' top-10
    against exact MaxSim over the whole corpus (recall), and ``mips_topk`` to
    no rescan; then times the three kernels against their plain versions
-   and the nearest PyTorch call at the served shapes, after checking the
-   tensor-core product of ``mips_topk`` against an fp64 product (65,536
-   rows, within ``ref.TF32_SPLIT_RTOL``) and its sampled pass against its
-   full pass bit for bit;
+   and the nearest PyTorch call at the served shapes (``query_fused``'s
+   rows with how their bound was counted),
+   after checking the tensor-core product of ``mips_topk`` against an fp64
+   product (65,536 rows, within ``ref.TF32_SPLIT_RTOL``) and its sampled
+   pass against its full pass bit for bit;
 6. times each serving kernel and its plain version at the served shapes:
    first a line with the probes' spread over the lists (rows read probe
    by probe, distinct live rows, readers a list, the largest work item of
@@ -89,7 +90,8 @@ script
    their plain versions (the rerank also against fp64 MaxSim over the
    decoded tokens on 8 queries, within ``ref.TF32_SPLIT_RTOL``: its dots
    run on the tensor cores; its bound at the split's rate beside the CUDA
-   cores', the scans' beside the floor of a lookup a code), traces a batch
+   cores', the scans' beside the floor of a lookup a code; the scan by
+   list after a line with its probes' spread, as in 6), traces a batch
    (with the host's activity in the device's idle gaps) and reports token
    bytes per doc of both tiers;
 8. **sharded**: on a one-rank NCCL process group and its ("model",)
@@ -110,7 +112,11 @@ script
    cores'); then an fp32 block over a base cut to the first 100,000
    slots, its default route checked the same way, and the same base
    sharded at k'_loc = 1024 against its own exact scan;
-9. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
+9. gives every kernel row the kernels and memsets that one call of its
+   wrapper put on the card (``cuda_launches_per_call``, and by name in
+   ``cuda_launched``), counted by torch.profiler in this run: a lower
+   bound, since a trace can drop device events (None: it saw none);
+10. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
    ``routes`` line, a ``residual`` line, a ``sharded`` line, the
    ``kernels`` line and last ``{"ok": true, ...}``.
 
@@ -122,6 +128,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +147,10 @@ SQ8_RTOL = 2 ** -16 * 4          # the JAX suite's SQ8 tolerance
 NEAR_TIE = 1e-5                  # relative score gap allowed for an id swap
 MAXSIM_RTOL = 1e-5               # token MaxSim: x max(1, max|plain|)
 SERVE_KERNELS = ("fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores")
+QF_BOUND_COUNTED = ("bytes: the query tokens, mask and psi weights, the probed lists' ids, "
+                    "the distinct live rows (and scales) once, the probes, the (B, k') "
+                    "outputs; operations: the psi-pool's 2 x valid tokens x d x d' and 2 x "
+                    "d' a row scanned probe by probe")
 OLS_BLOCK = 2048                 # fit_output_layer_ols' doc block
 QUERY_SEED = 7                   # recall queries; the training tokens use seed 0
 # Both corpora's topic model, data/synthetic.make_corpus's weight: a token is
@@ -181,6 +192,37 @@ def time_ms(torch, fn, n=20, warmup=3):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def cuda_launches(torch, fn, tries=2, pad_s=0.5):
+    """What one call of ``fn`` puts on the card, counted by torch.profiler:
+    its kernels and memsets (copies not counted), as
+    {cuda_launches_per_call: n, cuda_launched: {short name: count}}; n None
+    where the profiler saw nothing on the device.  A trace can drop device
+    events on this card, never add one: so the call runs ``pad_s`` inside
+    its trace's edges, ``tries`` times, each name keeps its largest count,
+    and n is a lower bound (dropped events seen in no trace stay uncounted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        seen = {}
+        for e in prof.events():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.name.startswith(("Memcpy", "ProfilerStep"))):
+                continue
+            short = re.split(r"[<(]", e.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", ""), maxsplit=1)[0].strip()
+            seen[short] = seen.get(short, 0) + 1
+        for k, v in seen.items():
+            names[k] = max(names.get(k, 0), v)
+    return {"cuda_launches_per_call": sum(names.values()) or None, "cuda_launched": names}
 
 
 def bound(nbytes, flops, peak=PEAK_FP32_S):
@@ -862,7 +904,8 @@ def build_phase(torch, args, card):
                bound_ms_fp32_cuda_cores=bound(nbytes, flops)[0],
                bound_ms_all_positions=b_all_ms, tc_max_abs_err_fp64=tc_err,
                tc_fp64_sample="512 OLS tokens x the block",
-               bytes=int(nbytes), flops=int(flops), library_ms=None, cuda_launches_per_call=2,
+               bytes=int(nbytes), flops=int(flops), library_ms=None,
+               **cuda_launches(torch, lambda: kmaxsim.token_maxsim(*kargs)),
                pretrain_shape=f"x ({n_tr}, {d}) x docs ({len(pre)}, {blk[0].shape[1]}, {d})",
                pretrain_ms=pre_ms, pretrain_bound_ms=pre_b_ms, pretrain_bound_by=pre_b_by)
     del x_train, pre, pre_docs, qt, gt_docs
@@ -1239,7 +1282,7 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
             ragged_max_abs_err=ragged[ragged_key or name], tolerance=tol, shape=shape,
             ms=ms, kernel_ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes),
-            flops=int(flops), library_ms=lib_ms, **extra))
+            flops=int(flops), library_ms=lib_ms, **cuda_launches(torch, fn), **extra))
         print(f"{name} ({variant}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_by}), library {lib_ms}", flush=True)
 
@@ -1263,7 +1306,7 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
         ragged_key="query_fused_sq8",
         launches_per_search=launches_by_kernel["query_fused"] // len(batches),
-        cuda_launches_per_call=1)
+        bound_counted=QF_BOUND_COUNTED, **scan_spread(torch, probe, ann.ids))
     # ... and fp32 lists: the first 256 lists dequantized (2.1 GB)
     L = 256
     vec32 = sq8_dequant(ann.vecs[:L], ann.scales[:L]).contiguous()
@@ -1286,7 +1329,7 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
         ragged_key="query_fused_fp32",
         launches_per_search=launches_by_kernel["query_fused"] // len(batches),
-        cuda_launches_per_call=1)
+        bound_counted=QF_BOUND_COUNTED, **scan_spread(torch, probe32, ids32))
     del vec32, ids32, fargs
 
     # mips_topk over W's full slot capacity, fp32 and SQ8: the tensor-core
@@ -1335,8 +1378,7 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         psi_q.numel() * 4 + live * dp * 4 + C + 2 * B * kp * 4, 3 * 2 * B * live * dp, shape,
         n=10, near_tie_ids=near_ties, peak=PEAK_TF32_S, bound_split="3xTF32",
         bound_ms_fp32_cuda_cores=cuda_bound, product_checks=checks["fp32"],
-        launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
-        cuda_launches_per_call=5)
+        launches_per_search=launches_by_kernel["mips_topk"] // len(batches))
     sargs = (psi_q, codes, wsc, valid)
     err, near_ties, _ = same_topk(torch, *query_fused.mips_topk(*sargs, kp=kp),
                                   *ref.mips_topk_ref(*sargs, kp=kp, chunk=32), SQ8_RTOL,
@@ -1352,8 +1394,7 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         bound_ms_fp32_cuda_cores=bound(psi_q.numel() * 4 + live * (dp + 4) + C
                                        + 2 * B * kp * 4, 2 * B * live * dp)[0],
         product_checks=checks["sq8"],
-        launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
-        cuda_launches_per_call=5)
+        launches_per_search=launches_by_kernel["mips_topk"] // len(batches))
     rescans = query_fused.mips_topk.rescans - rescans
     require(rescans == 0, f"mips_topk rescanned {rescans} times at the served shape")
     # the library call at the sharded route's k'_loc on the same (2^20 x d')
@@ -1378,11 +1419,12 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
     row("mips_sq8", "batched strips", "src/repro_torch/csrc/mips_sq8.cu",
         "src/repro/kernels/mips_sq8.py:38", err, f"{SQ8_RTOL} x max(1, max|plain|)",
         lambda: mips_sq8.mips_sq8_batched(ql, gcodes, gsc),
-        lambda: ref.mips_sq8_batched_ref(ql, gcodes, gsc, chunk=2), None,
+        lambda: ref.mips_sq8_batched_ref(ql, gcodes, gsc, chunk=2),
+        lambda: (gcodes.float() @ ql[:, :, None]).squeeze(-1) * gsc,
         Bl * n * (dp + 4) + ql.numel() * 4 + Bl * n * 4, 2 * Bl * n * dp,
         f"B {Bl} x {n} gathered rows (nprobe {P} x cap {cap}) x {dp} int8",
-        launches_per_search=launches_by_kernel["mips_sq8"] // len(batches),
-        cuda_launches_per_call=1)
+        library_call="(codes.float() @ q[:, :, None]).squeeze(-1) * scales",
+        launches_per_search=launches_by_kernel["mips_sq8"] // len(batches))
     del gcodes, gsc
     pc = ann.vecs[:32].reshape(-1, dp)
     ps = ann.scales[:32].reshape(-1)
@@ -1399,8 +1441,7 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
         f"on no route (launches: the kernel's, from the legacy route's batched entry)",
         peak=PEAK_TF32_S, bound_split="2xTF32 (q split)",
         bound_ms_fp32_cuda_cores=bound(pc.numel() + ps.numel() * 4 + psi_q.numel() * 4
-                                       + B * pc.shape[0] * 4, 2 * B * pc.shape[0] * dp)[0],
-        cuda_launches_per_call=2)
+                                       + B * pc.shape[0] * 4, 2 * B * pc.shape[0] * dp)[0])
     return rows
 
 
@@ -1668,7 +1709,7 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
     rows = []
 
     def row(name, source, replaces, err, tol, fn, plain_fn, nbytes, flops, shape, *,
-            peak=PEAK_FP32_S, split=1, cuda_launches=1, **extra):
+            peak=PEAK_FP32_S, split=1, **extra):
         # flops: the function's operations; split: the products a split
         # (3xTF32) makes of each, counted in the bound at ``peak``
         ms = time_ms(torch, fn)
@@ -1680,7 +1721,7 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
             launches_per_search=launches[name] // len(batches), max_abs_err=err,
             ragged_max_abs_err=ragged[name], tolerance=tol, shape=shape, ms=ms,
             kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes),
-            flops=int(flops), library_ms=None, cuda_launches_per_call=cuda_launches, **extra))
+            flops=int(flops), library_ms=None, **cuda_launches(torch, fn), **extra))
         print(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
               flush=True)
 
@@ -1704,6 +1745,8 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
             f"ivf_probe_res_scan: max abs err {err}")
     del got, want, fin
     table_bytes = len(uniq) * dp * 4 + dp * L * 4
+    spread = scan_spread(torch, probe, rann.ids, "ivf_probe_res_scan")
+    print(f"ivf_probe_res_scan spread: {json.dumps(spread)}", flush=True)
     row("ivf_probe_res_scan", "src/repro_torch/csrc/ivf_probe_res_scan.cu",
         "src/repro/kernels/gather_scan.py:386", err,
         f"{RES_SCAN_RTOL} x max(1, max|plain|)",
@@ -1713,7 +1756,10 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         + probe.numel() * 4 + B * P * cap * 4, 2 * rows_p * dp,
         f"B {B} x nprobe {P} of {rann.nlist} lists of cap {cap}, {db} B a row (4 bits), "
         f"{rows_p / B:.0f} rows scanned a query", lookup_floor_ms=lookup_floor_ms(rows_p * dp),
-        sm_clock_max_mhz=sm_mhz)
+        sm_clock_max_mhz=sm_mhz,
+        bound_counted="bytes: the probed lists' ids, the distinct live rows' codes once, the "
+                      "probed centroids and the values table, q, the probes, the (B, P, cap) "
+                      "strip; operations: 2 x d' a row scanned probe by probe", **spread)
 
     qargs = (q, qm, *w, probe, *lists)
     err, near_ties, _ = same_topk(torch, *query_fused.query_fused_res(*qargs, kp=kp),
@@ -1729,7 +1775,7 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         2 * nq_valid * d * dp + 2 * rows_p * dp,
         f"B {B} x Tq {Tq}, nprobe {P} of {rann.nlist} residual lists of cap {cap}, "
         f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
-        cuda_launches=2, lookup_floor_ms=lookup_floor_ms(rows_p * dp), sm_clock_max_mhz=sm_mhz)
+        lookup_floor_ms=lookup_floor_ms(rows_p * dp), sm_clock_max_mhz=sm_mhz)
 
     cand = first_stage(rr.index, q, qm, rr.resolve(SearchParams()))
     pargs = (q, qm, cand, rstore.cent_pages, rstore.code_pages, rstore.page_table,
@@ -1767,7 +1813,7 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
         lambda: ref.rerank_scores_paged_res_ref(*pargs, chunk=16), rr_bytes, rr_flops,
         f"B {B} x k' {cand.shape[1]} candidates of the residual default route, Tq {Tq}, "
         f"16-token pages of {codec.packed_width} B codes + int32 centroid ids, "
-        f"codec {codec.ncent} x {d}", peak=PEAK_TF32_S, split=3, cuda_launches=3,
+        f"codec {codec.ncent} x {d}", peak=PEAK_TF32_S, split=3,
         path=rr_path, bound_split="3xTF32", max_abs_err_fp64=err64,
         tolerance_fp64="ref.TF32_SPLIT_RTOL x max(1, max|exact|)",
         bound_ms_fp32_cuda_cores=bound(rr_bytes, rr_flops)[0])
@@ -2149,7 +2195,8 @@ def sharded_phase(torch, args, r, batches, library_ms_kp4096=None):
             near_tie_ids=near_ties, library_ms=library_ms_kp4096,
             library_note="torch.topk((q @ codes.float().T) * s, 4096), timed in the routes "
                          "phase on the index's W quantized (the same 2^20 x d' int8 rows)",
-            launches_per_search=launches_by_kernel["mips_topk"] // len(batches)))
+            launches_per_search=launches_by_kernel["mips_topk"] // len(batches),
+            **cuda_launches(torch, lambda: query_fused.mips_topk(*margs, kp=kp))))
         print(f"mips_topk (sq8, kp {kp}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_by})", flush=True)
         line["traced_batch"] = profile_batch(torch, sr, q, qm)
@@ -2311,7 +2358,8 @@ def rerank_gather_row(torch, variant, args_k, launches_by_kernel, ragged, note="
         bound_ms=b_ms, bound_by=b_by, peak=PEAK_TF32_S,
         bound_split="2xTF32 (q split)" if sq8 else "3xTF32",
         bound_ms_fp32_cuda_cores=bound(nbytes, flops)[0], bytes=int(nbytes),
-        flops=int(flops), library_ms=None, launches_per_search=1, cuda_launches_per_call=2)
+        flops=int(flops), library_ms=None, launches_per_search=1,
+        **cuda_launches(torch, lambda: gather_scan.rerank_gather_scores(*args_k)))
 
 
 def main():
@@ -2367,17 +2415,18 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def scan_spread(torch, probe, ids):
+def scan_spread(torch, probe, ids, kernel="ivf_probe_scan"):
     """How the probes spread over the lists: rows read probe by probe, the
     distinct live rows, readers a probed list (max, mean) and the largest
-    work item of ivf_probe_scan's grid by list (pairs: a chunk's queries x
-    the live rows of its range of slots)."""
+    work item of the kernel's grid by list (ivf_probe_scan or
+    ivf_probe_res_scan; pairs: a chunk's queries x the live rows of its
+    range of slots)."""
     import ctypes
 
     from repro_torch.kernels import build
 
     shape = (ctypes.c_int * 2)()
-    build.library("ivf_probe_scan").ivf_probe_scan_item(shape)
+    getattr(build.library(kernel), f"{kernel}_item")(shape)
     per_q, per_r = shape[0], shape[1]
     nlist, cap = ids.shape
     pr = probe.long().flatten()
@@ -2528,7 +2577,8 @@ def serve_and_check(torch, args):
             launches=launches[name], launches_per_search=launches[name] // len(batches),
             max_abs_err=err, tolerance=f"{tol} x max(1, max|plain|)",
             ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, peak=peak,
-            bytes=int(nbytes), flops=int(flops), library_ms=None, **extra))
+            bytes=int(nbytes), flops=int(flops), library_ms=None,
+            **cuda_launches(torch, fn), **extra))
 
     nq_valid = int(qm.sum())
     entry("fused_psi_pool", "src/repro_torch/csrc/fused_psi_pool.cu",
@@ -2555,7 +2605,7 @@ def serve_and_check(torch, args):
           SQ8_RTOL,
           lambda: gather_scan.ivf_probe_scan(psi_q, probe, ann.ids, ann.vecs, ann.scales),
           lambda: ref.ivf_scan_ref(psi_q, probe, ann.ids, ann.vecs, ann.scales, chunk=4),
-          scan_bytes, scan_ops, cuda_launches_per_call=2, **spread)
+          scan_bytes, scan_ops, **spread)
 
     pargs = (q, qm, cand, store.tok_pages, store.page_table, store.n_tokens)
     valid = cand >= 0
@@ -2593,7 +2643,7 @@ def serve_and_check(torch, args):
           # CUDA cores, the larger of the bytes and ops_ms_fp32
           bound_ms_fp32_cuda_cores=bound(rr_bytes, rr_ops)[0], path=rr_path,
           ops_ms_3xtf32=3 * rr_ops / PEAK_TF32_S * 1e3, ops_ms_fp32=rr_ops / PEAK_FP32_S * 1e3,
-          max_abs_err_fp64=rr_err64, cuda_launches_per_call=3)
+          max_abs_err_fp64=rr_err64)
 
     trace = profile_batch(torch, r, q, qm)
     lat_ms = [1e3 * x for x in lat]

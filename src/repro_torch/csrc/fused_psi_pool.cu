@@ -26,64 +26,14 @@
 // though psi(0) != 0.
 #include "psi.cuh"
 
-namespace {
-
-template <int C>
-__global__ void __launch_bounds__(kPsiThreads)
-fused_psi_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
-                 const float* __restrict__ W, const float* __restrict__ bias,
-                 const float* __restrict__ gamma, const float* __restrict__ beta,
-                 float* __restrict__ out, int n_rows, int seg_len, int D, int Dp,
-                 int pool, float eps) {
-  extern __shared__ __align__(16) float sm[];
-  float pooled[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) pooled[c] = 0.f;
-  psi_segment<C>(x, mask, W, bias, gamma, beta, out, pooled, blockIdx.x * seg_len,
-                 seg_len, n_rows, D, Dp, pool != 0, eps, sm);
-  if (pool) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = threadIdx.x + c * kPsiThreads;
-      if (j < Dp) out[(size_t)blockIdx.x * Dp + j] = pooled[c];
-    }
-  }
-}
-
-template <int C>
-int launch(const float* x, const uint8_t* mask, const float* W, const float* bias,
-           const float* gamma, const float* beta, float* out, int n_rows,
-           int seg_len, int D, int Dp, int pool, float eps, cudaStream_t stream) {
-  const size_t smem = psi_smem_floats(D, Dp) * sizeof(float);
-  cudaError_t err = allow_smem(fused_psi_kernel<C>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_seg = (n_rows + seg_len - 1) / seg_len;
-  fused_psi_kernel<C><<<n_seg, kPsiThreads, smem, stream>>>(
-      x, mask, W, bias, gamma, beta, out, n_rows, seg_len, D, Dp, pool, eps);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 // pool != 0: out is (n_rows / seg_len, Dp), the masked sum of each segment
 // (mask may be null: every row counts).  pool == 0: out is (n_rows, Dp).
 extern "C" int fused_psi(const void* x, const void* mask, const void* W,
                          const void* bias, const void* gamma, const void* beta,
                          void* out, int n_rows, int seg_len, int D, int Dp,
                          int pool, float eps, void* stream) {
-  const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
-  auto* xf = (const float*)x;
-  auto* mk = (const uint8_t*)mask;
-  auto* Wf = (const float*)W;
-  auto* bf = (const float*)bias;
-  auto* gf = (const float*)gamma;
-  auto* tf = (const float*)beta;
-  auto* of = (float*)out;
-  auto* st = (cudaStream_t)stream;
-  if (cols <= 1) return launch<1>(xf, mk, Wf, bf, gf, tf, of, n_rows, seg_len, D, Dp, pool, eps, st);
-  if (cols <= 2) return launch<2>(xf, mk, Wf, bf, gf, tf, of, n_rows, seg_len, D, Dp, pool, eps, st);
-  if (cols <= 4) return launch<4>(xf, mk, Wf, bf, gf, tf, of, n_rows, seg_len, D, Dp, pool, eps, st);
-  if (cols <= 8) return launch<8>(xf, mk, Wf, bf, gf, tf, of, n_rows, seg_len, D, Dp, pool, eps, st);
-  if (cols <= 16) return launch<16>(xf, mk, Wf, bf, gf, tf, of, n_rows, seg_len, D, Dp, pool, eps, st);
-  return (int)cudaErrorInvalidValue;  // d' > 4096: the wrapper refuses it first
+  return launch_fused_psi((const float*)x, (const uint8_t*)mask, (const float*)W,
+                          (const float*)bias, (const float*)gamma, (const float*)beta,
+                          (float*)out, n_rows, seg_len, D, Dp, pool, eps,
+                          (cudaStream_t)stream);
 }

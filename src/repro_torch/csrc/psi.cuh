@@ -161,3 +161,61 @@ __device__ __forceinline__ void psi_segment(
     else cooperative_groups::this_cluster().sync();
   }
 }
+
+// The fused psi kernel (fused_psi_pool.cu): one block a segment of seg_len
+// rows; pool != 0 writes each segment's masked sum (the one-launch
+// query_fused pools its queries with it too, so both pools have the same
+// bits).
+template <int C>
+__global__ void __launch_bounds__(kPsiThreads)
+fused_psi_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
+                 const float* __restrict__ W, const float* __restrict__ bias,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 float* __restrict__ out, int n_rows, int seg_len, int D, int Dp,
+                 int pool, float eps) {
+  extern __shared__ __align__(16) float sm[];
+  float pooled[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) pooled[c] = 0.f;
+  psi_segment<C>(x, mask, W, bias, gamma, beta, out, pooled, blockIdx.x * seg_len,
+                 seg_len, n_rows, D, Dp, pool != 0, eps, sm);
+  if (pool) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = threadIdx.x + c * kPsiThreads;
+      if (j < Dp) out[(size_t)blockIdx.x * Dp + j] = pooled[c];
+    }
+  }
+}
+
+template <int C>
+int launch_psi(const float* x, const uint8_t* mask, const float* W, const float* bias,
+               const float* gamma, const float* beta, float* out, int n_rows, int seg_len,
+               int D, int Dp, int pool, float eps, cudaStream_t stream) {
+  const size_t smem = psi_smem_floats(D, Dp) * sizeof(float);
+  cudaError_t err = allow_smem(fused_psi_kernel<C>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_seg = (n_rows + seg_len - 1) / seg_len;
+  fused_psi_kernel<C><<<n_seg, kPsiThreads, smem, stream>>>(
+      x, mask, W, bias, gamma, beta, out, n_rows, seg_len, D, Dp, pool, eps);
+  return (int)cudaGetLastError();
+}
+
+// The kernel's instance for d' (C = its columns a thread); d' > 4096 is
+// refused (the wrappers refuse it first).
+inline int launch_fused_psi(const float* x, const uint8_t* mask, const float* W,
+                            const float* bias, const float* gamma, const float* beta,
+                            float* out, int n_rows, int seg_len, int D, int Dp, int pool,
+                            float eps, cudaStream_t stream) {
+  const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
+#define LEMUR_PSI(C)                                                                   \
+  return launch_psi<C>(x, mask, W, bias, gamma, beta, out, n_rows, seg_len, D, Dp, pool, \
+                       eps, stream)
+  if (cols <= 1) LEMUR_PSI(1);
+  if (cols <= 2) LEMUR_PSI(2);
+  if (cols <= 4) LEMUR_PSI(4);
+  if (cols <= 8) LEMUR_PSI(8);
+  if (cols <= 16) LEMUR_PSI(16);
+#undef LEMUR_PSI
+  return (int)cudaErrorInvalidValue;
+}

@@ -22,15 +22,21 @@
 // (chip_smoke.py, one H100; PERF.md).
 //
 // query_fused.  Bound on the H100: device-memory bytes, as the probe scan
-// (ivf_probe_scan.cu: about one operation per byte of the lists), plus the
-// psi-pool's operations.  Design: one block per query.  The block pools its
-// query's tokens with the psi kernel's own code (psi.cuh) into shared
-// memory (the (d',) latent, 8 KB at d' = 2048), then walks its nprobe
-// probes in order: each warp scores whole rows, four at once for more loads
-// in flight, with the probe scan's row dot (common.cuh: the same bits as
-// the scan), pad slots (id < 0) are not read; lane 0 writes each score to
-// the strip (nprobe x cap x 4 bytes a query, 128 KB at 32 x 1024).  Two
-// launches a call, the strip's ids looked up by the selection.
+// (about one operation per byte of the lists), plus the psi-pool's
+// operations.  Design: the psi-pool, the IVF scan by list and the
+// selection, one after another on the stream (five CUDA launches a call):
+// the pool is the fused psi kernel's (psi.cuh: one block a query) into a
+// (B, d') latent in device memory; the scan is ivf_probe_scan's own body
+// (scan_grouped.cuh: the (b, p) pairs grouped by list, each live row staged
+// once for a chunk of up to 8 of its readers), written straight into the
+// (B, P cap) strip, pads and out-of-range probes -inf; the selection is
+// finish_strip's.  So query_fused equals psi-pool + ivf_probe_scan + the
+// stable flat top-k' bit for bit, and reads each live row once a chunk of
+// its readers instead of once a query: 1.87-1.92 ms over SQ8 lists at the
+// served shape, where the one-block-a-query kernel it replaced took
+// 3.72-3.80 (fp32 lists, 256 of them: 1.87-1.93 against 8.27-8.35, a
+// reduced index whose lists have about 8 times the served readers), on one
+// NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md §6, row 7).
 //
 // query_fused_res.  Bound on the H100: the lookups' instructions, as the
 // residual probe scan's (ivf_probe_res_scan.cu: about 4 instructions a
@@ -70,76 +76,13 @@
 // (small), or 4 and a memset (large).
 #include "psi.cuh"
 #include "residual.cuh"
+#include "scan_grouped.cuh"
 #include "select.cuh"
 #include "tc_scan.cuh"
 
 namespace {
 
-constexpr int kWarps = kPsiThreads / 32;
-constexpr int kRowsAtOnce = 4;  // rows a warp scores together
-
-template <typename T, int C>
-__global__ void __launch_bounds__(kPsiThreads)
-query_fused_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
-                   const float* __restrict__ W, const float* __restrict__ bias,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   const int* __restrict__ probe, const int* __restrict__ ids,
-                   const T* __restrict__ vecs, const float* __restrict__ scales,
-                   float* __restrict__ strips, int B, int Tq, int D, int Dp, int P, int cap,
-                   int nlist, float eps, int vectorized) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                           // the pooled latent, (Dp,)
-  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  {
-    float pooled[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) pooled[c] = 0.f;
-    psi_segment<C>(qt, qm, W, bias, gamma, beta, nullptr, pooled, b * Tq, Tq, B * Tq,
-                   D, Dp, true, eps, work);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = tid + c * kPsiThreads;
-      if (j < Dp) qs[j] = pooled[c];
-    }
-  }
-  __syncthreads();                          // the latent is in
-  float* strip = strips + (size_t)b * P * cap;
-  for (int p = 0; p < P; ++p) {
-    const int cl = probe[(size_t)b * P + p];
-    float* sp = strip + (size_t)p * cap;
-    if (cl < 0 || cl >= nlist) {            // block-uniform: every slot a pad
-      for (int r = tid; r < cap; r += kPsiThreads) sp[r] = -INFINITY;
-      continue;
-    }
-    // kRowsAtOnce rows a warp at a time (slots r, r + kWarps, ...); pad
-    // slots are not read and score -inf
-    for (int r = warp; r < cap; r += kRowsAtOnce * kWarps) {
-      const T* rows[kRowsAtOnce];
-      bool any = false;
-#pragma unroll
-      for (int h = 0; h < kRowsAtOnce; ++h) {
-        const int rh = r + h * kWarps;
-        const size_t slot = (size_t)cl * cap + rh;
-        const bool live = rh < cap && ids[slot] >= 0;
-        rows[h] = live ? vecs + slot * Dp : nullptr;
-        any |= live;
-        if (rh < cap && !live && lane == 0) sp[rh] = -INFINITY;
-      }
-      if (!any) continue;                   // warp-uniform
-      float s[kRowsAtOnce];
-      warp_rows_dot<kRowsAtOnce, T>(rows, qs, Dp, vectorized, lane, s);
-#pragma unroll
-      for (int h = 0; h < kRowsAtOnce; ++h) {
-        const int rh = r + h * kWarps;
-        if (rows[h] == nullptr || lane != 0) continue;
-        sp[rh] = scales != nullptr ? s[h] * scales[(size_t)cl * cap + rh] : s[h];
-      }
-    }
-  }
-}
-
-// The second launch: the exact top-kp of each query's strip (pads -inf),
+// The selection: the exact top-kp of each query's strip (pads -inf),
 // positions mapped to ids.
 int finish_strip(float* strips, sel_key_t* scratch, float* out_s, int* out_i,
                  const int* probe, const int* ids, int B, int P, int cap, int kp,
@@ -161,47 +104,25 @@ int finish_strip(float* strips, sel_key_t* scratch, float* out_s, int* out_i,
   return launch_topk_select(a, B, stream);
 }
 
-template <typename T, int C>
-int launch_query_fused(const float* qt, const uint8_t* qm, const float* W,
-                       const float* bias, const float* gamma, const float* beta,
-                       const int* probe, const int* ids, const T* vecs,
-                       const float* scales, float* out_s, int* out_i, float* strips,
-                       sel_key_t* scratch, int B, int Tq, int D, int Dp, int P, int cap,
-                       int nlist, int kp, float eps, cudaStream_t stream) {
-  if (kp < 1) return (int)cudaErrorInvalidValue;
-  const int vectorized = (Dp % (16 / (int)sizeof(T)) == 0) &&
-                         (reinterpret_cast<uintptr_t>(vecs) % 16 == 0);
-  const size_t smem = ((Dp + 3) / 4 * 4 + psi_smem_floats(D, Dp)) * sizeof(float);
-  cudaError_t err = allow_smem(query_fused_kernel<T, C>, smem);
-  if (err != cudaSuccess) return (int)err;
-  query_fused_kernel<T, C><<<B, kPsiThreads, smem, stream>>>(
-      qt, qm, W, bias, gamma, beta, probe, ids, vecs, scales, strips, B, Tq, D, Dp, P, cap,
-      nlist, eps, vectorized);
-  return finish_strip(strips, scratch, out_s, out_i, probe, ids, B, P, cap, kp, stream);
-}
-
 template <typename T>
-int dispatch_query_fused(const void* qt, const void* qm, const void* W, const void* bias,
-                         const void* gamma, const void* beta, const void* probe,
-                         const void* ids, const void* vecs, const void* scales,
-                         void* out_s, void* out_i, void* strips, void* scratch, int B, int Tq,
-                         int D, int Dp, int P, int cap, int nlist, int kp, float eps,
-                         void* stream) {
-#define LEMUR_QF(C)                                                                   \
-  return launch_query_fused<T, C>(                                                    \
-      (const float*)qt, (const uint8_t*)qm, (const float*)W, (const float*)bias,      \
-      (const float*)gamma, (const float*)beta, (const int*)probe, (const int*)ids,    \
-      (const T*)vecs, (const float*)scales, (float*)out_s, (int*)out_i,               \
-      (float*)strips, (sel_key_t*)scratch, B, Tq, D, Dp, P, cap, nlist, kp, eps,      \
-      (cudaStream_t)stream)
-  const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
-  if (cols <= 1) LEMUR_QF(1);
-  if (cols <= 2) LEMUR_QF(2);
-  if (cols <= 4) LEMUR_QF(4);
-  if (cols <= 8) LEMUR_QF(8);
-  if (cols <= 16) LEMUR_QF(16);
-#undef LEMUR_QF
-  return (int)cudaErrorInvalidValue;  // d' > 4096: the wrapper refuses it first
+int launch_query_fused(const void* qt, const void* qm, const void* W, const void* bias,
+                       const void* gamma, const void* beta, const void* probe,
+                       const void* ids, const void* vecs, const void* scales, void* out_s,
+                       void* out_i, void* strips, void* scratch, void* latent,
+                       void* scan_scratch, int B, int Tq, int D, int Dp, int P, int cap,
+                       int nlist, int kp, float eps, void* stream) {
+  if (kp < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_fused_psi((const float*)qt, (const uint8_t*)qm, (const float*)W,
+                             (const float*)bias, (const float*)gamma, (const float*)beta,
+                             (float*)latent, B * Tq, Tq, D, Dp, 1, eps, st);
+  if (err != 0) return err;
+  err = launch_ivf_scan<T>((const float*)latent, (const int*)probe, (const int*)ids,
+                           (const T*)vecs, (const float*)scales, (float*)strips,
+                           (int*)scan_scratch, B, P, cap, Dp, nlist, st);
+  if (err != 0) return err;
+  return finish_strip((float*)strips, (sel_key_t*)scratch, (float*)out_s, (int*)out_i,
+                      (const int*)probe, (const int*)ids, B, P, cap, kp, st);
 }
 
 // -------------------------------------------------------------------------
@@ -292,28 +213,31 @@ int dispatch_query_fused_res(const void* qt, const void* qm, const void* W, cons
 
 // scales == nullptr: fp32 lists; else int8 codes with per-slot scales.
 // qm may be null (every token counts).  Outputs (B, kp) scores and ids.
-// strips (B, P * cap) fp32 and scratch (B, kp) 8-byte keys: device memory
-// for the probed strip's scores and the selection.
+// Device memory: strips (B, P * cap) fp32 for the probed strip's scores,
+// scratch (B, kp) 8-byte keys for the selection, latent (B, Dp) fp32 for
+// the pooled queries and scan_scratch ivf_probe_scan_scratch(B, P, nlist)
+// int32 words for the grouping.
 extern "C" int query_fused_fp32(const void* qt, const void* qm, const void* W,
                                 const void* bias, const void* gamma, const void* beta,
                                 const void* probe, const void* ids, const void* vecs,
-                                void* out_s, void* out_i, void* strips, void* scratch, int B,
-                                int Tq, int D, int Dp, int P, int cap, int nlist, int kp,
-                                float eps, void* stream) {
-  return dispatch_query_fused<float>(qt, qm, W, bias, gamma, beta, probe, ids, vecs,
-                                     nullptr, out_s, out_i, strips, scratch, B, Tq, D, Dp, P,
-                                     cap, nlist, kp, eps, stream);
+                                void* out_s, void* out_i, void* strips, void* scratch,
+                                void* latent, void* scan_scratch, int B, int Tq, int D, int Dp,
+                                int P, int cap, int nlist, int kp, float eps, void* stream) {
+  return launch_query_fused<float>(qt, qm, W, bias, gamma, beta, probe, ids, vecs, nullptr,
+                                   out_s, out_i, strips, scratch, latent, scan_scratch, B, Tq,
+                                   D, Dp, P, cap, nlist, kp, eps, stream);
 }
 
 extern "C" int query_fused_sq8(const void* qt, const void* qm, const void* W,
                                const void* bias, const void* gamma, const void* beta,
                                const void* probe, const void* ids, const void* codes,
                                const void* scales, void* out_s, void* out_i, void* strips,
-                               void* scratch, int B, int Tq, int D, int Dp, int P, int cap,
-                               int nlist, int kp, float eps, void* stream) {
-  return dispatch_query_fused<int8_t>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
-                                      scales, out_s, out_i, strips, scratch, B, Tq, D, Dp, P,
-                                      cap, nlist, kp, eps, stream);
+                               void* scratch, void* latent, void* scan_scratch, int B, int Tq,
+                               int D, int Dp, int P, int cap, int nlist, int kp, float eps,
+                               void* stream) {
+  return launch_query_fused<int8_t>(qt, qm, W, bias, gamma, beta, probe, ids, codes, scales,
+                                    out_s, out_i, strips, scratch, latent, scan_scratch, B,
+                                    Tq, D, Dp, P, cap, nlist, kp, eps, stream);
 }
 
 // codes (nlist, cap, Dp * bits / 8) uint8 against each list's own centroid;

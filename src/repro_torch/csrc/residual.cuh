@@ -17,12 +17,16 @@
 // second a lookup a code in a table of q[k] values[k][l] that depends on
 // the query and not on the list, so a block scores rows of any of its
 // lists against one table.  It differs from q . decode(row) by fp32
-// rounding (the plain versions decode, then score).  Both scans are
-// bounded by the lookups' instructions (a shift, a lookup and an add a
-// code: a floor of about 0.8 ms for 256 queries x 12,471 rows x 2,048
-// codes at 32 lookups a clock an SM); res_scan walks only live slots,
-// keeps the next group's words in flight while it sums a group, and builds
-// the table once a chunk of up to 2,048 rows of any list.
+// rounding (the plain versions decode, then score).  res_scan is
+// query_fused_res's scorer, one query a block: bounded by the lookups'
+// instructions (a shift, a lookup and an add a code: a floor of about 0.8
+// ms for 256 queries x 12,471 rows x 2,048 codes at 32 lookups a clock an
+// SM), it walks only live slots, keeps the next group's words in flight
+// while it sums a group, and builds the table once a chunk of up to 2,048
+// rows of any list.  ivf_probe_res_scan groups the (query, probe) pairs by
+// list instead and sums the same terms in the same order with the values
+// table in shared memory, each lookup serving up to 4 queries
+// (ivf_probe_res_scan.cu), so both residual routes score a row alike.
 #pragma once
 
 #include "common.cuh"
@@ -43,8 +47,8 @@ __device__ __forceinline__ float res_decode(float centroid, float value) {
 }
 
 // Scoring residual rows against a query, by a whole block of kResThreads
-// threads (the probe scan and the one-launch query both score this way, so a
-// row gets the same bits in both).
+// threads (the one-launch query scores this way; the probe scan by list
+// reproduces its sums, so a row gets the same bits in both).
 constexpr int kResThreads = 256;
 constexpr int kResWarps = kResThreads / 32;
 constexpr int kResRowsPerWarp = 16;                     // rows a warp scores at once

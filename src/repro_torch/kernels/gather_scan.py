@@ -219,9 +219,14 @@ def ivf_probe_res_scan(q, probe, ids, codes, centroids, values):
     q: (B, d) fp32; probe: (B, nprobe) int32; ids: (nlist, cap) int32 (-1
     padded); codes: (nlist, cap, d * bits / 8) uint8, each row coded against
     its own list's centroid; centroids: (nlist, d) fp32; values: (d, 2^bits)
-    fp32 -> (B, nprobe, cap) fp32, pad slots -inf.  The kernel reads the
-    codes a 4-byte word at a time where a row is whole words, else a byte
-    at a time."""
+    fp32 -> (B, nprobe, cap) fp32, pad slots -inf.  On the card the (b, p)
+    pairs are grouped by list first, as ``ivf_probe_scan`` groups them
+    (csrc/ivf_probe_res_scan.cu; plain twin ``ref.res_scan_split``): each
+    live row is read once for a chunk of up to 4 of the queries that probe
+    its list, each code looked up once for all of them; each score has the
+    bits of ``query_fused_res``'s scorer.  The kernel reads the codes a
+    4-byte word at a time where a row is whole words, else a byte at a
+    time."""
     if q.device.type == "cpu":
         return ref.ivf_scan_res_ref(q, probe, ids, codes, centroids, values)
     B, d = q.shape
@@ -242,11 +247,15 @@ def ivf_probe_res_scan(q, probe, ids, codes, centroids, values):
     if out.numel() == 0:
         return out
     lib = build.library("ivf_probe_res_scan")
+    lib.ivf_probe_res_scan_scratch.argtypes = [_i] * 3
+    lib.ivf_probe_res_scan_scratch.restype = ctypes.c_longlong
+    scratch = torch.empty((lib.ivf_probe_res_scan_scratch(B, P, nlist),), dtype=torch.int32,
+                          device=dev)
     fn = lib.ivf_probe_res_scan
-    fn.argtypes = [_p] * 7 + [_i] * 6 + [_p]
+    fn.argtypes = [_p] * 8 + [_i] * 6 + [_p]
     err = fn(q.data_ptr(), probe.data_ptr(), ids.data_ptr(), codes.data_ptr(),
-             centroids.data_ptr(), values.data_ptr(), out.data_ptr(), B, P, cap, d, nlist,
-             bits, build.stream_ptr(q))
+             centroids.data_ptr(), values.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, P,
+             cap, d, nlist, bits, build.stream_ptr(q))
     build.check(lib, err, "ivf_probe_res_scan")
     ivf_probe_res_scan.launches += 1
     return out

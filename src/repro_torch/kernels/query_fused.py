@@ -2,8 +2,10 @@
 kernels in ``csrc/query_fused.cu``).
 
 ``query_fused``: psi-pool + IVF probe scan + top-k' of each query, the
-probed strip's scores through device memory and an exact selection (two
-launches a call, any k'); ``query_fused_res`` the same over residual lists.
+pooled latent and the probed strip's scores through device memory, the
+scan grouped by list (``ivf_probe_scan``'s body) and an exact selection
+(five CUDA launches a call, any k'); ``query_fused_res`` the same over
+residual lists, pool and scan in one kernel (two launches a call).
 ``mips_topk``: dense latent scan + top-k', fp32 or SQ8 rows, the product on
 the tensor cores (``csrc/tc_scan.cuh``) and the selection in device memory
 (``csrc/select.cuh``), for any k' (see the function).  All order the top-k
@@ -55,7 +57,11 @@ def query_fused(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
     cap, d') fp32, or int8 codes with scales (nlist, cap) -> (scores (B, kp)
     fp32, ids (B, kp) int32), short rows padded with (-inf, -1).  The kernel
     takes any kp >= 1 and d' <= MAX_D_PRIME; ``chunk`` bounds the plain
-    version's gather (query rows at a time) and the kernel ignores it."""
+    version's gather (query rows at a time) and the kernel ignores it.  On
+    the card the call pools with the psi kernel, scans with
+    ``ivf_probe_scan``'s body and selects (``ref.query_fused_grouped`` is
+    its plain twin), so it equals ``fused_psi_pool`` + ``ivf_probe_scan`` +
+    a stable top-kp bit for bit."""
     if q_tokens.device.type == "cpu":
         return ref.query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
                                    probe, ids, vecs, scales, kp=kp, chunk=chunk)
@@ -86,18 +92,25 @@ def query_fused(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
               ln_scale.data_ptr(), ln_bias.data_ptr(), probe.data_ptr(), ids.data_ptr(),
               vecs.data_ptr())
     strips, scratch = _strip(B, P, cap, kp, dev)
+    # the pooled queries and the scan's grouping of the (b, p) pairs by list
+    latent = torch.empty((B, dp), dtype=torch.float32, device=dev)
+    lib.ivf_probe_scan_scratch.argtypes = [_i] * 3
+    lib.ivf_probe_scan_scratch.restype = _ll
+    groups = torch.empty((lib.ivf_probe_scan_scratch(B, P, nlist),), dtype=torch.int32,
+                         device=dev)
     tail = (out_s.data_ptr(), out_i.data_ptr(), strips.data_ptr(), scratch.data_ptr(),
-            B, Tq, d, dp, P, cap, nlist, kp, float(eps), build.stream_ptr(q_tokens))
+            latent.data_ptr(), groups.data_ptr(), B, Tq, d, dp, P, cap, nlist, kp, float(eps),
+            build.stream_ptr(q_tokens))
     if scales is not None:
         build.expect(vecs, "vecs", torch.int8, (nlist, cap, dp), dev, align=1)
         build.expect(scales, "scales", torch.float32, (nlist, cap), dev, align=4)
         fn = lib.query_fused_sq8
-        fn.argtypes = [_p] * 14 + [_i] * 8 + [ctypes.c_float, _p]
+        fn.argtypes = [_p] * 16 + [_i] * 8 + [ctypes.c_float, _p]
         err = fn(*common, scales.data_ptr(), *tail)
     else:
         build.expect(vecs, "vecs", torch.float32, (nlist, cap, dp), dev, align=4)
         fn = lib.query_fused_fp32
-        fn.argtypes = [_p] * 13 + [_i] * 8 + [ctypes.c_float, _p]
+        fn.argtypes = [_p] * 15 + [_i] * 8 + [ctypes.c_float, _p]
         err = fn(*common, *tail)
     build.check(lib, err, "query_fused")
     query_fused.launches += 1

@@ -134,6 +134,24 @@ def ivf_scan_grouped(q, probe, ids, vecs, scales=None, *, chunk: int = 8):
     return out.reshape(B, P, cap)
 
 
+def query_fused_grouped(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
+                        vecs, scales=None, *, kp: int, chunk: int = 8):
+    """The one-launch first stage as the card runs it (csrc/query_fused.cu):
+    psi-pool, the scan through :func:`ivf_scan_grouped` (the (b, p) pairs
+    grouped by list, ``chunk`` a work item), the stable flat top-kp; ids
+    (nlist, cap), pads -inf, out-of-range probes a strip of -inf.  Returns
+    (scores (B, kp), ids (B, kp)) padded with (-inf, -1), as
+    :func:`query_fused_ref`."""
+    psi_q = psi_pool_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias)
+    sc = ivf_scan_grouped(psi_q, probe, ids, vecs, scales, chunk=chunk)
+    nlist = ids.shape[0]
+    inr = (probe >= 0) & (probe < nlist)
+    flat_i = torch.where(inr[..., None], ids[probe.long().clamp(0, nlist - 1)], -1)
+    flat_s = sc.reshape(sc.shape[0], -1)
+    top, pos = stable_topk(flat_s, min(kp, flat_s.shape[1]))
+    return pad_topk(top, torch.gather(flat_i.reshape(sc.shape[0], -1), 1, pos), kp)
+
+
 def ivf_scan_res_ref(q, probe, ids, codes, centroids, values, *,
                      chunk: int | None = None):
     """Decode-then-score IVF probe scan over packed residual lists, each row

@@ -10,19 +10,22 @@ variant a copy of the sources with a few lines edited, and times each
 shapes:
 
 - ``query_fused_res`` and ``ivf_probe_res_scan``: 256 queries x 32 tokens,
-  d 128, nprobe 32 distinct lists a query drawn at random from 2,048
-  residual lists of cap 1,024, d' 2,048 at 4 bits, list lengths drawn
-  from a gamma distribution of mean 390 (the served index scans about
-  12,471 rows a query), k' 1,024;
+  d 128, 2,048 residual lists of cap 1,024, d' 2,048 at 4 bits, list
+  lengths drawn from a gamma distribution of mean 390 and filled from the
+  front, 32 distinct lists a query drawn with weights proportional to their
+  lengths (large lists have many readers, as on the served index), k'
+  1,024;
 - ``rerank_paged_res_scores``: the same queries x 1,024 candidates drawn
   from 800,000 docs of Poisson(67.5) tokens in [4, 80], 16-token pages of
   64 B of codes and 16 centroid ids, a codec of 256 centroids.
 
 The variants of each kernel are in ``VARIANTS`` (file: edits); only
 ``as_built`` computes the kernel's function, the others measure and
-nothing else.  ``select`` times the one-launch kernel's selection alone,
-over the same probes' strip.  Prints one JSON object with the card's
-name and power limit.
+nothing else; ``ivf_probe_res_scan``'s variants time the grouped scan's
+designs (``product_table``: design (ii)), its queries a work item, pipes,
+rows at once, stages and slots a work item.  ``select`` times the one-launch
+kernel's selection alone, over the same probes' strip.  Prints one JSON
+object with the card's name and power limit and the probes' spread.
 """
 from __future__ import annotations
 
@@ -70,6 +73,92 @@ VARIANTS = {
     },
     "ivf_probe_res_scan": {
         "as_built": {},
+        # design (ii): one table of q[k] values[k][l] for a chunk of one
+        # query (the only chunk whose table of every dim fits beside the
+        # ring), built an item by the consumer warps, each pair and code a
+        # lookup and an add; one pipe
+        "product_table": {"ivf_probe_res_scan.cu": [
+            ("constexpr int kRsPipes = 2;", "constexpr int kRsPipes = 1;"),
+            ("constexpr int kRsQ = 4;", "constexpr int kRsQ = 1;"),
+            ("          const float qk = WIDE ? __ldg(qg[u] + k) : qr[u][i * cpw + j];\n"
+             "          part[h][u] += __fmul_rn(qk, v);",
+             "          part[h][u] += WIDE ? __fmul_rn(__ldg(qg[u] + k), v) : v;"),
+            ("    if constexpr (!WIDE) {\n#pragma unroll\n      for (int i = 0; i < kWords; ++i)",
+             "    if constexpr (false) {\n#pragma unroll\n      for (int i = 0; i < kWords; ++i)"),
+            ("  if constexpr (!WIDE) {                               // the table, once a block",
+             "  if constexpr (false) {"),
+            ("    const int* cp = pairs + ck.first;\n    const float* cent",
+             "    const int* cp = pairs + ck.first;\n"
+             "    if constexpr (!WIDE) {\n"
+             "      res_consumers_sync();\n"
+             "      const float* q0 = q + (size_t)(cp[0] / P) * D;\n"
+             "      for (int k = threadIdx.x; k < D; k += kRsWarps * 32) {\n"
+             "        const float4* v4 = reinterpret_cast<const float4*>(values + (size_t)k * L);\n"
+             "        const int col = k + (k >> 5);\n"
+             "        const float qk = __ldg(q0 + k);\n"
+             "        for (int l4 = 0; l4 < L / 4; ++l4) {\n"
+             "          const float4 v = __ldg(v4 + l4);\n"
+             "          sm.Vs[(4 * l4 + 0) * stride + col] = qk * v.x;\n"
+             "          sm.Vs[(4 * l4 + 1) * stride + col] = qk * v.y;\n"
+             "          sm.Vs[(4 * l4 + 2) * stride + col] = qk * v.z;\n"
+             "          sm.Vs[(4 * l4 + 3) * stride + col] = qk * v.w;\n"
+             "        }\n"
+             "      }\n"
+             "      res_consumers_sync();\n"
+             "    }\n"
+             "    const float* cent")]},
+        # queries a work item (every consumer warp holds them all): 2
+        "q_2": {"ivf_probe_res_scan.cu": [("constexpr int kRsQ = 4;", "constexpr int kRsQ = 2;")]},
+        # pipes a block: 1 and 3 (4 and 12 consumer warps)
+        "pipes_1": {"ivf_probe_res_scan.cu": [("constexpr int kRsPipes = 2;",
+                                               "constexpr int kRsPipes = 1;")]},
+        "pipes_3": {"ivf_probe_res_scan.cu": [
+            ("constexpr int kRsPipes = 2;", "constexpr int kRsPipes = 3;"),
+            ("constexpr int kRsStageBytes = 16 * 1024;",
+             "constexpr int kRsStageBytes = 8 * 1024;")]},
+        # rows a consumer warp scores at once: 1 and 4
+        "rows_1": {"ivf_probe_res_scan.cu": [("constexpr int kRsRows = 2;",
+                                              "constexpr int kRsRows = 1;")]},
+        "rows_4": {"ivf_probe_res_scan.cu": [("constexpr int kRsRows = 2;",
+                                              "constexpr int kRsRows = 4;")]},
+        # the ring's depth: 3 and 4 windows of 8 rows, and 1 of 16
+        "stages_3_win_8": {"ivf_probe_res_scan.cu": [
+            ("constexpr int kRsStages = 2;", "constexpr int kRsStages = 3;"),
+            ("constexpr int kRsStageBytes = 16 * 1024;",
+             "constexpr int kRsStageBytes = 8 * 1024;")]},
+        "stages_4_win_8": {"ivf_probe_res_scan.cu": [
+            ("constexpr int kRsStages = 2;", "constexpr int kRsStages = 4;"),
+            ("constexpr int kRsStageBytes = 16 * 1024;",
+             "constexpr int kRsStageBytes = 8 * 1024;")]},
+        "stages_1": {"ivf_probe_res_scan.cu": [("constexpr int kRsStages = 2;",
+                                                "constexpr int kRsStages = 1;")]},
+        # the slots a work item: 128 and 512
+        "range_128": {"ivf_probe_res_scan.cu": [("constexpr int kRsRange = 256;",
+                                                 "constexpr int kRsRange = 128;")]},
+        "range_512": {"ivf_probe_res_scan.cu": [("constexpr int kRsRange = 256;",
+                                                 "constexpr int kRsRange = 512;")]},
+        # no scoring: each tile sums a value of its row (the walk, the
+        # copies, the table, q and the producer's sums kept)
+        "no_dots": {"ivf_probe_res_scan.cu": [
+            ("          const float v = res_tile_dots<BITS, WHOLE, WIDE, kRsRows, G>(\n"
+             "              rows, t, qr, qg, sm.Vs, stride, values, D, lane, idx);",
+             "          idx = lane / (32 / kSums);"
+             " const float v = qr[0][0] + (float)rows[idx / G % kRsRows][lane];")]},
+        # one warp_sum a (row, query), not the reduce-scatter (the same bits)
+        "warp_sums": {"ivf_probe_res_scan.cu": [
+            ("  return warp_sum_scatter(x, lane, idx);",
+             "  idx = lane / (32 / N);\n  float r = 0.f;\n"
+             "  for (int e = 0; e < N; ++e) {\n"
+             "    const float y = warp_sum(x[e]);\n    if (e == idx) r = y;\n  }\n  return r;")]},
+        # the table not built (the lookups read what is in shared memory)
+        "no_table": {"ivf_probe_res_scan.cu": [
+            ("for (int k = threadIdx.x; k < D; k += kRsWarps * 32) {",
+             "for (int k = threadIdx.x; k < 0; k += kRsWarps * 32) {")]},
+        # the rows not copied (the scoring reads what is in the stage)
+        "no_copies": {"scan_grouped.cuh": [
+            ("if (STAGED) mbar_expect_tx(&full[st], (uint32_t)(__popc(wm) * rowbytes));",
+             "if (STAGED) mbar_arrive(&full[st]);"),
+            ("      if (STAGED && mine)\n", "      if (STAGED && mine && rowbytes < 0)\n")]},
     },
     "rerank_paged_res": {
         "as_built": {},
@@ -178,8 +267,17 @@ def main():
     psi = Psi.init(D, DP, torch.Generator().manual_seed(0), device=dev)
     w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
     lst = lists(gen, rng, dev)
-    probe = torch.rand(B, NLIST, generator=gen, device=dev).argsort(1)[:, :P].int().contiguous()
+    # 32 distinct lists a query, drawn with weights proportional to their
+    # lengths (large lists have many readers, as on the served index)
+    counts = (lst[0] >= 0).sum(1)
+    probe = torch.multinomial((counts + 1.0)[None].expand(B, NLIST), P,
+                              generator=gen).int().contiguous()
     rows = int((lst[0][probe.long()] >= 0).sum()) / B
+    readers = torch.bincount(probe.long().flatten(), minlength=NLIST)
+    spread = {"rows_probe_by_probe": int(counts[probe.long()].sum()),
+              "distinct_live_rows": int(counts[readers > 0].sum()),
+              "readers_max": int(readers.max()),
+              "readers_mean": float(readers[readers > 0].float().mean())}
     psi_q = torch.nn.functional.normalize(torch.randn(B, DP, generator=gen, device=dev), dim=-1)
     res = {}
     for (source, name), lib in libs.items():
@@ -214,7 +312,7 @@ def main():
                                       f"live rows a query, k' {KP}",
                    "rerank_paged_res_scores": f"B {B} x k' {KP}, Tq {TQ}, d {D}, 16-token "
                                               f"pages, {BITS} bits, {NCENT} centroids"},
-        **res}))
+        "probes": spread, **res}))
 
 
 if __name__ == "__main__":

@@ -2,16 +2,22 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.serve_ablation
 
-Builds ``csrc/ivf_probe_scan.cu`` and ``csrc/rerank_paged.cu`` several ways
-into ``build/ablation/`` (all nvcc processes started together), each variant
-a copy of the sources with a few lines edited, and times each (CUDA events,
-median of 10) through the port's own wrappers at the served shapes:
+Builds ``csrc/ivf_probe_scan.cu`` (its body ``csrc/scan_grouped.cuh``) and
+``csrc/rerank_paged.cu`` several ways into ``build/ablation/`` (all nvcc
+processes started together), each variant a copy of the sources with a few
+lines edited, and times each (CUDA events, median of 10) through the port's
+own wrappers at the served shapes:
 
 - ``ivf_probe_scan``: 256 pooled queries of d' 2,048 against 2,048 SQ8
   lists of cap 1,024, list lengths drawn from a gamma distribution of mean
   390 and filled from the front; each query probes 32 distinct lists drawn
   with weights proportional to their lengths (large lists have many
   readers, as on the served index);
+- ``query_fused`` (the one-launch IVF first stage, which runs the scan's
+  body) on the same lists and probes, 256 queries of 32 unit tokens of d
+  128, psi from the seed, k' 1,024: the whole call, and its psi-pool, its
+  grouping (``group_only``: the scan's work items return at once), its scan
+  and its selection each alone;
 - ``rerank_paged_scores``: the same 256 queries of 32 tokens x 1,024
   candidates drawn from 800,000 docs of Poisson(67.5) tokens in [4, 80],
   fp32 pages of 16 tokens of d 128.
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.anns.quantization import sq8_quant
-from repro_torch.kernels import build, gather_scan
+from repro_torch.core.model import Psi
+from repro_torch.kernels import build, fused_psi, gather_scan, query_fused
 from repro_torch.kernels._ablation import build_variants, card, time_ms
 
 # source -> variant -> {file: [(old, new), ...]}
@@ -39,55 +46,61 @@ VARIANTS = {
     "ivf_probe_scan": {
         "as_built": {},
         # consumer warps a block and queries a warp (G = their product)
-        "qw1_w4": {"ivf_probe_scan.cu": [("constexpr int kScanQW = 2;",
+        "qw1_w4": {"scan_grouped.cuh": [("constexpr int kScanQW = 2;",
                                           "constexpr int kScanQW = 1;")]},
-        "qw1_w8": {"ivf_probe_scan.cu": [
+        "qw1_w8": {"scan_grouped.cuh": [
             ("constexpr int kScanWarps = 4;", "constexpr int kScanWarps = 8;"),
             ("constexpr int kScanQW = 2;", "constexpr int kScanQW = 1;")]},
-        "qw2_w8": {"ivf_probe_scan.cu": [
+        "qw2_w8": {"scan_grouped.cuh": [
             ("constexpr int kScanWarps = 4;", "constexpr int kScanWarps = 8;"),
             ("constexpr int kScanMinBlocks = 2;", "constexpr int kScanMinBlocks = 1;")]},
         # rows a consumer warp scores at once: 1 and 4
-        "rows_1": {"ivf_probe_scan.cu": [("constexpr int kScanRows = 2;",
+        "rows_1": {"scan_grouped.cuh": [("constexpr int kScanRows = 2;",
                                           "constexpr int kScanRows = 1;")]},
-        "rows_4": {"ivf_probe_scan.cu": [
+        "rows_4": {"scan_grouped.cuh": [
             ("constexpr int kScanRows = 2;", "constexpr int kScanRows = 4;"),
             ("constexpr int kScanMinBlocks = 2;", "constexpr int kScanMinBlocks = 1;")]},
         # the slots a work item: 128 and 512
-        "range_128": {"ivf_probe_scan.cu": [("constexpr int kScanRange = 256;",
+        "range_128": {"scan_grouped.cuh": [("constexpr int kScanRange = 256;",
                                              "constexpr int kScanRange = 128;")]},
-        "range_512": {"ivf_probe_scan.cu": [("constexpr int kScanRange = 256;",
+        "range_512": {"scan_grouped.cuh": [("constexpr int kScanRange = 256;",
                                              "constexpr int kScanRange = 512;")]},
         # the ring's depth: 2 and 4 windows
-        "stages_2": {"ivf_probe_scan.cu": [("constexpr int kScanStages = 3;",
+        "stages_2": {"scan_grouped.cuh": [("constexpr int kScanStages = 3;",
                                             "constexpr int kScanStages = 2;")]},
-        "stages_4": {"ivf_probe_scan.cu": [("constexpr int kScanStages = 3;",
+        "stages_4": {"scan_grouped.cuh": [("constexpr int kScanStages = 3;",
                                             "constexpr int kScanStages = 4;")]},
         # every code widened by the conversion instruction (the parent's),
         # or one code in four (it issues on another pipe)
-        "i2f_widening": {"ivf_probe_scan.cu": [
+        "i2f_widening": {"scan_grouped.cuh": [
             ("for (int k = 0; k < kPer; ++k) x[k] = s8_to_float(w[k / 4], k % 4);",
              "for (int k = 0; k < kPer; ++k)"
              " x[k] = (float)(int8_t)(((w[k / 4] ^ 0x80808080u) >> (8 * (k % 4))) & 0xff);")]},
-        "i2f_byte3": {"ivf_probe_scan.cu": [
+        "i2f_byte3": {"scan_grouped.cuh": [
             ("for (int k = 0; k < kPer; ++k) x[k] = s8_to_float(w[k / 4], k % 4);",
              "for (int k = 0; k < kPer; ++k) x[k] = k % 4 == 3"
              " ? (float)(int8_t)((w[k / 4] ^ 0x80808080u) >> 24) : s8_to_float(w[k / 4], k % 4);")]},
         # no dot: each staged row scores a value of its own (walk, copies,
         # q in registers and the row's reads kept)
-        "no_dots": {"ivf_probe_scan.cu": [
+        "no_dots": {"scan_grouped.cuh": [
             ("rows_dots_reg<T, kScanRows, kScanQW>(rows, qr, D, lane, sc);",
              "for (int h = 0; h < kScanRows; ++h) for (int u = 0; u < kScanQW; ++u)"
              " sc[h][u] = qr[u][0] + (float)rows[h][lane];")]},
         # the warp sums left out (each lane's partial scores the row)
-        "no_warp_sum": {"ivf_probe_scan.cu": [
+        "no_warp_sum": {"scan_grouped.cuh": [
             ("for (int u = 0; u < QW; ++u) s[h][u] = warp_sum(acc[h][u]);",
              "for (int u = 0; u < QW; ++u) s[h][u] = acc[h][u];")]},
         # the rows not copied (the dots read what is in the stage)
-        "no_copies": {"ivf_probe_scan.cu": [
+        "no_copies": {"scan_grouped.cuh": [
             ("if (STAGED) mbar_expect_tx(&full[st], (uint32_t)(__popc(wm) * rowbytes));",
-             "if (VEC) mbar_arrive(&full[st]);"),
-            ("        if (STAGED && mine)\n", "        if (STAGED && mine && D < 0)\n")]},
+             "if (STAGED) mbar_arrive(&full[st]);"),
+            ("      if (STAGED && mine)\n", "      if (STAGED && mine && rowbytes < 0)\n")]},
+        # the grouping alone: every work item returns at once
+        "group_only": {"scan_grouped.cuh": [
+            ("  if ((int)blockIdx.x >= *nchunks) return;\n"
+             "  const ScanChunk ck = chunks[blockIdx.x];\n",
+             "  if ((int)blockIdx.x >= 0) return;\n"
+             "  const ScanChunk ck = chunks[blockIdx.x];\n")]},
     },
     "rerank_paged": {
         "as_built": {},
@@ -183,11 +196,31 @@ def main():
         if source == "ivf_probe_scan":
             res[f"{source}_{name}_ms"] = time_ms(with_lib(source, lib, lambda: (
                 gather_scan.ivf_probe_scan(psi_q, probe, ids, codes, scales))))
-    del ids, codes, scales
-    torch.cuda.empty_cache()
-    tok, table, nt = pool(gen, rng, dev)
+    # query_fused and its phases apart, on pooled queries: the psi-pool, the
+    # grouping (the scan's items returning at once), the scan, the selection
     q = torch.nn.functional.normalize(torch.randn(B, TQ, D, generator=gen, device=dev), dim=-1)
     qm = torch.ones(B, TQ, dtype=torch.bool, device=dev)
+    psi = Psi.init(D, DP, torch.Generator().manual_seed(0), device=dev)
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    lat = fused_psi.fused_psi_pool(q, qm, *w)
+    scan = ("ivf_probe_scan", "as_built")
+    strip = gather_scan.ivf_probe_scan(lat, probe, ids, codes, scales).reshape(B, P * CAP)
+    out = (torch.empty(B, KP, device=dev), torch.empty(B, KP, dtype=torch.int32, device=dev))
+    res["query_fused"] = {
+        "as_built_ms": time_ms(lambda: query_fused.query_fused(
+            q, qm, *w, probe, ids, codes, scales, kp=KP)),
+        "pool_ms": time_ms(lambda: fused_psi.fused_psi_pool(q, qm, *w)),
+        "group_ms": time_ms(with_lib("ivf_probe_scan", libs[("ivf_probe_scan", "group_only")],
+                                     lambda: gather_scan.ivf_probe_scan(
+                                         lat, probe, ids, codes, scales))),
+        "scan_ms": time_ms(with_lib("ivf_probe_scan", libs[scan], lambda: (
+            gather_scan.ivf_probe_scan(lat, probe, ids, codes, scales)))),
+        "select_ms": time_ms(lambda: query_fused._select(
+            build.library("query_fused"), strip, None, P * CAP, None, P * CAP, 0, out, B, KP,
+            stream=build.stream_ptr(strip)))}
+    del ids, codes, scales, strip
+    torch.cuda.empty_cache()
+    tok, table, nt = pool(gen, rng, dev)
     cand = torch.randint(0, M_DOCS, (B, KP), generator=gen, device=dev, dtype=torch.int32)
     for (source, name), lib in libs.items():
         if source == "rerank_paged":

@@ -1092,9 +1092,95 @@ def test_ivf_scan_grouped_under_skew(cuda, case, B, nlist, cap, dp, nprobe, sq8)
     assert bool(torch.isneginf(got[~fin]).all())
     denom = max(1.0, float(want[fin].abs().max()))
     assert float((got[fin] - want[fin]).abs().max()) / denom < SQ8_RTOL
-    kp = nprobe * cap + 5
-    s, i = ops.KERNELS["query_fused"](q, qm, *w, gp, gi, *lists, kp=kp)
+    # query_fused pools, scans with this body and selects: at k' past the
+    # strip and at k' 100, psi-pool + ivf_probe_scan + a stable top-k' bit
+    # for bit, and its plain twin's ids up to near-ties
     flat_i = torch.where(inr[..., None], gi[gp.clamp(0, nlist - 1).long()], -1).reshape(B, -1)
-    top, pos = stable_topk(got.reshape(B, -1), nprobe * cap)
-    top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
-    assert torch.equal(i, idx) and torch.equal(s, top)
+    for kp in (nprobe * cap + 5, 100):
+        n0 = ops.launch_counts()["query_fused"]
+        s, i = ops.KERNELS["query_fused"](q, qm, *w, gp, gi, *lists, kp=kp)
+        assert ops.launch_counts()["query_fused"] == n0 + 1
+        top, pos = stable_topk(got.reshape(B, -1), min(kp, nprobe * cap))
+        top, idx = pad_topk(top, torch.gather(flat_i, 1, pos), kp)
+        assert torch.equal(i, idx) and torch.equal(s, top)
+    _same_topk(s, i, *ref.query_fused_grouped(q, qm, *w, gp, gi, *lists, kp=kp),
+               SQ8_RTOL if sq8 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,B,nlist,cap,dp,nprobe,bits", [
+    ("one_list", 20, 6, 300, 2048, 3, 4),     # every query probes list 2: 20 readers > 16
+    ("one_list", 20, 6, 300, 2048, 3, 2),
+    ("empty_lists", 6, 8, 64, 2048, 4, 4),    # lists 1 and 5 empty
+    ("holes", 5, 6, 300, 2048, 3, 2),         # -1 anywhere among live slots
+    ("dup_out_of_range", 5, 6, 40, 2048, 4, 4),  # a list twice, probes -1 and nlist + 3
+    ("cap_1", 7, 9, 1, 2048, 4, 2),
+    ("cap_off_tile", 4, 5, 300, 20, 3, 4),    # cap off 32 and 256; rows of 10 B
+    ("cap_off_tile", 4, 5, 300, 1008, 3, 2),  # rows of 252 B: words, not 16-byte chunks
+    ("bytes", 5, 6, 130, 2044, 3, 4),         # rows of 1,022 B: not whole words
+    ("bytes", 5, 6, 130, 2040, 3, 2),         # 510 B
+    ("one_list_4096", 20, 6, 300, 4096, 3, 4),  # d' past the registers' q and the table
+    ("holes_4096", 5, 6, 300, 4096, 3, 2),
+    ("wide_words", 5, 6, 100, 4104, 3, 4),    # 2,052 B: words, not 16-byte chunks
+    ("wide_words", 5, 6, 100, 4112, 3, 2),    # 1,028 B
+    ("wide_bytes", 5, 6, 100, 4098, 3, 4),    # 2,049 B
+    ("wide_bytes", 5, 6, 100, 4104, 3, 2),    # 1,026 B
+])
+@pytest.mark.parametrize("exact", [False, True], ids=["float", "integer"])
+def test_ivf_res_scan_grouped_under_skew(cuda, case, B, nlist, cap, dp, nprobe, bits, exact):
+    """ivf_probe_res_scan walks lists, not queries, in every kernel instance
+    (rows staged or read from device memory as words or bytes; d' up to and
+    past 2,048): skewed readers, empty lists, holes, duplicate and
+    out-of-range probes, cap 1 and off the tiles.  Scores as the emulation
+    of the scorer's arithmetic (ref.res_scan_split, within 1e-5 x max(1,
+    max|emulation|); exactly on integer tables, where every sum is exact),
+    pads and out-of-range strips -inf; query_fused_res (d' <= 4,096) equals
+    psi-pool + ivf_probe_res_scan + a stable top-k' bit for bit."""
+    rng = np.random.default_rng(nlist * cap + dp + bits)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    d, Tq = 16, 6
+    ids = rng.permutation(10 ** 6)[:nlist * cap].reshape(nlist, cap).astype(np.int32)
+    live = rng.integers(cap // 2, cap + 1, nlist) if cap > 1 else np.ones(nlist, np.int64)
+    ids[np.arange(cap)[None, :] >= live[:, None]] = -1
+    probe = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(B)]).astype(np.int32)
+    if case.startswith("one_list"):
+        probe[:, 1] = 2
+        probe[probe[:, 0] == 2, 0] = 0
+        probe[probe[:, 2] == 2, 2] = 0
+    elif case == "empty_lists":
+        ids[[1, 5]] = -1
+        probe[0, :2] = [1, 5]
+    elif case.startswith("holes"):
+        ids[rng.random(ids.shape) < 0.2] = -1
+    elif case == "dup_out_of_range":
+        probe[0, 1] = probe[0, 0]
+        probe[1, 2] = -1
+        probe[2, 0] = nlist + 3
+    codes = g(rng.integers(0, 256, (nlist, cap, dp * bits // 8)), torch.uint8)
+    cent, values = _residual_tables(rng, nlist, dp, bits, exact)
+    lists = (g(ids), codes, g(cent), g(values))
+    gp = g(probe)
+    if exact:
+        psi_q = g(rng.integers(-2, 3, (B, dp)), torch.float32)
+    else:
+        psi_q = g(rng.standard_normal((B, dp)) / np.sqrt(dp), torch.float32)
+    n0 = gather_scan.ivf_probe_res_scan.launches
+    got = gather_scan.ivf_probe_res_scan(psi_q, gp, *lists)
+    assert gather_scan.ivf_probe_res_scan.launches == n0 + 1
+    inr = (gp >= 0) & (gp < nlist)
+    want = ref.res_scan_split(psi_q, gp.clamp(0, nlist - 1), *lists)
+    want = torch.where(inr[..., None], want, float("-inf"))
+    _close(got, want, 1e-5, exact)
+    if dp > 4096 or exact:
+        return
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    q = g(rng.standard_normal((B, Tq, d)), torch.float32)
+    qm = g(rng.random((B, Tq)) > 0.3)
+    pq = fused_psi.fused_psi_pool(q, qm, *w)
+    sc = gather_scan.ivf_probe_res_scan(pq, gp, *lists).reshape(B, -1)
+    flat_i = torch.where(inr[..., None], lists[0][gp.clamp(0, nlist - 1).long()], -1)
+    for kp in (nprobe * cap + 5, 100):
+        s, i = ops.KERNELS["query_fused_res"](q, qm, *w, gp, *lists, kp=kp)
+        top, pos = stable_topk(sc, min(kp, nprobe * cap))
+        top, idx = pad_topk(top, torch.gather(flat_i.reshape(B, -1), 1, pos), kp)
+        assert torch.equal(i, idx) and torch.equal(s, top)
