@@ -61,7 +61,10 @@ script
    at k'=8,192 (a warm-up and two timed batches each); holds each batch
    against the plain composition and exact MaxSim, and 32 queries' top-10
    against exact MaxSim over the whole corpus (recall), and ``mips_topk`` to
-   no rescan; then times the three kernels against their plain versions
+   no rescan; each route's line gives its wrappers' launches a search and
+   the psi kernel's CUDA launches in one traced search (at most 1: every
+   route pools each query once); then times the three kernels against
+   their plain versions
    and the nearest PyTorch call at the served shapes (``query_fused``'s
    rows with how their bound was counted),
    after checking the tensor-core product of ``mips_topk`` against an fp64
@@ -70,7 +73,12 @@ script
 6. times each serving kernel and its plain version at the served shapes:
    first a line with the probes' spread over the lists (rows read probe
    by probe, distinct live rows, readers a list, the largest work item of
-   the scan's grid by list); the paged rerank also against fp64 MaxSim on
+   the scan's grid by list); the psi-pool also against an fp64 pool
+   (within ``ref.PSI_SPLIT_RTOL``: its product runs on the tensor cores'
+   TF32 split; its bound at the split's rate beside the CUDA cores'), two
+   calls' bits, and its unpooled form on 16,384 query tokens (the build's
+   OLS rows) timed against its plain version; the paged rerank also
+   against fp64 MaxSim on
    8 queries (within ``ref.TF32_SPLIT_RTOL``: its dots run on the tensor
    cores), its bound at the split's rate beside the CUDA cores';
 7. **residual**: holds ``ivf_probe_res_scan``, ``query_fused_res`` and
@@ -116,9 +124,12 @@ script
    wrapper put on the card (``cuda_launches_per_call``, and by name in
    ``cuda_launched``), counted by torch.profiler in this run: a lower
    bound, since a trace can drop device events (None: it saw none);
-10. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
+10. runs ``kernels/psi_ablation.py`` (the psi kernel built four ways:
+   as built, without its product, with W' resident, without its
+   statistics; under a minute);
+11. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
    ``routes`` line, a ``residual`` line, a ``sharded`` line, the
-   ``kernels`` line and last ``{"ok": true, ...}``.
+   ``psi_ablation`` line, the ``kernels`` line and last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -147,10 +158,10 @@ SQ8_RTOL = 2 ** -16 * 4          # the JAX suite's SQ8 tolerance
 NEAR_TIE = 1e-5                  # relative score gap allowed for an id swap
 MAXSIM_RTOL = 1e-5               # token MaxSim: x max(1, max|plain|)
 SERVE_KERNELS = ("fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores")
-QF_BOUND_COUNTED = ("bytes: the query tokens, mask and psi weights, the probed lists' ids, "
-                    "the distinct live rows (and scales) once, the probes, the (B, k') "
-                    "outputs; operations: the psi-pool's 2 x valid tokens x d x d' and 2 x "
-                    "d' a row scanned probe by probe")
+QF_BOUND_COUNTED = ("bytes: the pooled latent, the probed lists' ids, the distinct live rows "
+                    "(and scales) once, the probes, the (B, k') outputs; operations: 2 x d' "
+                    "a row scanned probe by probe (the latent is the probe selection's, "
+                    "pooled before the call)")
 OLS_BLOCK = 2048                 # fit_output_layer_ols' doc block
 QUERY_SEED = 7                   # recall queries; the training tokens use seed 0
 # Both corpora's topic model, data/synthetic.make_corpus's weight: a token is
@@ -223,6 +234,15 @@ def cuda_launches(torch, fn, tries=2, pad_s=0.5):
         for k, v in seen.items():
             names[k] = max(names.get(k, 0), v)
     return {"cuda_launches_per_call": sum(names.values()) or None, "cuda_launched": names}
+
+
+def search_launches(torch, counts, n_searches, search):
+    """A route's launches a search: the wrappers' counts over its run
+    divided by its searches, and the psi kernel's CUDA launches in one
+    traced search (``psi_kernel``, a lower bound: see cuda_launches)."""
+    seen = cuda_launches(torch, search)["cuda_launched"]
+    return dict(launches_a_search={k: v / n_searches for k, v in counts.items() if v},
+                psi_kernel_launches_traced=seen.get("psi_kernel", 0))
 
 
 def bound(nbytes, flops, peak=PEAK_FP32_S):
@@ -1239,11 +1259,16 @@ def routes_phase(torch, args, r, batches, plains, default_ids):
             torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
             require(bool((s[:, :-1] >= s[:, 1:]).all()), f"route {name}: scores not sorted")
         lat_ms = [1e3 * x for x in lat]
+        q, qm, _ = bs[1]
+        per_search = search_launches(torch, launches, len(bs),
+                                     lambda: r.search(q[:B], qm[:B], params))
+        require(per_search["psi_kernel_launches_traced"] <= 1,
+                f"route {name}: the psi kernel ran more than once in a search")
         line[name] = dict(
             params=repr(params), batch=B, batches=len(lat), p50_ms=float(np.median(lat_ms)),
             max_ms=float(np.max(lat_ms)), qps=B * len(lat) / sum(lat), k_prime=p.k_prime,
-            launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
-            rows_checked=B * len(bs), mips_topk_rescans=rescans,
+            launches={k: v for k, v in launches.items() if v}, **per_search,
+            near_tie_rows=ties, rows_checked=B * len(bs), mips_topk_rescans=rescans,
             recall_at_10=float(maxsim.recall_at(outs[1][1][:nq, :10], truth).mean()))
         if p.use_ann and p.k_prime == p0.k_prime:
             line[name]["rows_differing_from_default"] = differ
@@ -1288,20 +1313,20 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
 
     # query_fused, SQ8 lists at the served shape
     probe = stable_topk(psi_q @ ann.centroids.T, P)[1].int()
+    # the kernel as the route calls it: on the probe selection's latent,
+    # held against the plain composition from the tokens
     qargs = (q, qm, *w, probe, ann.ids, ann.vecs, ann.scales)
-    err, near_ties, _ = same_topk(torch, *query_fused.query_fused(*qargs, kp=kp),
+    err, near_ties, _ = same_topk(torch, *query_fused.query_fused(*qargs, kp=kp, latent=psi_q),
                                   *ref.query_fused_ref(*qargs, kp=kp, chunk=4),
                                   SQ8_RTOL, "query_fused sq8", exact_ties=False)
     uniq = probe.long().unique()
     rows_u, rows_p = int(ann.counts[uniq].sum()), int(ann.counts[probe.long()].sum())
-    nq_valid = int(qm.sum())
-    psi_bytes = q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4
     row("query_fused", "sq8", "src/repro_torch/csrc/query_fused.cu",
         "src/repro/kernels/query_fused.py:193", err, f"{SQ8_RTOL} x max(1, max|plain|)",
-        lambda: query_fused.query_fused(*qargs, kp=kp),
-        lambda: ref.query_fused_ref(*qargs, kp=kp, chunk=4), None,
-        psi_bytes + len(uniq) * cap * 4 + rows_u * (dp + 4) + probe.numel() * 4 + 2 * B * kp * 4,
-        2 * nq_valid * d * dp + 2 * rows_p * dp,
+        lambda: query_fused.query_fused(*qargs, kp=kp, latent=psi_q),
+        lambda: ref.query_fused_ref(*qargs, kp=kp, chunk=4, latent=psi_q), None,
+        psi_q.numel() * 4 + len(uniq) * cap * 4 + rows_u * (dp + 4) + probe.numel() * 4
+        + 2 * B * kp * 4, 2 * rows_p * dp,
         f"B {B} x Tq {Tq}, nprobe {P} of {ann.nlist} lists of cap {cap} int8, "
         f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
         ragged_key="query_fused_sq8",
@@ -1313,17 +1338,17 @@ def route_kernel_rows(torch, r, batches, launches_by_kernel, ragged):
     ids32 = ann.ids[:L].contiguous()
     probe32 = stable_topk(psi_q @ ann.centroids[:L].T, P)[1].int()
     fargs = (q, qm, *w, probe32, ids32, vec32)
-    err, near_ties, _ = same_topk(torch, *query_fused.query_fused(*fargs, kp=kp),
+    err, near_ties, _ = same_topk(torch, *query_fused.query_fused(*fargs, kp=kp, latent=psi_q),
                                   *ref.query_fused_ref(*fargs, kp=kp, chunk=8), 1e-4,
                                   "query_fused fp32", exact_ties=False)
     uniq = probe32.long().unique()
     rows_u, rows_p = int(ann.counts[uniq].sum()), int(ann.counts[probe32.long()].sum())
     row("query_fused", "fp32", "src/repro_torch/csrc/query_fused.cu",
         "src/repro/kernels/query_fused.py:193", err, "1e-4 x max(1, max|plain|)",
-        lambda: query_fused.query_fused(*fargs, kp=kp),
-        lambda: ref.query_fused_ref(*fargs, kp=kp, chunk=8), None,
-        psi_bytes + len(uniq) * cap * 4 + rows_u * dp * 4 + probe32.numel() * 4 + 2 * B * kp * 4,
-        2 * nq_valid * d * dp + 2 * rows_p * dp,
+        lambda: query_fused.query_fused(*fargs, kp=kp, latent=psi_q),
+        lambda: ref.query_fused_ref(*fargs, kp=kp, chunk=8, latent=psi_q), None,
+        psi_q.numel() * 4 + len(uniq) * cap * 4 + rows_u * dp * 4 + probe32.numel() * 4
+        + 2 * B * kp * 4, 2 * rows_p * dp,
         f"B {B} x Tq {Tq}, nprobe {P} of a reduced set of {L} fp32 lists of cap {cap} "
         f"({vec32.numel() * 4 / 1e9:.2f} GB: the index's first {L} lists dequantized), "
         f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
@@ -1673,11 +1698,17 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
             torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
             require(bool((s[:, :-1] >= s[:, 1:]).all()), f"route {name}: scores not sorted")
         lat_ms = [1e3 * x for x in lat]
+        q, qm, _ = bs[1]
+        per_search = search_launches(torch, launches, len(bs),
+                                     lambda: rr.search(q, qm, params))
+        require(per_search["psi_kernel_launches_traced"] <= 1,
+                f"route {name}: the psi kernel ran more than once in a search")
         line[name] = dict(
             params=repr(params), batch=args.batch, batches=len(lat),
             p50_ms=float(np.median(lat_ms)), max_ms=float(np.max(lat_ms)),
             qps=args.batch * len(lat) / sum(lat), k_prime=p.k_prime,
-            launches={k: v for k, v in launches.items() if v}, near_tie_rows=ties,
+            launches={k: v for k, v in launches.items() if v}, **per_search,
+            near_tie_rows=ties,
             rows_checked=args.batch * len(bs),
             recall_at_10=float(maxsim.recall_at(outs[1][1][:nq, :10], truth).mean()))
         outs_by_route[name] = outs
@@ -1761,18 +1792,18 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
                       "probed centroids and the values table, q, the probes, the (B, P, cap) "
                       "strip; operations: 2 x d' a row scanned probe by probe", **spread)
 
+    # as the route calls it: on the probe selection's latent
     qargs = (q, qm, *w, probe, *lists)
-    err, near_ties, _ = same_topk(torch, *query_fused.query_fused_res(*qargs, kp=kp),
+    err, near_ties, _ = same_topk(torch, *query_fused.query_fused_res(*qargs, kp=kp,
+                                                                      latent=psi_q),
                                   *ref.query_fused_res_ref(*qargs, kp=kp, chunk=4), 1e-4,
                                   "query_fused_res", exact_ties=False)
-    nq_valid = int(qm.sum())
     row("query_fused_res", "src/repro_torch/csrc/query_fused.cu",
         "src/repro/kernels/query_fused.py:248", err, "1e-4 x max(1, max|plain|)",
-        lambda: query_fused.query_fused_res(*qargs, kp=kp),
-        lambda: ref.query_fused_res_ref(*qargs, kp=kp, chunk=4),
-        q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4 + len(uniq) * cap * 4
-        + rows_u * db + table_bytes + probe.numel() * 4 + 2 * B * kp * 4,
-        2 * nq_valid * d * dp + 2 * rows_p * dp,
+        lambda: query_fused.query_fused_res(*qargs, kp=kp, latent=psi_q),
+        lambda: ref.query_fused_res_ref(*qargs, kp=kp, chunk=4, latent=psi_q),
+        psi_q.numel() * 4 + len(uniq) * cap * 4 + rows_u * db + table_bytes
+        + probe.numel() * 4 + 2 * B * kp * 4, 2 * rows_p * dp,
         f"B {B} x Tq {Tq}, nprobe {P} of {rann.nlist} residual lists of cap {cap}, "
         f"{rows_p / B:.0f} rows scanned a query, k' {kp}", near_tie_ids=near_ties,
         lookup_floor_ms=lookup_floor_ms(rows_p * dp), sm_clock_max_mhz=sm_mhz)
@@ -2409,10 +2440,53 @@ def main():
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    t0 = time.time()
+    from repro_torch.kernels import psi_ablation
+    ablation = psi_ablation.run()
+    print(json.dumps({"psi_ablation": {**ablation, "s": time.time() - t0}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def psi_row(torch, psi, q, qm, x):
+    """The psi kernel's checks beyond its plain version: the pool against an
+    fp64 psi-pool (within ref.PSI_SPLIT_RTOL: the product runs on the tensor
+    cores' TF32 split), two calls' bits, and the unpooled form on ``x`` (the
+    build's 16,384 OLS rows: real query tokens) against its plain version
+    and fp64, timed beside them with its bound."""
+    from repro_torch.core.model import pool_queries
+    from repro_torch.kernels import fused_psi, ref
+
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    w64 = [t.double() for t in w]
+    got = pool_queries(psi, q, qm)
+    require(torch.equal(got, pool_queries(psi, q, qm)), "fused_psi_pool: two calls differ")
+    exact = ref.psi_pool_ref(q.double(), qm, *w64)
+    err64 = float((got.double() - exact).abs().max())
+    tol64 = ref.PSI_SPLIT_RTOL * max(1.0, float(exact.abs().max()))
+    require(err64 <= tol64, f"fused_psi_pool: max abs err against fp64 {err64} > {tol64}")
+    n, d = x.shape
+    dp = w[0].shape[1]
+    feats = fused_psi.fused_psi(x, *w)
+    plain = ref.fused_psi_ref(x, *w)
+    err = float((feats - plain).abs().max())
+    require(err <= 1e-4 * max(1.0, float(plain.abs().max())),
+            f"fused_psi (unpooled): max abs err {err}")
+    exact = ref.fused_psi_ref(x[:2048].double(), *w64)
+    err64_u = float((feats[:2048].double() - exact).abs().max())
+    require(err64_u <= ref.PSI_SPLIT_RTOL * max(1.0, float(exact.abs().max())),
+            f"fused_psi (unpooled): max abs err against fp64 {err64_u}")
+    nbytes = x.numel() * 4 + (d * dp + 3 * dp) * 4 + n * dp * 4
+    b_ms, b_by = bound(nbytes, 3 * 2 * n * d * dp, PEAK_TF32_S)
+    return dict(max_abs_err_fp64=err64, tolerance_fp64=tol64, bits_equal_two_calls=True,
+                unpooled=dict(shape=f"{n} rows x d {d} -> d' {dp}",
+                              ms=time_ms(torch, lambda: fused_psi.fused_psi(x, *w)),
+                              plain_ms=time_ms(torch, lambda: ref.fused_psi_ref(x, *w)),
+                              bound_ms=b_ms, bound_by=b_by, bound_split="3xTF32",
+                              bytes=int(nbytes), flops=int(2 * n * d * dp), max_abs_err=err,
+                              max_abs_err_fp64_first_2048=err64_u))
 
 
 def scan_spread(torch, probe, ids, kernel="ivf_probe_scan"):
@@ -2581,12 +2655,18 @@ def serve_and_check(torch, args):
             **cuda_launches(torch, fn), **extra))
 
     nq_valid = int(qm.sum())
+    psi_rows = psi_row(torch, psi, q, qm, torch.cat([b[0] for b in batches[:2]]).reshape(-1, d))
     entry("fused_psi_pool", "src/repro_torch/csrc/fused_psi_pool.cu",
           "src/repro/kernels/fused_psi.py:37",
           pool_queries(psi, q, qm), ref.psi_pool_ref(q, qm, *w), 1e-4,
           lambda: pool_queries(psi, q, qm), lambda: ref.psi_pool_ref(q, qm, *w),
           q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4 + B * dp * 4,
-          2 * nq_valid * d * dp)
+          2 * nq_valid * d * dp, peak=PEAK_TF32_S, split=3, bound_split="3xTF32",
+          # the kernel computes every token's psi, masked or not
+          bound_ms_all_tokens=3 * 2 * B * Tq * d * dp / PEAK_TF32_S * 1e3,
+          bound_ms_fp32_cuda_cores=bound(q.numel() * 4 + qm.numel() + (d * dp + 3 * dp) * 4
+                                         + B * dp * 4, 2 * nq_valid * d * dp)[0],
+          **psi_rows)
 
     psi_q, probe = st["psi_q"], st["probe"]
     P, cap = probe.shape[1], ann.capacity

@@ -216,9 +216,10 @@ def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int,
 def search_ivf_one_launch(index: IVFIndex, psi, q_tokens: torch.Tensor, q_mask,
                           nprobe: int, k: int):
     """The one-launch first stage: raw query tokens in, top-k candidates
-    out, pool + scan + top-k' in one ``query_fused`` (residual lists:
-    ``query_fused_res``) launch after the probe-select prelude
-    (``ops.fused_query``, ``ops.fused_query_res``).  The same arithmetic as
+    out, scan + top-k' in one ``query_fused`` (residual lists:
+    ``query_fused_res``) call on the pooled latent of the probe-select
+    prelude (``ops.fused_query``, ``ops.fused_query_res``: each query pooled
+    once).  The same arithmetic as
     ``pool_queries`` + :func:`search_ivf`, so on the card the same ids.
     q_tokens: (B, Tq, d) -> (scores (B, k), ids (B, k)), padded with (-inf, -1)."""
     kp = min(k, nprobe * index.capacity)

@@ -57,7 +57,7 @@ class IVFBackendConfig(BackendConfig):
     sq8: bool = True         # scalar-quantize the latent corpus (Glass-style)
     residual_bits: int = 0   # 2/4 => residual-codec list storage; 0 => off
     use_fused_gather: bool = True  # gather-at-source probe scan
-    use_one_launch: bool = False   # ψ-pool + probe scan + top-k' in one launch
+    use_one_launch: bool = False   # probe scan + top-k' in one call, on the pooled latent
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,9 @@
-// The one-launch first stages: query_fused (psi-pool + IVF probe scan +
-// top-k', fp32 and SQ8 lists), query_fused_res (the same over residual
-// lists) and mips_topk (dense latent scan + top-k', fp32 and SQ8 rows).
+// The one-launch first stages: query_fused (IVF probe scan + top-k' of
+// pooled queries, fp32 and SQ8 lists), query_fused_res (the same over
+// residual lists) and mips_topk (dense latent scan + top-k', fp32 and SQ8
+// rows).  The pooled latent comes in: the route's probe selection pooled
+// each query already (the psi-pool kernel, fused_psi_pool.cu), so a search
+// pools once.
 //
 // Replaces: src/repro/kernels/query_fused.py:query_fused
 //   (_query_fused_fp_kernel, _query_fused_sq8_kernel, _pool_psi, _merge_topk),
@@ -22,39 +25,36 @@
 // (chip_smoke.py, one H100; PERF.md).
 //
 // query_fused.  Bound on the H100: device-memory bytes, as the probe scan
-// (about one operation per byte of the lists), plus the psi-pool's
-// operations.  Design: the psi-pool, the IVF scan by list and the
-// selection, one after another on the stream (five CUDA launches a call):
-// the pool is the fused psi kernel's (psi.cuh: one block a query) into a
-// (B, d') latent in device memory; the scan is ivf_probe_scan's own body
+// (about one operation per byte of the lists).  Design: the IVF scan by
+// list and the selection, one after another on the stream (four CUDA
+// launches a call): the scan is ivf_probe_scan's own body
 // (scan_grouped.cuh: the (b, p) pairs grouped by list, each live row staged
 // once for a chunk of up to 8 of its readers), written straight into the
 // (B, P cap) strip, pads and out-of-range probes -inf; the selection is
 // finish_strip's.  So query_fused equals psi-pool + ivf_probe_scan + the
 // stable flat top-k' bit for bit, and reads each live row once a chunk of
 // its readers instead of once a query: 1.87-1.92 ms over SQ8 lists at the
-// served shape, where the one-block-a-query kernel it replaced took
-// 3.72-3.80 (fp32 lists, 256 of them: 1.87-1.93 against 8.27-8.35, a
-// reduced index whose lists have about 8 times the served readers), on one
-// NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md §6, row 7).
+// served shape with its own psi-pool (0.35 of it), where the
+// one-block-a-query kernel it replaced took 3.72-3.80 (fp32 lists, 256 of
+// them: 1.87-1.93 against 8.27-8.35, a reduced index whose lists have about
+// 8 times the served readers), on one NVIDIA H100 80GB HBM3 at a 700.00 W
+// power limit (PERF.md §6, row 7).
 //
 // query_fused_res.  Bound on the H100: the lookups' instructions, as the
 // residual probe scan's (ivf_probe_res_scan.cu: about 4 instructions a
 // code, a floor of about 0.8 ms at the served shape against 0.26 ms for the
-// bytes), plus the psi-pool's fp32 operations.  One block a query, walking
-// every slot of its lists, waits on loads (the pad slots' ids alone cost a
-// third of its time: PERF.md §6).  Design: a cluster of kQfrCluster = 2
-// blocks a query (1, 4 and 8 measured slower: kernels/residual_ablation.py).
-// The blocks split the psi-pool's product by columns and share the GELU
-// rows through distributed shared memory (psi.cuh), so each block holds the
-// single block's pooled latent, bit for bit; then block r takes, in every
-// probed list, the live slots whose rank among the list's live slots is r
-// mod 2 (residual.cuh: res_scan; pads are not read, and block r writes -inf
-// at the pad slots = r mod 2), and scores them against one table of q[k]
-// values[k][l] that serves every list, plus q . c a probe, with the
-// residual scan's own code, so its scores are the residual scan's bit for
-// bit; the strip and the selection as query_fused's.  What bounds it now:
-// the lookups (about a third of its time) and the walk's loads.
+// bytes).  One block a query, walking every slot of its lists, waits on
+// loads (the pad slots' ids alone cost a third of its time: PERF.md §6).
+// Design: kQfrBlocks = 2 blocks a query (1, 4 and 8 measured slower:
+// kernels/residual_ablation.py), each reading the query's pooled latent
+// into shared memory; block r takes, in every probed list, the live slots
+// whose rank among the list's live slots is r mod 2 (residual.cuh:
+// res_scan; pads are not read, and block r writes -inf at the pad slots =
+// r mod 2), and scores them against one table of q[k] values[k][l] that
+// serves every list, plus q . c a probe, with the residual scan's own code,
+// so its scores are the residual scan's bit for bit; the strip and the
+// selection as query_fused's.  What bounds it now: the lookups (about a
+// third of its time) and the walk's loads.
 //
 // mips_topk.  Bound on the H100: tensor-core operations (tc_scan.cuh: 3
 // TF32 products of 2 B m d', 5.1 ms at B = 256 over 800k live fp32 rows of
@@ -74,7 +74,6 @@
 //    inputs' path over every row.
 // CUDA launches a call: the q image (tc_q_image), then 2 a query chunk
 // (small), or 4 and a memset (large).
-#include "psi.cuh"
 #include "residual.cuh"
 #include "scan_grouped.cuh"
 #include "select.cuh"
@@ -105,19 +104,13 @@ int finish_strip(float* strips, sel_key_t* scratch, float* out_s, int* out_i,
 }
 
 template <typename T>
-int launch_query_fused(const void* qt, const void* qm, const void* W, const void* bias,
-                       const void* gamma, const void* beta, const void* probe,
-                       const void* ids, const void* vecs, const void* scales, void* out_s,
-                       void* out_i, void* strips, void* scratch, void* latent,
-                       void* scan_scratch, int B, int Tq, int D, int Dp, int P, int cap,
-                       int nlist, int kp, float eps, void* stream) {
+int launch_query_fused(const void* latent, const void* probe, const void* ids,
+                       const void* vecs, const void* scales, void* out_s, void* out_i,
+                       void* strips, void* scratch, void* scan_scratch, int B, int Dp, int P,
+                       int cap, int nlist, int kp, void* stream) {
   if (kp < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_fused_psi((const float*)qt, (const uint8_t*)qm, (const float*)W,
-                             (const float*)bias, (const float*)gamma, (const float*)beta,
-                             (float*)latent, B * Tq, Tq, D, Dp, 1, eps, st);
-  if (err != 0) return err;
-  err = launch_ivf_scan<T>((const float*)latent, (const int*)probe, (const int*)ids,
+  int err = launch_ivf_scan<T>((const float*)latent, (const int*)probe, (const int*)ids,
                            (const T*)vecs, (const float*)scales, (float*)strips,
                            (int*)scan_scratch, B, P, cap, Dp, nlist, st);
   if (err != 0) return err;
@@ -129,135 +122,81 @@ int launch_query_fused(const void* qt, const void* qm, const void* W, const void
 // query_fused_res
 // -------------------------------------------------------------------------
 
-static_assert(kResThreads == kPsiThreads, "the residual scorer runs on the psi block");
-constexpr int kQfrCluster = 2;              // blocks a query
+constexpr int kQfrBlocks = 2;               // blocks a query
 
-template <int BITS, int C, bool WHOLE>
-__global__ void __cluster_dims__(kQfrCluster, 1, 1) __launch_bounds__(kPsiThreads, 2)
-query_fused_res_kernel(const float* __restrict__ qt, const uint8_t* __restrict__ qm,
-                       const float* __restrict__ W, const float* __restrict__ bias,
-                       const float* __restrict__ gamma, const float* __restrict__ beta,
-                       const int* __restrict__ probe, const int* __restrict__ ids,
-                       const uint8_t* __restrict__ codes, const float* __restrict__ centroids,
-                       const float* __restrict__ values, float* __restrict__ strips, int B,
-                       int Tq, int D, int Dp, int P, int cap, int nlist, float eps) {
+template <int BITS, bool WHOLE>
+__global__ void __launch_bounds__(kResThreads, 2)
+query_fused_res_kernel(const float* __restrict__ latent, const int* __restrict__ probe,
+                       const int* __restrict__ ids, const uint8_t* __restrict__ codes,
+                       const float* __restrict__ centroids, const float* __restrict__ values,
+                       float* __restrict__ strips, int P, int cap, int Dp, int nlist) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                           // the pooled latent, (Dp,)
-  float* work = sm + (Dp + 3) / 4 * 4;      // psi's scratch, then res_scan's
-  const int b = blockIdx.x / kQfrCluster, rank = blockIdx.x % kQfrCluster;
-  {
-    float pooled[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) pooled[c] = 0.f;
-    psi_segment<C, kQfrCluster>(qt, qm, W, bias, gamma, beta, nullptr, pooled, b * Tq, Tq,
-                                B * Tq, D, Dp, true, eps, work);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = threadIdx.x + c * kPsiThreads;
-      if (j < Dp) qs[j] = pooled[c];
-    }
-  }
+  float* work = sm + (Dp + 3) / 4 * 4;      // res_scan's scratch
+  const int b = blockIdx.x / kQfrBlocks, rank = blockIdx.x % kQfrBlocks;
+  for (int j = threadIdx.x; j < Dp; j += kResThreads) qs[j] = latent[(size_t)b * Dp + j];
   __syncthreads();                          // the latent is in
-  res_scan<BITS, WHOLE>(probe + (size_t)b * P, P, 1, kQfrCluster, rank, qs, ids, codes,
+  res_scan<BITS, WHOLE>(probe + (size_t)b * P, P, 1, kQfrBlocks, rank, qs, ids, codes,
                         centroids, values, strips + (size_t)b * P * cap, cap, Dp, nlist, work);
 }
 
-template <int BITS, int C, bool WHOLE>
-int launch_query_fused_res(const float* qt, const uint8_t* qm, const float* W,
-                           const float* bias, const float* gamma, const float* beta,
-                           const int* probe, const int* ids, const uint8_t* codes,
-                           const float* centroids, const float* values, float* out_s,
-                           int* out_i, float* strips, sel_key_t* scratch, int B, int Tq, int D,
-                           int Dp, int P, int cap, int nlist, int kp, float eps,
-                           cudaStream_t stream) {
-  if (kp < 1 || (long long)B * kQfrCluster >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const size_t res_floats = res_smem_floats(BITS);
-  const size_t psi_floats = psi_smem_floats(D, Dp);
-  const size_t smem = ((Dp + 3) / 4 * 4 + (psi_floats > res_floats ? psi_floats : res_floats))
-                      * sizeof(float);
-  cudaError_t err = allow_smem(query_fused_res_kernel<BITS, C, WHOLE>, smem);
-  if (err != cudaSuccess) return (int)err;
-  query_fused_res_kernel<BITS, C, WHOLE><<<B * kQfrCluster, kPsiThreads, smem, stream>>>(
-      qt, qm, W, bias, gamma, beta, probe, ids, codes, centroids, values, strips, B, Tq, D,
-      Dp, P, cap, nlist, eps);
-  return finish_strip(strips, scratch, out_s, out_i, probe, ids, B, P, cap, kp, stream);
-}
-
 template <int BITS>
-int dispatch_query_fused_res(const void* qt, const void* qm, const void* W, const void* bias,
-                             const void* gamma, const void* beta, const void* probe,
-                             const void* ids, const void* codes, const void* centroids,
-                             const void* values, void* out_s, void* out_i, void* strips,
-                             void* scratch, int B, int Tq, int D, int Dp, int P, int cap,
-                             int nlist, int kp, float eps, void* stream) {
+int launch_query_fused_res(const void* latent, const void* probe, const void* ids,
+                           const void* codes, const void* centroids, const void* values,
+                           void* out_s, void* out_i, void* strips, void* scratch, int B,
+                           int Dp, int P, int cap, int nlist, int kp, cudaStream_t stream) {
+  if (kp < 1 || (long long)B * kQfrBlocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const bool whole = res_whole_words(codes, Dp, BITS);
-#define LEMUR_QFR(C)                                                                  \
-  return (whole ? launch_query_fused_res<BITS, C, true>                               \
-                : launch_query_fused_res<BITS, C, false>)(                            \
-      (const float*)qt, (const uint8_t*)qm, (const float*)W, (const float*)bias,      \
-      (const float*)gamma, (const float*)beta, (const int*)probe, (const int*)ids,    \
-      (const uint8_t*)codes, (const float*)centroids, (const float*)values,           \
-      (float*)out_s, (int*)out_i, (float*)strips, (sel_key_t*)scratch, B, Tq, D, Dp,  \
-      P, cap, nlist, kp, eps, (cudaStream_t)stream)
-  const int cols = (Dp + kPsiThreads - 1) / kPsiThreads;
-  if (cols <= 1) LEMUR_QFR(1);
-  if (cols <= 2) LEMUR_QFR(2);
-  if (cols <= 4) LEMUR_QFR(4);
-  if (cols <= 8) LEMUR_QFR(8);
-  if (cols <= 16) LEMUR_QFR(16);
-#undef LEMUR_QFR
-  return (int)cudaErrorInvalidValue;  // d' > 4096: the wrapper refuses it first
+  const auto kernel = whole ? query_fused_res_kernel<BITS, true>
+                            : query_fused_res_kernel<BITS, false>;
+  const size_t smem = ((Dp + 3) / 4 * 4 + res_smem_floats(BITS)) * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * kQfrBlocks, kResThreads, smem, stream>>>(
+      (const float*)latent, (const int*)probe, (const int*)ids, (const uint8_t*)codes,
+      (const float*)centroids, (const float*)values, (float*)strips, P, cap, Dp, nlist);
+  return finish_strip((float*)strips, (sel_key_t*)scratch, (float*)out_s, (int*)out_i,
+                      (const int*)probe, (const int*)ids, B, P, cap, kp, stream);
 }
 
 }  // namespace
 
-// scales == nullptr: fp32 lists; else int8 codes with per-slot scales.
-// qm may be null (every token counts).  Outputs (B, kp) scores and ids.
+// latent (B, Dp) fp32: the pooled queries.  scales == nullptr: fp32 lists;
+// else int8 codes with per-slot scales.  Outputs (B, kp) scores and ids.
 // Device memory: strips (B, P * cap) fp32 for the probed strip's scores,
-// scratch (B, kp) 8-byte keys for the selection, latent (B, Dp) fp32 for
-// the pooled queries and scan_scratch ivf_probe_scan_scratch(B, P, nlist)
-// int32 words for the grouping.
-extern "C" int query_fused_fp32(const void* qt, const void* qm, const void* W,
-                                const void* bias, const void* gamma, const void* beta,
-                                const void* probe, const void* ids, const void* vecs,
-                                void* out_s, void* out_i, void* strips, void* scratch,
-                                void* latent, void* scan_scratch, int B, int Tq, int D, int Dp,
-                                int P, int cap, int nlist, int kp, float eps, void* stream) {
-  return launch_query_fused<float>(qt, qm, W, bias, gamma, beta, probe, ids, vecs, nullptr,
-                                   out_s, out_i, strips, scratch, latent, scan_scratch, B, Tq,
-                                   D, Dp, P, cap, nlist, kp, eps, stream);
+// scratch (B, kp) 8-byte keys for the selection and scan_scratch
+// ivf_probe_scan_scratch(B, P, nlist) int32 words for the grouping.
+extern "C" int query_fused_fp32(const void* latent, const void* probe, const void* ids,
+                                const void* vecs, void* out_s, void* out_i, void* strips,
+                                void* scratch, void* scan_scratch, int B, int Dp, int P,
+                                int cap, int nlist, int kp, void* stream) {
+  return launch_query_fused<float>(latent, probe, ids, vecs, nullptr, out_s, out_i, strips,
+                                   scratch, scan_scratch, B, Dp, P, cap, nlist, kp, stream);
 }
 
-extern "C" int query_fused_sq8(const void* qt, const void* qm, const void* W,
-                               const void* bias, const void* gamma, const void* beta,
-                               const void* probe, const void* ids, const void* codes,
-                               const void* scales, void* out_s, void* out_i, void* strips,
-                               void* scratch, void* latent, void* scan_scratch, int B, int Tq,
-                               int D, int Dp, int P, int cap, int nlist, int kp, float eps,
-                               void* stream) {
-  return launch_query_fused<int8_t>(qt, qm, W, bias, gamma, beta, probe, ids, codes, scales,
-                                    out_s, out_i, strips, scratch, latent, scan_scratch, B,
-                                    Tq, D, Dp, P, cap, nlist, kp, eps, stream);
+extern "C" int query_fused_sq8(const void* latent, const void* probe, const void* ids,
+                               const void* codes, const void* scales, void* out_s, void* out_i,
+                               void* strips, void* scratch, void* scan_scratch, int B, int Dp,
+                               int P, int cap, int nlist, int kp, void* stream) {
+  return launch_query_fused<int8_t>(latent, probe, ids, codes, scales, out_s, out_i, strips,
+                                    scratch, scan_scratch, B, Dp, P, cap, nlist, kp, stream);
 }
 
 // codes (nlist, cap, Dp * bits / 8) uint8 against each list's own centroid;
 // centroids (nlist, Dp), values (Dp, 2^bits) fp32; bits 2 or 4.  Otherwise
 // as query_fused_fp32.
-extern "C" int query_fused_res(const void* qt, const void* qm, const void* W,
-                               const void* bias, const void* gamma, const void* beta,
-                               const void* probe, const void* ids, const void* codes,
-                               const void* centroids, const void* values, void* out_s,
-                               void* out_i, void* strips, void* scratch, int B, int Tq, int D,
-                               int Dp, int P, int cap, int nlist, int kp, int bits, float eps,
+extern "C" int query_fused_res(const void* latent, const void* probe, const void* ids,
+                               const void* codes, const void* centroids, const void* values,
+                               void* out_s, void* out_i, void* strips, void* scratch, int B,
+                               int Dp, int P, int cap, int nlist, int kp, int bits,
                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   if (bits == 4)
-    return dispatch_query_fused_res<4>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
-                                       centroids, values, out_s, out_i, strips, scratch, B, Tq,
-                                       D, Dp, P, cap, nlist, kp, eps, stream);
+    return launch_query_fused_res<4>(latent, probe, ids, codes, centroids, values, out_s,
+                                     out_i, strips, scratch, B, Dp, P, cap, nlist, kp, st);
   if (bits == 2)
-    return dispatch_query_fused_res<2>(qt, qm, W, bias, gamma, beta, probe, ids, codes,
-                                       centroids, values, out_s, out_i, strips, scratch, B, Tq,
-                                       D, Dp, P, cap, nlist, kp, eps, stream);
+    return launch_query_fused_res<2>(latent, probe, ids, codes, centroids, values, out_s,
+                                     out_i, strips, scratch, B, Dp, P, cap, nlist, kp, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -67,8 +67,9 @@ __host__ __device__ inline int tc_chunks(int D) { return (D + kTcK - 1) / kTcK; 
 // image, N rows a tile, chunk-major: element (((((((grp NT + nt) KC + kc) 2
 // + piece) 8 + r) N/8 + ng) 8 + n8) 4 + t holds piece (0: hi, 1: lo) of
 // src[grp rows + n][k], n = nt N + 8 ng + n8, k = kc kTcK + 8 t + r, 0 past
-// rows or D.  A chunk is 2 N kTcK floats.
-template <int N>
+// rows or D.  A chunk is 2 N kTcK floats.  TRANS: src is stored (D, rows),
+// element (n, k) at src[k rows + n] (one group).
+template <int N, bool TRANS = false>
 __global__ void tc_image_kernel(const float* __restrict__ src, float* __restrict__ img,
                                 int rows, int NT, int D, int KC, long long total) {
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
@@ -86,7 +87,7 @@ __global__ void tc_image_kernel(const float* __restrict__ src, float* __restrict
     const int n = nt * N + ng * 8 + n8, k = kc * kTcK + 8 * t + r;
     float val = 0.f;
     if (n < rows && k < D) {
-      const float x = src[((size_t)grp * rows + n) * D + k];
+      const float x = TRANS ? src[(size_t)k * rows + n] : src[((size_t)grp * rows + n) * D + k];
       const float h = __uint_as_float(tf32_rna(x));
       val = piece == 0 ? h : __uint_as_float(tf32_rna(x - h));
     }
@@ -94,14 +95,14 @@ __global__ void tc_image_kernel(const float* __restrict__ src, float* __restrict
   }
 }
 
-template <int N>
+template <int N, bool TRANS = false>
 static int launch_tc_image(const float* src, float* img, long long groups, int rows, int D,
                            cudaStream_t stream) {
   const int NT = (rows + N - 1) / N, KC = D > 0 ? tc_chunks(D) : 1;
   const long long total = groups * NT * KC * 2 * N * kTcK;
   if (total == 0) return (int)cudaSuccess;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  tc_image_kernel<N><<<blocks, 256, 0, stream>>>(src, img, rows, NT, D, KC, total);
+  tc_image_kernel<N, TRANS><<<blocks, 256, 0, stream>>>(src, img, rows, NT, D, KC, total);
   return (int)cudaGetLastError();
 }
 

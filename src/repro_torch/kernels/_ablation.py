@@ -5,6 +5,7 @@ variant a copy of ``csrc/`` with a few lines edited, into
 from __future__ import annotations
 
 import ctypes
+import pathlib
 import subprocess
 
 import numpy as np
@@ -13,15 +14,18 @@ import torch
 from repro_torch.kernels import build
 
 
-def build_variants(variants: dict) -> dict:
+def build_variants(variants: dict, csrc=None) -> dict:
     """{(source, name): {file: [(old, new), ...]}} -> {(source, name):
     loaded library of ``csrc/<source>.cu`` with the edits made}, every nvcc
-    started together.  An edit whose old text is not in its file raises."""
+    started together.  ``csrc``: another source directory (an earlier
+    checkout's ``src/repro_torch/csrc``) in place of the package's.  An edit
+    whose old text is not in its file raises."""
+    csrc = build.CSRC if csrc is None else pathlib.Path(csrc)
     procs = {}
     for (source, name), edits in variants.items():
         out = build.BUILD_DIR.parent / "ablation" / f"{source}-{name}"
         out.mkdir(parents=True, exist_ok=True)
-        for src in build.CSRC.glob("*.cu*"):
+        for src in csrc.glob("*.cu*"):
             text = src.read_text()
             for old, new in edits.get(src.name, []):
                 if old not in text:

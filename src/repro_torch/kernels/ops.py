@@ -116,31 +116,34 @@ def mips_sq8_batched(q, codes, scales, *, chunk: int | None = None):
 
 def fused_query(q_tokens, q_mask, psi, centroids, ids, vecs, scales=None, *,
                 nprobe: int, kp: int):
-    """One-launch first stage: psi-pool + IVF probe scan + top-kp in one
-    kernel launch, after the probe-select prelude (the pool through the
-    psi-pool kernel, the (B, nlist) centroid product and the top-nprobe),
-    which steers the launch and so runs before it, as in the JAX package.
+    """One-launch first stage: the probe-select prelude (the pool through
+    the psi-pool kernel, the (B, nlist) centroid product and the
+    top-nprobe), which steers the scan and so runs before it, as in the JAX
+    package; then ``query_fused`` on the prelude's pooled latent (the IVF
+    scan by list and the top-kp: each query pooled once a search).
     Returns (scores, ids), (B, kp), short rows padded with (-inf, -1)."""
-    w, probe = _probe_select(q_tokens, q_mask, psi, centroids, nprobe)
-    return _qf.query_fused(q_tokens, q_mask, *w, probe, ids, vecs, scales, kp=kp)
+    w, psi_q, probe = _probe_select(q_tokens, q_mask, psi, centroids, nprobe)
+    return _qf.query_fused(q_tokens, q_mask, *w, probe, ids, vecs, scales, kp=kp,
+                           latent=psi_q)
 
 
 def fused_query_res(q_tokens, q_mask, psi, centroids, ids, codes, values, *,
                     nprobe: int, kp: int):
     """:func:`fused_query` over residual lists (codes (nlist, cap, d' * bits
-    / 8) uint8 against each list's own centroid, values (d', 2^bits)), in
-    one ``query_fused_res`` launch (``repro/kernels/ops.py:265-290``)."""
-    w, probe = _probe_select(q_tokens, q_mask, psi, centroids, nprobe)
+    / 8) uint8 against each list's own centroid, values (d', 2^bits)),
+    ``query_fused_res`` on the prelude's latent
+    (``repro/kernels/ops.py:265-290``)."""
+    w, psi_q, probe = _probe_select(q_tokens, q_mask, psi, centroids, nprobe)
     return _qf.query_fused_res(q_tokens, q_mask, *w, probe, ids, codes, centroids, values,
-                               kp=kp)
+                               kp=kp, latent=psi_q)
 
 
 def _probe_select(q_tokens, q_mask, psi, centroids, nprobe: int):
-    """The one-launch routes' prelude: psi's weights and the top-nprobe
-    lists of the pooled query (the psi-pool kernel, the centroid product)."""
+    """The one-launch routes' prelude: psi's weights, the pooled queries
+    (the psi-pool kernel) and their top-nprobe lists (the centroid product)."""
     w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
     psi_q = _fp.fused_psi_pool(q_tokens, q_mask, *w)
-    return w, stable_topk(psi_q @ centroids.T, nprobe)[1].to(torch.int32)
+    return w, psi_q, stable_topk(psi_q @ centroids.T, nprobe)[1].to(torch.int32)
 
 
 def mips_topk_fused(q, W, W_scales, kp: int, valid=None):

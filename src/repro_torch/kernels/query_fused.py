@@ -1,11 +1,13 @@
 """One-launch first stages (twin of ``repro/kernels/query_fused.py``; CUDA
 kernels in ``csrc/query_fused.cu``).
 
-``query_fused``: psi-pool + IVF probe scan + top-k' of each query, the
-pooled latent and the probed strip's scores through device memory, the
-scan grouped by list (``ivf_probe_scan``'s body) and an exact selection
-(five CUDA launches a call, any k'); ``query_fused_res`` the same over
-residual lists, pool and scan in one kernel (two launches a call).
+``query_fused``: IVF probe scan + top-k' of each pooled query, the probed
+strip's scores through device memory, the scan grouped by list
+(``ivf_probe_scan``'s body) and an exact selection (four CUDA launches a
+call, any k'); ``query_fused_res`` the same over residual lists (two
+launches a call).  Both take the pooled latent (``latent=``) that the
+route's probe selection computed, so a search pools once; given tokens
+alone (the JAX signature) they pool first with ``fused_psi_pool``.
 ``mips_topk``: dense latent scan + top-k', fp32 or SQ8 rows, the product on
 the tensor cores (``csrc/tc_scan.cuh``) and the selection in device memory
 (``csrc/select.cuh``), for any k' (see the function).  All order the top-k
@@ -21,13 +23,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.fused_psi import fused_psi_pool
 from repro_torch.kernels.gather_scan import residual_bits
 from repro_torch.kernels.maxsim import tc_image_floats as _image_floats
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
-MAX_D_PRIME = 4096   # the psi-pool's register tile, as in fused_psi
 
 
 def _check_kp(kp: int, what: str) -> None:
@@ -46,72 +48,75 @@ def _strip(B: int, P: int, cap: int, kp: int, dev):
             torch.empty((B, kp), dtype=torch.int64, device=dev))
 
 
+def _latent(latent, q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, eps):
+    """The pooled queries (B, d') the one-launch kernels score: ``latent``
+    as given (the route's probe selection computed it), else the psi-pool
+    kernel's."""
+    if latent is None:
+        return fused_psi_pool(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, eps)
+    build.expect(latent, "latent", torch.float32, (q_tokens.shape[0], kernel.shape[1]),
+                 q_tokens.device, align=4)
+    return latent
+
+
 def query_fused(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
                 vecs, scales=None, *, kp: int, eps: float = 1e-5,
-                chunk: int | None = None):
+                chunk: int | None = None, latent=None):
     """Pooled psi(X), the probed lists' scores and their top-kp.
 
     q_tokens: (B, Tq, d) fp32; q_mask: (B, Tq) bool or None; kernel, bias,
     ln_scale, ln_bias: psi's weights (d, d') / (d',); probe: (B, nprobe)
     int32 cluster ids; ids: (nlist, cap) int32, -1 padded; vecs: (nlist,
-    cap, d') fp32, or int8 codes with scales (nlist, cap) -> (scores (B, kp)
-    fp32, ids (B, kp) int32), short rows padded with (-inf, -1).  The kernel
-    takes any kp >= 1 and d' <= MAX_D_PRIME; ``chunk`` bounds the plain
-    version's gather (query rows at a time) and the kernel ignores it.  On
-    the card the call pools with the psi kernel, scans with
-    ``ivf_probe_scan``'s body and selects (``ref.query_fused_grouped`` is
-    its plain twin), so it equals ``fused_psi_pool`` + ``ivf_probe_scan`` +
-    a stable top-kp bit for bit."""
+    cap, d') fp32, or int8 codes with scales (nlist, cap); latent: (B, d')
+    the pooled queries, or None to pool here -> (scores (B, kp) fp32, ids
+    (B, kp) int32), short rows padded with (-inf, -1).  The kernel takes any
+    kp >= 1; ``chunk`` bounds the plain version's gather (query rows at a
+    time) and the kernel ignores it.  On the card the call scans the pooled
+    queries with ``ivf_probe_scan``'s body and selects
+    (``ref.query_fused_grouped`` is its plain twin), so it equals
+    ``fused_psi_pool`` + ``ivf_probe_scan`` + a stable top-kp bit for bit."""
     if q_tokens.device.type == "cpu":
         return ref.query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
-                                   probe, ids, vecs, scales, kp=kp, chunk=chunk)
-    B, Tq, d = q_tokens.shape
+                                   probe, ids, vecs, scales, kp=kp, chunk=chunk,
+                                   latent=latent)
+    B = q_tokens.shape[0]
     nlist, cap = ids.shape
     P = probe.shape[1]
     dp = kernel.shape[1]
     dev = q_tokens.device
     _check_kp(kp, "query_fused")
-    if dp > MAX_D_PRIME:
-        raise ValueError(f"query_fused kernel takes d' <= {MAX_D_PRIME}, got {dp}")
     if P * cap >= 2 ** 31:
         raise ValueError(f"query_fused kernel takes nprobe * cap < 2^31, got {P * cap}")
-    build.expect(q_tokens, "q_tokens", torch.float32, (B, Tq, d), dev, align=4)
-    if q_mask is not None:
-        build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev, align=1)
-    build.expect(kernel, "kernel", torch.float32, (d, dp), dev, align=4)
-    for name, t in (("bias", bias), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
-        build.expect(t, name, torch.float32, (dp,), dev, align=4)
     build.expect(probe, "probe", torch.int32, (B, P), dev, align=4)
     build.expect(ids, "ids", torch.int32, (nlist, cap), dev, align=4)
+    if scales is not None:
+        build.expect(vecs, "vecs", torch.int8, (nlist, cap, dp), dev, align=1)
+        build.expect(scales, "scales", torch.float32, (nlist, cap), dev, align=4)
+    else:
+        build.expect(vecs, "vecs", torch.float32, (nlist, cap, dp), dev, align=4)
     out_s = torch.empty((B, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, kp), dtype=torch.int32, device=dev)
     if B == 0:
         return out_s, out_i
+    latent = _latent(latent, q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, eps)
     lib = build.library("query_fused")
-    common = (q_tokens.data_ptr(), _ptr(q_mask), kernel.data_ptr(), bias.data_ptr(),
-              ln_scale.data_ptr(), ln_bias.data_ptr(), probe.data_ptr(), ids.data_ptr(),
-              vecs.data_ptr())
     strips, scratch = _strip(B, P, cap, kp, dev)
-    # the pooled queries and the scan's grouping of the (b, p) pairs by list
-    latent = torch.empty((B, dp), dtype=torch.float32, device=dev)
+    # the scan's grouping of the (b, p) pairs by list
     lib.ivf_probe_scan_scratch.argtypes = [_i] * 3
     lib.ivf_probe_scan_scratch.restype = _ll
     groups = torch.empty((lib.ivf_probe_scan_scratch(B, P, nlist),), dtype=torch.int32,
                          device=dev)
     tail = (out_s.data_ptr(), out_i.data_ptr(), strips.data_ptr(), scratch.data_ptr(),
-            latent.data_ptr(), groups.data_ptr(), B, Tq, d, dp, P, cap, nlist, kp, float(eps),
-            build.stream_ptr(q_tokens))
+            groups.data_ptr(), B, dp, P, cap, nlist, kp, build.stream_ptr(q_tokens))
+    lists = (latent.data_ptr(), probe.data_ptr(), ids.data_ptr(), vecs.data_ptr())
     if scales is not None:
-        build.expect(vecs, "vecs", torch.int8, (nlist, cap, dp), dev, align=1)
-        build.expect(scales, "scales", torch.float32, (nlist, cap), dev, align=4)
         fn = lib.query_fused_sq8
-        fn.argtypes = [_p] * 16 + [_i] * 8 + [ctypes.c_float, _p]
-        err = fn(*common, scales.data_ptr(), *tail)
+        fn.argtypes = [_p] * 10 + [_i] * 6 + [_p]
+        err = fn(*lists, scales.data_ptr(), *tail)
     else:
-        build.expect(vecs, "vecs", torch.float32, (nlist, cap, dp), dev, align=4)
         fn = lib.query_fused_fp32
-        fn.argtypes = [_p] * 15 + [_i] * 8 + [ctypes.c_float, _p]
-        err = fn(*common, *tail)
+        fn.argtypes = [_p] * 9 + [_i] * 6 + [_p]
+        err = fn(*lists, *tail)
     build.check(lib, err, "query_fused")
     query_fused.launches += 1
     return out_s, out_i
@@ -122,34 +127,26 @@ query_fused.launches = 0
 
 def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
                     codes, centroids, values, *, kp: int, eps: float = 1e-5,
-                    chunk: int | None = None):
+                    chunk: int | None = None, latent=None):
     """:func:`query_fused` over residual lists: codes (nlist, cap, d' * bits
     / 8) uint8 against each list's own centroid, centroids (nlist, d') and
     values (d', 2^bits) fp32 (rows of whole bytes, as pack_codes packs
     them).  The rows score as ``ivf_probe_res_scan`` scores them (the same
-    row code), so the ids equal that scan's followed by the stable flat
-    top-kp."""
+    row code), so the ids equal the psi-pool and that scan followed by the
+    stable flat top-kp."""
     if q_tokens.device.type == "cpu":
         return ref.query_fused_res_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias,
                                        probe, ids, codes, centroids, values, kp=kp,
-                                       chunk=chunk)
-    B, Tq, d = q_tokens.shape
+                                       chunk=chunk, latent=latent)
+    B = q_tokens.shape[0]
     nlist, cap = ids.shape
     P = probe.shape[1]
     dp = kernel.shape[1]
     dev = q_tokens.device
     bits = residual_bits(values, dp)
     _check_kp(kp, "query_fused_res")
-    if dp > MAX_D_PRIME:
-        raise ValueError(f"query_fused_res kernel takes d' <= {MAX_D_PRIME}, got {dp}")
     if P * cap >= 2 ** 31:
         raise ValueError(f"query_fused_res kernel takes nprobe * cap < 2^31, got {P * cap}")
-    build.expect(q_tokens, "q_tokens", torch.float32, (B, Tq, d), dev, align=4)
-    if q_mask is not None:
-        build.expect(q_mask, "q_mask", torch.bool, (B, Tq), dev, align=1)
-    build.expect(kernel, "kernel", torch.float32, (d, dp), dev, align=4)
-    for name, t in (("bias", bias), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
-        build.expect(t, name, torch.float32, (dp,), dev, align=4)
     build.expect(probe, "probe", torch.int32, (B, P), dev, align=4)
     build.expect(ids, "ids", torch.int32, (nlist, cap), dev, align=4)
     build.expect(codes, "codes", torch.uint8, (nlist, cap, dp * bits // 8), dev, align=1)
@@ -162,15 +159,15 @@ def query_fused_res(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, id
     out_i = torch.empty((B, kp), dtype=torch.int32, device=dev)
     if B == 0:
         return out_s, out_i
+    latent = _latent(latent, q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, eps)
     lib = build.library("query_fused")
     strips, scratch = _strip(B, P, cap, kp, dev)
     fn = lib.query_fused_res
-    fn.argtypes = [_p] * 15 + [_i] * 9 + [ctypes.c_float, _p]
-    err = fn(q_tokens.data_ptr(), _ptr(q_mask), kernel.data_ptr(), bias.data_ptr(),
-             ln_scale.data_ptr(), ln_bias.data_ptr(), probe.data_ptr(), ids.data_ptr(),
-             codes.data_ptr(), centroids.data_ptr(), values.data_ptr(), out_s.data_ptr(),
-             out_i.data_ptr(), strips.data_ptr(), scratch.data_ptr(), B, Tq, d, dp, P, cap, nlist, kp,
-             bits, float(eps), build.stream_ptr(q_tokens))
+    fn.argtypes = [_p] * 10 + [_i] * 7 + [_p]
+    err = fn(latent.data_ptr(), probe.data_ptr(), ids.data_ptr(), codes.data_ptr(),
+             centroids.data_ptr(), values.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+             strips.data_ptr(), scratch.data_ptr(), B, dp, P, cap, nlist, kp, bits,
+             build.stream_ptr(q_tokens))
     build.check(lib, err, "query_fused_res")
     query_fused_res.launches += 1
     return out_s, out_i

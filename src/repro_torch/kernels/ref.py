@@ -136,9 +136,10 @@ def ivf_scan_grouped(q, probe, ids, vecs, scales=None, *, chunk: int = 8):
 
 def query_fused_grouped(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe, ids,
                         vecs, scales=None, *, kp: int, chunk: int = 8):
-    """The one-launch first stage as the card runs it (csrc/query_fused.cu):
-    psi-pool, the scan through :func:`ivf_scan_grouped` (the (b, p) pairs
-    grouped by list, ``chunk`` a work item), the stable flat top-kp; ids
+    """The one-launch first stage as the card runs it (the psi-pool, then
+    csrc/query_fused.cu on its latent): the scan through
+    :func:`ivf_scan_grouped` (the (b, p) pairs grouped by list, ``chunk`` a
+    work item), the stable flat top-kp; ids
     (nlist, cap), pads -inf, out-of-range probes a strip of -inf.  Returns
     (scores (B, kp), ids (B, kp)) padded with (-inf, -1), as
     :func:`query_fused_ref`."""
@@ -257,17 +258,27 @@ def mips_sq8_batched_ref(q, codes, scales, *, chunk: int | None = None):
     return torch.cat(out, 0) if out else q.new_empty((0, codes.shape[1]))
 
 
+def _pooled(latent, q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, s, e):
+    """Rows [s, e) of the pooled queries: ``latent``'s when given, else
+    :func:`psi_pool_ref` of those queries."""
+    if latent is not None:
+        return latent[s:e]
+    return psi_pool_ref(q_tokens[s:e], None if q_mask is None else q_mask[s:e],
+                        kernel, bias, ln_scale, ln_bias)
+
+
 def query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe,
-                    ids, vecs, scales=None, *, kp: int, chunk: int | None = None):
+                    ids, vecs, scales=None, *, kp: int, chunk: int | None = None,
+                    latent=None):
     """The one-launch first stage as the composition it fuses: psi-pool,
     gather-then-score probe scan, stable flat top-kp over the (B, nprobe *
     cap) strip (earlier flat positions win ties).  Returns (scores (B, kp),
     ids (B, kp)) padded with (-inf, -1).  ``chunk``: query rows at a time
-    of the pool and of the (chunk, nprobe, cap, d') gather."""
+    of the pool and of the (chunk, nprobe, cap, d') gather; ``latent``:
+    the pooled queries (B, d'), in place of the pool."""
     out_s, out_i = [], []
     for s, e in _chunks(q_tokens.shape[0], chunk):
-        psi_q = psi_pool_ref(q_tokens[s:e], None if q_mask is None else q_mask[s:e],
-                             kernel, bias, ln_scale, ln_bias)
+        psi_q = _pooled(latent, q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, s, e)
         sc = ivf_scan_ref(psi_q, probe[s:e], ids, vecs, scales)
         top, got = _flat_topk(sc, ids, probe[s:e], kp)
         out_s.append(top)
@@ -277,15 +288,14 @@ def query_fused_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe,
 
 def query_fused_res_ref(q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, probe,
                         ids, codes, centroids, values, *, kp: int,
-                        chunk: int | None = None):
+                        chunk: int | None = None, latent=None):
     """:func:`query_fused_ref` over residual lists (codes (nlist, cap, db)
-    uint8 against each list's own centroid, values (d', L)): psi-pool, the
-    decode-then-score probe scan, stable flat top-kp (score desc, position
-    asc), padded with (-inf, -1)."""
+    uint8 against each list's own centroid, values (d', L)): psi-pool (or
+    ``latent``), the decode-then-score probe scan, stable flat top-kp (score
+    desc, position asc), padded with (-inf, -1)."""
     out_s, out_i = [], []
     for s, e in _chunks(q_tokens.shape[0], chunk):
-        psi_q = psi_pool_ref(q_tokens[s:e], None if q_mask is None else q_mask[s:e],
-                             kernel, bias, ln_scale, ln_bias)
+        psi_q = _pooled(latent, q_tokens, q_mask, kernel, bias, ln_scale, ln_bias, s, e)
         sc = ivf_scan_res_ref(psi_q, probe[s:e], ids, codes, centroids, values)
         top, got = _flat_topk(sc, ids, probe[s:e], kp)
         out_s.append(top)
@@ -370,6 +380,39 @@ def tf32_split_scores(q, W, W_scales=None, *, chunk: int | None = None):
     if W_scales is not None:
         sc = sc * W_scales[None, :].float()
     return sc
+
+
+#: the psi kernel (csrc/fused_psi_pool.cu) against an fp64 psi: max abs
+#: error <= PSI_SPLIT_RTOL x max(1, max |exact|), unpooled rows and pooled
+#: queries alike.  tests/test_torch_psi.py shows tf32_split_psi under it
+#: (the product's split, then GELU and LayerNorm in fp32, the pool's fp32
+#: sums) at d' 256 to 4,096, d 16 to 128, Tq 1 to 80.
+PSI_SPLIT_RTOL = 2e-6
+
+
+def tf32_split_psi(x, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5, *,
+                   q_mask=None, chunk: int | None = 64):
+    """The psi kernel's arithmetic on the card (csrc/psi.cuh), emulated: x W'
+    as :func:`tf32_split_scores` sums it (x's rows and W''s columns split
+    into TF32 pieces, ``chunk``-column sums added in fp32, 64 as the kernel
+    sums), then bias, GELU and LayerNorm in fp32 as :func:`fused_psi_ref`
+    (the kernel's GELU is x / (1 + exp(-2u)), its variance combines 256-column
+    blocks' squared deviations by Chan's update, and it sums the pool in
+    another order: fp32 rounding).  x: (n, d) -> (n, d'); x: (B, Tq, d) with ``q_mask`` (B, Tq)
+    bool or None -> the pool sum_t mask_t psi(x_t), (B, d')."""
+    pool = x.dim() == 3
+    xs = x.reshape(-1, x.shape[-1])
+    h = tf32_split_scores(xs, kernel.T.contiguous(), chunk=chunk) + bias
+    h = F.gelu(h, approximate="tanh")
+    mu = h.mean(-1, keepdim=True)
+    var = (h - mu).square().mean(-1, keepdim=True)
+    y = (h - mu) * torch.rsqrt(var + eps) * ln_scale + ln_bias
+    if not pool:
+        return y
+    y = y.reshape(*x.shape[:2], -1)
+    if q_mask is not None:
+        y = y * q_mask[:, :, None].to(y.dtype)
+    return y.sum(1)
 
 
 def tf32_split_maxsim(x, doc_tokens, doc_mask, doc_scales=None, *, chunk: int | None = 64):

@@ -42,7 +42,7 @@ from repro_torch.kernels._ablation import build_variants, card, time_ms
 VARIANTS = {
     "query_fused": {
         "as_built": {},
-        # the psi-pool and the selection: no list is walked
+        # the latent read and the selection: no list is walked
         "pool_only": {"query_fused.cu": [
             ("res_scan<BITS, WHOLE>(probe + (size_t)b * P, P, 1,",
              "res_scan<BITS, WHOLE>(probe + (size_t)b * P, 0, 1,")]},
@@ -59,17 +59,13 @@ VARIANTS = {
         "no_lookups": {"residual.cuh": [
             ("part[h] += T[RC::code(w[h][t], j) * kResTileStride + res_col(wi * cpw + j)];",
              "part[h] += __uint_as_float(w[h][t] >> j);")]},
-        # each block of the cluster pools the whole query alone (the
-        # alternative: blocks that each re-pool), the scan split as built
-        "repool": {"query_fused.cu": [
-            ("psi_segment<C, kQfrCluster>(", "psi_segment<C, 1>(")]},
-        # clusters of 1, 4 and 8 blocks a query
-        "cluster_1": {"query_fused.cu": [("constexpr int kQfrCluster = 2;",
-                                          "constexpr int kQfrCluster = 1;")]},
-        "cluster_4": {"query_fused.cu": [("constexpr int kQfrCluster = 2;",
-                                          "constexpr int kQfrCluster = 4;")]},
-        "cluster_8": {"query_fused.cu": [("constexpr int kQfrCluster = 2;",
-                                          "constexpr int kQfrCluster = 8;")]},
+        # 1, 4 and 8 blocks a query
+        "blocks_1": {"query_fused.cu": [("constexpr int kQfrBlocks = 2;",
+                                         "constexpr int kQfrBlocks = 1;")]},
+        "blocks_4": {"query_fused.cu": [("constexpr int kQfrBlocks = 2;",
+                                         "constexpr int kQfrBlocks = 4;")]},
+        "blocks_8": {"query_fused.cu": [("constexpr int kQfrBlocks = 2;",
+                                         "constexpr int kQfrBlocks = 8;")]},
     },
     "ivf_probe_res_scan": {
         "as_built": {},
@@ -282,8 +278,9 @@ def main():
     res = {}
     for (source, name), lib in libs.items():
         if source == "query_fused":
+            # on a pooled latent, as the route calls it
             fn = with_lib(source, lib, lambda: query_fused.query_fused_res(
-                q, qm, *w, probe, *lst, kp=KP))
+                q, qm, *w, probe, *lst, kp=KP, latent=psi_q))
         elif source == "ivf_probe_res_scan":
             fn = with_lib(source, lib, lambda: gather_scan.ivf_probe_res_scan(psi_q, probe, *lst))
         else:

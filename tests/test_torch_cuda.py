@@ -71,6 +71,83 @@ def test_fused_psi_kernel(cuda, B, Tq, d, dp):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,Tq,d,dp,mask", [
+    (3, 1, 16, 256, "random"),       # a query a row
+    (4, 6, 20, 2044, "random"),      # 10 queries a 64-row tile, d' off 16 bytes
+    (256, 32, 128, 2048, "random"),  # the served pool
+    (2, 33, 13, 2040, "none"),       # a query a tile, d off 8, no mask
+    (3, 80, 128, 4096, "random"),    # a query over two tiles, clusters of 16
+    (2, 512, 128, 2048, "random"),   # a query over eight tiles
+    (5, 6, 3000, 4096, "random"),    # d looped in 94 chunks
+    (1, 7, 128, 64, "random"),       # one warpgroup of a block without columns
+])
+def test_psi_kernel_shapes(cuda, B, Tq, d, dp, mask):
+    """The tensor-core psi kernel, pooled and unpooled, against its plain
+    version (1e-4) and an fp64 psi (ref.PSI_SPLIT_RTOL x max(1, max|exact|));
+    two calls give the same bits; a fully masked query pools to 0."""
+    rng = np.random.default_rng(B * Tq + d + dp)
+    q = torch.as_tensor(rng.standard_normal((B, Tq, d)), dtype=torch.float32, device=cuda)
+    qm = None
+    if mask == "random":
+        qm = torch.as_tensor(rng.random((B, Tq)) > 0.3, device=cuda)
+        qm[0] = False
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    w64 = [t.double() for t in w]
+    got = fused_psi.fused_psi_pool(q, qm, *w)
+    assert torch.equal(got, fused_psi.fused_psi_pool(q, qm, *w))
+    torch.testing.assert_close(got, ref.psi_pool_ref(q, qm, *w), rtol=1e-4, atol=1e-4)
+    exact = ref.psi_pool_ref(q.double(), qm, *w64)
+    err = float((got.double() - exact).abs().max())
+    assert err <= ref.PSI_SPLIT_RTOL * max(1.0, float(exact.abs().max())), err
+    if qm is not None:
+        assert bool((got[0] == 0).all())
+    x = q.reshape(B * Tq, d)
+    feats = fused_psi.fused_psi(x, *w)
+    assert torch.equal(feats, fused_psi.fused_psi(x, *w))
+    torch.testing.assert_close(feats, ref.fused_psi_ref(x, *w), rtol=1e-4, atol=1e-4)
+    exact = ref.fused_psi_ref(x.double(), *w64)
+    err = float((feats.double() - exact).abs().max())
+    assert err <= ref.PSI_SPLIT_RTOL * max(1.0, float(exact.abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fp32", "sq8", "residual"])
+def test_one_launch_routes_pool_once(cuda, kind):
+    """ops.fused_query / fused_query_res launch the psi-pool once a search
+    (the probe selection's; the kernel takes its latent) and equal the
+    kernel fed the pool's latent, bit for bit."""
+    B, Tq, d, dp, nlist, cap, nprobe, kp = 4, 32, 128, 2048, 8, 300, 4, 256
+    rng = np.random.default_rng(5)
+    g = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=cuda)
+    w = [t.to(cuda) for t in _psi_params(rng, d, dp)]
+    psi = Psi.from_arrays(*w, device="cuda")
+    q = g(rng.standard_normal((B, Tq, d)), torch.float32)
+    qm = g(rng.random((B, Tq)) > 0.3)
+    ids = rng.permutation(10 ** 6)[:nlist * cap].reshape(nlist, cap).astype(np.int32)
+    ids[:, cap - cap // 3:] = -1
+    cent = g(rng.standard_normal((nlist, dp)) / np.sqrt(dp), torch.float32)
+    if kind == "residual":
+        codes = g(rng.integers(0, 256, (nlist, cap, dp // 2)).astype(np.uint8))
+        _, values = _residual_tables(rng, nlist, dp, 4, False)
+        lists = (g(ids), codes, g(values))
+        route, name = ops.fused_query_res, "query_fused_res"
+        kargs = (g(ids), codes, cent, g(values))
+    else:
+        vecs = g(rng.standard_normal((nlist, cap, dp)) * (ids >= 0)[..., None], torch.float32)
+        lists = (g(ids), *(sq8_quant(vecs) if kind == "sq8" else (vecs,)))
+        route, name = ops.fused_query, "query_fused"
+        kargs = lists
+    ops.reset_launch_counts()
+    got = route(q, qm, psi, cent, *lists, nprobe=nprobe, kp=kp)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"fused_psi_pool": 1, name: 1}, counts
+    lat = fused_psi.fused_psi_pool(q, qm, *w)
+    probe = stable_topk(lat @ cent.T, nprobe)[1].to(torch.int32)
+    want = ops.KERNELS[name](q, qm, *w, probe, *kargs, kp=kp, latent=lat)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,nlist,cap,d,nprobe", [
     (4, 8, 5, 12, 3), (1, 16, 9, 32, 8), (3, 4, 1, 20, 4), (2, 4, 64, 2048, 3),
     (3, 4, 40, 4096, 3),        # q from device memory, rows staged

@@ -223,7 +223,8 @@ def test_kernels_take_any_kp_from_one(kp, monkeypatch):
     """The CUDA path checks kp before it touches the card; tensors on the
     meta device take that path here.  kp = 0 is refused; k' = 8192, past
     the shared-memory lists' old limits (4,096 dense, 2,048 one-launch),
-    passes every argument check and reaches the kernels' library."""
+    passes every argument check and reaches the kernels' library (the
+    one-launch kernel on a pooled latent, as the route calls it)."""
     from repro_torch.kernels import build
 
     class Reached(Exception):
@@ -241,7 +242,8 @@ def test_kernels_take_any_kp_from_one(kp, monkeypatch):
              lambda: qf.query_fused(qt, None, *w,
                                     torch.empty((2, 16), dtype=torch.int32, device=meta),
                                     torch.empty((4, 1024), dtype=torch.int32, device=meta),
-                                    torch.empty((4, 1024, 64), device=meta), kp=kp)]
+                                    torch.empty((4, 1024, 64), device=meta), kp=kp,
+                                    latent=q)]
     for call in calls:
         with pytest.raises(ValueError if kp == 0 else Reached,
                            match="kp >= 1" if kp == 0 else "query_fused"):
