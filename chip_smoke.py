@@ -101,7 +101,10 @@ script
    cores', the scans' beside the floor of a lookup a code; the scan by
    list after a line with its probes' spread, as in 6), traces a batch
    (with the host's activity in the device's idle gaps) and reports token
-   bytes per doc of both tiers;
+   bytes per doc of both tiers; then one churn round on the compressed
+   store and its 4-bit lists (as in 9; the residual retriever was made over
+   the fp32 index's W and tombstones, so it copies what it writes: the line
+   says what), its two routes held as before;
 8. **sharded**: on a one-rank NCCL process group and its ("model",)
    DeviceMesh, holds ``rerank_gather_scores`` (fp32 and SQ8) against its
    plain version on a ragged case (B=1, Td=77, -1 candidates, a doc with no
@@ -119,17 +122,35 @@ script
    queries, and its bound at the TF32 split's rate beside the CUDA
    cores'); then an fp32 block over a base cut to the first 100,000
    slots, its default route checked the same way, and the same base
-   sharded at k'_loc = 1024 against its own exact scan;
-9. gives every kernel row the kernels and memsets that one call of its
+   sharded at k'_loc = 1024 against its own exact scan; between the SQ8
+   block's routes and the fp32 block, one add / delete round on the SQ8
+   block through the sharded facade (the new docs placed in free rows), the
+   fused route held to the plain composition after it;
+9. **mutation**: CHURN_ROUNDS rounds on the served index through the facade
+   (its OLS solver drawn by the seeded fallback, since the index came from
+   arrays): delete 1,024 random live docs, add 1,024 new docs of the
+   corpus's length distribution, update 256; each mutation timed on a
+   synchronized host clock (the add split into fit, ``extend_ivf`` and
+   ``add_docs``), its ``last_mutation_bytes``, the token MaxSim launches it
+   made, the new W rows' targets held to the plain token MaxSim within
+   ``ref.TF32_SPLIT_RTOL`` and the rows to the plain fit within that
+   tolerance carried through the solve; after each round 256 queries
+   through the default, one-launch and exact one-launch routes held to the
+   plain composition, no deleted or tombstoned id in any top-100; free
+   pages and slots before and after, whether the pool or a list's capacity
+   grew, the change in allocated memory and the phase's peak;
+10. gives every kernel row the kernels and memsets that one call of its
    wrapper put on the card (``cuda_launches_per_call``, and by name in
    ``cuda_launched``), counted by torch.profiler in this run: a lower
    bound, since a trace can drop device events (None: it saw none);
-10. runs ``kernels/psi_ablation.py`` (the psi kernel built four ways:
+11. runs ``kernels/psi_ablation.py`` (the psi kernel built four ways:
    as built, without its product, with W' resident, without its
    statistics; under a minute);
-11. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
+12. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
    ``routes`` line, a ``residual`` line, a ``sharded`` line, the
-   ``psi_ablation`` line, the ``kernels`` line and last ``{"ok": true, ...}``.
+   ``mutation`` line (with the residual and sharded rounds), the
+   ``psi_ablation`` line, the ``kernels`` line (token MaxSim's row with its
+   launches on the mutation path) and last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -1852,7 +1873,34 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
     # it, so nothing of the earlier phases is freed first
     line.update(card=card_line(), freed=[], traced_batch=profile_batch(torch, rr, q, qm),
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    del rr, rstore, rann, codec, cand, pargs, qargs, lists
+    del cand, pargs, qargs, lists
+
+    # one churn round on the compressed store and its 4-bit lists; rr was
+    # made over tensors the fp32 index shares, so what it writes it copies
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ptrs = (rstore.code_pages.data_ptr(), rstore.W.data_ptr(), rann.vecs.data_ptr())
+    alive0 = store.alive.clone()
+    gone = set(torch.nonzero(~rstore.alive[:m]).flatten().tolist())
+    rd = churn_round(torch, rr, np.random.default_rng(args.seed + 12), args.seed,
+                     CHURN_DELETE, CHURN_ADD, CHURN_UPDATE, gone)
+    rd["before"] = dict(free_pages=len(pages.free_list(rstore)), list_cap=rann.capacity)
+    rd["after"] = store_census(torch, rr)
+    rd["routes"] = check_churned_routes(torch, rr, batches[1:2], gone, {
+        "residual_default": ({}, None), "residual_one_launch": ({}, {"use_one_launch": True})})
+    st = rr.index.store
+    rd["copied_on_write"] = [n for n, a, b in zip(
+        ("code_pages", "W", "list_vecs"), ptrs,
+        (st.code_pages.data_ptr(), st.W.data_ptr(), rr.index.ann.vecs.data_ptr())) if a != b]
+    require(torch.equal(store.alive, alive0) and int(store.n_docs[0]) == m,
+            "the residual churn wrote the fp32 index's tombstones")
+    rd.update(memory_allocated_change_gib=(torch.cuda.memory_allocated() - mem0) / 2**30,
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    line["churn_round"] = rd
+    print(f"residual churn round ok: delete {rd['delete_ms']:.1f} ms, add {rd['add_ms']:.1f} "
+          f"ms, update {rd['update_ms']:.1f} ms, copied {rd['copied_on_write']}", flush=True)
+    del rr, rstore, rann, codec, st
     return line, rows
 
 
@@ -2232,7 +2280,9 @@ def sharded_phase(torch, args, r, batches, library_ms_kp4096=None):
               f"{b_ms:.3f} ms ({b_by})", flush=True)
         line["traced_batch"] = profile_batch(torch, sr, q, qm)
         line["sq8_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        del sr, st, args_k, margs, cand, psi_q
+        del args_k, margs, cand, psi_q
+        line["churn_round"] = sharded_churn(torch, args, r, sr, batches[1], kp)
+        del sr, st
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2329,6 +2379,60 @@ def sharded_phase(torch, args, r, batches, library_ms_kp4096=None):
     return line, rows
 
 
+def sharded_churn(torch, args, r, sr, batch, kp):
+    """One add / delete round on the SQ8 block through the sharded facade (the
+    base facade mutated in place, the new docs placed in free rows), then
+    the fused route on a batch held to the plain composition over the block,
+    its scores to exact MaxSim over the block's tokens, no deleted id."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.retriever import SearchParams
+
+    rng = np.random.default_rng(args.seed + 13)
+    store = r.index.store
+    gone = set(torch.nonzero(~store.alive[:r.m]).flatten().tolist())
+    ops.reset_launch_counts()
+    ids = pick_live(torch, r, rng, CHURN_DELETE)
+    _, del_ms = synced_ms(torch, lambda: sr.delete(ids))
+    del_bytes = r.last_mutation_bytes
+    gone.update(ids.tolist())
+    tok, mask = churn_docs(torch, rng, args.seed, CHURN_ADD, r.device, store.d)
+    _, add_ms = synced_ms(torch, lambda: sr.add(tok, mask))
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    added = sr.last_added_ids
+    st = sr.state
+    rows = torch.as_tensor([sr._row_of[int(i)] for i in added], device=st.W.device)
+    require(torch.equal(st.row_ids[rows].cpu(), torch.as_tensor(added))
+            and bool(st.row_valid[rows].all()), "sharded churn: new docs not placed")
+    require(not bool(torch.isin(st.row_ids, torch.as_tensor(ids, device=st.W.device)).any()),
+            "sharded churn: a deleted doc keeps its row")
+    q, qm, _ = batch
+    params = SearchParams(use_ann=False)
+    p0 = sr.resolve(params)
+    (s, out), search_ms = synced_ms(torch, lambda: sr.search(q, qm, params))
+    plain = sharded_plain(torch, st, q, qm, kp, p0.k)
+    gone_t = torch.as_tensor(sorted(gone), device=st.W.device)
+    require(bool((out >= 0).all()) and not bool(torch.isin(out.long(), gone_t).any()),
+            "sharded churn: a deleted doc served")
+    cand = None
+    if bool((out != plain["ids"]).any()):
+        cand = port_candidates(torch, st, q, qm, kp, False)
+    ties = classify_exact(torch, st.W, st.W_scales, out, s, cand, plain)
+    row_of = torch.full((r.m,), -1, dtype=torch.int32, device=st.W.device)
+    valid = st.row_valid
+    row_of[st.row_ids[valid].long()] = torch.nonzero(valid).flatten().int()
+    exact = ref.rerank_scores_ref(q, qm, row_of[out.long()], st.doc_tokens, st.doc_mask,
+                                  st.doc_scales, chunk=25)
+    torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+    rd = dict(delete_ms=del_ms, delete_bytes=del_bytes, add_ms=add_ms,
+              add_bytes=r.last_mutation_bytes, launches=launches,
+              free_rows=sum(len(f) for f in sr._free_rows), rows_per_shard=sr.rows_per_shard,
+              search_ms=search_ms, near_tie_rows=ties, rows_checked=q.shape[0],
+              new_docs_in_rows_of_deleted=int((rows < r.m - CHURN_ADD).sum()))
+    print(f"sharded churn round ok: delete {del_ms:.1f} ms, add {add_ms:.1f} ms, near-tie "
+          f"rows {ties}", flush=True)
+    return rd
+
+
 def rerank_fp64(torch, q, qm, cand, toks, dm, scales, chunk=256):
     """Exact MaxSim of each query against its own candidates in fp64 (the
     stored tokens: SQ8 codes times their scales), ``chunk`` candidates at a
@@ -2393,6 +2497,255 @@ def rerank_gather_row(torch, variant, args_k, launches_by_kernel, ragged, note="
         **cuda_launches(torch, lambda: gather_scan.rerank_gather_scores(*args_k)))
 
 
+# --------------------------------------------------------------------------
+# mutation: churn on the served index, the residual tier and the block
+# --------------------------------------------------------------------------
+
+CHURN_ROUNDS = 2      # delete / add / update rounds on the served index
+CHURN_DELETE = 1024   # random live docs deleted a round
+CHURN_ADD = 1024      # new docs added a round
+CHURN_UPDATE = 256    # live docs replaced a round
+CHURN_ROUTES = {      # name: (SearchParams keywords, IVF keywords)
+    "default": ({}, None),
+    "one_launch": ({}, {"use_one_launch": True}),
+    "exact_one_launch": ({"use_ann": False, "use_one_launch": True}, None),
+}
+
+
+def churn_docs(torch, rng, seed, n, dev, d=128):
+    """n new docs of the served corpus's distribution (Poisson(67.5) lengths
+    in [4, 80], unit tokens about the same 4,096 topic centres), dense on
+    ``dev``."""
+    T = 80
+    centers = torch.nn.functional.normalize(torch.randn(
+        TOPIC_CENTERS, d, generator=torch.Generator(device=dev).manual_seed(seed), device=dev),
+        dim=1)
+    counts = torch.as_tensor(np.clip(rng.poisson(67.5, n), 4, T), device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    topics = torch.randint(0, TOPIC_CENTERS, (n, 2), generator=g, device=dev)
+    which = torch.randint(0, 2, (n, T), generator=g, device=dev)
+    tok = torch.nn.functional.normalize(
+        torch.randn(n, T, d, generator=g, device=dev)
+        + TOPIC_STRENGTH * centers[topics.gather(1, which)], dim=-1)
+    mask = torch.arange(T, device=dev)[None, :] < counts[:, None]
+    return (tok * mask[..., None]).contiguous(), mask
+
+
+@contextlib.contextmanager
+def timed_parts(torch, sink):
+    """Time the facade's mutation steps on a synchronized host clock: while
+    open, ``indexer.fit_docs``, ``ivf.extend_ivf``, ``pages.add_docs`` and
+    ``pages.delete_docs`` add their ms to ``sink`` (name -> list)."""
+    from repro_torch.anns import ivf
+    from repro_torch.core import indexer, pages
+
+    saved = []
+
+    def wrap(mod, name, label):
+        fn = getattr(mod, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            sink.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    wrap(indexer, "fit_docs", "fit_ms")
+    wrap(ivf, "extend_ivf", "extend_ivf_ms")
+    wrap(pages, "add_docs", "add_docs_ms")
+    wrap(pages, "delete_docs", "delete_docs_ms")
+    try:
+        yield sink
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def synced_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def pick_live(torch, r, rng, n, avoid=()):
+    """n distinct random live slot ids of ``r``, none in ``avoid``."""
+    alive = r.index.store.alive[:r.m].clone()
+    if len(avoid):
+        alive[torch.as_tensor(list(avoid), device=alive.device)] = False
+    live = torch.nonzero(alive).flatten().cpu().numpy()
+    return np.sort(rng.choice(live, size=n, replace=False))
+
+
+def check_w_rows(torch, r, ids, tok, mask):
+    """The W rows of ``ids`` (just fit from ``tok``, ``mask``) against the
+    plain fit: the token MaxSim targets (the kernel's output) within
+    ref.TF32_SPLIT_RTOL x max(1, max|g|), and the rows within that tolerance
+    carried through the solve (x the Gram matrix's condition number) x
+    max|W|.  Returns the errors and tolerances."""
+    from repro_torch.core import maxsim
+    from repro_torch.kernels import ref
+
+    solver, stats = r.solver_state, r.index.stats
+    x = solver["x_ols"]
+    g = maxsim.token_maxsim(x, tok, mask)
+    g_plain = ref.token_maxsim_ref(x, tok, mask, chunk=64)
+    g_err = float((g - g_plain).abs().max())
+    g_tol = ref.TF32_SPLIT_RTOL * max(1.0, float(g_plain.abs().max()))
+    w_plain = torch.cholesky_solve(solver["feats"].T @ ((g_plain - stats.mean) / stats.std),
+                                   solver["chol"]).T
+    W = r.index.store.W[torch.as_tensor(ids, device=tok.device).long()]
+    sv = torch.linalg.svdvals(solver["chol"])
+    cond = float((sv.max() / sv.min()) ** 2)
+    w_err = float((W - w_plain).abs().max())
+    w_tol = ref.TF32_SPLIT_RTOL * cond * float(w_plain.abs().max())
+    require(g_err <= g_tol, f"added docs' targets: max abs err {g_err} > {g_tol}")
+    require(w_err <= w_tol, f"added docs' W rows: max abs err {w_err} > {w_tol} "
+                            f"(Gram condition number {cond:.3g})")
+    return dict(targets_max_abs_err=g_err, targets_tol=g_tol, W_max_abs_err=w_err,
+                W_tol=w_tol, gram_condition=cond)
+
+
+def churn_round(torch, r, rng, seed, n_del, n_add, n_upd, gone):
+    """One round through the facade: delete n_del random live docs, add n_add
+    new ones, update n_upd live ones; each mutation timed (synchronized host
+    clock; the add split into fit, extend_ivf and add_docs), its bytes, the
+    token MaxSim launches it made, and the new W rows held to the plain
+    fit.  ``gone`` collects the ids that must never be served again."""
+    from repro_torch.kernels import ops
+
+    out, parts = {}, {}
+    ids = pick_live(torch, r, rng, n_del)
+    ops.reset_launch_counts()
+    with timed_parts(torch, parts):
+        _, out["delete_ms"] = synced_ms(torch, lambda: r.delete(ids))
+        out["delete_bytes"] = r.last_mutation_bytes
+        gone.update(ids.tolist())
+        tok, mask = churn_docs(torch, rng, seed, n_add, r.device, r.index.store.d)
+        _, out["add_ms"] = synced_ms(torch, lambda: r.add(tok, mask))
+        out["add_bytes"] = r.last_mutation_bytes
+        added = r.last_added_ids
+        out["add_parts_ms"] = {k: v[-1] for k, v in parts.items() if k != "delete_docs_ms"}
+        upd = pick_live(torch, r, rng, n_upd, avoid=added.tolist())
+        utok, umask = churn_docs(torch, rng, seed, n_upd, r.device, r.index.store.d)
+        new_ids, out["update_ms"] = synced_ms(torch, lambda: r.update(upd, utok, umask))
+        out["update_bytes"] = r.last_mutation_bytes
+        gone.update(upd.tolist())
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["w_rows"] = check_w_rows(torch, r, added, tok, mask)
+    out["w_rows_update"] = check_w_rows(torch, r, new_ids, utok, umask)
+    out["added_ids"] = [int(added[0]), int(added[-1])]
+    return out
+
+
+def check_churned_routes(torch, r, batches, gone, routes):
+    """Each route of ``routes`` on ``batches`` after churn, held to the plain
+    composition (ids up to counted near-ties), the scores to exact MaxSim
+    over the stored tokens, no tombstoned or deleted id in any top-k."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core.model import pool_queries
+    from repro_torch.retriever import IVFSearchParams, SearchParams
+    from repro_torch.retriever.facade import first_stage
+
+    index, st = r.index, r.index.store
+    gone_t = torch.as_tensor(sorted(gone), device=st.W.device)
+    line = {}
+    plains = {}
+    for name, (kw, bkw) in routes.items():
+        params = SearchParams(**kw, backend=IVFSearchParams(**bkw) if bkw else None)
+        p = r.resolve(params)
+        ties = {}
+        lat = []
+        for i, (q, qm, _) in enumerate(batches):
+            (s, ids), ms = synced_ms(torch, lambda: r.search(q, qm, params))
+            lat.append(ms)
+            require(s.shape == (q.shape[0], p.k) and bool(torch.isfinite(s).all())
+                    and bool((ids >= 0).all()), f"churned {name}: scores or ids malformed")
+            require(not bool(torch.isin(ids.long(), gone_t).any())
+                    and bool(st.alive[ids.long()].all()), f"churned {name}: a deleted doc served")
+            cand = first_stage(index, q, qm, p)
+            if p.use_ann:
+                if i not in plains:
+                    plains[i] = plain_search(torch, index, q, qm, p)
+                probe = stable_topk(pool_queries(index.psi, q, qm) @ index.ann.centroids.T,
+                                    p.backend.nprobe)[1].int()
+                kinds = classify_rows(torch, ids, s, plains[i], {"probe": probe, "cand": cand},
+                                      p.k_prime)
+            else:
+                kinds = classify_exact(torch, st.W, None, ids, s, cand,
+                                       exact_plain(torch, index, q, qm, p))
+            for k, v in kinds.items():
+                ties[k] = ties.get(k, 0) + v
+            exact = plain_pair_scores(torch, st, q, qm, ids, chunk=32)
+            torch.testing.assert_close(s, exact, rtol=1e-5, atol=1e-4)
+            require(bool((s[:, :-1] >= s[:, 1:]).all()), f"churned {name}: scores not sorted")
+        line[name] = dict(near_tie_rows=ties, rows_checked=sum(b[0].shape[0] for b in batches),
+                          search_ms=lat)
+    return line
+
+
+def store_census(torch, r):
+    from repro_torch.core import pages
+
+    st, ann = r.index.store, r.index.ann
+    return dict(free_pages=len(pages.free_list(st)), n_pages=st.n_pages,
+                free_slots=st.capacity - r.m, capacity=st.capacity, m=r.m, alive=r.n_alive,
+                list_cap=ann.capacity, pages_per_doc=st.pages_per_doc)
+
+
+def mutation_phase(torch, args, r, batches, card):
+    """CHURN_ROUNDS rounds of delete / add / update on the served index
+    through the facade (its solver drawn by the seeded fallback: the index
+    came from arrays), each round's routes checked after it.  Returns the
+    mutation line."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(args.seed + 11)
+    st = r.index.store
+    ptrs = (st.tok_pages.data_ptr(), st.W.data_ptr(), r.index.ann.vecs.data_ptr())
+    before = store_census(torch, r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    gone = set(torch.nonzero(~st.alive[:r.m]).flatten().tolist())
+    rounds, launches = [], {}
+    for i in range(CHURN_ROUNDS):
+        rd = churn_round(torch, r, rng, args.seed, CHURN_DELETE, CHURN_ADD, CHURN_UPDATE, gone)
+        for k, v in rd["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        ops.reset_launch_counts()
+        rd["routes"] = check_churned_routes(torch, r, batches[1:2], gone, CHURN_ROUTES)
+        rd["memory_allocated_change_gib"] = (torch.cuda.memory_allocated() - mem0) / 2**30
+        rounds.append(rd)
+        print(f"churn round {i} ok: delete {rd['delete_ms']:.1f} ms, add {rd['add_ms']:.1f} ms "
+              f"({rd['add_parts_ms']}), update {rd['update_ms']:.1f} ms, routes "
+              f"{ {k: v['near_tie_rows'] for k, v in rd['routes'].items()} }", flush=True)
+    after = store_census(torch, r)
+    st = r.index.store
+    in_place = (st.tok_pages.data_ptr(), st.W.data_ptr()) == ptrs[:2]
+    require(in_place or after["n_pages"] > before["n_pages"]
+            or after["capacity"] > before["capacity"],
+            "an add within the pool and the slot capacity copied the pool or W")
+    require(launches.get("token_maxsim", 0) == 2 * CHURN_ROUNDS,
+            f"mutation launches {launches}: token_maxsim once an add and an update")
+    return dict(card=card, rounds=rounds, before=before, after=after,
+                launches_on_mutation_path=launches, deleted_or_replaced=len(gone),
+                pool_and_W_written_in_place=in_place,
+                lists_written_in_place=r.index.ann.vecs.data_ptr() == ptrs[2],
+                list_cap_grew=after["list_cap"] > before["list_cap"],
+                pool_grew=after["n_pages"] > before["n_pages"],
+                memory_allocated_change_gib=(torch.cuda.memory_allocated() - mem0) / 2**30,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                solver="seeded fallback (from_arrays keeps no OLS tokens): n_ols tokens "
+                       "drawn from the pages")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -2432,14 +2785,20 @@ def main():
     print(json.dumps({"widths": {"max_abs_err": widths, "s": time.time() - t0}}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    serving, routes, residual, sharded, kernels = serve_and_check(torch, args)
+    serving, routes, residual, sharded, mutation, kernels = serve_and_check(torch, args)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
+    maxsim_row["launches_mutation_path"] = {
+        name: rd["launches"].get("token_maxsim", 0) for name, rd in (
+            [(f"round_{i}", rd) for i, rd in enumerate(mutation["rounds"])]
+            + [("residual_round", mutation["residual_round"]),
+               ("sharded_round", mutation["sharded_round"])])}
     kernels.append(maxsim_row)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"mutation": mutation}), flush=True)
     t0 = time.time()
     from repro_torch.kernels import psi_ablation
     ablation = psi_ablation.run()
@@ -2762,7 +3121,15 @@ def serve_and_check(torch, args):
     lib_kp4096 = next(rw.get("library_ms_kp4096") for rw in new_rows
                       if rw["name"] == "mips_topk" and rw["variant"] == "sq8")
     sharded, sh_rows = sharded_phase(torch, args, r, batches, lib_kp4096)
-    return serving, routes, residual, sharded, kernels + new_rows + res_rows + sh_rows
+
+    # -- 9. churn on the served index ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mutation = mutation_phase(torch, args, r, batches, card_line())
+    mutation["residual_round"] = residual.pop("churn_round")
+    mutation["sharded_round"] = sharded.pop("churn_round")
+    return (serving, routes, residual, sharded, mutation,
+            kernels + new_rows + res_rows + sh_rows)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ is the gather-at-source probe-scan kernel
 JAX package's decode-then-score route).  :func:`search_ivf_one_launch`
 takes the query tokens and runs pool, scan and top-k' in the
 ``query_fused`` (or ``query_fused_res``) kernel.
+Growth (:func:`extend_ivf`): new rows go to the frozen centroids and are
+appended to their lists on the device, O(new rows); the lists equal the
+JAX package's full re-pack bit for bit.
 """
 from __future__ import annotations
 
@@ -24,15 +27,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.anns import kmeans as _kmeans
 from repro_torch.anns.base import pad_topk, stable_topk
-from repro_torch.anns.kmeans import assign as assign_clusters
 from repro_torch.anns.kmeans import kmeans
 from repro_torch.anns.quantization import (
     ResidualCodec,
+    pack_codes,
     residual_decode,
     residual_encode,
     residual_quantiles,
     sq8_quant,
+    unpack_codes,
 )
 from repro_torch.core.pages import next_pow2
 from repro_torch.kernels import ops, ref
@@ -41,6 +46,7 @@ from repro_torch.kernels.gather_scan import ivf_probe_res_scan, ivf_probe_scan
 _PACK_ROWS = 65536   # rows quantized / copied at a time while packing
 _RQ_COLS = 64        # residual columns sorted at a time for the quantile tables
 _LEGACY_RES_ROWS = 8  # queries decoded at a time on the legacy residual scan
+_RECODE_LISTS = 64    # residual lists whose re-encode table is built at a time
 
 
 class IVFIndex(NamedTuple):
@@ -111,6 +117,12 @@ def build_ivf(vectors: torch.Tensor, nlist: int = 0, *, sq8: bool = False,
     return IVFIndex(centroids, ids, vecs, scales, counts, mean)
 
 
+def assign_clusters(vectors: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid of each row, ``argmax(v.c - |c|^2 / 2)`` in fp32
+    (the package turns TF32 off), the first index on ties -> (n,) int64."""
+    return _kmeans.assign(vectors, centroids)
+
+
 def _pack_lists(vectors: torch.Tensor, assign: torch.Tensor, nlist: int, *,
                 sq8: bool, cap_floor: int = 1, codec: ResidualCodec | None = None):
     """Pack vectors into fixed-capacity padded cluster lists, slots in
@@ -170,6 +182,17 @@ def _train_rq(vectors: torch.Tensor, assign: torch.Tensor, centroids: torch.Tens
     return cuts, values
 
 
+def _residual_pack(centroids, cuts, values, ids, vecs_fp):
+    """fp32 padded lists (nlist, cap, d) -> packed residual codes (nlist,
+    cap, d * bits / 8) uint8 against each list's own centroid, pad slots
+    zero (the JAX ``_residual_pack``)."""
+    codec = ResidualCodec(centroids, cuts, values)
+    nlist, cap = ids.shape
+    cent = torch.arange(nlist, device=ids.device)[:, None].expand(nlist, cap).reshape(-1)
+    packed = residual_encode(codec, vecs_fp.reshape(nlist * cap, -1), cent)[1]
+    return torch.where((ids >= 0)[..., None], packed.reshape(nlist, cap, -1), 0)
+
+
 def _residual_unpack(index: IVFIndex) -> torch.Tensor:
     """Decode the packed lists back to (nlist, cap, d) fp32 (centred), pad
     slots zero."""
@@ -177,6 +200,100 @@ def _residual_unpack(index: IVFIndex) -> torch.Tensor:
     nlist, cap = index.ids.shape
     cent = torch.arange(nlist, device=index.ids.device)[:, None].expand(nlist, cap)
     return residual_decode(codec, cent, index.vecs) * (index.ids >= 0)[..., None]
+
+
+def extend_ivf(index: IVFIndex, new_vectors: torch.Tensor, *,
+               shared: set | None = None) -> IVFIndex:
+    """Add rows to the frozen coarse quantizer: the new rows (centred by the
+    index's mean) take the ids after the stored ones and are appended to
+    their lists in id order, at ``counts[c]``; a list that overflows pads
+    every list to the next power of two (never below the old capacity; pad
+    slots as ``_pack_lists`` leaves them).  The JAX ``extend_ivf`` re-packs
+    every list from the dequantized rows; the new ids are larger than every
+    stored id, and a stored SQ8 row re-quantizes to its own bits (its scale
+    is max / 127 and its largest code 127), so appending gives the same
+    lists.  A stored residual code re-encodes to itself unless its bucket's
+    value sits on a cut (tied quantiles): :func:`_recode` applies JAX's
+    decode-encode round trip to the lists where it does not.  Writes in
+    place, except into the fields named in ``shared`` (another view holds
+    them): those are copied first, once, and leave the set."""
+    newv = torch.as_tensor(new_vectors).to(device=index.ids.device, dtype=torch.float32)
+    n = newv.shape[0]
+    if n == 0:
+        return index
+    if index.mean is not None:
+        newv = newv - index.mean[None, :]
+    nlist, dev = index.nlist, index.ids.device
+    a = assign_clusters(newv, index.centroids)
+    order = torch.argsort(a, stable=True)
+    lists = a[order]
+    added = torch.bincount(a, minlength=nlist)
+    counts = index.counts.long()
+    pos = counts[lists] + torch.arange(n, device=dev) - (torch.cumsum(added, 0) - added)[lists]
+    new_counts = counts + added
+    m_old = int(counts.sum())
+    cap = index.capacity
+    need = int(new_counts.max())
+    own = {}
+    if need > cap:
+        newcap = next_pow2(need)
+
+        def wider(t, fill):
+            out = torch.full((nlist, newcap) + tuple(t.shape[2:]), fill, dtype=t.dtype,
+                             device=dev)
+            out[:, :cap] = t
+            return out
+
+        own = dict(ids=wider(index.ids, -1), vecs=wider(index.vecs, 0))
+        if index.scales is not None:
+            own["scales"] = wider(index.scales, float(sq8_quant(torch.zeros((1, 1)))[1]))
+    for k in ("ids", "vecs", "scales", "counts"):
+        t = getattr(index, k)
+        if k not in own and t is not None and shared and k in shared:
+            own[k] = t.clone()
+    if shared:
+        shared.difference_update(own)
+    index = index._replace(**own)
+    if index.residual:
+        _recode(index)
+    index.ids[lists, pos] = (m_old + order).to(torch.int32)
+    rows = newv[order]
+    if index.residual:
+        codec = ResidualCodec(index.centroids, index.rq_cuts, index.rq_values)
+        index.vecs[lists, pos] = residual_encode(codec, rows, lists)[1]
+    elif index.scales is not None:
+        index.vecs[lists, pos], index.scales[lists, pos] = sq8_quant(rows)
+    else:
+        index.vecs[lists, pos] = rows.to(index.vecs.dtype)
+    index.counts.copy_(new_counts)
+    return index
+
+
+def _recode(index: IVFIndex) -> None:
+    """Re-encode the stored residual codes in place as JAX's re-pack does:
+    code l of dim j in list c becomes ``sum(((c_j + v_jl) - c_j) > cuts_j)``
+    (a decode, then an encode against the own list's centroid).  That is l
+    itself unless v_jl sits on a cut, which tied quantiles allow; only the
+    lists where some (j, l) moves are unpacked, ``_RECODE_LISTS`` at a
+    time, and their pad slots stay zero."""
+    d, L = index.rq_values.shape
+    bits = (L - 1).bit_length()
+    vals, cuts = index.rq_values.float(), index.rq_cuts.float()
+    levels = torch.arange(L, device=vals.device)
+    for s in range(0, index.nlist, _RECODE_LISTS):
+        c = index.centroids[s:s + _RECODE_LISTS].float()[:, :, None]     # (r, d, 1)
+        back = (c + vals[None]) - c                                        # (r, d, L)
+        table = (back[..., None] > cuts[None, :, None, :]).sum(-1)        # (r, d, L)
+        moved = torch.nonzero((table != levels).any(2).any(1)).flatten()
+        if not moved.numel():
+            continue
+        li = s + moved
+        codes = unpack_codes(index.vecs[li], bits)                         # (a, cap, d)
+        a, cap = codes.shape[:2]
+        new = torch.gather(table[moved][:, None].expand(a, cap, d, L), 3,
+                           codes[..., None]).squeeze(-1)
+        keep = (index.ids[li] >= 0)[..., None]
+        index.vecs[li] = torch.where(keep, pack_codes(new, bits), index.vecs[li])
 
 
 def search_ivf(index: IVFIndex, q: torch.Tensor, nprobe: int, k: int,

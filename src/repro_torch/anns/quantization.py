@@ -31,8 +31,10 @@ _QUANTILE_COLS = 64    # columns sorted at a time by quantile_linear
 def sq8_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (..., d) fp32 -> (int8 codes, fp32 per-row scales (...,)).
     ``torch.round`` rounds half to even, as ``jnp.round`` does, so the codes
-    are bit-identical to the JAX package's."""
-    scale = x.abs().amax(-1).clamp_min(1e-12) / 127.0
+    are bit-identical to the JAX package's.  The divisor 127 is a tensor on
+    ``x``'s device: a Python scalar divisor becomes a product with its
+    reciprocal on a CUDA device, a scale an ulp off the true quotient."""
+    scale = x.abs().amax(-1).clamp_min(1e-12) / torch.full((), 127.0, device=x.device)
     q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale.float()
 

@@ -22,8 +22,19 @@ of docs at a time, for corpora whose dense layout does not fit in memory
 (they write in place).  :func:`gather_docs` materialises candidates from
 the pages (decoded on the compressed tier) for the legacy gathered rerank.
 :func:`pool_tokens` caps each doc at a token budget before it is paged
-(host-side numpy, as in the JAX package).  Mutation (add/delete) is
-ROADMAP Queue 1 item 4.
+(host-side numpy, as in the JAX package).
+
+**Mutation** (:func:`add_docs`, :func:`delete_docs`) follows the JAX
+package's rules: new docs take slots ``[m, m + n)`` (ids are never reused)
+and the lowest free pages first; a delete returns its pages to the free
+list (:func:`free_list` derives it from the table), zeroes the W rows and
+clears the alive bits; the pool, the slot capacity and the table width grow
+in power-of-two buckets; both return the logical bytes the JAX functions
+report for the same mutation.  Where JAX's ``.at[].set`` returns new
+arrays, these write in place, O(new docs) on the device, except into the
+tensors named in ``shared`` (fields another view of the store holds): those
+are copied first, once, and leave the set.  Mutation taps
+(:func:`register_mutation_tap`) see every add and delete.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from repro_torch.common.device import resolve_device
 
 TOKENS_PER_PAGE = 16   # power of two — the paged-KV NUM_TOKENS_IN_BLOCK
 MIN_CAPACITY = 8       # smallest doc-slot bucket
+_ITEM = 4              # fp32 / int32 bytes, the accounting unit
 
 
 def next_pow2(n: int) -> int:
@@ -80,6 +92,10 @@ class PagedStore(NamedTuple):
     @property
     def pages_per_doc(self) -> int:
         return self.page_table.shape[1]
+
+    @property
+    def td_max(self) -> int:
+        return self.page_table.shape[1] * self.tok_pages.shape[1]
 
     @property
     def d_prime(self) -> int:
@@ -182,6 +198,220 @@ def from_dense(W, doc_tokens, doc_mask, *, page: int = TOKENS_PER_PAGE,
              + store.n_tokens.numel() * 4 + store.W.numel() * store.W.element_size()
              + store.alive.numel())
     return store, moved
+
+
+# --------------------------------------------------------------------------
+# mutation taps (the index lifecycle's observability seam)
+# --------------------------------------------------------------------------
+
+_MUTATION_TAPS: list = []
+
+
+def register_mutation_tap(fn) -> None:
+    """Subscribe ``fn(kind, ids, **payload)`` to every store mutation:
+    ``kind`` ``"add"`` (payload ``doc_tokens``, ``doc_mask``, ``w``: host
+    numpy arrays of the new docs) or ``"delete"`` (ids only).  Taps run on
+    the mutating thread after the store is updated; what they raise is
+    swallowed, so an observer cannot break a mutation."""
+    if fn not in _MUTATION_TAPS:
+        _MUTATION_TAPS.append(fn)
+
+
+def unregister_mutation_tap(fn) -> None:
+    try:
+        _MUTATION_TAPS.remove(fn)
+    except ValueError:
+        pass
+
+
+def _notify_taps(kind: str, ids, **payload) -> None:
+    for fn in list(_MUTATION_TAPS):
+        try:
+            fn(kind, ids, **payload)
+        except Exception:
+            pass
+
+
+# --------------------------------------------------------------------------
+# mutation (returns the logical bytes moved)
+# --------------------------------------------------------------------------
+
+def free_list(store: PagedStore) -> list[int]:
+    """Ascending free page ids: the pages no table entry references."""
+    used = store.page_table.reshape(-1)
+    free = torch.ones((store.n_pages,), dtype=torch.bool, device=used.device)
+    free[used[used >= 0].long()] = False
+    return torch.nonzero(free).flatten().tolist()
+
+
+def writable(store: PagedStore, shared: set | None, names) -> PagedStore:
+    """``store`` with each field of ``names`` that ``shared`` holds copied
+    (and dropped from ``shared``), so that it can be written in place."""
+    if not shared:
+        return store
+    own = {k: getattr(store, k).clone() for k in names
+           if k in shared and getattr(store, k) is not None}
+    shared.difference_update(names)
+    return store._replace(**own)
+
+
+def _grown(t: torch.Tensor, rows: int, fill=0) -> torch.Tensor:
+    """``t`` padded along dim 0 to ``rows`` rows of ``fill`` (a new tensor)."""
+    out = torch.full((rows,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+    out[: t.shape[0]] = t
+    return out
+
+
+def add_docs(store: PagedStore, free_pages: list[int], w_new, doc_tokens, doc_mask, *,
+             shared: set | None = None):
+    """Page n new docs into slots ``[m, m + n)``, the lowest free pages first
+    (on the compressed tier their valid tokens are encoded through
+    ``store.codec``).  Returns ``(store, free_pages, new_ids (n,) int32
+    numpy, bytes_moved)``.  A doc longer than any before doubles the table
+    width, slots past the capacity and pages past the free list grow the
+    capacity and the pool in power-of-two buckets (new tensors; their old
+    bytes are billed, as JAX bills its copies); otherwise nothing changes
+    shape and the writes are in place (``shared``: module docstring)."""
+    dev = store.W.device
+    dm = torch.as_tensor(doc_mask).to(device=dev, dtype=torch.bool)
+    dt = torch.as_tensor(doc_tokens).to(device=dev, dtype=torch.float32)
+    n = dt.shape[0]
+    if n == 0:
+        return store, list(free_pages), np.empty((0,), np.int32), 0
+    m = int(store.n_docs[0])
+    page = store.page
+    moved = 0
+    counts = dm.sum(1)
+    ppd = pages_needed(counts, page)
+
+    # 1. pages-a-doc bucket (only a doc longer than any before grows it)
+    pmax = store.pages_per_doc
+    need_pmax = max(1, int(ppd.max()))
+    if need_pmax > pmax:
+        new_pmax = next_pow2(need_pmax)
+        moved += store.page_table.numel() * _ITEM
+        table = torch.full((store.capacity, new_pmax), -1, dtype=torch.int32, device=dev)
+        table[:, :pmax] = store.page_table
+        store = store._replace(page_table=table)
+        pmax = new_pmax
+        if shared:
+            shared.discard("page_table")
+
+    # 2. slot-capacity bucket
+    C = store.capacity
+    if m + n > C:
+        newC = max(next_pow2(m + n), 2 * C)
+        moved += (store.page_table.numel() * _ITEM + store.n_tokens.numel() * _ITEM
+                  + store.W.numel() * store.W.element_size() + store.alive.numel())
+        store = store._replace(page_table=_grown(store.page_table, newC, -1),
+                               n_tokens=_grown(store.n_tokens, newC),
+                               W=_grown(store.W, newC), alive=_grown(store.alive, newC))
+        if shared:
+            shared.difference_update(("page_table", "n_tokens", "W", "alive"))
+
+    # 3. page-pool bucket (amortized doubling)
+    flat = dt[dm]
+    need = int(ppd.sum())
+    free_pages = list(free_pages)
+    if need > len(free_pages):
+        P = store.n_pages
+        newP = max(next_pow2(P - len(free_pages) + need), 2 * P)
+        moved += store.tok_pages.numel() * _ITEM
+        grown = dict(tok_pages=_grown(store.tok_pages, newP))
+        if store.codec is not None:
+            moved += store.cent_pages.numel() * _ITEM + store.code_pages.numel()
+            grown.update(cent_pages=_grown(store.cent_pages, newP),
+                         code_pages=_grown(store.code_pages, newP))
+        store = store._replace(**grown)
+        free_pages.extend(range(P, newP))
+        if shared:
+            shared.difference_update(grown)
+
+    # 4. allocate (lowest page ids first) and write the new pages whole:
+    # a reused page keeps nothing of its last doc
+    alloc = torch.as_tensor(free_pages[:need], dtype=torch.long, device=dev)
+    free_pages = free_pages[need:]
+    starts = torch.cumsum(ppd, 0) - ppd
+    j = torch.arange(pmax, device=dev)
+    local = torch.where(j[None, :] < ppd[:, None], starts[:, None] + j, -1)
+    table_rows = torch.where(local >= 0, alloc[local.clamp_min(0)] if need else local,
+                             -1).to(torch.int32)
+    tok_start = torch.cumsum(counts, 0) - counts
+    t = torch.arange(flat.shape[0], device=dev) - torch.repeat_interleave(tok_start, counts)
+    rows = torch.repeat_interleave(starts, counts) + t // page
+    cols = t % page
+    pools = ("tok_pages",) if store.codec is None else ("cent_pages", "code_pages")
+    store = writable(store, shared, pools + ("page_table", "n_tokens", "W", "alive",
+                                              "n_docs"))
+    if store.codec is None:
+        chunk = torch.zeros((need, page, store.d), dtype=torch.float32, device=dev)
+        chunk[rows, cols] = flat
+        store.tok_pages[alloc] = chunk
+        chunk_bytes = chunk.numel() * _ITEM
+    else:
+        cid, packed = residual_encode(store.codec, flat)
+        cchunk = torch.zeros((need, page), dtype=torch.int32, device=dev)
+        pchunk = torch.zeros((need, page, packed.shape[1]), dtype=torch.uint8, device=dev)
+        cchunk[rows, cols] = cid
+        pchunk[rows, cols] = packed
+        store.cent_pages[alloc] = cchunk
+        store.code_pages[alloc] = pchunk
+        chunk_bytes = cchunk.numel() * _ITEM + pchunk.numel()
+    sl = slice(m, m + n)
+    store.page_table[sl] = table_rows
+    store.n_tokens[sl] = counts.to(torch.int32)
+    store.W[sl] = torch.as_tensor(w_new).to(device=dev, dtype=store.W.dtype)
+    store.alive[sl] = True
+    store.n_docs.fill_(m + n)
+    ids = np.arange(m, m + n, dtype=np.int32)
+    # the logical write set: the new pages and the touched table, count, W
+    # and alive rows, O(doc), never O(corpus)
+    moved += chunk_bytes + n * pmax * _ITEM + n * _ITEM + n * store.d_prime * _ITEM + n + _ITEM
+    if _MUTATION_TAPS:
+        _notify_taps("add", ids, doc_tokens=_numpy(dt), doc_mask=_numpy(dm),
+                     w=_numpy(torch.as_tensor(w_new)).astype(np.float32))
+    return store, free_pages, ids, moved
+
+
+def delete_docs(store: PagedStore, free_pages: list[int], doc_ids, *,
+                shared: set | None = None):
+    """Tombstone slots and return their pages to the free list (kept
+    ascending).  Slots are never reused; W rows are zeroed so a dead slot
+    never wins a latent scan even unmasked.  Raises ``ValueError`` on
+    duplicate, unknown or already-deleted ids, as JAX does.  Returns
+    ``(store, free_pages, bytes_moved)``; writes in place (``shared``:
+    module docstring)."""
+    ids = np.asarray(_numpy(doc_ids), np.int64).ravel()
+    if ids.size == 0:
+        return store, list(free_pages), 0
+    m = int(store.n_docs[0])
+    if np.unique(ids).size != ids.size:
+        raise ValueError(f"duplicate doc ids in delete: {ids.tolist()}")
+    bad = ids[(ids < 0) | (ids >= m)]
+    if bad.size:
+        raise ValueError(f"unknown doc ids {bad.tolist()} (n_docs={m})")
+    dev = store.W.device
+    tids = torch.as_tensor(ids, device=dev)
+    dead = ids[~store.alive[tids].cpu().numpy()]
+    if dead.size:
+        raise ValueError(f"doc ids already deleted: {dead.tolist()}")
+    rows = store.page_table[tids].cpu().numpy()
+    free_pages = sorted(list(free_pages) + rows[rows >= 0].tolist())
+    store = writable(store, shared, ("page_table", "n_tokens", "W", "alive"))
+    store.page_table[tids] = -1
+    store.n_tokens[tids] = 0
+    store.W[tids] = 0
+    store.alive[tids] = False
+    moved = int(ids.size) * (store.pages_per_doc * _ITEM + _ITEM + store.d_prime * _ITEM + 1)
+    if _MUTATION_TAPS:
+        _notify_taps("delete", ids.astype(np.int32))
+    return store, free_pages, moved
+
+
+def dense_add_bytes(m_total: int, td: int, d: int, d_prime: int) -> int:
+    """What one add wrote in the dense layout: the whole concatenated corpus
+    (tokens, mask, W), the O(corpus) baseline the paged add is held to."""
+    return m_total * td * d * _ITEM + m_total * td + m_total * d_prime * _ITEM
 
 
 def mask_dead(store: PagedStore, cand_ids: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Serving API of the port: :class:`LemurRetriever`, its typed
 :class:`SearchParams` and the corpus-sharded :class:`ShardedLemurRetriever`
-(the JAX package's ``repro.retriever`` surface)."""
+and the :class:`CorruptIndexError` a rejected refresh raises (the JAX
+package's ``repro.retriever`` surface)."""
 from repro_torch.anns.params import IVFBackendConfig, IVFSearchParams
-from repro_torch.retriever.facade import LemurRetriever
+from repro_torch.retriever.facade import CorruptIndexError, LemurRetriever
 from repro_torch.retriever.params import SearchParams
 from repro_torch.retriever.sharded import ShardedLemurRetriever
 
-__all__ = ["IVFBackendConfig", "IVFSearchParams", "LemurRetriever", "SearchParams",
-           "ShardedLemurRetriever"]
+__all__ = ["CorruptIndexError", "IVFBackendConfig", "IVFSearchParams", "LemurRetriever",
+           "SearchParams", "ShardedLemurRetriever"]

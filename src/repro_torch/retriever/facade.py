@@ -5,6 +5,9 @@
     scores, ids = r.search(q_tokens, q_mask, SearchParams(k=10))
     r.save("my_index/")                                # the JAX package loads it
     r = LemurRetriever.load("my_index/")               # either package's save
+    r.add(new_doc_tokens, new_doc_mask)                # new slots [m, m + n)
+    r.delete(r.last_added_ids)                         # tombstones, pages freed
+    r.update([3, 7], new_tokens, new_mask)             # delete + add, one version
     sr = r.shard(mesh)                                 # torch.distributed DeviceMesh
 
 The build is the JAX build's pipeline: training tokens (§4.2) -> token
@@ -43,19 +46,37 @@ the ``rerank_paged_res_scores`` kernel; an fp32 store with the fused
 gather, the fp32 kernel (``use_residual`` or not); otherwise the legacy
 gathered rerank (on the compressed tier over decoded tokens).  Backends
 other than ``ivf`` raise ``NotImplementedError`` naming their ROADMAP item.
-PyTorch runs eagerly, so there is no compile cache to account for.
+
+**Mutation** is the JAX facade's: ``add`` fits W rows with the build's OLS
+solver (or, without one, a solver over OLS tokens drawn from the stored
+corpus with an explicit seed), appends them to the IVF lists
+(``ivf.extend_ivf``) and pages the docs (``pages.add_docs``); ``delete``
+tombstones; ``update`` is both under one version; ``install_refresh``
+warm-swaps a rebuilt first stage in.  Where JAX swaps immutable arrays, the
+port writes in place: a retriever owns the tensors it built, loaded or was
+given by :meth:`from_arrays`, and writes them in place, O(new docs); once
+:meth:`snapshot` or :meth:`clone` has handed its index out (or the index
+came in through the constructor), each tensor is copied the first time a
+mutation writes it, so the other view keeps answering its own corpus.
+
+PyTorch runs eagerly; :meth:`trace_count` counts what JAX's compile cache
+would hold: one entry for each distinct (backend, resolved params, query
+shape, state shapes) served, so an add within capacity adds nothing and a
+bucket growth adds one.
 """
 from __future__ import annotations
 
 import pathlib
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.anns import ivf as _ivf
 from repro_torch.anns.base import pad_topk
 from repro_torch.anns.bruteforce import mips_topk
 from repro_torch.anns.ivf import build_ivf, search_ivf, search_ivf_one_launch
-from repro_torch.anns.quantization import train_residual_codec
+from repro_torch.anns.quantization import residual_decode, train_residual_codec
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common.device import resolve_device
 from repro_torch.convert import FORMAT, index_from_numpy, index_to_numpy
@@ -65,6 +86,20 @@ from repro_torch.core.index import LemurIndex
 from repro_torch.core.model import PSI_LEAVES, Psi, TargetStats, pool_queries, train_phi
 from repro_torch.kernels import ops
 from repro_torch.retriever.params import SearchParams, effective_nprobe
+
+#: the tensors a mutation writes: of the paged store, of the IVF state
+_STORE_WRITES = ("tok_pages", "page_table", "n_tokens", "W", "alive", "n_docs",
+                 "cent_pages", "code_pages")
+_ANN_WRITES = ("ids", "vecs", "scales", "counts")
+
+
+class CorruptIndexError(ValueError):
+    """A rebuilt index failed :meth:`LemurRetriever.install_refresh`'s
+    validation; the last good index is left installed, untouched.
+    ``preserves_replica_state`` tells a serving layer this is a typed
+    rejection with the replica intact, not a replica failure."""
+
+    preserves_replica_state = True
 
 
 class _StageClock:
@@ -142,9 +177,11 @@ def launch_plan(resolved: SearchParams) -> dict[str, int]:
 
 
 class LemurRetriever:
-    """Builds and serves a :class:`LemurIndex` (see module docstring).  The
-    OLS solver state (Gram factor, features, OLS tokens) of a build is kept,
-    and the OLS tokens travel through ``save``/``load``."""
+    """Builds, serves and mutates a :class:`LemurIndex` (see module
+    docstring).  The OLS solver state (Gram factor, features, OLS tokens)
+    of a build is kept, and the OLS tokens travel through ``save``/``load``.
+    An index handed to the constructor may be held elsewhere, so its
+    tensors are copied before a mutation first writes them."""
 
     def __init__(self, index: LemurIndex, *, solver_state: dict | None = None,
                  x_ols: torch.Tensor | None = None):
@@ -155,6 +192,26 @@ class LemurRetriever:
         self._resolve_memo: dict[SearchParams | None, SearchParams] = {}
         #: stage seconds, epoch losses and steps of :meth:`build`, else None
         self.build_log: dict | None = None
+        self._version = 0
+        # page allocator: derived from the page table at the first mutation
+        self._free_pages: list[int] | None = None
+        self._last_added_ids = np.empty((0,), np.int32)
+        self._last_mutation_bytes = 0
+        self._bytes_moved = 0
+        self._last_refresh_caught_up = 0
+        # copy on write: the fields another view may hold
+        self._shared = {"store": set(_STORE_WRITES), "ann": set(_ANN_WRITES)}
+        # compile accounting: the (params, query shape, state shapes) served
+        self._served: set = set()
+        self._trace_counts: dict[tuple, int] = {}
+        self._trace_shapes: dict[tuple, int] = {}
+
+    @classmethod
+    def _owning(cls, index: LemurIndex, **kw) -> "LemurRetriever":
+        """A retriever over tensors nothing else holds: writes in place."""
+        r = cls(index, **kw)
+        r._shared = {"store": set(), "ann": set()}
+        return r
 
     @property
     def index(self) -> LemurIndex:
@@ -187,6 +244,38 @@ class LemurRetriever:
     @property
     def x_ols(self) -> torch.Tensor | None:
         return self._x_ols
+
+    @property
+    def version(self) -> int:
+        """Snapshot version: one more for every add, delete, update and
+        installed refresh (an update counts once)."""
+        return self._version
+
+    @property
+    def last_added_ids(self) -> np.ndarray:
+        """Slot ids of the most recent :meth:`add` / :meth:`update`."""
+        return self._last_added_ids
+
+    @property
+    def last_mutation_bytes(self) -> int:
+        """Logical bytes the most recent mutation wrote (its pages, its
+        table, count and W rows, and any bucket growth), as JAX counts
+        them."""
+        return self._last_mutation_bytes
+
+    @property
+    def bytes_moved(self) -> int:
+        """Logical mutation bytes since construction."""
+        return self._bytes_moved
+
+    def snapshot(self) -> LemurIndex:
+        """The current index, which later mutations of this retriever never
+        change: each tensor they write is copied first."""
+        self._share_all()
+        return self._index
+
+    def _share_all(self) -> None:
+        self._shared = {"store": set(_STORE_WRITES), "ann": set(_ANN_WRITES)}
 
     def __repr__(self) -> str:
         return (f"LemurRetriever(m={self.m}, d_prime={self.cfg.d_prime}, "
@@ -261,7 +350,7 @@ class LemurRetriever:
         index = LemurIndex.from_dense(cfg, psi, stats, W, st_tokens, st_mask, "ivf", ann,
                                       codec=codec)
         clock("pages")
-        r = cls(index, solver_state=solver)
+        r = cls._owning(index, solver_state=solver)
         r.build_log = {"seconds": clock.seconds, "losses": losses,
                        "steps": cfg.epochs * max(1, n // cfg.batch_size)}
         return r
@@ -278,7 +367,8 @@ class LemurRetriever:
              device="cuda") -> "LemurRetriever":
         """Serve a ``lemur-retriever-v1`` checkpoint saved by either
         package's ``LemurRetriever.save``; ``solver/x_ols`` is kept when
-        present."""
+        present.  A legacy dense checkpoint (``W``, ``doc_tokens``,
+        ``doc_mask``) is paged on load, as JAX migrates it."""
         dev = resolve_device(device)
         tree, manifest = ckpt.restore(pathlib.Path(directory), step)
         extra = manifest.get("extra", {})
@@ -288,7 +378,7 @@ class LemurRetriever:
         x_ols = tree.get("solver/x_ols")
         if x_ols is not None:
             x_ols = torch.tensor(x_ols, device=dev)
-        return cls(index_from_numpy(tree, extra, dev), x_ols=x_ols)
+        return cls._owning(index_from_numpy(tree, extra, dev), x_ols=x_ols)
 
     @classmethod
     def from_arrays(cls, cfg: LemurConfig, psi: Psi, store: pages.PagedStore, *,
@@ -296,13 +386,14 @@ class LemurRetriever:
         """Serve a psi and a filled paged store (either tier): the IVF first
         stage is built over the store's W rows (``cfg.ivf``: nlist, SQ8,
         residual bits), k-means seeded by ``generator``.  Target stats are
-        the identity (mean 0, std 1)."""
+        the identity (mean 0, std 1).  The retriever takes the store over:
+        its mutations write into it in place."""
         cfg.backend_config()
         W = store.W[: int(store.n_docs[0])]
         ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8,
                         residual_bits=cfg.ivf.residual_bits, generator=generator)
         one = torch.ones((), device=store.W.device)
-        return cls(LemurIndex(cfg, psi, TargetStats(0 * one, one), store, "ivf", ann))
+        return cls._owning(LemurIndex(cfg, psi, TargetStats(0 * one, one), store, "ivf", ann))
 
     def resolve(self, params: SearchParams | None = None) -> SearchParams:
         """Fill a (possibly partial) SearchParams from the build config
@@ -328,13 +419,240 @@ class LemurRetriever:
     def launches(self, params: SearchParams | None = None) -> dict[str, int]:
         return launch_plan(self.resolve(params))
 
-    @torch.inference_mode()
-    def search(self, q_tokens, q_mask=None, params: SearchParams | None = None):
-        """q_tokens: (B, Tq, d) -> (scores (B, k) fp32, doc ids (B, k) int32),
-        on the index's device; q_mask (B, Tq) defaults to all tokens."""
+    def _queries(self, q_tokens, q_mask):
         dev = self.device
         q_tokens = torch.as_tensor(q_tokens, dtype=torch.float32).to(dev).contiguous()
         if q_mask is None:
             q_mask = torch.ones(q_tokens.shape[:2], dtype=torch.bool, device=dev)
         q_mask = torch.as_tensor(q_mask).to(device=dev, dtype=torch.bool).contiguous()
-        return search_pipeline(self._index, q_tokens, q_mask, self.resolve(params))
+        return q_tokens, q_mask
+
+    @torch.inference_mode()
+    def search(self, q_tokens, q_mask=None, params: SearchParams | None = None):
+        """q_tokens: (B, Tq, d) -> (scores (B, k) fp32, doc ids (B, k) int32),
+        on the index's device; q_mask (B, Tq) defaults to all tokens."""
+        q_tokens, q_mask = self._queries(q_tokens, q_mask)
+        resolved = self.resolve(params)
+        self._account(resolved, q_tokens)
+        return search_pipeline(self._index, q_tokens, q_mask, resolved)
+
+    @torch.inference_mode()
+    def candidates(self, q_tokens, q_mask=None, params: SearchParams | None = None):
+        """First-stage candidate ids only, (B, k') int32, tombstones -1."""
+        q_tokens, q_mask = self._queries(q_tokens, q_mask)
+        return first_stage(self._index, q_tokens, q_mask, self.resolve(params))
+
+    # -- compile accounting -------------------------------------------------
+
+    def _account(self, resolved: SearchParams, q: torch.Tensor) -> None:
+        """Count a (params, query shape, state shapes) not served before: the
+        entry JAX's jit cache would add.  Exact-scan params leave the IVF
+        state out, as JAX leaves it out of their arguments."""
+        key = (self.backend, resolved)
+        idx = self._index
+        parts = list(idx.store) + (list(idx.ann) if resolved.use_ann else [])
+        state = tuple(tuple(t.shape) for t in parts if isinstance(t, torch.Tensor))
+        sig = (key, tuple(q.shape), state)
+        if sig in self._served:
+            return
+        self._served.add(sig)
+        self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
+        skey = key + (tuple(q.shape),)
+        self._trace_shapes[skey] = self._trace_shapes.get(skey, 0) + 1
+
+    def trace_count(self, params: SearchParams | None = None) -> int:
+        """Compile-cache entries so far (module docstring): for one resolved
+        SearchParams, or in total."""
+        if params is None:
+            return sum(self._trace_counts.values())
+        return self._trace_counts.get((self.backend, self.resolve(params)), 0)
+
+    def trace_shapes(self) -> dict[tuple, int]:
+        """``{(B, Tq, d): entries}`` over every params."""
+        out: dict[tuple, int] = {}
+        for (*_, shape), n in self._trace_shapes.items():
+            out[shape] = out.get(shape, 0) + n
+        return out
+
+    # -- mutation -------------------------------------------------------------
+
+    @torch.no_grad()
+    def add(self, doc_tokens, doc_mask, *, seed: int = 0) -> "LemurRetriever":
+        """Grow the corpus: W rows from the frozen-psi OLS solver (the build's,
+        else one rebuilt from the kept OLS tokens, else the fallback seeded
+        by ``seed``), appended to the IVF lists, and the docs paged into slots
+        ``[m, m + n)`` (in :attr:`last_added_ids`).  Returns this retriever."""
+        self._mutate_add(doc_tokens, doc_mask, seed)
+        self._version += 1
+        return self
+
+    @torch.no_grad()
+    def delete(self, doc_ids) -> "LemurRetriever":
+        """Tombstone docs and free their pages; surviving ids are unchanged,
+        the IVF lists are not rebuilt (``pages.mask_dead`` masks their stale
+        ids after every first stage).  Raises ``ValueError`` on duplicate,
+        unknown or already-deleted ids.  Returns this retriever."""
+        self._mutate_delete(doc_ids)
+        self._version += 1
+        return self
+
+    @torch.no_grad()
+    def update(self, doc_ids, doc_tokens, doc_mask, *, seed: int = 0) -> np.ndarray:
+        """Replace docs: delete ``doc_ids`` and add the new contents under one
+        version.  Returns the new slot ids (an updated doc is a new doc)."""
+        self._mutate_delete(doc_ids)
+        ids = self._mutate_add(doc_tokens, doc_mask, seed)
+        self._version += 1
+        return ids
+
+    def _free(self) -> list[int]:
+        if self._free_pages is None:
+            self._free_pages = pages.free_list(self._index.store)
+        return self._free_pages
+
+    def _mutate_add(self, doc_tokens, doc_mask, seed: int) -> np.ndarray:
+        idx = self._index
+        dev = self.device
+        doc_tokens = torch.as_tensor(doc_tokens, dtype=torch.float32).to(dev)
+        doc_mask = torch.as_tensor(doc_mask).to(device=dev, dtype=torch.bool)
+        solver = self._ensure_solver(seed)
+        w_new = indexer.fit_docs(solver, doc_tokens, doc_mask, idx.stats)
+        ann = _ivf.extend_ivf(idx.ann, w_new, shared=self._shared["ann"])
+        # as in build: W and the IVF see the raw tokens, the store the pooled
+        budget = int(idx.cfg.residual.token_budget)
+        if budget > 0:
+            doc_tokens, doc_mask = pages.pool_tokens(doc_tokens, doc_mask, budget)
+        store, free, ids, moved = pages.add_docs(idx.store, self._free(), w_new, doc_tokens,
+                                                 doc_mask, shared=self._shared["store"])
+        self._free_pages = free
+        self._index = idx._replace(store=store, ann=ann)
+        self._last_added_ids = ids
+        self._last_mutation_bytes = moved
+        self._bytes_moved += moved
+        return ids
+
+    def _mutate_delete(self, doc_ids) -> None:
+        idx = self._index
+        store, free, moved = pages.delete_docs(idx.store, self._free(), doc_ids,
+                                               shared=self._shared["store"])
+        self._free_pages = free
+        self._index = idx._replace(store=store)
+        self._last_mutation_bytes = moved
+        self._bytes_moved += moved
+
+    def _ensure_solver(self, seed: int) -> dict:
+        if self._solver is not None:
+            return self._solver
+        idx = self._index
+        if self._x_ols is not None:
+            # the kept OLS tokens: the Gram factor rebuilt deterministically
+            self._solver = indexer.ols_solver_state(idx.psi, self._x_ols, idx.cfg)
+            return self._solver
+        # fallback: OLS tokens drawn from the stored corpus, seeded.  JAX
+        # draws positions in its dense view's valid tokens, in slot order;
+        # the same positions are found through the token counts and read
+        # through the page table, without the dense layout
+        st = idx.store
+        nt = st.n_tokens[: idx.m].long()
+        ends = torch.cumsum(nt, 0)
+        total = int(ends[-1]) if len(ends) else 0
+        pick = np.random.default_rng(seed).integers(0, total, size=min(idx.cfg.n_ols, total))
+        pos = torch.as_tensor(pick, device=nt.device)
+        slot = torch.searchsorted(ends, pos, right=True)
+        t = pos - (ends - nt)[slot]
+        pg = st.page_table[slot, t // st.page].long()
+        col = t % st.page
+        if st.residual:
+            x = residual_decode(st.codec, st.cent_pages[pg, col], st.code_pages[pg, col])
+        else:
+            x = st.tok_pages[pg, col]
+        self._solver = indexer.ols_solver_state(idx.psi, x.contiguous(), idx.cfg)
+        return self._solver
+
+    def clone(self) -> "LemurRetriever":
+        """An independent replica over the same built state, with no re-train
+        or re-build: the index and the OLS solver are shared, and each side
+        copies a tensor before its first write to it; ``version`` is carried
+        over.  The same ``add`` on every clone gives the same W rows."""
+        r = LemurRetriever(self._index, solver_state=self._solver, x_ols=self._x_ols)
+        r._version = self._version
+        self._share_all()
+        return r
+
+    @torch.no_grad()
+    def install_refresh(self, refresh) -> "LemurRetriever":
+        """Warm-swap a background rebuild in (``refresh``: ``backend``,
+        ``m0``, ``W``, ``solver``, ``ann``; ``convert.refresh_from_numpy``
+        makes one from a JAX ``lifecycle.build_refresh`` result).
+
+        1. Validate, before anything is touched: the backend, m0 in (0, m],
+           W's shape and finiteness, the solver's keys and a finite Gram
+           factor, and a probe search through the rebuilt IVF whose ids
+           must lie in [0, m0).  A failure raises :class:`CorruptIndexError`
+           and leaves this retriever as it was.
+        2. Catch up the slots added since the rebuild ([m0, m)): their W rows
+           fit with the new solver (dead slots as zero rows) and appended to
+           the rebuilt lists in slot order; rebuilt rows deleted meanwhile
+           are zeroed.  The refresh's own tensors are never written.
+        3. Swap the index in, one version more.  Returns this retriever."""
+        idx = self._index
+        dev = self.device
+
+        def bad(msg: str) -> CorruptIndexError:
+            return CorruptIndexError(f"install_refresh rejected: {msg}")
+
+        if getattr(refresh, "backend", None) != idx.backend:
+            raise bad(f"backend {getattr(refresh, 'backend', None)!r} != {idx.backend!r}")
+        m_now = self.m
+        m0 = int(refresh.m0)
+        if not 0 < m0 <= m_now:
+            raise bad(f"m0={m0} outside (0, {m_now}]")
+        W_new = torch.as_tensor(refresh.W).to(dev)
+        if tuple(W_new.shape) != (m0, idx.cfg.d_prime):
+            raise bad(f"W shape {tuple(W_new.shape)} != {(m0, idx.cfg.d_prime)}")
+        if not bool(torch.isfinite(W_new).all()):
+            raise bad("non-finite values in refit W")
+        solver = refresh.solver
+        if not (isinstance(solver, dict) and {"chol", "feats", "x_ols"} <= set(solver)):
+            raise bad("solver state missing chol/feats/x_ols")
+        if not bool(torch.isfinite(torch.as_tensor(solver["chol"])).all()):
+            raise bad("non-finite OLS Gram factor")
+        ivf = idx.cfg.ivf
+        try:
+            nprobe = effective_nprobe(ivf.nprobe, refresh.ann.nlist)
+            _, cand = search_ivf(refresh.ann, W_new[:1].float(), nprobe, min(8, m0),
+                                 use_fused_gather=ivf.use_fused_gather)
+        except Exception as e:
+            raise bad(f"probe search through rebuilt backend failed: {e}") from e
+        if cand.numel() == 0 or bool((cand >= m0).any()) or bool((cand < -1).any()):
+            raise bad("rebuilt backend emits out-of-range candidate ids")
+
+        alive = idx.store.alive
+        W_head = torch.where(alive[:m0, None], W_new.to(idx.store.W.dtype), 0.0)
+        ann = refresh.ann
+        caught = 0
+        w_c = None
+        if m_now > m0:
+            toks_c, mask_c = pages.gather_docs(
+                idx.store, torch.arange(m0, m_now, dtype=torch.int32, device=dev))
+            live = torch.nonzero(alive[m0:m_now]).flatten()
+            w_c = torch.zeros((m_now - m0, idx.cfg.d_prime), dtype=idx.store.W.dtype,
+                              device=dev)
+            if live.numel():
+                w_c[live] = indexer.fit_docs(solver, toks_c[live], mask_c[live], idx.stats)
+                caught = int(live.numel())
+            # every slot in order (dead ones as zero rows): list ids stay slot ids
+            ann = _ivf.extend_ivf(ann, w_c, shared=set(_ANN_WRITES))
+        shared_ann = {k for k in _ANN_WRITES if getattr(ann, k) is getattr(refresh.ann, k)}
+
+        store = pages.writable(idx.store, self._shared["store"], ("W",))
+        store.W[:m0] = W_head
+        if w_c is not None:
+            store.W[m0:m_now] = w_c
+        self._index = idx._replace(store=store, ann=ann)
+        self._shared["ann"] = shared_ann
+        self._solver = solver
+        self._x_ols = solver["x_ols"]
+        self._version += 1
+        self._last_refresh_caught_up = caught
+        return self

@@ -9,6 +9,8 @@ each (SPMD)::
     r = LemurRetriever.load("idx/")             # on the mesh's device
     sr = r.shard(mesh)                          # this rank's row block
     scores, ids = sr.search(q, qm, SearchParams(k=10))   # merged, every rank
+    sr.add(new_tokens, new_mask)                # shard-balanced growth
+    sr.delete(sr.last_added_ids)                # rows evicted in place
     sr.save("idx/"); sr = ShardedLemurRetriever.load("idx/", mesh)
 
 The serve step is :mod:`repro_torch.dist.serve`'s: each rank holds one
@@ -37,9 +39,18 @@ scan -> local top-k' -> exact rerank on it, and the ranks merge their
   the card (the kernels), a ``cpu`` mesh on the plain versions; a base
   retriever on another device type raises.
 
-Waiting for the facade's mutation (ROADMAP Queue 1 item 4): ``add``,
-``delete``, ``update`` and the sharded ``_evict`` / ``_place``, ``clone``,
-``install_refresh``, ``trace_count`` and ``trace_shapes``.
+* **Mutation.**  ``add`` / ``delete`` / ``update`` go through the base
+  facade (one version each), then place the new docs in free rows of the
+  least-occupied shards (each shard's free rows a LIFO stack; ``_row_of``
+  maps ids to rows) and evict deleted rows (W zeroed, tokens masked, ids
+  -1), as JAX's do.  Every rank makes the same host-side choice
+  and writes only the rows of its own block, in place.  A pool with too few
+  free rows, or docs wider than the block's token width, rebuilds the block
+  in the next power-of-two bucket.  ``install_refresh`` rebuilds it after
+  the base facade's swap.
+* **Compile accounting.**  :meth:`trace_count` counts the distinct (params,
+  query shape, block shapes) served: what JAX's jit cache would hold, so
+  mutations within the pool count nothing and a rebuild counts one.
 """
 from __future__ import annotations
 
@@ -81,10 +92,14 @@ class ShardedLemurRetriever:
         self._sq8 = bool(base.cfg.ivf.sq8) if sq8 is None else bool(sq8)
         self._k_prime_local = k_prime_local
         self._state: dist.ShardedRetrievalState | None = None
-        # per-shard free rows (LIFO, host side) for balanced placement; slot i
-        # lives on row i until mutation moves rows
+        # host-side allocator, the same on every rank: external id -> row,
+        # and per-shard LIFO free rows for balanced placement
+        self._row_of: dict[int, int] = {}
         self._free_rows: list[list[int]] = []
         self._rows_per_shard = 0
+        self._served: set = set()
+        self._trace_counts: dict[tuple, int] = {}
+        self._trace_shapes: dict[tuple, int] = {}
         self._rebuild_state()
 
     # -- introspection ------------------------------------------------------
@@ -120,6 +135,16 @@ class ShardedLemurRetriever:
         return self._rows_per_shard
 
     @property
+    def last_added_ids(self) -> np.ndarray:
+        """External ids of the most recent add / update (the base's)."""
+        return self._base.last_added_ids
+
+    @property
+    def version(self) -> int:
+        """The base facade's snapshot version."""
+        return self._base.version
+
+    @property
     def sq8(self) -> bool:
         return self._sq8
 
@@ -147,6 +172,7 @@ class ShardedLemurRetriever:
         row_ids[:m][alive] = np.arange(m, dtype=np.int32)[alive]
         row_valid = row_ids >= 0
         self._rows_per_shard = rps
+        self._row_of = {int(i): int(i) for i in np.flatnonzero(alive)}
         free = np.flatnonzero(~row_valid)
         self._free_rows = [
             sorted(free[(free >= s * rps) & (free < (s + 1) * rps)].tolist(), reverse=True)
@@ -200,6 +226,7 @@ class ShardedLemurRetriever:
             q_mask = torch.ones(q_tokens.shape[:2], dtype=torch.bool, device=dev)
         q_mask = torch.as_tensor(q_mask).to(device=dev, dtype=torch.bool).contiguous()
         resolved = self.resolve(params)
+        self._account(resolved, q_tokens)
         step = dist.make_serve_step(
             self._mesh, self.cfg.replace(k=resolved.k, k_prime=resolved.k_prime),
             k_prime_local=self._k_prime_local, use_fused_gather=resolved.use_fused_gather,
@@ -212,6 +239,136 @@ class ShardedLemurRetriever:
             scores = torch.cat([scores, scores.new_full((B, extra), NEG)], 1)
             ids = torch.cat([ids, ids.new_full((B, extra), -1)], 1)
         return scores, ids
+
+    # -- compile accounting -------------------------------------------------
+
+    @staticmethod
+    def _key(resolved: SearchParams) -> tuple:
+        return (resolved.k, resolved.k_prime, resolved.use_fused_gather,
+                resolved.use_one_launch, resolved.use_residual)
+
+    def _account(self, resolved: SearchParams, q: torch.Tensor) -> None:
+        key = self._key(resolved)
+        block = tuple(tuple(t.shape) for t in self._state if isinstance(t, torch.Tensor))
+        sig = (key, tuple(q.shape), block)
+        if sig in self._served:
+            return
+        self._served.add(sig)
+        self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
+        skey = key + (tuple(q.shape),)
+        self._trace_shapes[skey] = self._trace_shapes.get(skey, 0) + 1
+
+    def trace_count(self, params: SearchParams | None = None) -> int:
+        """Compile-cache entries so far (module docstring): for one resolved
+        SearchParams, or in total."""
+        if params is None:
+            return sum(self._trace_counts.values())
+        return self._trace_counts.get(self._key(self.resolve(params)), 0)
+
+    def trace_shapes(self) -> dict[tuple, int]:
+        """``{(B, Tq, d): entries}`` over every params."""
+        out: dict[tuple, int] = {}
+        for (*_, shape), n in self._trace_shapes.items():
+            out[shape] = out.get(shape, 0) + n
+        return out
+
+    def clone(self) -> "ShardedLemurRetriever":
+        """An independent replica over a clone of the base facade (shared
+        index and solver, copied on write) on the same mesh, with its own
+        block."""
+        return ShardedLemurRetriever(self._base.clone(), self._mesh, sq8=self._sq8,
+                                     k_prime_local=self._k_prime_local)
+
+    # -- mutation -------------------------------------------------------------
+
+    def add(self, doc_tokens, doc_mask, *, seed: int = 0) -> "ShardedLemurRetriever":
+        """Grow through the base facade, then place the new docs in free rows
+        of the least-occupied shards (module docstring).  Returns self."""
+        self._base.add(doc_tokens, doc_mask, seed=seed)
+        self._place(self._base.last_added_ids)
+        return self
+
+    def delete(self, doc_ids) -> "ShardedLemurRetriever":
+        """Tombstone through the base facade, then evict the rows in place and
+        return them to their shards' free rows.  Returns self."""
+        self._base.delete(doc_ids)
+        self._evict(doc_ids)
+        return self
+
+    def update(self, doc_ids, doc_tokens, doc_mask, *, seed: int = 0) -> np.ndarray:
+        """Replace docs under one version (the base's delete + add); returns
+        the new external ids."""
+        ids = self._base.update(doc_ids, doc_tokens, doc_mask, seed=seed)
+        self._evict(doc_ids)
+        self._place(ids)
+        return ids
+
+    def install_refresh(self, refresh) -> "ShardedLemurRetriever":
+        """Warm-swap a rebuild through the base facade (its
+        ``CorruptIndexError`` leaves the block untouched), then rebuild the
+        block from the new index: the refit W rows must reach every rank."""
+        self._base.install_refresh(refresh)
+        self._rebuild_state()
+        return self
+
+    @torch.no_grad()
+    def _evict(self, doc_ids) -> None:
+        rows = [self._row_of.pop(int(i)) for i in np.asarray(doc_ids).reshape(-1)]
+        _, local = self._local(rows)
+        if local.numel():
+            st = self._state
+            st.W[local] = 0
+            st.doc_mask[local] = False
+            st.row_ids[local] = -1
+            st.row_valid[local] = False
+        for r in rows:
+            self._free_rows[r // self._rows_per_shard].append(r)
+
+    @torch.no_grad()
+    def _place(self, new_ids) -> None:
+        ids = np.asarray(new_ids, np.int32).reshape(-1)
+        if not ids.size:
+            return
+        st = self._state
+        store = self._base.index.store
+        if (store.td_max > st.doc_tokens.shape[1]
+                or ids.size > sum(len(f) for f in self._free_rows)):
+            self._rebuild_state()
+            return
+        rows = []
+        for _ in ids:
+            s = max(range(len(self._free_rows)), key=lambda i: len(self._free_rows[i]))
+            rows.append(self._free_rows[s].pop())
+        for i, r in zip(ids.tolist(), rows):
+            self._row_of[i] = r
+        mine, local = self._local(rows)
+        if not mine:
+            return
+        gids = torch.as_tensor(ids[mine], device=self.device)
+        toks, tmask = pages.gather_docs(store, gids)
+        w = store.W[gids.long()].float()
+        wide = st.doc_tokens.shape[1] - toks.shape[1]
+        if wide:
+            toks = torch.nn.functional.pad(toks, (0, 0, 0, wide))
+            tmask = torch.nn.functional.pad(tmask, (0, wide))
+        if self._sq8:
+            # per-row / per-token scales: the new rows quantize alone as they
+            # would in the whole block
+            w, st.W_scales[local] = sq8_quant(w)
+            toks, st.doc_scales[local] = sq8_quant(toks)
+        st.W[local] = w.to(st.W.dtype)
+        st.doc_tokens[local] = toks.to(st.doc_tokens.dtype)
+        st.doc_mask[local] = tmask
+        st.row_ids[local] = gids
+        st.row_valid[local] = True
+
+    def _local(self, rows) -> tuple[list[int], torch.Tensor]:
+        """Which of the global ``rows`` lie in this rank's block (their
+        positions in ``rows``) and their rows in the block."""
+        block = dist.local_rows(self._mesh, len(self._free_rows) * self._rows_per_shard)
+        mine = [j for j, r in enumerate(rows) if block.start <= r < block.stop]
+        return mine, torch.as_tensor([rows[j] - block.start for j in mine], dtype=torch.long,
+                                     device=self.device)
 
     # -- persistence --------------------------------------------------------
 

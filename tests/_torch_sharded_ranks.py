@@ -3,11 +3,14 @@
 
     python tests/_torch_sharded_ranks.py INPUTS.npz CHECKPOINT OUT_DIR
 
-INPUTS.npz holds the queries (``q``, ``qm``) and the index step's inputs
-(psi's four arrays, ``x_ols``, ``docs``, ``mask``).  Every rank loads the
+INPUTS.npz holds the queries (``q``, ``qm``), the index step's inputs
+(psi's four arrays, ``x_ols``, ``docs``, ``mask``) and the docs the
+mutation adds (``new_tokens``, ``new_mask``).  Every rank loads the
 checkpoint on the CPU, shards it onto the mesh (fp32 and SQ8) and serves
-each route of ROUTES; then it fits the W rows of its block of ``docs`` with
-``make_index_step``.  Rank r writes ``OUT_DIR/rank_r.npz``.  The process
+each route of ROUTES; fits the W rows of its block of ``docs`` with
+``make_index_step``; then, on a fresh shard of each kind, adds, deletes and
+updates docs (its block saved, with its first row), adds past the pool's
+free rows (a rebuild; the block saved again) and serves the default route.  Rank r writes ``OUT_DIR/rank_r.npz``.  The process
 group is set up from a ``file://`` store in OUT_DIR, so concurrent runs
 never share a port.  This file imports no JAX.
 """
@@ -23,6 +26,17 @@ WORLD = 8
 #: route name -> SearchParams keyword arguments
 ROUTES = {"fused": {}, "one_launch": {"use_one_launch": True},
           "legacy": {"use_fused_gather": False}}
+
+
+def save_block(res, prefix, sr, mesh):
+    """This rank's block of the sharded state and its first global row."""
+    from repro_torch.dist import local_rows
+
+    for k, v in sr.state._asdict().items():
+        if isinstance(v, torch.Tensor):
+            res[prefix + k] = v.numpy()
+    res[prefix + "start"] = np.array(
+        local_rows(mesh, sr.rows_per_shard * len(sr._free_rows)).start)
 
 
 def rank_main(rank, inputs, ckpt, out_dir):
@@ -56,6 +70,19 @@ def rank_main(rank, inputs, ckpt, out_dir):
                         torch.as_tensor(z["mask"][rows]), torch.zeros(()),
                         torch.ones(())).numpy()
         res["rows"] = np.array([rows.start, rows.stop])
+        new_t, new_m = z["new_tokens"], z["new_mask"]
+        for sq8 in (False, True):
+            sr = ShardedLemurRetriever.load(ckpt, mesh, sq8=sq8)
+            tag = "mut_sq8" if sq8 else "mut_fp32"
+            sr.add(new_t[:10], new_m[:10])
+            sr.delete([5, 91])
+            sr.update([6, 94], new_t[10:13], new_m[10:13])
+            save_block(res, f"{tag}1_", sr, mesh)
+            sr.add(new_t[13:53], new_m[13:53])
+            save_block(res, f"{tag}2_", sr, mesh)
+            res[f"{tag}_rows"] = np.array(sr.rows_per_shard)
+            s, i = sr.search(z["q"], z["qm"])
+            res[f"{tag}_scores"], res[f"{tag}_ids"] = s.numpy(), i.numpy()
         np.savez(f"{out_dir}/rank_{rank}.npz", **res)
     finally:
         dist.destroy_process_group()

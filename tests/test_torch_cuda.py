@@ -35,7 +35,9 @@ from repro_torch.core import maxsim
 from repro_torch.data import synthetic
 from repro_torch.kernels import fused_psi, gather_scan, ops, ref
 from repro_torch.kernels import maxsim as kmaxsim
+from repro_torch.anns import ivf as ivf_mod
 from repro_torch.retriever import IVFSearchParams, LemurRetriever, SearchParams
+from repro_torch.retriever.facade import search_pipeline
 
 SQ8_RTOL = 2 ** -16 * 4
 
@@ -1261,3 +1263,171 @@ def test_ivf_res_scan_grouped_under_skew(cuda, case, B, nlist, cap, dp, nprobe, 
         top, pos = stable_topk(sc, min(kp, nprobe * cap))
         top, idx = pad_topk(top, torch.gather(flat_i.reshape(B, -1), 1, pos), kp)
         assert torch.equal(i, idx) and torch.equal(s, top)
+
+
+# --------------------------------------------------------------------------
+# mutation on the card
+# --------------------------------------------------------------------------
+
+def _mutation_index(tier, m=600, T=24, d=32, dp=256):
+    """A CPU retriever from arrays (fp32 or SQ8 lists of an fp32 store, or
+    4-bit residual lists of a compressed store), its docs' tokens and mask."""
+    rng = np.random.default_rng(11)
+    tok = torch.nn.functional.normalize(torch.as_tensor(
+        rng.standard_normal((m, T, d)), dtype=torch.float32), dim=-1)
+    mask = torch.as_tensor(rng.random((m, T)) > 0.3)
+    W = torch.as_tensor(rng.standard_normal((m, dp)), dtype=torch.float32)
+    cfg = LemurConfig(d=d, d_prime=dp, k=20, k_prime=128, n_ols=512)
+    codec = None
+    if tier == "residual":
+        codec = train_residual_codec(torch.Generator().manual_seed(2), tok[mask], bits=4,
+                                     ncent=32, iters=3)
+        cfg = cfg.replace(ivf=cfg.ivf.replace(residual_bits=4),
+                          residual=cfg.residual.replace(enabled=True))
+    cfg = cfg.replace(ivf=cfg.ivf.replace(sq8=tier == "sq8"))
+    store, _ = pages.from_dense(W, tok, mask, codec=codec)
+    store.alive[[4, 8]] = False
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(0), device="cpu")
+    return LemurRetriever.from_arrays(cfg, psi, store, generator=torch.Generator().manual_seed(1))
+
+
+def _on_card(r, cuda):
+    """The same index on the card, its own tensors (a retriever that owns
+    them, as ``load`` makes)."""
+    idx = r.index
+    return LemurRetriever._owning(idx._replace(
+        psi=copy.deepcopy(idx.psi).to(cuda), store=idx.store.to(cuda),
+        stats=type(idx.stats)(*(t.to(cuda) for t in idx.stats)),
+        ann=type(idx.ann)(*(None if t is None else t.to(cuda) for t in idx.ann))))
+
+
+def _new_docs(rng, n, T, d, long_doc=0):
+    lengths = rng.integers(1, T + 1, n)
+    if long_doc:
+        lengths[0] = long_doc
+    Tm = int(lengths.max())
+    tok = torch.nn.functional.normalize(torch.as_tensor(
+        rng.standard_normal((n, Tm, d)), dtype=torch.float32), dim=-1)
+    mask = torch.arange(Tm)[None, :] < torch.as_tensor(lengths)[:, None]
+    return tok * mask[..., None], mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["fp32", "sq8", "residual"])
+def test_mutation_pages_and_lists_on_card_match_cpu(cuda, tier):
+    """pages.delete_docs / add_docs and ivf.extend_ivf given the same W rows
+    on the card and on the CPU: every field, the free list and the bytes
+    bit for bit, through a table-width growth (a doc of 70 tokens), a slot
+    capacity growth (600 + 700 docs past 1,024), a pool growth and a list
+    capacity growth (300 rows at one centroid).  The assignment is fp32 on
+    both (TF32 is off in the package)."""
+    rng = np.random.default_rng(3)
+    r = _mutation_index(tier)
+    g = _on_card(r, cuda)
+    sc, sg = r.index.store, g.index.store
+    fc, fg = pages.free_list(sc), pages.free_list(sg)
+    assert fc == fg
+    sc, fc, bc = pages.delete_docs(sc, fc, [1, 2, 50])
+    sg, fg, bg = pages.delete_docs(sg, fg, [1, 2, 50])
+    assert (fc, bc) == (fg, bg)
+    tok, mask = _new_docs(rng, 700, 24, 32, long_doc=70)
+    w = torch.as_tensor(rng.standard_normal((700, 256)), dtype=torch.float32)
+    sc, fc, ic, bc = pages.add_docs(sc, fc, w, tok, mask)
+    sg, fg, ig, bg = pages.add_docs(sg, fg, w.to(cuda), tok.to(cuda), mask.to(cuda))
+    assert (fc, bc) == (fg, bg) and np.array_equal(ic, ig)
+    assert sg.capacity == 2048 and sg.pages_per_doc == 8 and sg.n_pages > r.index.store.n_pages
+    for k in sc._fields:
+        a, b = getattr(sc, k), getattr(sg, k)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b.cpu()), k
+    ac, ag = r.index.ann, g.index.ann
+    rows = ac.centroids[3] + (ac.mean if ac.mean is not None else 0) + 0.01 * torch.as_tensor(
+        rng.standard_normal((300, 256)), dtype=torch.float32)
+    for new in (w[:40], rows):
+        ac = ivf_mod.extend_ivf(ac, new)
+        ag = ivf_mod.extend_ivf(ag, new.to(cuda))
+        for k, a in ac._asdict().items():
+            if a is not None:
+                assert torch.equal(a, getattr(ag, k).cpu()), k
+    assert ag.capacity >= 512
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["fp32", "sq8", "residual"])
+def test_mutation_through_the_facade_on_card(cuda, tier):
+    """The same delete / add / update through the facade on the card and on
+    the CPU (each with its fallback solver over the same drawn tokens):
+    pages, table, counts, tombstones, free list and bytes bit for bit; the
+    list ids and counts equal; on the card the new rows' token MaxSim
+    targets within ref.TF32_SPLIT_RTOL of the plain ones and the W rows
+    within that tolerance carried through the solve (x the Gram condition
+    number) of the plain fit; routes' ids up to near-ties; no deleted id
+    served; an add within capacity wrote the pool and W in place."""
+    rng = np.random.default_rng(4)
+    r = _mutation_index(tier)
+    g = _on_card(r, cuda)
+    ptrs = (g.index.store.tok_pages.data_ptr(), g.index.store.W.data_ptr())
+    tok, mask = _new_docs(rng, 40, 24, 32)
+    utok, umask = _new_docs(rng, 5, 24, 32)
+    n0 = kmaxsim.token_maxsim.launches
+    for x, t, mk, ut, um in ((r, tok, mask, utok, umask),
+                             (g, tok.to(cuda), mask.to(cuda), utok.to(cuda), umask.to(cuda))):
+        x.delete([10, 11, 12])
+        x.add(t, mk)
+        x.update([13, int(x.last_added_ids[0])], ut, um)
+    assert kmaxsim.token_maxsim.launches == n0 + 2
+    assert (g.index.store.tok_pages.data_ptr(), g.index.store.W.data_ptr()) == ptrs
+    sc, sg = r.index.store, g.index.store
+    for k in ("tok_pages", "page_table", "n_tokens", "alive", "n_docs", "cent_pages",
+              "code_pages"):
+        if getattr(sc, k) is not None:
+            assert torch.equal(getattr(sc, k), getattr(sg, k).cpu()), k
+    assert g._free() == r._free() and (g.version, g.bytes_moved) == (r.version, r.bytes_moved)
+    assert torch.equal(g.solver_state["x_ols"].cpu(), r.solver_state["x_ols"])
+    for k in ("ids", "counts"):
+        assert torch.equal(getattr(r.index.ann, k), getattr(g.index.ann, k).cpu()), k
+    solver, stats = g.solver_state, g.index.stats
+    x = solver["x_ols"]
+    gt = maxsim.token_maxsim(x, tok.to(cuda), mask.to(cuda))
+    gp = ref.token_maxsim_ref(x, tok.to(cuda), mask.to(cuda))
+    assert (gt - gp).abs().max() <= ref.TF32_SPLIT_RTOL * max(1.0, float(gp.abs().max()))
+    wp = torch.cholesky_solve(solver["feats"].T @ ((gp - stats.mean) / stats.std),
+                              solver["chol"]).T
+    sv = torch.linalg.svdvals(solver["chol"])
+    cond = float((sv.max() / sv.min()) ** 2)
+    new = torch.arange(600, 640, device=cuda)
+    err = float((sg.W[new] - wp).abs().max())
+    assert err <= ref.TF32_SPLIT_RTOL * cond * float(wp.abs().max()), (err, cond)
+    q = torch.as_tensor(rng.standard_normal((16, 8, 32)), dtype=torch.float32)
+    gone = [10, 11, 12, 13, 600]
+    for params in (SearchParams(), SearchParams(backend=IVFSearchParams(use_one_launch=True)),
+                   SearchParams(use_ann=False, use_one_launch=True)):
+        s0, i0 = r.search(q, None, params)
+        s1, i1 = g.search(q, None, params)
+        torch.testing.assert_close(s1.cpu(), s0, rtol=1e-5, atol=1e-4)
+        assert int((i1.cpu() != i0).sum()) <= 2
+        assert not np.isin(i1.cpu().numpy(), gone).any()
+
+
+@pytest.mark.gpu
+def test_snapshot_and_clone_on_card(cuda):
+    """A held snapshot and a clone answer as before while the other side
+    mutates on the card; the first write after the snapshot copies W."""
+    rng = np.random.default_rng(6)
+    g = _on_card(_mutation_index("sq8"), cuda)
+    q = torch.as_tensor(rng.standard_normal((8, 8, 32)), dtype=torch.float32, device=cuda)
+    qm = torch.ones(q.shape[:2], dtype=torch.bool, device=cuda)
+    p = g.resolve(SearchParams(use_ann=False, use_one_launch=True))
+    snap = g.snapshot()
+    twin = g.clone()
+    want = search_pipeline(snap, q, qm, p)
+    want_twin = twin.search(q, qm)
+    W = g.index.store.W.data_ptr()
+    tok, mask = _new_docs(rng, 30, 24, 32)
+    g.add(tok.to(cuda), mask.to(cuda))
+    g.delete([0, 1, 2])
+    assert g.index.store.W.data_ptr() != W
+    got = search_pipeline(snap, q, qm, p)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = twin.search(q, qm)
+    assert torch.equal(got[0], want_twin[0]) and torch.equal(got[1], want_twin[1])

@@ -108,6 +108,9 @@ def built(tmp_path_factory):
 
 
 MESH1 = compat.make_mesh((1,), ("model",))
+# JAX's sharded mutation scatters without an out_sharding, which resolves
+# only on an Auto mesh (ROADMAP Queue 3, item 2)
+MESH1_AUTO = compat.make_mesh((1,), ("model",), axis_types=(compat.AxisType.Auto,))
 
 
 @pytest.mark.parametrize("one_launch", [False, True], ids=["scan", "one_launch"])
@@ -163,6 +166,93 @@ def test_sharded_save_is_served_by_jax(built, mesh, tmp_path):
     again = ShardedLemurRetriever.load(tmp_path, mesh)
     assert all(torch.equal(a, b) for a, b in zip(again.search(q, qm), sr.search(q, qm)))
     assert repr(again) == f"ShardedLemurRetriever(m={M}, mesh=1, sq8=True)"
+
+
+# --------------------------------------------------------------------------
+# mutation, one shard in this process
+# --------------------------------------------------------------------------
+
+def mutate(sr, new):
+    """The mutation sequence of both sharded facades: an add into free rows,
+    a delete, an update, then an add past the pool's free rows (a rebuild
+    in the next bucket).  Returns the block's state after each phase."""
+    sr.add(new.doc_tokens[:10], new.doc_mask[:10])
+    sr.delete([5, 91])
+    sr.update([6, 94], new.doc_tokens[10:13], new.doc_mask[10:13])
+    first = {k: np.asarray(v) for k, v in sr.state._asdict().items()
+             if k != "psi" and v is not None}
+    sr.add(new.doc_tokens[13:53], new.doc_mask[13:53])
+    return first
+
+
+def block_equal(want: dict, got: dict, rows: slice, sq8: bool):
+    """This rank's rows of JAX's sharded state: the slot map, the masks and
+    the token codes and scales bit for bit (the tokens come from the same
+    pages), W within 1e-3 x max|W| (the new rows are two frameworks' fits;
+    for SQ8 dequantized, plus one code step of the row, since a fit that
+    differs in the last bits can round to the next code)."""
+    for k in ("row_ids", "row_valid", "doc_mask", "doc_tokens", "doc_scales"):
+        if k in want:
+            assert np.array_equal(got[k], want[k][rows]), k
+    W = want["W"][rows].astype(np.float32)
+    Wg = got["W"].astype(np.float32)
+    step = 0.0
+    if sq8:
+        W, Wg = W * want["W_scales"][rows][:, None], Wg * got["W_scales"][:, None]
+        step = np.maximum(want["W_scales"][rows], got["W_scales"])[:, None]
+    assert (np.abs(Wg - W) <= 1e-3 * max(1e-6, np.abs(W).max()) + step).all()
+
+
+@pytest.mark.parametrize("sq8", [True, False], ids=["sq8", "fp32"])
+def test_one_shard_mutation_matches_jax(built, mesh, sq8):
+    """The same mutations on JAX's sharded facade and the port's, one shard:
+    the block row for row after the in-place phase and after the rebuild,
+    the searches after it, the version and the compile accounting."""
+    _, _, path, q, qm = built
+    new = synthetic.make_corpus(m=60, d=16, avg_tokens=8, max_tokens=8, n_centers=16, seed=5)
+    js = JaxSharded.load(path, MESH1_AUTO, sq8=sq8)
+    ps = ShardedLemurRetriever.load(path, mesh, sq8=sq8)
+    for sr, cast in ((js, jnp.asarray), (ps, lambda x: x)):
+        sr.search(cast(q), cast(qm))
+    want1, got1 = mutate(js, new), mutate(ps, new)
+    block_equal(want1, got1, slice(0, 128), sq8)
+    want2 = {k: np.asarray(v) for k, v in js.state._asdict().items()
+             if k != "psi" and v is not None}
+    got2 = {k: v.numpy() for k, v in ps.state._asdict().items()
+            if k != "psi" and v is not None}
+    assert ps.rows_per_shard == js.rows_per_shard == 256
+    block_equal(want2, got2, slice(0, 256), sq8)
+    assert ps._row_of == js._row_of and ps._free_rows == js._free_rows
+    assert ps.version == js.version == 4 and np.array_equal(ps.last_added_ids,
+                                                            np.asarray(js.last_added_ids))
+    for params in ({}, {"use_one_launch": True}):
+        want = js.search(jnp.asarray(q), jnp.asarray(qm), JaxParams(**params))
+        got = ps.search(q, qm, SearchParams(**params))
+        assert_same_topk(*want, *got)
+        assert not np.isin(got[1].numpy(), [5, 6, 91, 94]).any()
+    assert ps.trace_count() == js.trace_count() and ps.trace_count(SearchParams()) == 2
+    assert ps.trace_shapes() == {tuple(k): v for k, v in js.trace_shapes().items()}
+
+
+def test_sharded_clone_and_refresh(built, mesh):
+    """A clone keeps its block while the original mutates; a corrupt refresh
+    leaves the block as it was."""
+    from repro_torch.retriever import CorruptIndexError
+
+    _, _, path, q, qm = built
+    sr = ShardedLemurRetriever.load(path, mesh)
+    twin = sr.clone()
+    want = twin.search(q, qm)
+    new = synthetic.make_corpus(m=5, d=16, avg_tokens=8, max_tokens=8, n_centers=16, seed=6)
+    sr.add(new.doc_tokens, new.doc_mask)
+    sr.delete([0, 1])
+    got = twin.search(q, qm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert twin.m == M and sr.m == M + 5
+    block = {k: v.clone() for k, v in sr.state._asdict().items() if isinstance(v, torch.Tensor)}
+    with pytest.raises(CorruptIndexError):
+        sr.install_refresh(types.SimpleNamespace(backend="ivf", m0=0))
+    assert all(torch.equal(getattr(sr.state, k), v) for k, v in block.items())
 
 
 def test_a_cuda_mesh_refuses_cpu_tensors(built):
@@ -223,6 +313,23 @@ chol, feats = indexer.gram_factor(psi, x, cfg.ridge)
 step = make_index_step(mesh, cfg, doc_block=12)
 out["W"] = np.asarray(jax.jit(step)(chol[0], feats, x, jnp.asarray(z["docs"]),
                                     jnp.asarray(z["mask"]), jnp.zeros(()), jnp.ones(())))
+new_t, new_m = z["new_tokens"], z["new_mask"]
+for sq8 in (False, True):
+    sr = ShardedLemurRetriever.load("{ckpt}", mesh, sq8=sq8)
+    tag = "mut_sq8" if sq8 else "mut_fp32"
+    sr.add(new_t[:10], new_m[:10])
+    sr.delete([5, 91])
+    sr.update([6, 94], new_t[10:13], new_m[10:13])
+    for k, v in sr.state._asdict().items():
+        if k != "psi" and v is not None:
+            out[tag + "1_" + k] = np.asarray(v)
+    sr.add(new_t[13:53], new_m[13:53])
+    for k, v in sr.state._asdict().items():
+        if k != "psi" and v is not None:
+            out[tag + "2_" + k] = np.asarray(v)
+    out[tag + "_rows"] = np.array(sr.rows_per_shard)
+    s, i = sr.search(jnp.asarray(z["q"]), jnp.asarray(z["qm"]))
+    out[tag + "_scores"], out[tag + "_ids"] = np.asarray(s), np.asarray(i)
 np.savez("{out}", **out)
 print("OK")
 """
@@ -237,9 +344,11 @@ def eight_ranks(built, run_forced8, tmp_path_factory):
     _, _, ckpt, q, qm = built
     work = tmp_path_factory.mktemp("eight_ranks")
     corpus = synthetic.make_corpus(m=96, d=16, avg_tokens=8, max_tokens=8, seed=0)
+    new = synthetic.make_corpus(m=60, d=16, avg_tokens=8, max_tokens=8, n_centers=16, seed=5)
     psi = init_psi(jax.random.PRNGKey(0), 16, 32)
     inputs = work / "inputs.npz"
-    np.savez(inputs, q=q, qm=qm, kernel=np.asarray(psi["dense"]["kernel"]),
+    np.savez(inputs, q=q, qm=qm, new_tokens=new.doc_tokens.astype(np.float32),
+             new_mask=new.doc_mask, kernel=np.asarray(psi["dense"]["kernel"]),
              bias=np.asarray(psi["dense"]["bias"]), ln_scale=np.asarray(psi["ln"]["scale"]),
              ln_bias=np.asarray(psi["ln"]["bias"]),
              x_ols=np.random.default_rng(1).standard_normal((128, 16)).astype(np.float32),
@@ -270,6 +379,29 @@ def test_eight_ranks_match_jax(eight_ranks, tag, route):
         assert_same_topk(want[f"{tag}_{route}_scores"], want[f"{tag}_{route}_ids"],
                          res[f"{tag}_{route}_scores"], res[f"{tag}_{route}_ids"])
         assert np.array_equal(res[f"{tag}_{route}_ids"], ranks[0][f"{tag}_{route}_ids"])
+
+
+@pytest.mark.parametrize("tag", ["fp32", "sq8"])
+def test_eight_ranks_mutation_matches_jax(eight_ranks, tag):
+    """After the same add / delete / update on every rank and on JAX's
+    sharded facade, each rank's block equals its rows of JAX's state, in
+    place (16 rows a shard) and after the add that outgrows the pool (a
+    rebuild at 32 rows a shard); every rank then serves JAX's merged top-k."""
+    want, ranks = eight_ranks
+    assert int(want[f"mut_{tag}_rows"]) == 32
+    for r, res in enumerate(ranks):
+        assert int(res[f"mut_{tag}_rows"]) == 32
+        for phase, rows in (("1", 16), ("2", 32)):
+            pre = f"mut_{tag}{phase}_"
+            lo = int(res[pre + "start"])
+            block_equal({k[len(pre):]: v for k, v in want.items() if k.startswith(pre)},
+                        {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)},
+                        slice(lo, lo + rows), tag == "sq8")
+        assert_same_topk(want[f"mut_{tag}_scores"], want[f"mut_{tag}_ids"],
+                         res[f"mut_{tag}_scores"], res[f"mut_{tag}_ids"])
+        assert not np.isin(res[f"mut_{tag}_ids"], [5, 6, 91, 94]).any()
+    starts = sorted(int(res[f"mut_{tag}2_start"]) for res in ranks)
+    assert starts == [32 * r for r in range(8)]
 
 
 def test_eight_ranks_index_step_matches_jax(eight_ranks):
