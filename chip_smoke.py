@@ -139,6 +139,26 @@ script
    plain composition, no deleted or tombstoned id in any top-100; free
    pages and slots before and after, whether the pool or a list's capacity
    grew, the change in allocated memory and the phase's peak;
+9b. **backends**: checks that the IVF backend reached through the registry
+   and composed by hand gives the default route's ids and scores bit for
+   bit; then hands the served retriever over (its IVF lists freed) and
+   builds ``bruteforce``, ``muvera``, ``dessert`` and ``token_pruning`` on
+   it with ``LemurRetriever.with_backend``, one at a time, each from the
+   last one's store: build seconds by stage, the state's bytes, the change
+   in allocated memory and the peak; a warm-up and 8 timed batches of 256 x
+   32 (k' 1,024, k 100), counters from 0 around them (the psi-pool and the
+   paged rerank once a search), p50 and QPS, the first stage and the rerank
+   timed apart, a traced batch, recall@10 of 32 queries against exact
+   MaxSim; the first stage of a few queries against its JAX form
+   (bruteforce: the full latent product; MUVERA: the full FDE product in
+   fp64, and the first 2,048 docs' FDEs against fp64; DESSERT: the
+   (B, m, L, Tq) lookup; token pruning: the probed lists gathered whole)
+   and the top-100 against the plain rerank of the same candidates, ids up
+   to counted near-ties, no tombstoned id served; then one round of 1,024
+   deletes and 1,024 adds through the backend (its retriever owns the
+   store, so the pool is written in place; token MaxSim fits the rows) and
+   the same checks; last, DESSERT over a compressed tier of the churned
+   corpus (its decoded tokens, reranked by ``rerank_paged_res_scores``);
 10. gives every kernel row the kernels and memsets that one call of its
    wrapper put on the card (``cuda_launches_per_call``, and by name in
    ``cuda_launched``), counted by torch.profiler in this run: a lower
@@ -149,8 +169,10 @@ script
 12. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
    ``routes`` line, a ``residual`` line, a ``sharded`` line, the
    ``mutation`` line (with the residual and sharded rounds), the
-   ``psi_ablation`` line, the ``kernels`` line (token MaxSim's row with its
-   launches on the mutation path) and last ``{"ok": true, ...}``.
+   ``backends`` line, the ``psi_ablation`` line, the ``kernels`` line (token
+   MaxSim's row with its launches on the mutation path and the backends'
+   rounds; every row with its launches on each backend's batches) and last
+   ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -1588,8 +1610,9 @@ def residual_ragged_case(torch, seed):
 def residual_store(torch, args, store, codec):
     """The compressed tier of the served corpus: each chunk of docs read back
     from the fp32 pages and encoded into a store of its own (held to
-    ``from_dense(codec=)`` on the first 500 docs); W and the tombstones are
-    the fp32 store's, since the tiers differ only in their pages."""
+    ``from_dense(codec=)`` on the first 500 docs), its pages in slot order;
+    W and the tombstones are the fp32 store's, since the tiers differ only
+    in their pages."""
     from repro_torch.core import pages
 
     m = int(store.n_docs[0])
@@ -1610,10 +1633,27 @@ def residual_store(torch, args, store, codec):
                     "chunked compressed fill differs from pages.from_dense(codec=)")
             del ref_store
         del toks, tmask
-    require(torch.equal(rstore.page_table, store.page_table)
-            and torch.equal(rstore.n_tokens, store.n_tokens),
-            "the compressed tier's pages are not laid out as the fp32 tier's")
+    require(torch.equal(rstore.n_tokens, store.n_tokens),
+            "the compressed tier holds other token counts than the fp32 tier")
     return rstore._replace(W=store.W, alive=store.alive)
+
+
+def train_codec(torch, args, store, rcfg):
+    """The token codec of ``rcfg`` over ``train_sample`` valid tokens drawn
+    from the pages -> (codec, sample)."""
+    from repro_torch.anns.quantization import train_residual_codec
+
+    m, dev = int(store.n_docs[0]), store.W.device
+    gen = torch.Generator().manual_seed(args.seed + 5)
+    nt = store.n_tokens[:m].long()
+    flat = torch.randperm(int(nt.sum()), generator=gen)[:rcfg.train_sample].to(dev)
+    ends = torch.cumsum(nt, 0)
+    doc = torch.searchsorted(ends, flat, right=True)
+    pos = flat - (ends - nt)[doc]
+    sample = store.tok_pages[store.page_table[doc, pos // 16].long(), pos % 16]
+    codec = train_residual_codec(gen, sample, bits=rcfg.bits, ncent=rcfg.ncent,
+                                 iters=rcfg.kmeans_iters, sample=rcfg.train_sample)
+    return codec, sample
 
 
 def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
@@ -1626,7 +1666,6 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
     from repro_torch.anns.base import stable_topk
     from repro_torch.anns.ivf import build_ivf
     from repro_torch.anns.params import ResidualConfig
-    from repro_torch.anns.quantization import train_residual_codec
     from repro_torch.core import maxsim, pages
     from repro_torch.core.model import pool_queries
     from repro_torch.kernels import gather_scan, ops, query_fused, ref
@@ -1634,24 +1673,17 @@ def residual_phase(torch, args, r, batches, truth, sq8_recall, ragged):
     from repro_torch.retriever.facade import first_stage
 
     index, store, ann = r.index, r.index.store, r.index.ann
-    m, dev = int(store.n_docs[0]), store.W.device
+    m = int(store.n_docs[0])
     rcfg = ResidualConfig()
     torch.cuda.synchronize()
     t0 = time.time()
-    # the codec's sample: train_sample valid tokens drawn from the pages
-    gen = torch.Generator().manual_seed(args.seed + 5)
-    nt = store.n_tokens[:m].long()
-    flat = torch.randperm(int(nt.sum()), generator=gen)[:rcfg.train_sample].to(dev)
-    ends = torch.cumsum(nt, 0)
-    doc = torch.searchsorted(ends, flat, right=True)
-    pos = flat - (ends - nt)[doc]
-    sample = store.tok_pages[store.page_table[doc, pos // 16].long(), pos % 16]
-    codec = train_residual_codec(gen, sample, bits=rcfg.bits, ncent=rcfg.ncent,
-                                 iters=rcfg.kmeans_iters, sample=rcfg.train_sample)
+    codec, sample = train_codec(torch, args, store, rcfg)
     torch.cuda.synchronize()
     t_codec = time.time() - t0
     t0 = time.time()
     rstore = residual_store(torch, args, store, codec)
+    require(torch.equal(rstore.page_table, store.page_table),
+            "the compressed tier's pages are not laid out as the fp32 tier's")
     torch.cuda.synchronize()
     t_pages = time.time() - t0
     t0 = time.time()
@@ -2745,6 +2777,312 @@ def mutation_phase(torch, args, r, batches, card):
                 solver="seeded fallback (from_arrays keeps no OLS tokens): n_ols tokens "
                        "drawn from the pages")
 
+# --------------------------------------------------------------------------
+# the other first-stage backends behind the registry
+# --------------------------------------------------------------------------
+
+BACKEND_NAMES = ("bruteforce", "muvera", "dessert", "token_pruning")
+BACKEND_BATCHES = 9       # a warm-up and 8 timed batches a backend
+BACKEND_ROUND = 1024      # adds and deletes of each backend's round
+PLAIN_QUERIES = {"bruteforce": 16, "muvera": 16, "dessert": 2, "token_pruning": 4}
+FDE_CHECK_DOCS = 2048     # stored doc FDEs recomputed in fp64
+
+
+def ivf_through_registry(torch, r, batch):
+    """The IVF backend reached through the registry and composed by hand
+    (the psi-pool, its search, the tombstone mask, the paged rerank) against
+    the default route: ids and scores bit for bit."""
+    from repro_torch.anns import registry
+    from repro_torch.anns.base import QueryBatch
+    from repro_torch.core import pages
+    from repro_torch.core.model import pool_queries
+    from repro_torch.kernels import ops
+    from repro_torch.retriever import SearchParams
+
+    q, qm, _ = batch
+    st, p = r.index.store, r.resolve(SearchParams())
+    s, ids = r.search(q, qm)
+    be = registry.get_backend("ivf")
+    _, cand = be.search(r.index.ann, QueryBatch(pool_queries(r.index.psi, q, qm), q, qm),
+                        p.k_prime, p.backend)
+    s2, ids2 = ops.fused_rerank_paged(q, qm, pages.mask_dead(st, cand), st.tok_pages,
+                                      st.page_table, st.n_tokens, p.k)
+    require(torch.equal(ids, ids2) and torch.equal(s, s2),
+            "ivf through the registry: ids or scores differ from the default route")
+    return dict(rows=int(q.shape[0]), ids_and_scores_bit_equal=True)
+
+
+def plain_first_stage(torch, r, q, qm, k):
+    """The backend's first stage in the JAX package's form on the port's
+    pooled latent and the query tokens -> (scores, ids) before the tombstone
+    mask: bruteforce the full latent product; MUVERA the full product of the
+    query FDEs and the doc FDEs in fp64 (the FDEs themselves are held to
+    fp64 by check_fdes); DESSERT the (B, m, L, Tq) lookup over every doc;
+    token pruning each token's probed lists gathered whole."""
+    from repro_torch.anns import dessert, muvera
+    from repro_torch.anns import token_pruning as tp
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.core.model import pool_queries
+
+    name, ann = r.backend, r.index.ann
+    if name == "bruteforce":
+        return stable_topk(pool_queries(r.index.psi, q, qm) @ ann["W"].T, k)
+    if name == "muvera":
+        qf = muvera.query_fde(q, qm, ann.mcfg, ann.parts)
+        top, ids = stable_topk(qf.double() @ ann.dfde.double().T, k)
+        return top.float(), ids
+    if name == "dessert":
+        return dessert.search_dessert_direct(ann, q, qm, k_prime=k)
+    return tp.search_token_pruning_direct(ann.index, q, qm, nprobe=8, k_prime=k, m=ann.m)
+
+
+def check_backend(torch, r, batch, gone, what):
+    """The backend's candidates for a few queries against its plain first
+    stage (ids up to counted near-ties), the served top-100 of the batch
+    against the plain rerank of the same candidates, no tombstoned or
+    deleted id served.  Returns the near-tie counts."""
+    from repro_torch.anns import registry
+    from repro_torch.anns.base import QueryBatch
+    from repro_torch.core.model import pool_queries
+    from repro_torch.retriever import SearchParams
+
+    q, qm, _ = batch
+    st, p = r.index.store, r.resolve(SearchParams())
+    n = PLAIN_QUERIES[r.backend]
+    be = registry.get_backend(r.backend)
+    got_s, got_i = be.search(r.index.ann, QueryBatch(pool_queries(r.index.psi, q[:n], qm[:n]),
+                                                     q[:n], qm[:n]), p.k_prime, p.backend)
+    want_s, want_i = plain_first_stage(torch, r, q[:n], qm[:n], p.k_prime)
+    _, fs_ties, _ = same_topk(torch, got_s, got_i.long(), want_s, want_i.long(), 1e-5,
+                              f"{what}: first stage", exact_ties=False)
+    s, ids = r.search(q, qm)
+    cand = r.candidates(q, qm)
+    top, pids = plain_rerank(torch, st, q, qm, cand, p.k)
+    err, rr_ties, _ = same_topk(torch, s, ids, top, pids, 1e-5, f"{what}: top-{p.k}",
+                                exact_ties=False)
+    gone_t = torch.as_tensor(sorted(gone) or [-2], device=q.device)
+    require(bool((ids >= 0).all()) and bool(st.alive[ids.long()].all())
+            and not bool(torch.isin(ids.long(), gone_t).any())
+            and not bool(torch.isin(cand.long(), gone_t).any()),
+            f"{what}: a tombstoned or deleted doc served")
+    out = dict(first_stage_queries=n, first_stage_near_tie_ids=fs_ties,
+               rows=int(q.shape[0]), near_tie_ids=rr_ties, max_abs_err=err)
+    if r.backend == "muvera":
+        out["fdes_fp64"] = check_fdes(torch, r, what)
+    return out
+
+
+def check_fdes(torch, r, what):
+    """The stored doc FDEs of the first FDE_CHECK_DOCS slots against the
+    FDEs recomputed in fp64 from the pages, within 1e-5 x max(1, max|FDE|),
+    on the live slots (a doc deleted after the build reads back all-masked)
+    whose tokens hash to the same buckets in both precisions; a token whose
+    bucket differs must have a dot with a plane within 1e-5 ||token||
+    ||plane|| of 0 (the sign of a rounding).  Returns (max abs err, docs
+    held, docs with a flipped bucket)."""
+    from repro_torch.anns import muvera
+
+    ann, n = r.index.ann, min(FDE_CHECK_DOCS, r.m)
+    toks, tmask = r.index.read_docs(0, n)
+    p64 = muvera.MuveraParts(*(None if t is None else t.double() for t in ann.parts))
+    flip = ((muvera.bucket_ids(toks, ann.parts.hyper) != muvera.bucket_ids(toks.double(),
+                                                                          p64.hyper))
+            & tmask[:, None, :])                                   # (n, R, T)
+    hyp = ann.parts.hyper.reshape(-1, toks.shape[-1])
+    dots = toks @ hyp.T                                            # (n, T, R k)
+    near = dots.abs() < 1e-5 * toks.norm(dim=-1)[..., None] * hyp.norm(dim=-1)
+    require(not bool((flip.any(1) & ~near.any(-1)).any()),
+            f"{what}: a token's bucket flips without a near-zero dot")
+    want = muvera.doc_fde(toks.double(), tmask, ann.mcfg, p64)
+    held = r.index.store.alive[:n] & ~flip.any(-1).any(-1)
+    err = float((ann.dfde[:n][held].double() - want[held]).abs().max())
+    tol = 1e-5 * max(1.0, float(want[held].abs().max()))
+    require(err <= tol, f"{what}: stored doc FDEs differ from fp64 by {err} > {tol}")
+    return dict(max_abs_err=err, tol=tol, docs_held=int(held.sum()),
+                docs_with_a_flipped_bucket=int(flip.any(-1).any(-1).sum()))
+
+
+def paged_rerank(torch, r, q, qm, cand, k):
+    """The served rerank of ``r``'s store on ``cand``: the residual paged
+    kernel on the compressed tier, the fp32 one otherwise."""
+    from repro_torch.kernels import ops
+
+    st = r.index.store
+    if st.residual:
+        return ops.fused_rerank_paged_res(q, qm, cand, st.cent_pages, st.code_pages,
+                                          st.page_table, st.n_tokens, st.codec.centroids,
+                                          st.codec.values, k)
+    return ops.fused_rerank_paged(q, qm, cand, st.tok_pages, st.page_table, st.n_tokens, k)
+
+
+def serve_backend(torch, r, batches, kernels):
+    """Serve ``batches`` through ``r`` (counters from 0 just before, read
+    just after), then time its first stage and its rerank apart on the
+    timed batches; the recall queries' top-10 against exact MaxSim."""
+    from repro_torch.kernels import ops
+    from repro_torch.retriever import SearchParams
+
+    p = r.resolve(SearchParams())
+    ops.reset_launch_counts()
+    lat = []
+    for i, (q, qm, _) in enumerate(batches):
+        (s, ids), ms = synced_ms(torch, lambda: r.search(q, qm))
+        require(s.shape == (q.shape[0], p.k) and bool(torch.isfinite(s).all()),
+                f"{r.backend}: scores not finite (B, k)")
+        if i:
+            lat.append(ms)
+    launches = ops.launch_counts()
+    want = {k: (len(batches) if k in kernels else 0) for k in launches}
+    require(launches == want, f"{r.backend}: launches {launches}, expected {want}")
+    fs, rk = [], []
+    for q, qm, _ in batches[1:]:
+        cand, ms = synced_ms(torch, lambda: r.candidates(q, qm))
+        fs.append(ms)
+        rk.append(synced_ms(torch, lambda: paged_rerank(torch, r, q, qm, cand, p.k))[1])
+    q, qm, src = (t[:RECALL_QUERIES] for t in batches[0])
+    truth = truth_top10(torch, r.index.store, q, qm)
+    got = r.search(q, qm)[1][:, :10]
+    recall = float((got[:, :, None] == truth[:, None, :]).any(1).float().mean())
+    # the doc each query's tokens were drawn from (make_queries): the one doc
+    # the query overlaps beyond chance on this weakly clustered corpus
+    src_at_10 = float((got == src[:, None]).any(1).float().mean())
+    src_in_cand = float((r.candidates(q, qm) == src[:, None]).any(1).float().mean())
+    B = batches[0][0].shape[0]
+    return dict(batches=len(lat), batch=B, p50_ms=float(np.median(lat)), max_ms=float(max(lat)),
+                qps=B * len(lat) / (sum(lat) / 1e3), first_stage_p50_ms=float(np.median(fs)),
+                rerank_p50_ms=float(np.median(rk)), k=p.k, k_prime=p.k_prime,
+                recall_at_10=recall, recall_queries=RECALL_QUERIES,
+                source_doc_at_10=src_at_10, source_doc_in_candidates=src_in_cand,
+                launches={k: v for k, v in launches.items() if v}, search_ms=lat)
+
+
+def state_bytes(torch, r):
+    from repro_torch.anns import registry
+
+    arrays, _ = registry.get_backend(r.backend).pack_state(r.index.ann)
+    return {k: int(v.numel() * v.element_size()) for k, v in arrays.items()}
+
+
+def backends_phase(torch, args, holder, card):
+    """Each other backend over the served index (``holder``: the served
+    retriever, handed over), one at a time: ``with_backend`` from the pages
+    (stage seconds, state bytes, memory), 8 timed batches with the first
+    stage and the rerank apart, recall@10, the plain checks, one round of
+    1,024 deletes and 1,024 adds through the backend and the checks again;
+    then DESSERT over the compressed tier.  Each backend's retriever takes
+    the store over from the last (no other view holds it), so a round
+    writes the pool in place."""
+    import gc
+
+    from repro_torch.anns.params import ResidualConfig
+    from repro_torch.kernels import ops
+    from repro_torch.retriever import LemurRetriever
+
+    cur = holder.pop()
+    st = cur.index.store
+    rng = np.random.default_rng(args.seed + 23)
+    batches = [make_queries(torch, st, rng, args.batch) for _ in range(BACKEND_BATCHES)]
+    line = dict(card=card, m=cur.m, ivf_through_registry=ivf_through_registry(
+        torch, cur, batches[0]), backends={})
+    gone = set()
+    for name in BACKEND_NAMES:
+        t_all = time.time()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (rb, build_ms) = synced_ms(torch, lambda: cur.with_backend(
+            name, generator=torch.Generator().manual_seed(args.seed)))
+        cur = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = dict(build_s=build_ms / 1e3, build_stages_s=rb.build_log["seconds"],
+                   state_bytes=state_bytes(torch, rb),
+                   memory_allocated_change_gib=(torch.cuda.memory_allocated() - mem0) / 2**30,
+                   build_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if name == "token_pruning":
+            lists = rb.index.ann.index
+            out.update(nlist=int(lists.centroids.shape[0]), cap=int(lists.doc_lists.shape[1]),
+                       tokens=int(lists.counts.sum()),
+                       list_len_max_mean=[int(lists.counts.max()),
+                                          float(lists.counts.float().mean())])
+        print(f"backend {name}: built in {out['build_s']:.1f} s {out['build_stages_s']}, "
+              f"state {sum(out['state_bytes'].values()) / 1e9:.2f} GB", flush=True)
+        cur = rb
+        out.update(serve_backend(torch, rb, batches, ("fused_psi_pool", "rerank_paged_scores")))
+        out["traced_batch"] = profile_batch(torch, rb, *batches[1][:2])
+        out["checks"] = check_backend(torch, rb, batches[1], gone, name)
+        # the round: rb is the store's only holder now (the last retriever is
+        # gone), so a retriever that owns the index writes the pool in place
+        rm = LemurRetriever._owning(rb.index, solver_state=rb.solver_state, x_ols=rb.x_ols)
+        cur = rb = None
+        dead = pick_live(torch, rm, rng, BACKEND_ROUND)
+        ops.reset_launch_counts()
+        _, del_ms = synced_ms(torch, lambda: rm.delete(dead))
+        gone.update(dead.tolist())
+        tok, mask = churn_docs(torch, rng, args.seed, BACKEND_ROUND, rm.device, rm.index.store.d)
+        _, add_ms = synced_ms(torch, lambda: rm.add(tok, mask))
+        round_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        require(round_launches.get("token_maxsim", 0) >= 1,
+                f"{name}: the add fit no W rows through token MaxSim: {round_launches}")
+        arrays, meta = registry_pack(rm)
+        rows = meta.get("m", next(iter(arrays.values())).shape[0])
+        require(rows == rm.m, f"{name}: the state serves {rows} docs of {rm.m}")
+        del tok, mask, arrays
+        out["round"] = dict(delete=BACKEND_ROUND, add=BACKEND_ROUND, delete_ms=del_ms,
+                            add_ms=add_ms, launches=round_launches,
+                            checks=check_backend(torch, rm, batches[2], gone, f"{name} churned"),
+                            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        out["s"] = time.time() - t_all
+        line["backends"][name] = out
+        print(f"backend {name} ok: p50 {out['p50_ms']:.3f} ms (first stage "
+              f"{out['first_stage_p50_ms']:.3f}, rerank {out['rerank_p50_ms']:.3f}), recall@10 "
+              f"{out['recall_at_10']:.4f}, source doc at 10 {out['source_doc_at_10']:.3f}, "
+              f"near-tie ids {out['checks']['first_stage_near_tie_ids']}"
+              f"/{out['checks']['near_tie_ids']}, churned "
+              f"{out['round']['checks']['near_tie_ids']}, {out['s']:.1f} s", flush=True)
+        cur = rm
+        del rm
+
+    # DESSERT over the compressed tier: its decoded tokens, reranked by the
+    # residual paged kernel
+    t_all = time.time()
+    idx = cur.index
+    cur = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcfg = ResidualConfig()
+    codec, _ = train_codec(torch, args, idx.store, rcfg)
+    rstore = residual_store(torch, args, idx.store, codec)
+    rcur = LemurRetriever(idx._replace(cfg=idx.cfg.replace(residual=rcfg.replace(enabled=True),
+                                                           anns="bruteforce"),
+                                       store=rstore, backend="bruteforce",
+                                       ann={"W": rstore.W[:idx.m]}))
+    del idx
+    torch.cuda.reset_peak_memory_stats()
+    rr, build_ms = synced_ms(torch, lambda: rcur.with_backend(
+        "dessert", generator=torch.Generator().manual_seed(args.seed)))
+    del rcur
+    out = dict(build_s=build_ms / 1e3, build_stages_s=rr.build_log["seconds"],
+               state_bytes=state_bytes(torch, rr),
+               build_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               codec=dict(bits=codec.bits, ncent=codec.ncent))
+    out.update(serve_backend(torch, rr, batches, ("fused_psi_pool", "rerank_paged_res_scores")))
+    out["checks"] = check_backend(torch, rr, batches[1], gone, "dessert, residual tier")
+    out["s"] = time.time() - t_all
+    line["backends"]["dessert_residual_tier"] = out
+    print(f"backend dessert on the residual tier ok: p50 {out['p50_ms']:.3f} ms, recall@10 "
+          f"{out['recall_at_10']:.4f}", flush=True)
+    del rr, rstore
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def registry_pack(r):
+    from repro_torch.anns import registry
+
+    return registry.get_backend(r.backend).pack_state(r.index.ann)
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2785,7 +3123,7 @@ def main():
     print(json.dumps({"widths": {"max_abs_err": widths, "s": time.time() - t0}}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    serving, routes, residual, sharded, mutation, kernels = serve_and_check(torch, args)
+    serving, routes, residual, sharded, mutation, backends, kernels = serve_and_check(torch, args)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
     maxsim_row["launches_mutation_path"] = {
@@ -2793,12 +3131,19 @@ def main():
             [(f"round_{i}", rd) for i, rd in enumerate(mutation["rounds"])]
             + [("residual_round", mutation["residual_round"]),
                ("sharded_round", mutation["sharded_round"])])}
+    maxsim_row["launches_backend_rounds"] = {
+        name: b["round"]["launches"].get("token_maxsim", 0)
+        for name, b in backends["backends"].items() if "round" in b}
     kernels.append(maxsim_row)
+    for row in kernels:
+        row["launches_backend_routes"] = {
+            name: b["launches"].get(row["name"], 0) for name, b in backends["backends"].items()}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"mutation": mutation}), flush=True)
+    print(json.dumps({"backends": backends}), flush=True)
     t0 = time.time()
     from repro_torch.kernels import psi_ablation
     ablation = psi_ablation.run()
@@ -3128,7 +3473,15 @@ def serve_and_check(torch, args):
     mutation = mutation_phase(torch, args, r, batches, card_line())
     mutation["residual_round"] = residual.pop("churn_round")
     mutation["sharded_round"] = sharded.pop("churn_round")
-    return (serving, routes, residual, sharded, mutation,
+
+    # -- 10. the other first-stage backends; the served retriever is handed
+    # over, its IVF lists freed once the first backend is built ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    holder = [r]
+    del r, index, ann
+    backends = backends_phase(torch, args, holder, card_line())
+    return (serving, routes, residual, sharded, mutation, backends,
             kernels + new_rows + res_rows + sh_rows)
 
 

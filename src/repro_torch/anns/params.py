@@ -1,38 +1,13 @@
 """Per-backend configuration namespaces and typed search parameters (twin of
 ``repro/anns/params.py``: same fields, same defaults, so a JAX checkpoint's
-``cfg`` dict reads back unchanged).
-
-Only the ``ivf`` backend is ported so far; :func:`ported_backend` is the one
-place that says so.
+``cfg`` dict reads back unchanged).  The registry
+(:mod:`repro_torch.anns.registry`) maps each backend name to its pair.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.common.config import ConfigBase
-
-#: every backend name the JAX package registers ("exact" aliases bruteforce)
-KNOWN_BACKENDS = ("bruteforce", "dessert", "exact", "ivf", "muvera",
-                  "token_pruning")
-_ALIASES = {"exact": "bruteforce"}
-
-
-def canonical(name: str) -> str:
-    return _ALIASES.get(name, name)
-
-
-def ported_backend(name: str) -> str:
-    """Canonical backend name, or ``NotImplementedError`` for a backend this
-    port does not serve yet (``KeyError`` for a name nobody registers)."""
-    name = canonical(name)
-    if name == "ivf":
-        return name
-    if name in KNOWN_BACKENDS:
-        raise NotImplementedError(
-            f"first-stage backend {name!r} is not ported to PyTorch yet "
-            f"(ROADMAP Queue 1 item 5); only 'ivf' is served")
-    raise KeyError(f"unknown anns backend {name!r}; known: "
-                   f"{list(KNOWN_BACKENDS)}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +67,17 @@ class TokenPruningBackendConfig(BackendConfig):
 
 
 @dataclasses.dataclass(frozen=True)
+class NoSearchParams(BackendSearchParams):
+    """Backends whose only query-time knob is the shared k' budget."""
+
+
+@dataclasses.dataclass(frozen=True)
 class IVFSearchParams(BackendSearchParams):
     nprobe: int | None = None             # None => cfg.ivf.nprobe
     use_fused_gather: bool | None = None  # None => cfg.ivf.use_fused_gather
     use_one_launch: bool | None = None    # None => cfg.ivf.use_one_launch
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPruningSearchParams(BackendSearchParams):
+    nprobe: int | None = None             # None => cfg.token_pruning.nprobe

@@ -43,6 +43,11 @@ def sq8_dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[..., None]
 
 
+def sq8_dot(q_query: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """fp query (B, d) x int8 corpus (m, d) with per-row scales -> (B, m)."""
+    return (q_query @ codes.to(q_query.dtype).T) * scale[None, :]
+
+
 class ResidualCodec(NamedTuple):
     """Trained residual-codec tables.
 

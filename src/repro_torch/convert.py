@@ -6,7 +6,7 @@ The JAX facade saves one flat tree (``repro/retriever/facade.py:700-722``):
     stats/mean, stats/std,
     pages/{tok_pages, page_table, n_tokens, W, alive, n_docs[, cent_pages, code_pages]},
     [codec/{centroids, cuts, values}],
-    ann/{centroids, ids, vecs, counts[, scales][, mean][, rq_cuts, rq_values]},
+    ann/{the backend's pack_state arrays},
     [solver/x_ols]
 
 plus ``extra = {"format", "cfg", "backend", "ann_meta"}`` in the manifest.
@@ -14,7 +14,16 @@ On the compressed tier ``tok_pages`` is (P, page, 0) fp32, ``cent_pages``
 (P, page) int32 and ``code_pages`` (P, page, d * bits / 8) uint8, with the
 codec's tables beside them (``facade.py:713-720``); residual IVF lists
 keep uint8 ``vecs`` and their ``rq_cuts``/``rq_values`` tables
-(``anns/backends.py:123-141``).
+(``anns/backends.py:123-141``).  Each backend's state crosses under its
+``pack_state`` names and ``ann_meta`` (IVF ``centroids, ids, vecs, counts``
+and the optional tables; bruteforce ``W``; MUVERA ``dfde`` and the meta
+``mcfg``; DESSERT ``occupancy, hyper``; token pruning ``centroids,
+doc_lists, counts`` and the meta ``m``).  The port's MUVERA state also
+saves its planes and projections (``ann/hyper``, ``ann/final``,
+``ann/proj``), which JAX's ``unpack_state`` ignores; a JAX-saved MUVERA
+state lacks them and is refused (:func:`muvera_from_numpy` builds one from
+JAX's ``_partition_params``).  A bruteforce state loads as a view of the
+store's W rows, not a second copy.
 :func:`index_from_numpy` turns that tree, as numpy arrays, into the port's
 :class:`~repro_torch.core.index.LemurIndex` on ``device``;
 :func:`index_to_numpy` is its inverse, with the JAX names, shapes and
@@ -31,13 +40,15 @@ transpose, exactly) and :func:`refresh_from_numpy`, which makes the
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.anns.ivf import IVFIndex
-from repro_torch.anns.params import ported_backend
+from repro_torch.anns import muvera as _muvera
+from repro_torch.anns import registry
+from repro_torch.anns.base import over_store
+from repro_torch.anns.backends import MuveraState
 from repro_torch.anns.quantization import ResidualCodec
 from repro_torch.common.device import resolve_device
 from repro_torch.core.config import LemurConfig
@@ -56,22 +67,24 @@ FORMAT = "lemur-retriever-v1"
 class Refresh(NamedTuple):
     """What ``LemurRetriever.install_refresh`` reads of a rebuild: the
     backend name, the slot high-water mark m0 it covered, its W rows (m0,
-    d'), its IVF state and its OLS solver state."""
+    d'), its first-stage state and its OLS solver state."""
     backend: str
     m0: int
     W: torch.Tensor
-    ann: IVFIndex
+    ann: Any
     solver: dict
 
 
 def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
                      device="cuda") -> LemurIndex:
     """The port's index from a JAX save-tree (leaf name -> numpy array) and
-    its manifest ``extra``.  Raises ``NotImplementedError`` for a backend
-    other than ``ivf``, and ``ValueError`` for a tree that is neither a
-    paged nor a dense one or holds part of a residual tier's leaves."""
+    its manifest ``extra``.  Raises ``KeyError`` for a backend nobody
+    registers, and ``ValueError`` for a tree that is neither a paged nor a
+    dense one, holds part of a residual tier's leaves, or is a JAX MUVERA
+    state without its projections."""
     dev = resolve_device(device)
-    ported_backend(extra["backend"])
+    backend = registry.canonical(extra["backend"])
+    be = registry.get_backend(backend)
     missing = [f"pages/{k}" for k in _STORE if f"pages/{k}" not in tree]
     dense = all(k in tree for k in _DENSE)
     if missing and not dense:
@@ -89,12 +102,13 @@ def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
     psi = Psi.from_arrays(tree["psi/dense/kernel"], tree["psi/dense/bias"],
                           tree["psi/ln/scale"], tree["psi/ln/bias"], device=dev)
     stats = TargetStats(t("stats/mean"), t("stats/std"))
-    ann = ann_from_numpy({k[4:]: v for k, v in tree.items() if k.startswith("ann/")}, dev)
+    ann = ann_from_numpy({k[4:]: v for k, v in tree.items() if k.startswith("ann/")}, dev,
+                         backend=backend, meta=extra.get("ann_meta", {}))
     if missing:
         # legacy dense checkpoint: page it (JAX's LemurIndex.from_dense)
         store, _ = from_dense(t("W", torch.float32), t("doc_tokens", torch.float32),
                               t("doc_mask", torch.bool))
-        return LemurIndex(cfg, psi, stats, store, "ivf", ann)
+        return LemurIndex(cfg, psi, stats, store, backend, over_store(be, ann, store))
     tier = {}
     if "pages/cent_pages" in tree:
         tier = dict(cent_pages=t("pages/cent_pages", torch.int32),
@@ -107,7 +121,7 @@ def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
                        t("pages/W", torch.float32),
                        t("pages/alive", torch.bool),
                        t("pages/n_docs", torch.int32), **tier)
-    return LemurIndex(cfg, psi, stats, store, "ivf", ann)
+    return LemurIndex(cfg, psi, stats, store, backend, over_store(be, ann, store))
 
 
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
@@ -115,21 +129,29 @@ def _tensor(x, dev, dtype=None) -> torch.Tensor:
         device=dev, dtype=dtype)
 
 
-def ann_from_numpy(arrays: dict, device="cuda") -> IVFIndex:
-    """The port's IVF state from the JAX ``IVFIndex`` fields (name -> array;
-    ``scales``, ``mean``, ``rq_cuts`` and ``rq_values`` may be absent)."""
+def ann_from_numpy(arrays: dict, device="cuda", *, backend: str = "ivf",
+                   meta: dict | None = None):
+    """The port's state of ``backend`` from its packed arrays (name -> array,
+    the JAX ``pack_state`` names; for IVF ``scales``, ``mean``, ``rq_cuts``
+    and ``rq_values`` may be absent) and meta, on ``device``."""
     dev = resolve_device(device)
+    tensors = {k: _tensor(v, dev) for k, v in arrays.items() if v is not None}
+    return registry.get_backend(backend).unpack_state(tensors, meta or {})
 
-    def opt(name):
-        return _tensor(arrays[name], dev, torch.float32) if arrays.get(name) is not None else None
 
-    sq8, rq = arrays.get("scales") is not None, arrays.get("rq_values") is not None
-    return IVFIndex(centroids=_tensor(arrays["centroids"], dev, torch.float32),
-                    ids=_tensor(arrays["ids"], dev, torch.int32),
-                    vecs=_tensor(arrays["vecs"], dev, torch.uint8 if rq else torch.int8
-                                 if sq8 else torch.float32),
-                    scales=opt("scales"), counts=_tensor(arrays["counts"], dev, torch.int32),
-                    mean=opt("mean"), rq_cuts=opt("rq_cuts"), rq_values=opt("rq_values"))
+def muvera_from_numpy(dfde, mcfg, hyper, final, proj=None, device="cuda") -> MuveraState:
+    """A MUVERA state from JAX's doc FDEs, its ``MuveraConfig`` (or its
+    dict) and the planes and projections of its ``_partition_params``
+    (``hyper, proj, final``): what serves a JAX-saved MUVERA first stage,
+    whose save holds no projections."""
+    dev = resolve_device(device)
+    if not isinstance(mcfg, dict):
+        mcfg = mcfg.to_dict()
+    parts = _muvera.MuveraParts(_tensor(hyper, dev, torch.float32),
+                                None if proj is None else _tensor(proj, dev, torch.float32),
+                                _tensor(final, dev, torch.float32))
+    return MuveraState(_tensor(dfde, dev, torch.float32),
+                       _muvera.MuveraConfig.from_dict(mcfg), parts)
 
 
 def solver_from_numpy(solver: dict, device="cuda") -> dict:
@@ -158,13 +180,16 @@ def solver_to_numpy(solver: dict) -> dict:
 
 
 def refresh_from_numpy(backend: str, m0: int, W, ann: dict, solver: dict,
-                       device="cuda") -> Refresh:
+                       device="cuda", *, ann_meta: dict | None = None) -> Refresh:
     """A :class:`Refresh` on ``device`` from a rebuild's parts as numpy
-    arrays: ``ann`` the IVF fields by name, ``solver`` as in
+    arrays: ``ann`` the backend's packed arrays by name and ``ann_meta`` its
+    meta (as :func:`ann_from_numpy`), ``solver`` as in
     :func:`solver_from_numpy`."""
     dev = resolve_device(device)
     return Refresh(backend, int(m0), _tensor(W, dev, torch.float32),
-                   ann_from_numpy(ann, dev), solver_from_numpy(solver, dev))
+                   ann_from_numpy(ann, dev, backend=registry.canonical(backend),
+                                  meta=ann_meta),
+                   solver_from_numpy(solver, dev))
 
 
 def index_to_numpy(index: LemurIndex, x_ols=None) -> tuple[dict[str, np.ndarray], dict]:
@@ -186,17 +211,11 @@ def index_to_numpy(index: LemurIndex, x_ols=None) -> tuple[dict[str, np.ndarray]
         tree["pages/code_pages"] = a(st.code_pages, np.uint8)
         for k, v in st.codec._asdict().items():
             tree[f"codec/{k}"] = a(v, np.float32)
-    ann = index.ann
-    tree["ann/centroids"] = a(ann.centroids, np.float32)
-    tree["ann/ids"] = a(ann.ids, np.int32)
-    tree["ann/vecs"] = a(ann.vecs, np.uint8 if ann.residual else np.int8
-                         if ann.scales is not None else np.float32)
-    tree["ann/counts"] = a(ann.counts, np.int32)
-    for name in ("scales", "mean", "rq_cuts", "rq_values"):
-        if getattr(ann, name) is not None:
-            tree[f"ann/{name}"] = a(getattr(ann, name), np.float32)
+    arrays, meta = registry.get_backend(index.backend).pack_state(index.ann)
+    for name, v in arrays.items():
+        tree[f"ann/{name}"] = a(v, None)
     if x_ols is not None:
         tree["solver/x_ols"] = a(x_ols, np.float32)
     extra = {"format": FORMAT, "cfg": index.cfg.to_dict(), "backend": index.backend,
-             "ann_meta": {}}
+             "ann_meta": meta}
     return tree, extra

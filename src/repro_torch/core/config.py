@@ -1,21 +1,18 @@
 """LEMUR configuration (twin of ``repro/core/config.py``; paper App. A
-defaults).  The JAX ``LemurConfig.__post_init__`` imports the backend
-registry, which imports jax, so the port re-declares the dataclass with the
-same fields and defaults.  The v0 flat-knob aliases are not carried over:
-checkpoints store the namespaced form."""
+defaults): the same fields and defaults, one namespace per registered
+first-stage backend (``cfg.ivf``, ``cfg.muvera``, ...).  The v0 flat-knob
+aliases are not carried over: checkpoints store the namespaced form."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.anns.params import (
-    KNOWN_BACKENDS,
     BruteforceBackendConfig,
     DessertBackendConfig,
     IVFBackendConfig,
     MuveraBackendConfig,
     ResidualConfig,
     TokenPruningBackendConfig,
-    ported_backend,
 )
 from repro_torch.common.config import ConfigBase
 
@@ -48,11 +45,15 @@ class LemurConfig(ConfigBase):
     score_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.anns not in KNOWN_BACKENDS:
+        from repro_torch.anns import registry  # late: the backends import core modules
+
+        known = set(registry.list_backends()) | {"exact"}
+        if self.anns not in known:
             raise ValueError(f"anns={self.anns!r} is not a registered backend; "
-                             f"known: {sorted(KNOWN_BACKENDS)}")
+                             f"known: {sorted(known)}")
 
     def backend_config(self, name: str | None = None):
-        """The config namespace for ``name`` (default: the active backend);
-        raises ``NotImplementedError`` for a backend not ported yet."""
-        return getattr(self, ported_backend(name or self.anns))
+        """The config namespace for ``name`` (default: the active backend)."""
+        from repro_torch.anns import registry
+
+        return getattr(self, registry.canonical(name or self.anns))

@@ -2,9 +2,10 @@
 ``repro/core/index.py``'s ``LemurIndex``)."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
-from repro_torch.anns.ivf import IVFIndex
+import torch
+
 from repro_torch.core import pages
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.model import Psi, TargetStats
@@ -16,8 +17,8 @@ class LemurIndex(NamedTuple):
     psi: Psi                  # feature encoder
     stats: TargetStats        # target standardization (App. A)
     store: PagedStore         # paged corpus: W rows + token pages + tombstones
-    backend: str              # first-stage backend name ("ivf")
-    ann: IVFIndex             # first-stage state
+    backend: str              # registered first-stage backend name
+    ann: Any                  # opaque first-stage state
 
     @classmethod
     def from_dense(cls, cfg, psi, stats, W, doc_tokens, doc_mask, backend,
@@ -41,3 +42,15 @@ class LemurIndex(NamedTuple):
     @property
     def device(self):
         return self.store.tok_pages.device
+
+    @property
+    def W(self) -> torch.Tensor:
+        """The latent rows of slots [0, m): a view of the store's."""
+        return self.store.W[: self.m]
+
+    def read_docs(self, lo: int, hi: int):
+        """(tokens (n, td_max, d), mask (n, td_max)) of slots [lo, hi) from
+        the pages, decoded on the compressed tier, deleted slots all-masked:
+        a chunk of the JAX ``dense_view``, for builds that must not hold the
+        whole dense corpus."""
+        return pages.gather_docs(self.store, torch.arange(lo, hi, device=self.device))

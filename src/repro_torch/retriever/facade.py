@@ -8,17 +8,21 @@
     r.add(new_doc_tokens, new_doc_mask)                # new slots [m, m + n)
     r.delete(r.last_added_ids)                         # tombstones, pages freed
     r.update([3, 7], new_tokens, new_mask)             # delete + add, one version
+    r2 = r.with_backend("muvera")                      # same reduction, new first stage
     sr = r.shard(mesh)                                 # torch.distributed DeviceMesh
 
 The build is the JAX build's pipeline: training tokens (§4.2) -> token
 MaxSim targets over m' sampled docs (kernel) -> psi pre-training (Adam,
-autograd) -> Gram factor (psi kernel) and per-block OLS (kernel) -> IVF
-(``cfg.ivf.residual_bits``: residual lists) -> paged store, its docs first
+autograd) -> Gram factor (psi kernel) and per-block OLS (kernel) -> the
+first stage of ``cfg.anns`` through the backend registry (IVF:
+``cfg.ivf.residual_bits`` for residual lists) -> paged store, its docs first
 pooled to ``cfg.residual.token_budget`` tokens and, with
 ``cfg.residual.enabled``, kept in the compressed tier under a codec trained
 on them.  Where the JAX build draws with ``jax.random.choice``, the port
 draws with ``torch.randperm`` on the caller's CPU ``generator``; the codec
-draws last, so ψ, W and the IVF do not depend on the tier.
+draws last, so ψ, W and the first stage do not depend on the tier.
+:meth:`with_backend` builds another first stage over the same ψ, W and
+store, reading the store's pages a chunk of docs at a time.
 
 Search routes, as ``SearchParams`` spells them (every one ends in the
 tombstone mask and an exact-MaxSim rerank to the top-k):
@@ -44,13 +48,15 @@ three branches, as the JAX package's: a compressed store with
 ``use_residual`` (default ``cfg.residual.enabled``) and the fused gather,
 the ``rerank_paged_res_scores`` kernel; an fp32 store with the fused
 gather, the fp32 kernel (``use_residual`` or not); otherwise the legacy
-gathered rerank (on the compressed tier over decoded tokens).  Backends
-other than ``ivf`` raise ``NotImplementedError`` naming their ROADMAP item.
+gathered rerank (on the compressed tier over decoded tokens).  The other
+backends (``bruteforce``, ``muvera``, ``dessert``, ``token_pruning``) take
+the default spelling and their own params (``TokenPruningSearchParams``):
+ψ-pool (kernel) -> the backend's search (plain) -> the same rerank.
 
 **Mutation** is the JAX facade's: ``add`` fits W rows with the build's OLS
 solver (or, without one, a solver over OLS tokens drawn from the stored
-corpus with an explicit seed), appends them to the IVF lists
-(``ivf.extend_ivf``) and pages the docs (``pages.add_docs``); ``delete``
+corpus with an explicit seed), hands the docs to the backend's ``add`` (the
+IVF lists: ``ivf.extend_ivf``) and pages them (``pages.add_docs``); ``delete``
 tombstones; ``update`` is both under one version; ``install_refresh``
 warm-swaps a rebuilt first stage in.  Where JAX swaps immutable arrays, the
 port writes in place: a retriever owns the tensors it built, loaded or was
@@ -72,10 +78,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.anns import ivf as _ivf
-from repro_torch.anns.base import pad_topk
+from repro_torch.anns import registry
+from repro_torch.anns.base import CorpusView, QueryBatch, over_store, pad_topk
 from repro_torch.anns.bruteforce import mips_topk
-from repro_torch.anns.ivf import build_ivf, search_ivf, search_ivf_one_launch
+from repro_torch.anns.ivf import IVFIndex, search_ivf_one_launch
 from repro_torch.anns.quantization import residual_decode, train_residual_codec
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common.device import resolve_device
@@ -87,7 +93,8 @@ from repro_torch.core.model import PSI_LEAVES, Psi, TargetStats, pool_queries, t
 from repro_torch.kernels import ops
 from repro_torch.retriever.params import SearchParams, effective_nprobe
 
-#: the tensors a mutation writes: of the paged store, of the IVF state
+#: the tensors a mutation writes: of the paged store, of the IVF state (the
+#: other backends' ``add`` writes nothing in place)
 _STORE_WRITES = ("tok_pages", "page_table", "n_tokens", "W", "alive", "n_docs",
                  "cent_pages", "code_pages")
 _ANN_WRITES = ("ids", "vecs", "scales", "counts")
@@ -121,11 +128,14 @@ class _StageClock:
 
 
 def first_stage(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
-    """Pool the queries and run the IVF first stage, or the exact latent
-    scan -> (B, k') candidate ids, tombstoned slots masked to -1.
-    ``params`` must be resolved (module docstring: the routes)."""
+    """Pool the queries and run the index's backend through the registry,
+    or the exact latent scan -> (B, k') candidate ids, tombstoned slots
+    masked to -1.  The one-launch IVF route takes the raw tokens, as in the
+    JAX package.  ``params`` must be resolved (module docstring: the
+    routes)."""
     store = index.store
-    if params.use_ann and params.backend.use_one_launch:
+    if (params.use_ann and index.backend == "ivf"
+            and getattr(params.backend, "use_one_launch", False)):
         nprobe = effective_nprobe(params.backend.nprobe, index.ann.nlist)
         _, cand = search_ivf_one_launch(index.ann, index.psi, q_tokens, q_mask,
                                         nprobe, params.k_prime)
@@ -140,9 +150,9 @@ def first_stage(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
         else:
             top, cand = mips_topk(psi_q, store.W, kk, valid=store.alive)
         return pages.mask_dead(store, pad_topk(top, cand, params.k_prime)[1])
-    nprobe = effective_nprobe(params.backend.nprobe, index.ann.nlist)
-    _, cand = search_ivf(index.ann, psi_q, nprobe, params.k_prime,
-                         use_fused_gather=params.backend.use_fused_gather)
+    be = registry.get_backend(index.backend)
+    _, cand = be.search(index.ann, QueryBatch(psi_q, q_tokens, q_mask), params.k_prime,
+                        params.backend)
     return pages.mask_dead(store, cand)
 
 
@@ -168,12 +178,23 @@ def search_pipeline(index: LemurIndex, q_tokens, q_mask, params: SearchParams):
 def launch_plan(resolved: SearchParams) -> dict[str, int]:
     """Per-search launch breakdown, as the JAX package counts it: the
     default route's projection, scan and flat top-k' before the rerank, or
-    one launch before it on the one-launch routes."""
-    one = (resolved.backend.use_one_launch if resolved.use_ann
+    one launch before it on the one-launch routes (the other backends: the
+    default route's plan, as JAX counts them)."""
+    one = (getattr(resolved.backend, "use_one_launch", False) if resolved.use_ann
            else resolved.use_one_launch)
     if one:
         return {"one_launch": 1, "rerank": 1}
     return {"projection": 1, "scan": 1, "topk": 1, "rerank": 1}
+
+
+def _build_over_store(index: LemurIndex, backend: str, cfg: LemurConfig, generator,
+                        parts, clock=None):
+    """Build ``backend`` over ``index``'s store: its W rows [0, m) and its
+    tokens read from the pages a chunk at a time (the JAX ``dense_view``)."""
+    be = registry.get_backend(backend)
+    view = CorpusView(index.W, None, None, read=index.read_docs)
+    ann = be.build(generator, view, cfg.backend_config(backend), parts=parts, clock=clock)
+    return over_store(be, ann, index.store)
 
 
 class LemurRetriever:
@@ -294,7 +315,8 @@ class LemurRetriever:
         ``x_train`` replaces the selected training tokens.  Records
         :attr:`build_log`."""
         cfg = cfg or LemurConfig()
-        cfg.backend_config()       # other first-stage backends: Queue 1 item 5
+        backend = registry.canonical(cfg.anns)
+        be = registry.get_backend(backend)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         clock = _StageClock(dev, verbose)
@@ -328,14 +350,14 @@ class LemurRetriever:
                                          stats, solver_state=solver)
         clock("ols")
 
-        # 4. first stage
-        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8,
-                        residual_bits=cfg.ivf.residual_bits, generator=gen)
-        clock("ivf")
+        # 4. first stage, through the backend registry
+        ann = be.build(gen, CorpusView(W, doc_tokens, doc_mask), cfg.backend_config(backend),
+                       clock=clock)
+        clock(backend)
 
         # 5. paged store: the docs pooled to a token budget and / or kept in
-        # the compressed tier (cfg.residual); psi, W and the IVF above always
-        # see the raw tokens
+        # the compressed tier (cfg.residual); psi, W and the first stage above
+        # always see the raw tokens
         rcfg = cfg.residual
         st_tokens, st_mask, codec = doc_tokens, doc_mask, None
         if rcfg.token_budget > 0:
@@ -347,8 +369,9 @@ class LemurRetriever:
                                          ncent=rcfg.ncent, iters=rcfg.kmeans_iters,
                                          sample=rcfg.train_sample)
             clock("codec")
-        index = LemurIndex.from_dense(cfg, psi, stats, W, st_tokens, st_mask, "ivf", ann,
+        index = LemurIndex.from_dense(cfg, psi, stats, W, st_tokens, st_mask, backend, ann,
                                       codec=codec)
+        index = index._replace(ann=over_store(be, index.ann, index.store))
         clock("pages")
         r = cls._owning(index, solver_state=solver)
         r.build_log = {"seconds": clock.seconds, "losses": losses,
@@ -357,8 +380,9 @@ class LemurRetriever:
 
     def save(self, directory) -> pathlib.Path:
         """Write a ``lemur-retriever-v1`` checkpoint (step 0) in the JAX
-        layout: cfg, psi, target stats, the paged store, the IVF state and
-        the OLS tokens when kept.  Returns the committed step directory."""
+        layout: cfg, psi, target stats, the paged store, the first stage's
+        packed state (its ``pack_state``) and the OLS tokens when kept.
+        Returns the committed step directory."""
         tree, extra = index_to_numpy(self._index, self._x_ols)
         return ckpt.save(directory, 0, tree, extra)
 
@@ -368,7 +392,9 @@ class LemurRetriever:
         """Serve a ``lemur-retriever-v1`` checkpoint saved by either
         package's ``LemurRetriever.save``; ``solver/x_ols`` is kept when
         present.  A legacy dense checkpoint (``W``, ``doc_tokens``,
-        ``doc_mask``) is paged on load, as JAX migrates it."""
+        ``doc_mask``) is paged on load, as JAX migrates it.  A JAX-saved
+        MUVERA checkpoint, which lacks the projections, raises
+        ``ValueError`` (``convert.muvera_from_numpy``)."""
         dev = resolve_device(device)
         tree, manifest = ckpt.restore(pathlib.Path(directory), step)
         extra = manifest.get("extra", {})
@@ -383,17 +409,46 @@ class LemurRetriever:
     @classmethod
     def from_arrays(cls, cfg: LemurConfig, psi: Psi, store: pages.PagedStore, *,
                     generator: torch.Generator | None = None) -> "LemurRetriever":
-        """Serve a psi and a filled paged store (either tier): the IVF first
-        stage is built over the store's W rows (``cfg.ivf``: nlist, SQ8,
-        residual bits), k-means seeded by ``generator``.  Target stats are
-        the identity (mean 0, std 1).  The retriever takes the store over:
-        its mutations write into it in place."""
-        cfg.backend_config()
-        W = store.W[: int(store.n_docs[0])]
-        ann = build_ivf(W, cfg.ivf.nlist, sq8=cfg.ivf.sq8,
-                        residual_bits=cfg.ivf.residual_bits, generator=generator)
+        """Serve a psi and a filled paged store (either tier): the first
+        stage of ``cfg.anns`` is built over the store (the IVF over its W
+        rows: ``cfg.ivf``'s nlist, SQ8, residual bits), its draws seeded by
+        ``generator``.  Target stats are the identity (mean 0, std 1).  The
+        retriever takes the store over: its mutations write into it in
+        place."""
         one = torch.ones((), device=store.W.device)
-        return cls._owning(LemurIndex(cfg, psi, TargetStats(0 * one, one), store, "ivf", ann))
+        index = LemurIndex(cfg, psi, TargetStats(0 * one, one), store,
+                           registry.canonical(cfg.anns), None)
+        return cls._owning(index._replace(ann=_build_over_store(index, index.backend, cfg,
+                                                                generator, None)))
+
+    def with_backend(self, backend: str, *, generator: torch.Generator | None = None,
+                     cfg: LemurConfig | None = None, parts: dict | None = None
+                     ) -> "LemurRetriever":
+        """A new retriever over the same ψ, W and paged store (shared, never
+        re-trained) with another first-stage backend, built from the store's
+        W rows and its pages, read a chunk of docs at a time (decoded on the
+        compressed tier, deleted slots all-masked), never the whole dense
+        corpus.  ``cfg`` (default this retriever's) gives the backend's
+        namespace; ``generator`` (CPU; default seed 0) draws its random
+        parts, or ``parts`` (``{name: tensor}`` by the names of its
+        ``pack_state``: MUVERA's ``hyper``/``final``/``proj``, DESSERT's
+        ``hyper``, token pruning's and IVF's ``centroids``) supplies them.
+        The new retriever shares the store: each side copies a tensor before
+        its first write to it.  Its :attr:`build_log` holds the stage seconds
+        (the backend's own stages, then the backend's name for the rest)."""
+        idx = self._index
+        cfg = cfg or idx.cfg
+        backend = registry.canonical(backend)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        clock = _StageClock(self.device, False)
+        ann = _build_over_store(idx, backend, cfg, gen, parts, clock)
+        clock(backend)
+        index = idx._replace(cfg=cfg.replace(anns=backend), backend=backend, ann=ann)
+        r = LemurRetriever(index, solver_state=self._solver, x_ols=self._x_ols)
+        r._shared["ann"] = set()     # its first-stage state is its own
+        r.build_log = {"seconds": clock.seconds}
+        self._share_all()
+        return r
 
     def resolve(self, params: SearchParams | None = None) -> SearchParams:
         """Fill a (possibly partial) SearchParams from the build config
@@ -446,12 +501,16 @@ class LemurRetriever:
 
     def _account(self, resolved: SearchParams, q: torch.Tensor) -> None:
         """Count a (params, query shape, state shapes) not served before: the
-        entry JAX's jit cache would add.  Exact-scan params leave the IVF
-        state out, as JAX leaves it out of their arguments."""
+        entry JAX's jit cache would add.  Exact-scan params leave the
+        backend state out, as JAX leaves it out of their arguments; a
+        backend's meta (token pruning's m) is static in JAX, so it counts."""
         key = (self.backend, resolved)
         idx = self._index
-        parts = list(idx.store) + (list(idx.ann) if resolved.use_ann else [])
-        state = tuple(tuple(t.shape) for t in parts if isinstance(t, torch.Tensor))
+        state = tuple(tuple(t.shape) for t in idx.store if isinstance(t, torch.Tensor))
+        if resolved.use_ann:
+            arrays, meta = registry.get_backend(idx.backend).pack_state(idx.ann)
+            state += tuple((k, tuple(t.shape)) for k, t in arrays.items())
+            state += (repr(sorted(meta.items())),)
         sig = (key, tuple(q.shape), state)
         if sig in self._served:
             return
@@ -480,7 +539,8 @@ class LemurRetriever:
     def add(self, doc_tokens, doc_mask, *, seed: int = 0) -> "LemurRetriever":
         """Grow the corpus: W rows from the frozen-psi OLS solver (the build's,
         else one rebuilt from the kept OLS tokens, else the fallback seeded
-        by ``seed``), appended to the IVF lists, and the docs paged into slots
+        by ``seed``), the docs handed to the first stage's ``add`` (the IVF
+        lists: appended in place), and paged into slots
         ``[m, m + n)`` (in :attr:`last_added_ids`).  Returns this retriever."""
         self._mutate_add(doc_tokens, doc_mask, seed)
         self._version += 1
@@ -489,7 +549,7 @@ class LemurRetriever:
     @torch.no_grad()
     def delete(self, doc_ids) -> "LemurRetriever":
         """Tombstone docs and free their pages; surviving ids are unchanged,
-        the IVF lists are not rebuilt (``pages.mask_dead`` masks their stale
+        the first stage is not rebuilt (``pages.mask_dead`` masks its stale
         ids after every first stage).  Raises ``ValueError`` on duplicate,
         unknown or already-deleted ids.  Returns this retriever."""
         self._mutate_delete(doc_ids)
@@ -517,15 +577,19 @@ class LemurRetriever:
         doc_mask = torch.as_tensor(doc_mask).to(device=dev, dtype=torch.bool)
         solver = self._ensure_solver(seed)
         w_new = indexer.fit_docs(solver, doc_tokens, doc_mask, idx.stats)
-        ann = _ivf.extend_ivf(idx.ann, w_new, shared=self._shared["ann"])
-        # as in build: W and the IVF see the raw tokens, the store the pooled
+        be = registry.get_backend(idx.backend)
+        ann = idx.ann
+        if getattr(be, "view", None) is None:     # a view of W follows the store below
+            ann = be.add(ann, CorpusView(w_new, doc_tokens, doc_mask),
+                         shared=self._shared["ann"])
+        # as in build: W and the first stage see the raw tokens, the store the pooled
         budget = int(idx.cfg.residual.token_budget)
         if budget > 0:
             doc_tokens, doc_mask = pages.pool_tokens(doc_tokens, doc_mask, budget)
         store, free, ids, moved = pages.add_docs(idx.store, self._free(), w_new, doc_tokens,
                                                  doc_mask, shared=self._shared["store"])
         self._free_pages = free
-        self._index = idx._replace(store=store, ann=ann)
+        self._index = idx._replace(store=store, ann=over_store(be, ann, store))
         self._last_added_ids = ids
         self._last_mutation_bytes = moved
         self._bytes_moved += moved
@@ -536,7 +600,8 @@ class LemurRetriever:
         store, free, moved = pages.delete_docs(idx.store, self._free(), doc_ids,
                                                shared=self._shared["store"])
         self._free_pages = free
-        self._index = idx._replace(store=store)
+        be = registry.get_backend(idx.backend)
+        self._index = idx._replace(store=store, ann=over_store(be, idx.ann, store))
         self._last_mutation_bytes = moved
         self._bytes_moved += moved
 
@@ -587,13 +652,15 @@ class LemurRetriever:
 
         1. Validate, before anything is touched: the backend, m0 in (0, m],
            W's shape and finiteness, the solver's keys and a finite Gram
-           factor, and a probe search through the rebuilt IVF whose ids
-           must lie in [0, m0).  A failure raises :class:`CorruptIndexError`
-           and leaves this retriever as it was.
+           factor, and, for a latent backend, a probe search through the
+           rebuilt first stage whose ids must lie in [0, m0).  A failure
+           raises :class:`CorruptIndexError` and leaves this retriever as it
+           was.
         2. Catch up the slots added since the rebuild ([m0, m)): their W rows
-           fit with the new solver (dead slots as zero rows) and appended to
-           the rebuilt lists in slot order; rebuilt rows deleted meanwhile
-           are zeroed.  The refresh's own tensors are never written.
+           fit with the new solver (dead slots as zero rows) and handed, with
+           their tokens, to the backend's ``add`` in slot order; rebuilt rows
+           deleted meanwhile are zeroed.  The refresh's own tensors are never
+           written.
         3. Swap the index in, one version more.  Returns this retriever."""
         idx = self._index
         dev = self.device
@@ -617,15 +684,16 @@ class LemurRetriever:
             raise bad("solver state missing chol/feats/x_ols")
         if not bool(torch.isfinite(torch.as_tensor(solver["chol"])).all()):
             raise bad("non-finite OLS Gram factor")
-        ivf = idx.cfg.ivf
-        try:
-            nprobe = effective_nprobe(ivf.nprobe, refresh.ann.nlist)
-            _, cand = search_ivf(refresh.ann, W_new[:1].float(), nprobe, min(8, m0),
-                                 use_fused_gather=ivf.use_fused_gather)
-        except Exception as e:
-            raise bad(f"probe search through rebuilt backend failed: {e}") from e
-        if cand.numel() == 0 or bool((cand >= m0).any()) or bool((cand < -1).any()):
-            raise bad("rebuilt backend emits out-of-range candidate ids")
+        be = registry.get_backend(idx.backend)
+        if be.representation == "latent":
+            try:
+                _, cand = be.search(refresh.ann, QueryBatch(W_new[:1].float(), None, None),
+                                    min(8, m0),
+                                    be.default_params(idx.cfg.backend_config(idx.backend)))
+            except Exception as e:
+                raise bad(f"probe search through rebuilt backend failed: {e}") from e
+            if cand.numel() == 0 or bool((cand >= m0).any()) or bool((cand < -1).any()):
+                raise bad("rebuilt backend emits out-of-range candidate ids")
 
         alive = idx.store.alive
         W_head = torch.where(alive[:m0, None], W_new.to(idx.store.W.dtype), 0.0)
@@ -641,15 +709,18 @@ class LemurRetriever:
             if live.numel():
                 w_c[live] = indexer.fit_docs(solver, toks_c[live], mask_c[live], idx.stats)
                 caught = int(live.numel())
-            # every slot in order (dead ones as zero rows): list ids stay slot ids
-            ann = _ivf.extend_ivf(ann, w_c, shared=set(_ANN_WRITES))
-        shared_ann = {k for k in _ANN_WRITES if getattr(ann, k) is getattr(refresh.ann, k)}
+            # every slot in order (dead ones as zero rows): ids stay slot ids; a
+            # view of W follows the store below
+            if getattr(be, "view", None) is None:
+                ann = be.add(ann, CorpusView(w_c, toks_c, mask_c), shared=set(_ANN_WRITES))
+        shared_ann = ({k for k in _ANN_WRITES if getattr(ann, k) is getattr(refresh.ann, k)}
+                      if isinstance(ann, IVFIndex) else set())
 
         store = pages.writable(idx.store, self._shared["store"], ("W",))
         store.W[:m0] = W_head
         if w_c is not None:
             store.W[m0:m_now] = w_c
-        self._index = idx._replace(store=store, ann=ann)
+        self._index = idx._replace(store=store, ann=over_store(be, ann, store))
         self._shared["ann"] = shared_ann
         self._solver = solver
         self._x_ols = solver["x_ols"]

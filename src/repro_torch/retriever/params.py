@@ -1,9 +1,10 @@
 """Typed, hashable search parameters (twin of ``repro/retriever/params.py``).
 
 ``resolve`` fills every ``None`` from the build config exactly as the JAX
-package does; :func:`effective_nprobe` is the IVF backend's probe rule
-(``anns/backends.py:103-104``: ``None`` -> ``min(32, nlist)``, clamped to
-``nlist``), applied where the index's ``nlist`` is known.
+package does: ``backend`` from the active backend's config namespace,
+through the registry; :func:`effective_nprobe` is the IVF backend's probe
+rule (``anns/backends.py:103-104``: ``None`` -> ``min(32, nlist)``, clamped
+to ``nlist``), applied where the index's ``nlist`` is known.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import dataclasses
 from repro_torch.anns.params import (
     BackendSearchParams,
     IVFSearchParams,
-    ported_backend,
+    NoSearchParams,
+    TokenPruningSearchParams,
 )
 
 
@@ -31,17 +33,21 @@ class SearchParams:
     use_residual: bool | None = None            # None => cfg.residual.enabled
 
     def resolve(self, cfg, backend_name: str) -> "SearchParams":
-        ported_backend(backend_name)
+        """Fill every ``None`` from the build config; ``TypeError`` when
+        ``backend`` is typed for another backend than the active one."""
+        from repro_torch.anns import registry
+
+        be = registry.get_backend(backend_name)
         if not self.use_ann:
             bp = None
         elif self.backend is None:
-            bp = _ivf_defaults(cfg)
-        elif not isinstance(self.backend, IVFSearchParams):
+            bp = be.default_params(cfg.backend_config(backend_name))
+        elif not isinstance(self.backend, be.params_cls):
             raise TypeError(
                 f"SearchParams.backend is {type(self.backend).__name__}, but "
-                f"backend 'ivf' takes IVFSearchParams")
+                f"backend {be.name!r} takes {be.params_cls.__name__}")
         else:
-            defaults = _ivf_defaults(cfg)
+            defaults = be.default_params(cfg.backend_config(backend_name))
             fill = {f.name: getattr(defaults, f.name)
                     for f in dataclasses.fields(self.backend)
                     if getattr(self.backend, f.name) is None}
@@ -60,7 +66,5 @@ class SearchParams:
         )
 
 
-def _ivf_defaults(cfg) -> IVFSearchParams:
-    c = cfg.ivf
-    return IVFSearchParams(nprobe=c.nprobe, use_fused_gather=c.use_fused_gather,
-                           use_one_launch=c.use_one_launch)
+__all__ = ["SearchParams", "BackendSearchParams", "IVFSearchParams", "NoSearchParams",
+           "TokenPruningSearchParams", "effective_nprobe"]

@@ -274,14 +274,17 @@ def test_build_recall_matches_jax(corpus):
 
 
 def test_build_refuses_what_is_not_ported(corpus):
-    """Other first-stage backends still raise; the residual tier's options
-    (token codec, residual IVF lists, token pooling), refused before they
-    were ported, now build what they name."""
+    """What was refused before it was ported now builds what it names: the
+    other first-stage backends (a MUVERA build serves its docs) and the
+    residual tier's options (token codec, residual IVF lists, token
+    pooling)."""
     small = synthetic.MultiVectorCorpus(corpus.doc_tokens[:50], corpus.doc_mask[:50],
                                         corpus.topics[:50], corpus.centers)
     cfg = port_cfg(SMOKE).replace(epochs=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        LemurRetriever.build(small, cfg.replace(anns="muvera"), device="cpu")
+    mv = LemurRetriever.build(small, cfg.replace(anns="muvera"), device="cpu")
+    assert mv.backend == "muvera" and mv.index.ann.dfde.shape == (50, cfg.muvera.final_dim)
+    _, ids = mv.search(small.doc_tokens[:4, :8], small.doc_mask[:4, :8], SearchParams(k=5))
+    assert ((ids >= 0) & (ids < 50)).all()
     build = lambda c: LemurRetriever.build(small, c, device="cpu").index  # noqa: E731
     tier = cfg.residual.replace(enabled=True, ncent=32)
     assert build(cfg.replace(residual=tier)).store.codec.bits == 4

@@ -1431,3 +1431,108 @@ def test_snapshot_and_clone_on_card(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     got = twin.search(q, qm)
     assert torch.equal(got[0], want_twin[0]) and torch.equal(got[1], want_twin[1])
+
+
+# --------------------------------------------------------------------------
+# the other first-stage backends: the card's run against the CPU's
+# --------------------------------------------------------------------------
+
+def _backend_data(m=9_001, T=12, d=32, dp=48, B=6, seed=3):
+    """A corpus whose doc count is no multiple of any chunk (8,192-row scan
+    blocks, DESSERT's doc chunks, the builds' reads)."""
+    from repro_torch.anns.base import CorpusView, QueryBatch
+
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)  # noqa: E731
+    mask = torch.as_tensor(rng.random((m, T)) < 0.7)
+    mask[:, 0] = True
+    qm = torch.as_tensor(rng.random((B, 5)) < 0.8)
+    qm[:, 0] = True
+    return (CorpusView(f(m, dp), f(m, T, d), mask), QueryBatch(f(B, dp), f(B, 5, d), qm))
+
+
+def _to(x, dev):
+    return type(x)(*(None if t is None else t.to(dev) for t in x))
+
+
+def _near_tie_ids(s_cpu, i_cpu, s_card, i_card):
+    """Scores within rtol 1e-5 / atol 1e-4; ids equal up to near-ties."""
+    s_card, i_card = s_card.cpu(), i_card.cpu()
+    torch.testing.assert_close(s_card, s_cpu, rtol=1e-5, atol=1e-4)
+    diff = i_card != i_cpu
+    gap = torch.where(torch.isfinite(s_cpu), s_card - s_cpu, 0.0).abs() / s_cpu.abs().clamp_min(1)
+    assert bool((gap[diff] < 1e-5).all()), "an id differs without a near-tie"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bruteforce", "ivf", "muvera", "dessert", "token_pruning"])
+def test_backend_search_on_card_matches_cpu(cuda, name, monkeypatch):
+    """Each backend built on the CPU, its state moved to the card: the card's
+    search (DESSERT a chunk of 1,000 docs at a time) against the CPU's."""
+    from repro_torch.anns import dessert, registry
+
+    monkeypatch.setattr(dessert, "_SEARCH_DOCS", 1000)
+    view, qb = _backend_data()
+    be = registry.get_backend(name)
+    state = be.build(torch.Generator().manual_seed(0), view, None)
+    arrays, meta = be.pack_state(state)
+    on_card = be.unpack_state({k: v.to(cuda) for k, v in arrays.items()}, meta)
+    for k in (100, 1024):
+        s_cpu, i_cpu = be.search(state, qb, k, be.default_params(None))
+        s_card, i_card = be.search(on_card, _to(qb, cuda), k, be.default_params(None))
+        assert i_card.dtype == torch.int32 and i_card.device.type == "cuda"
+        _near_tie_ids(s_cpu, i_cpu, s_card, i_card)
+
+
+@pytest.mark.gpu
+def test_dessert_chunked_route_matches_direct_on_card(cuda):
+    """The product route (bf16 0/1 products, exact counts) against the JAX
+    form's (B, m, L, Tq) lookup, both on the card: the same table values
+    summed in the same order."""
+    from repro_torch.anns import dessert
+    from repro_torch.anns.base import CorpusView
+
+    view, qb = _backend_data(m=2_999)
+    idx = dessert.build_dessert(CorpusView(None, view.doc_tokens.to(cuda),
+                                           view.doc_mask.to(cuda)), dessert.DessertConfig())
+    q, qm = qb.tokens.to(cuda), qb.mask.to(cuda)
+    for chunk in (300, 4096):
+        s, i = dessert.search_dessert(idx, q, qm, k_prime=500, chunk=chunk)
+        ds, di = dessert.search_dessert_direct(idx, q, qm, k_prime=500)
+        _near_tie_ids(ds.cpu(), di.cpu(), s, i)
+    # the hashes: a doc's bits differ only where a token's dot with a plane
+    # is within 1e-5 ||token|| ||plane|| of 0 (a sign of rounding)
+    cpu = dessert.build_dessert(view, dessert.DessertConfig())
+    assert torch.equal(cpu.hyper, idx.hyper.cpu())
+    flips = (cpu.occupancy != idx.occupancy.cpu()).any(-1).any(-1)
+    hyp = cpu.hyper.reshape(-1, cpu.hyper.shape[-1])
+    dots = view.doc_tokens @ hyp.T
+    scale = view.doc_tokens.norm(dim=-1)[..., None] * hyp.norm(dim=-1)
+    near = ((dots.abs() < 1e-5 * scale) & view.doc_mask[..., None]).any(-1).any(-1)
+    assert not bool((flips & ~near).any()), "an occupancy flip without a near-zero dot"
+
+
+@pytest.mark.gpu
+def test_token_pruning_lists_on_card_match_cpu(cuda):
+    """Lists built and extended on the card equal the CPU's bit for bit,
+    given the same centroids; the ragged search equals the JAX form's."""
+    from repro_torch.anns import token_pruning as tp
+    from repro_torch.anns.base import CorpusView
+
+    view, qb = _backend_data(m=3_001)
+    cpu = tp.build_token_pruning(CorpusView(None, view.doc_tokens[:2500],
+                                            view.doc_mask[:2500]), nlist=16,
+                                 generator=torch.Generator().manual_seed(0))
+    card = tp.build_token_pruning(CorpusView(None, view.doc_tokens[:2500].to(cuda),
+                                             view.doc_mask[:2500].to(cuda)),
+                                  centroids=cpu.centroids.to(cuda))
+    assert torch.equal(card.doc_lists.cpu(), cpu.doc_lists)
+    assert torch.equal(card.counts.cpu(), cpu.counts)
+    cpu = tp.extend_token_pruning(cpu, view.doc_tokens[2500:], view.doc_mask[2500:], 2500)
+    card = tp.extend_token_pruning(card, view.doc_tokens[2500:].to(cuda),
+                                   view.doc_mask[2500:].to(cuda), 2500)
+    assert torch.equal(card.doc_lists.cpu(), cpu.doc_lists)
+    q, qm = qb.tokens.to(cuda), qb.mask.to(cuda)
+    s, i = tp.search_token_pruning(card, q, qm, nprobe=8, k_prime=300, m=view.m)
+    ds, di = tp.search_token_pruning_direct(card, q, qm, nprobe=8, k_prime=300, m=view.m)
+    assert torch.equal(s, ds) and torch.equal(i, di)

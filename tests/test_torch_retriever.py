@@ -130,9 +130,12 @@ def test_checkpoint_config_round_trip(built):
 
 
 def test_residual_and_other_backends_refused(built):
-    """Other backends are refused; a tree with part of the residual tier's
-    leaves (compressed pages without the codec, or residual lists without
-    their tables) is not a checkpoint either package writes."""
+    """A tree with part of the residual tier's leaves (compressed pages
+    without the codec, or residual lists without their tables) is not a
+    checkpoint either package writes.  The other backends, refused before
+    they were ported, load: ``exact`` as the bruteforce state, a view of the
+    store's W rows; a ``muvera`` tree without the projections (what JAX
+    saves) raises the ``ValueError`` that names both ways forward."""
     r, _, _, _ = built
     tree, extra = _save_tree(r)
     with pytest.raises(ValueError, match="codec/centroids"):
@@ -142,9 +145,20 @@ def test_residual_and_other_backends_refused(built):
     with pytest.raises(ValueError, match="ann/rq_cuts"):
         index_from_numpy({**tree, "ann/rq_values": np.zeros((16, 16), np.float32)},
                          extra, device="cpu")
-    for name in ("muvera", "exact"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            index_from_numpy(tree, {**extra, "backend": name}, device="cpu")
+    with pytest.raises(ValueError, match=r"ann/hyper, ann/final.*with_backend\('muvera'\)"
+                                         r".*muvera_from_numpy"):
+        index_from_numpy(tree, {**extra, "backend": "muvera"}, device="cpu")
+    base = {k: v for k, v in tree.items() if not k.startswith("ann/")}
+    m = int(tree["pages/n_docs"][0])
+    idx = index_from_numpy({**base, "ann/W": tree["pages/W"][:m]},
+                           {**extra, "backend": "exact"}, device="cpu")
+    assert idx.backend == "bruteforce"
+    assert idx.ann["W"].data_ptr() == idx.store.W.data_ptr() and idx.ann["W"].shape[0] == m
+    q, qm = built[2], built[3]
+    s, ids = LemurRetriever(idx).search(q, qm, SearchParams(k=10))
+    want_s, want_i = r.with_backend("exact").search(jnp.asarray(q), jnp.asarray(qm),
+                                                    JaxParams(k=10))
+    assert_same_topk(want_s, want_i, s, ids)
 
 
 def test_from_arrays_serves_a_store_built_in_the_port(tiny_corpus):
