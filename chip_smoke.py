@@ -30,7 +30,28 @@ script
    kernel's row holds it to an fp64 token MaxSim too (512 OLS tokens,
    within ``ref.TF32_SPLIT_RTOL``: its dots are the tensor cores' TF32
    split) and gives its bound at the split's rate beside the CUDA cores'.
-   Then it frees the build's tensors;
+   Then, over the trained index (before it frees the build's tensors):
+3a. **fleet**: two ``clone_replicas`` behind a ``Router`` with the two
+   rungs of ``build_rungs`` warmed (``warm_replicas``) on both; a step-up
+   finds the rate the two sustain, then an open-loop replay of ragged
+   queries (4-64 tokens, the corpus-query strategy) at half of it with an
+   ``SLOController`` whose p99 target starts below any latency (one
+   downshift) and is raised past any at five eighths of the replay (one
+   recovery), an add barrier at a quarter (one ``snapshot_version`` on both
+   replicas; the memory before and after it, since each clone copies what
+   its first write touches) and ``kill_replica(1)`` at half; every accepted
+   request resolved exactly once, the results after the add held against
+   direct searches of replica 0 at their rung;
+3c. **lifecycle**: a ``RetrieverServer`` over the trained index with a
+   ``DriftMonitor``: 512 docs of the corpus's distribution, then topic
+   bursts (6 other centres at weight 4) of 512 docs until the monitor
+   triggers; a ``LifecycleManager`` refreshes in the background while
+   replays of 2 s at 400 QPS go on and warm-swaps through ``apply``
+   (coverage, fidelity and skew before the burst, after it and after the
+   swap; ``build_refresh`` seconds by phase; the install; the searches
+   served during the refresh; none dropped); then two refreshes of one
+   snapshot with one seed, held bit for bit.  Then it frees the build's
+   tensors;
 3b. **widths**: holds the three reranks and token MaxSim at d=1,024 (the
    paged reranks at Tq=512 too, the dense rerank at d=130 and 20 and
    Tq=100 and 512), all three reranks at B=65,539 queries and
@@ -139,6 +160,22 @@ script
    plain composition, no deleted or tombstoned id in any top-100; free
    pages and slots before and after, whether the pool or a list's capacity
    grew, the change in allocated memory and the phase's peak;
+9c. **online**: the churned index behind a ``RetrieverServer``
+   (``BucketLadder((32, 64, 128, 256), 64)``, every bucket warmed by
+   ``warm_buckets`` before any timed window); a step-up of short replays
+   finds the highest rate it sustains; open-loop ``poisson_trace`` replays
+   of 512 ragged queries (4-64 tokens, the corpus-query strategy) at
+   1,000 QPS and at about 50 % and 90 % of that rate, counters from 0
+   around each (the psi-pool, the scan and the rerank once a micro-batch);
+   p50/p95/p99 from the scheduled arrival and from the submit, QPS,
+   occupancy, the bucket histogram, rejects and expiries, ``trace_count``
+   against ``ladder.compile_bound()``; every result held against a direct
+   ``r.search`` of its query alone (ids up to counted near-ties, scores to
+   fp32 tolerance) and 64 queries padded to their rung against themselves
+   bit for bit; then a 1,000 QPS replay with an add, a delete and an update
+   barrier, each version's results checked under the facade's lock before
+   its barrier applies and no later result from an older version or
+   holding a deleted doc;
 9b. **backends**: checks that the IVF backend reached through the registry
    and composed by hand gives the default route's ids and scores bit for
    bit; then hands the served retriever over (its IVF lists freed) and
@@ -166,25 +203,29 @@ script
 11. runs ``kernels/psi_ablation.py`` (the psi kernel built four ways:
    as built, without its product, with W' resident, without its
    statistics; under a minute);
-12. prints a ``build`` line, a ``widths`` line, a ``serving`` line, a
-   ``routes`` line, a ``residual`` line, a ``sharded`` line, the
-   ``mutation`` line (with the residual and sharded rounds), the
-   ``backends`` line, the ``psi_ablation`` line, the ``kernels`` line (token
-   MaxSim's row with its launches on the mutation path and the backends'
-   rounds; every row with its launches on each backend's batches) and last
-   ``{"ok": true, ...}``.
+12. prints a ``build`` line, the ``fleet`` and ``lifecycle`` lines, a
+   ``widths`` line, a ``serving`` line, a ``routes`` line, a ``residual``
+   line, a ``sharded`` line, the ``mutation`` line (with the residual and
+   sharded rounds), the ``online`` line, the ``backends`` line, the
+   ``psi_ablation`` line, the ``kernels`` line (token MaxSim's row with its
+   launches on the mutation path and the backends' rounds; every row with
+   its launches on each backend's batches and in the online, fleet and
+   lifecycle phases) and last ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -609,9 +650,16 @@ def idle_gaps(torch, events):
             gaps.append((t, a))
         t = max(t, b)
 
+    ends = [b for _, b in gaps]      # sorted and disjoint, as are the starts
+
     def overlap(e):
-        return sum(max(0.0, min(b, e.time_range.end) - max(a, e.time_range.start))
-                   for a, b in gaps)
+        t0, t1 = e.time_range.start, e.time_range.end
+        o, i = 0.0, bisect.bisect_right(ends, t0)
+        while i < len(gaps) and gaps[i][0] < t1:
+            a, b = gaps[i]
+            o += max(0.0, min(b, t1) - max(a, t0))
+            i += 1
+        return o
 
     ops, runtime = {}, {}
     for e in cpu:
@@ -808,8 +856,10 @@ def make_build_corpus(torch, m, seed):
 
 
 def build_phase(torch, args, card):
-    """The build path on the card and its checks -> (build line, token
-    MaxSim kernel row, fused_psi launches of the build)."""
+    """The build path on the card and its checks, then the fleet and the
+    lifecycle over the trained index -> (build line, token MaxSim kernel
+    row, fused_psi launches of the build, {"fleet": line, "lifecycle":
+    line})."""
     import gc
     import tempfile
 
@@ -1006,9 +1056,38 @@ def build_phase(torch, args, card):
     s3, i3 = back3.search(q[:64], qm[:64])
     require(torch.equal(i2, i3) and torch.equal(s2, s3), "residual save/load: search differs")
     print("save/load round trip of the residual tier ok", flush=True)
+    del r2, back, r3, back3, small
+    nlist, cap = index.ann.nlist, index.ann.capacity
+    # the built index's tensors: r's own until a fleet or lifecycle write
+    # copies them, then held by nothing
+    del index, solver, stats
+
+    # -- the fleet and the lifecycle over the trained index -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the replicas' copies must be freed when the fleet phase drops them,
+    # with Python's cyclic collector off: no cycle through the router holds them
+    torch.cuda.synchronize()
+    mem_fleet = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        fleet = fleet_phase(torch, args, r, corpus, card)
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - mem_fleet
+    finally:
+        gc.enable()
+    add = fleet["add_barrier"]
+    grown = (add["memory_after_gib"] - add["memory_before_gib"]) * 2**30
+    fleet["memory_left_after_fleet_gib"] = left / 2**30
+    require(left <= 0.01 * grown, f"fleet: {left / 2**30:.3f} GiB left after the phase of "
+                                  f"{grown / 2**30:.3f} GiB its first add copied")
+    online = {"fleet": fleet}
+    print(f"fleet ok: {json.dumps(online['fleet'])}", flush=True)
+    torch.cuda.empty_cache()
+    online["lifecycle"] = lifecycle_phase(torch, args, r, corpus, card)
+    print(f"lifecycle ok: {json.dumps(online['lifecycle'])}", flush=True)
 
     steps = log["steps"]
-    ann = index.ann
     line = dict(
         m=m, d=corpus.d, T=corpus.doc_tokens.shape[1], topic_strength=TOPIC_STRENGTH,
         centers=TOPIC_CENTERS, cfg={k: getattr(cfg, k) for k in (
@@ -1017,7 +1096,7 @@ def build_phase(torch, args, card):
         seconds=log["seconds"], build_s=build_s, corpus_s=corpus_s, truth_s=truth_s,
         train_steps=steps, steps_per_s=steps / log["seconds"]["train_phi"],
         loss_first=losses[0], loss_last=losses[-1], gram_cond=cond,
-        nlist=ann.nlist, cap=ann.capacity, nprobe=p.backend.nprobe,
+        nlist=nlist, cap=cap, nprobe=p.backend.nprobe,
         launches={"token_maxsim": launches["token_maxsim"], "fused_psi": launches["fused_psi"]},
         peak_mem_gib=peak_gib, **recall, latent_recall_floor=floor,
         served_recall_at_floor=recall["recall@10"] >= floor, ivf_lists=lists,
@@ -1031,12 +1110,12 @@ def build_phase(torch, args, card):
                         "(34.4 GB), W and the lists on an 80 GB card"},
         card=card)
     fused_psi_launches = launches["fused_psi"]
-    del r, r2, back, r3, back3, corpus, small, index, solver, stats, x_ols, blk, kargs, q, qm
+    del r, corpus, x_ols, blk, kargs, q, qm
     del cand, truth
     del latent, exact
     gc.collect()
     torch.cuda.empty_cache()
-    return line, row, fused_psi_launches
+    return line, row, fused_psi_launches, online
 
 
 # --------------------------------------------------------------------------
@@ -2544,21 +2623,24 @@ CHURN_ROUTES = {      # name: (SearchParams keywords, IVF keywords)
 }
 
 
-def churn_docs(torch, rng, seed, n, dev, d=128):
+def churn_docs(torch, rng, seed, n, dev, d=128, *, centers=TOPIC_CENTERS,
+               strength=TOPIC_STRENGTH):
     """n new docs of the served corpus's distribution (Poisson(67.5) lengths
-    in [4, 80], unit tokens about the same 4,096 topic centres), dense on
-    ``dev``."""
+    in [4, 80], unit tokens about the same 4,096 topic centres: the first
+    draw of a generator seeded with ``seed``, as the corpus draws them),
+    dense on ``dev``; ``centers`` / ``strength`` make a topic burst instead
+    (fewer centres, a heavier weight)."""
     T = 80
-    centers = torch.nn.functional.normalize(torch.randn(
-        TOPIC_CENTERS, d, generator=torch.Generator(device=dev).manual_seed(seed), device=dev),
+    cent = torch.nn.functional.normalize(torch.randn(
+        centers, d, generator=torch.Generator(device=dev).manual_seed(seed), device=dev),
         dim=1)
     counts = torch.as_tensor(np.clip(rng.poisson(67.5, n), 4, T), device=dev)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    topics = torch.randint(0, TOPIC_CENTERS, (n, 2), generator=g, device=dev)
+    topics = torch.randint(0, centers, (n, 2), generator=g, device=dev)
     which = torch.randint(0, 2, (n, T), generator=g, device=dev)
     tok = torch.nn.functional.normalize(
         torch.randn(n, T, d, generator=g, device=dev)
-        + TOPIC_STRENGTH * centers[topics.gather(1, which)], dim=-1)
+        + strength * cent[topics.gather(1, which)], dim=-1)
     mask = torch.arange(T, device=dev)[None, :] < counts[:, None]
     return (tok * mask[..., None]).contiguous(), mask
 
@@ -2776,6 +2858,700 @@ def mutation_phase(torch, args, r, batches, card):
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                 solver="seeded fallback (from_arrays keeps no OLS tokens): n_ols tokens "
                        "drawn from the pages")
+
+# --------------------------------------------------------------------------
+# online serving, the fleet router and the index lifecycle
+# --------------------------------------------------------------------------
+
+ONLINE_LADDER = ((32, 64, 128, 256), 64)   # Tq rungs, largest micro-batch
+FLEET_LADDER = ((32, 64), 32)
+RAGGED_TQ = (4, 64)          # query tokens, uniform over the range
+ONLINE_QUERIES = 512         # distinct queries a phase; a trace cycles them
+ONLINE_S = 3.0               # seconds of a timed replay
+STEP_S = 1.5                 # seconds of a step of the step-up
+TRACE_S = 1.0                # seconds of the traced replay at the sustained rate
+STEP_P99_MS = 100.0          # a step is sustained under this p99 (from arrival)
+STEP_RATES = (500, 1000, 2000, 4000, 8000, 16000, 32000)
+BARRIER_QPS = 1000.0
+BARRIER_QUERIES = 64         # distinct queries of the barrier run: a hold searches each once
+LIFECYCLE_QPS = 400.0
+SHIFT_BATCH = 512            # docs a lifecycle add
+INDIST_ADDS = 2              # adds of the build's distribution that must leave the monitor quiet
+SHIFT_ADDS = 16              # two-topic bursts at most, before the monitor must have triggered
+COVERAGE_DOCS = 256          # docs of the coverage diagnosis (own_list_probe)
+# The drift monitor on the build cell.  Its baseline is taken over as many
+# docs as a full reservoir holds: the fidelity, a Pearson correlation pooled
+# over (probe token, doc) pairs, reads ~0.43 over 64 docs and ~0.34 over 256
+# of the same docs (PERF.md §6), so JAX's 64-doc baseline against a
+# 256-doc reservoir reads a drop of 0.1 with no drift.  Coverage is reported
+# and not a trigger: the build's IVF reaches a doc's own list for ~2 % of
+# the docs at nprobe 32 (own_list_probe), a baseline of 0-2 of the docs,
+# which a quarter of cannot resolve.
+MONITOR = dict(reservoir=256, baseline_docs=256, coverage_ratio_threshold=0.0)
+# the kernels a lifecycle run must launch: the served search, the drift
+# monitor's fidelity probe and the refresh's refit and Gram features
+LIFECYCLE_KERNELS = SERVE_KERNELS + ("token_maxsim", "fused_psi")
+
+
+def ragged_queries_from(tokens, rng, n):
+    """Host (Tq, d) fp32 queries: the first Tq tokens of ``n`` rows of
+    ``tokens`` (a (n', T, d) tensor or array), Tq uniform over RAGGED_TQ."""
+    tq = rng.integers(RAGGED_TQ[0], RAGGED_TQ[1] + 1, n)
+    toks = tokens[:n].cpu().numpy() if hasattr(tokens, "cpu") else np.asarray(tokens[:n])
+    return [np.ascontiguousarray(toks[i, :t], dtype=np.float32) for i, t in enumerate(tq)]
+
+
+def direct_check(torch, r, queries, outcomes, params=None, want=None):
+    """Every served (scores, ids) against a direct ``r.search`` of its query
+    alone (``outcomes``: (query index, (scores, ids)) pairs; each distinct
+    query searched once, into ``want``): ids equal, or differing only where
+    the direct scores are within NEAR_TIE (relative) of each other
+    (counted), scores within rtol 1e-5 / atol 1e-4."""
+    want = {} if want is None else want
+    ties = equal_rows = 0
+    err = 0.0
+    for qi, (s, ids) in outcomes:
+        if qi not in want:
+            q = queries[qi]
+            ws, wi = r.search(q[None], np.ones((1, len(q)), bool), params)
+            want[qi] = (ws[0].cpu().numpy(), wi[0].cpu().numpy())
+        ws, wi = want[qi]
+        require(s.shape == ws.shape and bool(np.isfinite(s[wi >= 0]).all()),
+                "served result shape or values")
+        fin = wi >= 0
+        e = float(np.abs(s[fin] - ws[fin]).max()) if fin.any() else 0.0
+        require(np.allclose(s, ws, rtol=1e-5, atol=1e-4),
+                f"served scores against the direct search: max abs err {e}")
+        err = max(err, e)
+        diff = ids != wi
+        gap = np.abs(s - ws) / np.maximum(np.abs(ws), 1.0)
+        require(bool(np.all(gap[diff] < NEAR_TIE)),
+                "a served id differs from the direct search without a near-tie")
+        ties += int(diff.sum())
+        equal_rows += int(not diff.any())
+    return dict(results=len(outcomes), direct_searches=len(want), near_tie_ids=ties,
+                rows_ids_equal=equal_rows, max_abs_err=err)
+
+
+def summary_of(rep, keys=("p50_ms", "p95_ms", "p99_ms", "submit_p50_ms", "submit_p95_ms",
+                          "submit_p99_ms", "qps", "offered_qps", "n_requests", "n_rejected",
+                          "n_expired", "n_lost")):
+    return {k: rep[k] for k in keys if k in rep}
+
+
+def step_up(torch, target, queries, seed, rates=None):
+    """Short open-loop replays at rising rates: the highest rate ``target``
+    (a server or a router) sustains — nothing lost, rejected or expired,
+    completed QPS >= 90 % of the trace's offered rate and p99 from scheduled
+    arrival under STEP_P99_MS — and one step between it and the first that
+    fails."""
+    from repro_torch.serving import poisson_trace, replay
+
+    def step(rate):
+        _, rep = replay(target, queries, poisson_trace(rate, STEP_S, seed), timeout=300)
+        ok = (rep["n_lost"] == 0 and rep["n_rejected"] == 0 and rep["n_expired"] == 0
+              and rep["qps"] >= 0.9 * rep["offered_qps"] and rep["p99_ms"] < STEP_P99_MS)
+        steps.append(dict(rate=rate, offered_qps=rep["offered_qps"], qps=rep["qps"],
+                          p99_ms=rep["p99_ms"],
+                          mean_occupancy=rep.get("mean_occupancy"), sustained=ok))
+        return ok
+
+    steps, best, failed = [], None, None
+    for rate in rates or STEP_RATES:
+        if not step(rate):
+            failed = rate
+            break
+        best = rate
+    require(best is not None, f"no rate sustained in the step-up: {steps}")
+    if failed is not None:
+        mid = float(np.sqrt(best * failed))
+        if step(mid):
+            best = mid
+    return float(best), steps
+
+
+class RecordingTarget:
+    """A server or router whose submits are recorded, in order, under
+    ``lock`` (with a completion time each): a barrier taken under the same
+    lock splits the requests into those before and after it."""
+
+    def __init__(self, target):
+        self.target = target
+        self.lock = threading.Lock()
+        self.futs = []
+        self.done_t = {}
+
+    def submit(self, *a, **kw):
+        with self.lock:
+            f = self.target.submit(*a, **kw)
+            self.futs.append(f)
+        done_t = self.done_t           # the callback holds the dict, not self: no cycle
+        f.add_done_callback(lambda f: done_t.setdefault(id(f), time.perf_counter()))
+        return f
+
+    def __getattr__(self, name):
+        return getattr(self.target, name)
+
+
+def online_phase(torch, args, r, card):
+    """The served (churned) index behind a RetrieverServer: warm every
+    bucket, step up to the highest sustained rate, replay at 1,000 QPS and
+    at about 50 % and 90 % of it (every result against a direct search of
+    its query alone, the kernels' launches a micro-batch), then a 1,000 QPS
+    replay with an add, a delete and an update barrier (each version's
+    results checked under the facade's lock before its barrier applies)."""
+    from repro_torch.kernels import ops
+    from repro_torch.retriever import SearchParams
+    from repro_torch.serving import (BucketLadder, RetrieverServer, pad_single,
+                                     poisson_trace, replay, warm_buckets)
+
+    t_all = time.time()
+    rng = np.random.default_rng(args.seed + 31)
+    st = r.index.store
+    d = st.d
+    q64, _, _ = make_queries(torch, st, rng, ONLINE_QUERIES, Tq=RAGGED_TQ[1])
+    queries = ragged_queries_from(q64, rng, ONLINE_QUERIES)
+    del q64
+    ladder = BucketLadder(*ONLINE_LADDER)
+    p = r.resolve(SearchParams())
+    line = dict(card=card, m=r.m, ladder=list(ladder.tq_ladder), max_batch=ladder.max_batch,
+                q_tokens=list(RAGGED_TQ), distinct_queries=ONLINE_QUERIES,
+                params=dict(k=p.k, k_prime=p.k_prime, nprobe=p.backend.nprobe))
+    tc0 = r.trace_count()
+    t0 = time.time()
+    line["warmed_shapes"] = warm_buckets(r, ladder, d)
+    torch.cuda.synchronize()
+    line["warm_s"] = time.time() - t0
+
+    with RetrieverServer(r, ladder=ladder, max_wait_us=2000) as srv:
+        tc_served = r.trace_count()
+        best, steps = step_up(torch, srv, queries, args.seed)
+        line["step_up"] = dict(steps=steps, sustained_qps=best, step_s=STEP_S,
+                               p99_bound_ms=STEP_P99_MS)
+        print(f"online step-up: sustained {best:.0f} QPS ({steps})", flush=True)
+        rates = {"qps_1000": 1000.0, "sustained_50pct": 0.5 * best,
+                 "sustained_90pct": 0.9 * best}
+        if abs(0.5 * best - 1000.0) < 100.0:     # half the sustained rate is 1,000 QPS
+            del rates["sustained_50pct"]
+            rates["sustained_70pct"] = 0.7 * best
+        runs, outcomes = {}, []
+        for name, rate in rates.items():
+            arrivals = poisson_trace(rate, ONLINE_S, args.seed + 1)
+            ops.reset_launch_counts()
+            res, rep = replay(srv, queries, arrivals, timeout=300)
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            nb = rep["n_batches"]
+            require(launches == {k: nb for k in SERVE_KERNELS},
+                    f"online {name}: launches {launches} over {nb} micro-batches")
+            require(rep["n_lost"] == 0 and not any(isinstance(x, Exception) for x in res),
+                    f"online {name}: {rep['n_lost']} lost, "
+                    f"{sum(isinstance(x, Exception) for x in res)} rejected or expired")
+            outcomes += [(i % len(queries), x) for i, x in enumerate(res)]
+            runs[name] = dict(rate=rate, **summary_of(rep), mean_occupancy=rep["mean_occupancy"],
+                              occupancy_hist=rep["occupancy_hist"],
+                              bucket_hist=rep["bucket_hist"], n_batches=nb,
+                              launches_per_micro_batch={k: v / nb for k, v in launches.items()})
+            print(f"online {name}: {json.dumps(runs[name])}", flush=True)
+        line["trace_count"] = dict(served=r.trace_count() - tc_served,
+                                   with_warmup=r.trace_count() - tc0,
+                                   compile_bound=ladder.compile_bound())
+        require(r.trace_count() - tc0 <= ladder.compile_bound(),
+                f"served shapes {r.trace_count() - tc0} > bound {ladder.compile_bound()}")
+        t0 = time.time()
+        line["checks"] = direct_check(torch, r, queries, outcomes)
+        line["checks"]["s"] = time.time() - t0
+        # padding: a query padded to its rung against the raw query, bit for bit
+        pad_bits = dict(queries=64, scores_equal=0, ids_equal=0)
+        for q in queries[:64]:
+            qp, mp = pad_single(q, np.ones(len(q), bool), ladder.tq_bucket(len(q)))
+            s0, i0 = r.search(q[None], np.ones((1, len(q)), bool))
+            s1, i1 = r.search(qp[None], mp[None])
+            pad_bits["scores_equal"] += int(torch.equal(s0, s1))
+            pad_bits["ids_equal"] += int(torch.equal(i0, i1))
+        line["padded_query_bits"] = pad_bits
+        require(pad_bits["scores_equal"] == pad_bits["ids_equal"] == pad_bits["queries"],
+                f"a query padded to its rung answers other bits than the raw query: {pad_bits}")
+        line["runs"] = runs
+        # traced at the lowest rate the step-up did not sustain: the server saturated
+        sat = min((st["rate"] for st in steps if not st["sustained"] and st["rate"] > best),
+                  default=2.0 * best)
+        line["trace"] = trace_replay(torch, srv, queries, sat, args.seed + 3)
+        print(f"online trace: {json.dumps(line['trace'])}", flush=True)
+        line["barriers"] = barrier_run(torch, args, r, srv, queries, rng)
+    line["s"] = time.time() - t_all
+    return line
+
+
+def trace_replay(torch, srv, queries, rate, seed):
+    """A TRACE_S replay at ``rate`` under torch.profiler: the card's busy
+    time (the union of its kernels' and copies' intervals) against the
+    traced wall time, each a micro-batch; the server worker's time in its
+    micro-batches (pad, copy in, search, copy out — it waits for the card
+    there — and the futures; host clock around ``_run_batch``); and the
+    runtime calls in the card's idle gaps (``idle_gaps``).  Tracing adds
+    host cost, so these are not the latencies of the untraced runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import poisson_trace, replay
+
+    worker = []
+    run_batch = srv._run_batch
+
+    def timed(batch):
+        t = time.perf_counter()
+        run_batch(batch)
+        worker.append(time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    srv._run_batch = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res, rep = replay(srv, queries, poisson_trace(rate, TRACE_S, seed), timeout=300)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del srv._run_batch
+    require(rep["n_lost"] == 0, "traced replay: a request lost")
+    events = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    require(busy_ms > 0, "traced replay: no device activity in the trace")
+    nb = rep["n_batches"]
+    return dict(rate=rate, s=TRACE_S, n_requests=rep["n_requests"], n_batches=nb,
+                mean_occupancy=rep["mean_occupancy"], qps=rep["qps"], p99_ms=rep["p99_ms"],
+                wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms if wall_ms else None,
+                device_events=len(dev), wall_ms_per_micro_batch=wall_ms / max(nb, 1),
+                device_ms_per_micro_batch=busy_ms / max(nb, 1),
+                worker_busy_ms=1e3 * sum(worker),
+                worker_busy_share=1e3 * sum(worker) / wall_ms if wall_ms else None,
+                worker_ms_per_micro_batch=1e3 * sum(worker) / max(len(worker), 1),
+                idle_gaps=idle_gaps(torch, events))
+
+
+def barrier_run(torch, args, r, srv, queries, rng):
+    """A BARRIER_QPS replay of BARRIER_QUERIES distinct queries with an add,
+    a delete and an update barrier at a quarter, a half and three quarters
+    of it.  At each barrier the facade's lock is held (the worker cannot
+    apply it) while the requests submitted before it resolve and are held
+    against direct searches of the version they were served at (each
+    distinct query once); the requests after it must be served at a later
+    version and never return a deleted doc."""
+    from repro_torch.serving import poisson_trace, replay
+
+    dev = r.device
+    queries = queries[:BARRIER_QUERIES]
+    rec = RecordingTarget(srv)
+    tok, mask = churn_docs(torch, rng, args.seed, 2, dev, r.index.store.d)
+    victims = pick_live(torch, r, rng, 2)
+    plan = [(0.25, "add", lambda: srv.add(tok[:1], mask[:1])),
+            (0.5, "delete", lambda: srv.delete(victims[:1])),
+            (0.75, "update", lambda: srv.update(victims[1:], tok[1:], mask[1:]))]
+    barriers, errors = [], []
+    checked = {}                           # future id -> check done
+    v_start = r.version
+    mem0 = torch.cuda.memory_allocated()
+
+    def check_before(n_before, version, want):
+        outs = []
+        for i, f in enumerate(rec.futs[:n_before]):
+            if id(f) in checked:
+                continue
+            x = f.result(timeout=120)
+            require(getattr(f, "snapshot_version", None) == version,
+                    f"a request before the barrier answered at version "
+                    f"{getattr(f, 'snapshot_version', None)}, not {version}")
+            checked[id(f)] = True
+            outs.append((i % len(queries), x))
+        return direct_check(torch, r, queries, outs, want=want)
+
+    def run_barriers(t0):
+        try:
+            for frac, kind, enqueue in plan:
+                time.sleep(max(0.0, t0 + frac * ONLINE_S - time.perf_counter()))
+                t_b = time.perf_counter()
+                with r.lock:                    # no mutation until this version is checked
+                    with rec.lock:
+                        n_before = len(rec.futs)
+                        mf = enqueue()
+                    version = r.version
+                    chk = check_before(n_before, version, {})
+                mf.result(timeout=120)
+                barriers.append(dict(kind=kind, at_s=frac * ONLINE_S, n_before=n_before,
+                                     version_before=version,
+                                     snapshot_version=mf.snapshot_version,
+                                     result=np.asarray(mf.result()).tolist(),
+                                     hold_s=time.perf_counter() - t_b, checks=chk))
+        except Exception as e:    # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run_barriers, args=(t0,), daemon=True)
+    th.start()
+    res, rep = replay(rec, queries, poisson_trace(BARRIER_QPS, ONLINE_S, args.seed + 2),
+                      timeout=300)
+    th.join(timeout=300)
+    require(not th.is_alive(), "the barrier thread hung")
+    if errors:
+        raise errors[0]
+    require(len(barriers) == 3 and [b["snapshot_version"] for b in barriers]
+            == [v_start + 1, v_start + 2, v_start + 3], f"barrier versions {barriers}")
+    require(rep["n_lost"] == 0 and not any(isinstance(x, Exception) for x in res),
+            "barrier run: a request lost, rejected or expired")
+    # after each barrier: a later version, and no deleted doc
+    gone = set(victims.tolist())
+    for b in barriers:
+        for f in rec.futs[b["n_before"]:]:
+            require(f.snapshot_version >= b["snapshot_version"],
+                    f"a request after the {b['kind']} barrier answered at version "
+                    f"{f.snapshot_version} < {b['snapshot_version']}")
+    for f in rec.futs:
+        if f.snapshot_version >= v_start + 2:
+            require(not gone.intersection(f.result()[1].tolist()),
+                    "a deleted doc served after the delete barrier")
+    final = check_before(len(rec.futs), r.version, {})
+    return dict(rate=BARRIER_QPS, **summary_of(rep), barriers=barriers, final_version_checks=final,
+                memory_allocated_change_gib=(torch.cuda.memory_allocated() - mem0) / 2**30,
+                note="latency includes the barriers' holds (each version's results checked "
+                     "under the facade's lock before its barrier applies)")
+
+
+def fleet_phase(torch, args, r, corpus, card):
+    """Two clones of the build cell's trained index behind a Router: the
+    rate the two sustain (a step-up), then a replay at half of it with the
+    SLO controller's target set below any latency (one downshift to the
+    second rung) and raised past any (one recovery), an add barrier at a
+    quarter of it and a replica killed at half; every accepted request
+    resolved exactly once, the results after the add held against direct
+    searches of replica 0 at the rung that answered them."""
+    from repro_torch.data.synthetic import queries_from_corpus_query
+    from repro_torch.fleet import Router, SLOController, build_rungs, clone_replicas, warm_replicas
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BucketLadder, poisson_trace, replay
+
+    t_all = time.time()
+    rng = np.random.default_rng(args.seed + 41)
+    dev = r.device
+    queries = ragged_queries_from(queries_from_corpus_query(
+        corpus, ONLINE_QUERIES, q_tokens=RAGGED_TQ[1], seed=QUERY_SEED + 1), rng, ONLINE_QUERIES)
+    ladder = BucketLadder(*FLEET_LADDER)
+    reps = clone_replicas(r, 2)
+    rungs = build_rungs(reps[0], n_rungs=2)
+    t0 = time.time()
+    warmed = warm_replicas(reps, ladder, corpus.d, params_list=rungs)
+    torch.cuda.synchronize()
+    line = dict(card=card, m=r.m, replicas=2, ladder=list(ladder.tq_ladder),
+                max_batch=ladder.max_batch, warmed_shapes=warmed, warm_s=time.time() - t0,
+                rungs=[dict(k_prime=p.k_prime, nprobe=p.backend.nprobe) for p in rungs])
+    with Router(reps, ladder=ladder, max_queue_depth=None) as router:
+        best, steps = step_up(torch, router, queries, args.seed)
+    line["step_up"] = dict(steps=steps, sustained_qps=best)
+    rate = 0.5 * best
+    print(f"fleet step-up: two replicas sustain {best:.0f} QPS; replaying at {rate:.0f}",
+          flush=True)
+    slo = SLOController(rungs, target_p99_ms=1e-6, window=64, min_window=16, eval_every=16,
+                        hold=2)
+    tok, mask = churn_docs(torch, rng, args.seed + 1, 1, dev, corpus.d)  # the build's centres
+    side, errors = {}, []
+    dur = 4.0
+
+    def chaos(router, t0):
+        try:
+            time.sleep(max(0.0, t0 + 0.25 * dur - time.perf_counter()))
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            af = router.add(tok, mask)
+            m_new = af.result(timeout=300)
+            torch.cuda.synchronize()
+            side["add"] = dict(m=m_new, snapshot_version=af.snapshot_version,
+                               replica_versions=[rp.version for rp in reps],
+                               memory_before_gib=mem0 / 2**30,
+                               memory_after_gib=torch.cuda.memory_allocated() / 2**30)
+            time.sleep(max(0.0, t0 + 0.5 * dur - time.perf_counter()))
+            side["kill"] = dict(at_s=time.perf_counter() - t0, rehomed=router.kill_replica(1))
+            time.sleep(max(0.0, t0 + 0.625 * dur - time.perf_counter()))
+            slo.target_p99_ms = 1e9
+            side["target_raised_at_s"] = time.perf_counter() - t0
+        except Exception as e:    # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    ops.reset_launch_counts()
+    with Router(reps, ladder=ladder, slo=slo, max_queue_depth=None) as router:
+        rec = RecordingTarget(router)
+        v0 = router.version
+        t_replay = time.perf_counter()
+        th = threading.Thread(target=chaos, args=(router, t_replay), daemon=True)
+        th.start()
+        res, rep = replay(rec, queries, poisson_trace(rate, dur, args.seed + 3), timeout=300)
+        th.join(timeout=300)
+        require(not th.is_alive(), "the fleet's side thread hung")
+        if errors:
+            raise errors[0]
+        quarantined, stats = router.quarantined(), router.stats.summary()
+        n_completed = router.stats.n_completed
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    # exactly once: every accepted request resolved, one outcome each
+    rids = [f.request_id for f in rec.futs]
+    n_ok = sum(isinstance(x, tuple) for x in res)
+    require(len(set(rids)) == len(rids) == len(res) and all(f.done() for f in rec.futs),
+            "fleet: duplicate request ids or unresolved requests")
+    require(rep["n_lost"] == 0 and n_ok == len(res) == n_completed,
+            f"fleet: {len(res)} requests, {n_ok} results, {n_completed} completions, "
+            f"{rep['n_lost']} lost")
+    require(quarantined == [1], f"fleet: quarantined {quarantined}")
+    add = side["add"]
+    require(add["snapshot_version"] == v0 + 1 and add["replica_versions"] == [v0 + 1] * 2,
+            f"fleet add barrier: {add}")
+    after = [(i % len(queries), x, f.params) for i, (f, x) in enumerate(zip(rec.futs, res))
+             if f.snapshot_version == v0 + 1]
+    checks = {}
+    for j, p in enumerate(rungs):
+        outs = [(qi, x) for qi, x, fp in after if fp == p]
+        checks[f"rung_{j}"] = direct_check(torch, reps[0], queries, outs, params=p)
+    downs = [t for t in slo.transitions if t.direction == "down"]
+    ups = [t for t in slo.transitions if t.direction == "up"]
+    require(len(downs) == 1 and len(ups) == 1,
+            f"SLO transitions {[(t.from_rung, t.to_rung) for t in slo.transitions]}")
+    for k in SERVE_KERNELS:
+        require(launches.get(k, 0) >= 1, f"fleet: {k} not launched ({launches})")
+    line.update(rate=rate, **summary_of(rep), n_redispatched=stats["n_redispatched"],
+                n_failed=stats["n_failed"], exactly_once=dict(accepted=len(res), results=n_ok,
+                                                              completions=n_completed),
+                add_barrier=add, kill=side["kill"], target_raised_at_s=side["target_raised_at_s"],
+                quarantined=quarantined, floor_breaches=slo.n_floor_breaches,
+                rung_transitions=[dict(at_s=t.t - t_replay, from_rung=t.from_rung,
+                                       to_rung=t.to_rung, p99_ms=t.p99_ms, target_ms=t.target_ms)
+                                  for t in slo.transitions],
+                checks_after_add=checks, launches=launches, s=time.time() - t_all)
+    return line
+
+
+def same_bits(torch, x, y, rows=1 << 16):
+    """``torch.equal`` a block of rows at a time: the equality's temporary
+    of an 8 GiB list tensor would not fit beside two refreshes."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.dim() == 0:
+        return torch.equal(x, y)
+    return all(torch.equal(x[i:i + rows], y[i:i + rows]) for i in range(0, x.shape[0], rows))
+
+
+def own_list_probe(torch, r, ids):
+    """Why the drift monitor's coverage is what it is: for the docs ``ids``
+    with their own tokens as the query, the rank of the doc's own IVF list
+    among the lists the probe orders by q . c (the build assigns a row to a
+    list by L2, argmax x . c - |c|^2 / 2, and the search probes by inner
+    product: JAX's rules, ``repro/anns/ivf.py:110`` and ``:241``), the
+    share whose own list the default nprobe reaches, the share the first
+    stage returns (coverage), and the share the exact latent scan (top-k'
+    of q . W over every slot) returns."""
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.anns.ivf import assign_clusters
+    from repro_torch.core import pages
+    from repro_torch.core.model import pool_queries
+    from repro_torch.retriever import SearchParams
+
+    p = r.resolve(SearchParams())
+    with r.lock, torch.inference_mode():
+        idx = r.index
+        ann = idx.ann
+        sel = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=r.device)
+        toks, mask = pages.gather_docs(idx.store, sel.int())
+        pq = pool_queries(idx.psi, toks, mask)
+        w = idx.store.W[sel]
+        own = assign_clusters(w - ann.mean[None] if ann.mean is not None else w, ann.centroids)
+        cs = pq @ ann.centroids.T
+        rank = (cs > cs.gather(1, own[:, None])).sum(1).float()
+        cand = r.candidates(toks, mask).long()
+        lat = stable_topk(pq @ idx.store.W[:idx.m].T, p.k_prime)[1].long()
+    return dict(docs=len(sel), nlist=int(ann.centroids.shape[0]), nprobe=p.backend.nprobe,
+                own_list_rank_quantiles={str(x): float(rank.quantile(x))
+                                         for x in (0.1, 0.25, 0.5, 0.75, 0.9)},
+                own_list_probed=float((rank < p.backend.nprobe).float().mean()),
+                coverage=float((cand == sel[:, None]).any(1).float().mean()),
+                latent_self_retrieval=float((lat == sel[:, None]).any(1).float().mean()),
+                valid_candidates=float((cand >= 0).sum(1).float().mean()))
+
+
+def lifecycle_phase(torch, args, r, corpus, card):
+    """The build cell's trained index behind a RetrieverServer with a
+    DriftMonitor (coverage reported, not a trigger: MONITOR): docs of the
+    build corpus's distribution, which must leave it quiet, a six-topic
+    burst (recorded), then two-topic bursts added until it triggers; a
+    LifecycleManager refreshes in the background while an open-loop replay
+    goes on, and warm-swaps through ``apply``; docs of the build's
+    distribution again, which must leave the recalibrated monitor quiet;
+    then two refreshes of one snapshot with one seed, held bit for bit.
+    The launches are counted over the managed replay and refresh, and over
+    the two refreshes, apart from the warm-up and the monitor's attach."""
+    from repro_torch.data.synthetic import queries_from_corpus_query
+    from repro_torch.kernels import ops
+    from repro_torch.lifecycle import (DriftMonitor, LifecycleManager, RefreshFailed,
+                                       SwapAborted, SwapCompleted, build_refresh)
+    from repro_torch.serving import (BucketLadder, RetrieverServer, poisson_trace, replay,
+                                     warm_buckets)
+
+    t_all = time.time()
+    rng = np.random.default_rng(args.seed + 51)
+    dev, d = r.device, corpus.d
+    queries = ragged_queries_from(queries_from_corpus_query(
+        corpus, ONLINE_QUERIES, q_tokens=RAGGED_TQ[1], seed=QUERY_SEED + 2), rng, ONLINE_QUERIES)
+    ladder = BucketLadder(*FLEET_LADDER)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    def drift(rep):
+        return dict(coverage=rep.coverage, baseline_coverage=rep.baseline_coverage,
+                    fidelity=rep.fidelity, baseline_fidelity=rep.baseline_fidelity,
+                    skew=rep.skew, n_reservoir=rep.n_reservoir, triggered=rep.triggered,
+                    reason=rep.reason)
+
+    def add(srv, seed, **burst):
+        tok, mask = churn_docs(torch, rng, seed, SHIFT_BATCH, dev, d, **burst)
+        srv.add(tok, mask).result(timeout=300)
+        return r.last_added_ids.copy()
+
+    reports = {"in_distribution": [], "two_topic_bursts": []}
+    mon = DriftMonitor(r, seed=args.seed, **MONITOR)
+
+    def on_event(ev):
+        if isinstance(ev, SwapCompleted):   # the same reservoir, before the reset
+            reports["after_swap"] = drift(mon.report())
+
+    def lists(ann):
+        c = ann.counts.float()
+        return dict(nlist=int(c.numel()), cap=ann.capacity, max=int(c.max()),
+                    median=float(c.median()), lists_le_3=float((c <= 3).float().mean()))
+
+    probe_ids = np.sort(rng.choice(r.m, COVERAGE_DOCS, replace=False))
+    line = dict(card=card, m=r.m, ladder=list(ladder.tq_ladder), max_batch=ladder.max_batch,
+                monitor=MONITOR, ivf_lists_before=lists(r.index.ann),
+                coverage_diagnosis={"build_docs_build_fit": own_list_probe(torch, r, probe_ids)})
+    with RetrieverServer(r, ladder=ladder) as srv:
+        warm_buckets(r, ladder, d)
+        t0 = time.time()
+        mon.attach()
+        line["attach_s"] = time.time() - t0
+        # JAX's default baseline, over 64 docs, beside MONITOR's over 256
+        line["baseline_64_docs"] = dict(zip(("fidelity", "coverage"), DriftMonitor(
+            r, seed=args.seed)._measure_baseline()))
+        torch.cuda.synchronize()
+        mem_add = torch.cuda.memory_allocated()
+        for i in range(INDIST_ADDS):
+            add(srv, args.seed + 1)              # the build corpus's topic centres
+            if i == 0:
+                torch.cuda.synchronize()
+                line["first_add_memory_change_gib"] = (
+                    torch.cuda.memory_allocated() - mem_add) / 2**30
+            rep = mon.report()
+            reports["in_distribution"].append(drift(rep))
+            require(not rep.triggered, f"the monitor triggered on docs of the build's "
+                                       f"distribution (add {i + 1}): {rep}")
+        add(srv, args.seed + 1000, centers=6, strength=4.0)
+        reports["six_topic_burst"] = drift(mon.report())
+        n_shift = 0
+        for n_shift in range(1, SHIFT_ADDS + 1):
+            burst_ids = add(srv, args.seed + 2000, centers=2, strength=4.0)
+            rep = mon.report()
+            reports["two_topic_bursts"].append(drift(rep))
+            if rep.triggered:
+                break
+        require(rep.triggered, f"the monitor did not trigger after {n_shift} two-topic "
+                               f"bursts: {rep}")
+        line["two_topic_burst_docs"] = n_shift * SHIFT_BATCH
+        print(f"lifecycle: drift {reports}", flush=True)
+
+        rec = RecordingTarget(srv)
+        mgr = LifecycleManager(srv, monitor=mon, seed=args.seed, cooldown_s=0.0,
+                               min_reservoir=16, swap_timeout_s=600.0, on_event=on_event)
+        chunks = []
+        ops.reset_launch_counts()            # the managed replay and refresh alone
+        mgr.start(auto=True)
+        try:
+            t_end = time.time() + 300
+            while time.time() < t_end:
+                t_chunk = time.perf_counter()
+                res, rep = replay(rec, queries, poisson_trace(LIFECYCLE_QPS, 2.0,
+                                                              args.seed + len(chunks)),
+                                  timeout=300)
+                chunks.append(dict(**summary_of(rep), dropped=rep["n_lost"] + sum(
+                    not isinstance(x, tuple) for x in res)))
+                swaps = mgr.events(SwapCompleted)
+                if mgr.events(RefreshFailed) or mgr.events(SwapAborted):
+                    break
+                if swaps and swaps[0].t < t_chunk:
+                    break
+        finally:
+            mgr.stop(timeout=600)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        evs = {type(e).__name__: e for e in mgr.events()}
+        require("SwapCompleted" in evs and "RefreshFailed" not in evs
+                and "SwapAborted" not in evs,
+                f"lifecycle events {[e.kind for e in mgr.events()]}")
+        for k in LIFECYCLE_KERNELS:
+            require(launches.get(k, 0) >= 1,
+                    f"lifecycle: {k} not launched in the managed replay and refresh ({launches})")
+        t_start, t_done = evs["RefreshStarted"].t, evs["RefreshCompleted"].t
+        t_swap = evs["SwapCompleted"].t
+        done = list(rec.done_t.values())
+        dropped = sum(c["dropped"] for c in chunks)
+        require(dropped == 0, f"lifecycle: {dropped} searches dropped")
+        res_ = mgr.last_refresh_result
+        line["coverage_diagnosis"].update(
+            build_docs_refreshed_fit=own_list_probe(torch, r, probe_ids),
+            burst_docs_refreshed_fit=own_list_probe(torch, r, burst_ids[-COVERAGE_DOCS:]))
+        mon.attach()      # the manager's stop detached it; the baseline, of the new fit
+        add(srv, args.seed + 1)                  # the build's distribution again
+        rep = mon.report()
+        reports["in_distribution_after_swap"] = drift(rep)
+        require(not rep.triggered, f"the monitor, recalibrated at the swap, triggered on "
+                                   f"docs of the build's distribution: {rep}")
+        line.update(
+            drift=reports, events=[e.kind for e in mgr.events()],
+            refresh_s=res_.wall_s, refresh_phase_s=res_.phase_s,
+            install_s=t_swap - t_done, swap_version=evs["SwapCompleted"].version,
+            caught_up=evs["SwapCompleted"].caught_up,
+            searches_during_refresh=sum(t_start <= t <= t_done for t in done),
+            searches_during_refresh_and_install=sum(t_start <= t <= t_swap for t in done),
+            searches=len(done), dropped=dropped, replay_qps=LIFECYCLE_QPS, chunks=chunks,
+            ivf_lists_after=lists(r.index.ann))
+    mon.detach()
+    require("after_swap" in reports, "no drift report after the swap")
+    # the installed refresh's W and lists, which the post-swap add copied
+    del mgr, res_, rec, mon
+    torch.cuda.empty_cache()
+
+    # two refreshes of one snapshot with one seed, bit for bit
+    ops.reset_launch_counts()
+    a = build_refresh(r, seed=args.seed + 5)
+    b = build_refresh(r, seed=args.seed + 5)
+    torch.cuda.synchronize()
+    launches_refreshes = {k: v for k, v in ops.launch_counts().items() if v}
+    for k in ("token_maxsim", "fused_psi"):
+        require(launches_refreshes.get(k, 0) >= 2,
+                f"two refreshes: {k} not launched by each ({launches_refreshes})")
+    same = dict(W=same_bits(torch, a.W, b.W), **{
+        f"solver_{k}": same_bits(torch, a.solver[k], b.solver[k])
+        for k in ("chol", "feats", "x_ols")},
+        **{f"ann_{k}": same_bits(torch, v, getattr(b.ann, k))
+           for k, v in a.ann._asdict().items() if v is not None})
+    require(all(same.values()), f"two refreshes of one snapshot differ: {same}")
+    line.update(refresh_bits_equal=same, refresh_twice_s=[a.wall_s, b.wall_s],
+                refresh_twice_phase_s=[a.phase_s, b.phase_s], launches=launches,
+                launches_two_refreshes=launches_refreshes,
+                memory_change_gib=(torch.cuda.memory_allocated() - mem0) / 2**30,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, s=time.time() - t_all)
+    return line
+
 
 # --------------------------------------------------------------------------
 # the other first-stage backends behind the registry
@@ -3115,15 +3891,18 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    build_line, maxsim_row, psi_build_launches = build_phase(torch, args, card)
+    build_line, maxsim_row, psi_build_launches, fleet_lifecycle = build_phase(torch, args, card)
     build_line.update(kernel_build_s=t_build)
     print(json.dumps({"build": build_line}), flush=True)
+    print(json.dumps({"fleet": fleet_lifecycle["fleet"]}), flush=True)
+    print(json.dumps({"lifecycle": fleet_lifecycle["lifecycle"]}), flush=True)
     t0 = time.time()
     widths = widths_phase(torch, args.seed)
     print(json.dumps({"widths": {"max_abs_err": widths, "s": time.time() - t0}}), flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    serving, routes, residual, sharded, mutation, backends, kernels = serve_and_check(torch, args)
+    (serving, routes, residual, sharded, mutation, online, backends,
+     kernels) = serve_and_check(torch, args)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
     maxsim_row["launches_mutation_path"] = {
@@ -3135,14 +3914,22 @@ def main():
         name: b["round"]["launches"].get("token_maxsim", 0)
         for name, b in backends["backends"].items() if "round" in b}
     kernels.append(maxsim_row)
+    phase_launches = {
+        "online": {k: sum(run["launches_per_micro_batch"].get(k, 0) * run["n_batches"]
+                          for run in online["runs"].values()) for k in SERVE_KERNELS},
+        "fleet": fleet_lifecycle["fleet"]["launches"],
+        "lifecycle": fleet_lifecycle["lifecycle"]["launches"]}
     for row in kernels:
         row["launches_backend_routes"] = {
             name: b["launches"].get(row["name"], 0) for name, b in backends["backends"].items()}
+        row["launches_online_fleet_lifecycle"] = {
+            name: int(c.get(row["name"], 0)) for name, c in phase_launches.items()}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"mutation": mutation}), flush=True)
+    print(json.dumps({"online": online}), flush=True)
     print(json.dumps({"backends": backends}), flush=True)
     t0 = time.time()
     from repro_torch.kernels import psi_ablation
@@ -3474,6 +4261,11 @@ def serve_and_check(torch, args):
     mutation["residual_round"] = residual.pop("churn_round")
     mutation["sharded_round"] = sharded.pop("churn_round")
 
+    # -- 9c. online serving over the churned index -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    online = online_phase(torch, args, r, card_line())
+
     # -- 10. the other first-stage backends; the served retriever is handed
     # over, its IVF lists freed once the first backend is built ---------------
     gc.collect()
@@ -3481,7 +4273,7 @@ def serve_and_check(torch, args):
     holder = [r]
     del r, index, ann
     backends = backends_phase(torch, args, holder, card_line())
-    return (serving, routes, residual, sharded, mutation, backends,
+    return (serving, routes, residual, sharded, mutation, online, backends,
             kernels + new_rows + res_rows + sh_rows)
 
 

@@ -4,7 +4,10 @@ Same rules as the JAX version: initial centroids are k distinct sample
 rows; assignment is ``argmax(x.c - ||c||^2/2)`` (nearest centroid, one
 matmul per block of rows, first index on ties); an empty cluster keeps its
 centroid.  The initial rows come from an explicit ``torch.Generator``, so
-the draw differs from JAX's.
+the draw differs from JAX's.  A cluster's sum adds its rows in ascending
+row order (:func:`segment_sums`), so one input gives one result on the card
+too, where ``index_add_`` adds by atomics in whatever order threads arrive:
+the index refresh promises the same bits from the same snapshot and seed.
 """
 from __future__ import annotations
 
@@ -20,6 +23,16 @@ def assign(x: torch.Tensor, cent: torch.Tensor, block: int = 65536) -> torch.Ten
     return out
 
 
+def segment_sums(x: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, d) rows x, (n,) cluster ids a -> (k, d) per-cluster sums, each
+    cluster's rows added in ascending row order (the rows sorted stably by
+    cluster, then ``segment_reduce``: one pass a segment, no atomics); on
+    the CPU the bits of ``index_add_``."""
+    order = torch.argsort(a, stable=True)
+    lengths = torch.bincount(a, minlength=k)
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, unsafe=True, initial=0.0)
+
+
 def kmeans(x: torch.Tensor, k: int, iters: int = 10, *,
            generator: torch.Generator | None = None, block: int = 65536):
     """x: (n, d) -> (centroids (k, d), assignment (n,) int64)."""
@@ -28,7 +41,7 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 10, *,
     cent = x[init]
     for _ in range(iters):
         a = assign(x, cent, block)
-        sums = torch.zeros((k, d), dtype=x.dtype, device=x.device).index_add_(0, a, x)
+        sums = segment_sums(x, a, k)
         counts = torch.bincount(a, minlength=k).to(x.dtype)
         new = sums / counts.clamp_min(1.0)[:, None]
         cent = torch.where(counts[:, None] > 0, new, cent)

@@ -35,12 +35,12 @@ The OLS solver state and a rebuilt first stage cross too:
 :func:`solver_from_numpy` / :func:`solver_to_numpy` (JAX's ``cho_factor``
 keeps the upper factor with ``lower=False``, the port the lower one: the
 transpose, exactly) and :func:`refresh_from_numpy`, which makes the
-:class:`Refresh` that ``LemurRetriever.install_refresh`` takes from a JAX
-``lifecycle.build_refresh`` result given as numpy arrays.
+:class:`~repro_torch.lifecycle.refresh.RefreshResult` that
+``LemurRetriever.install_refresh`` takes (the port's own ``build_refresh``
+makes one too) from a JAX ``lifecycle.build_refresh`` result given as numpy
+arrays.
 """
 from __future__ import annotations
-
-from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ from repro_torch.core.config import LemurConfig
 from repro_torch.core.index import LemurIndex
 from repro_torch.core.model import Psi, TargetStats
 from repro_torch.core.pages import PagedStore, from_dense
+from repro_torch.lifecycle.refresh import RefreshResult
 
 _STORE = ("tok_pages", "page_table", "n_tokens", "W", "alive", "n_docs")
 _TOKEN_TIER = ("pages/cent_pages", "pages/code_pages", "codec/centroids", "codec/cuts",
@@ -62,17 +63,6 @@ _TOKEN_TIER = ("pages/cent_pages", "pages/code_pages", "codec/centroids", "codec
 _LIST_TIER = ("ann/rq_cuts", "ann/rq_values")
 _DENSE = ("W", "doc_tokens", "doc_mask")
 FORMAT = "lemur-retriever-v1"
-
-
-class Refresh(NamedTuple):
-    """What ``LemurRetriever.install_refresh`` reads of a rebuild: the
-    backend name, the slot high-water mark m0 it covered, its W rows (m0,
-    d'), its first-stage state and its OLS solver state."""
-    backend: str
-    m0: int
-    W: torch.Tensor
-    ann: Any
-    solver: dict
 
 
 def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
@@ -180,16 +170,17 @@ def solver_to_numpy(solver: dict) -> dict:
 
 
 def refresh_from_numpy(backend: str, m0: int, W, ann: dict, solver: dict,
-                       device="cuda", *, ann_meta: dict | None = None) -> Refresh:
-    """A :class:`Refresh` on ``device`` from a rebuild's parts as numpy
+                       device="cuda", *, ann_meta: dict | None = None) -> RefreshResult:
+    """A :class:`RefreshResult` on ``device`` from a rebuild's parts as numpy
     arrays: ``ann`` the backend's packed arrays by name and ``ann_meta`` its
     meta (as :func:`ann_from_numpy`), ``solver`` as in
-    :func:`solver_from_numpy`."""
+    :func:`solver_from_numpy`.  Its ``version``, ``seed`` and ``wall_s``
+    are 0: ``install_refresh`` reads none of them."""
     dev = resolve_device(device)
-    return Refresh(backend, int(m0), _tensor(W, dev, torch.float32),
-                   ann_from_numpy(ann, dev, backend=registry.canonical(backend),
-                                  meta=ann_meta),
-                   solver_from_numpy(solver, dev))
+    return RefreshResult(backend, 0, int(m0), _tensor(W, dev, torch.float32),
+                         ann_from_numpy(ann, dev, backend=registry.canonical(backend),
+                                        meta=ann_meta),
+                         solver_from_numpy(solver, dev), 0, 0.0)
 
 
 def index_to_numpy(index: LemurIndex, x_ols=None) -> tuple[dict[str, np.ndarray], dict]:

@@ -440,6 +440,18 @@ def gather_docs(store: PagedStore, doc_ids: torch.Tensor):
     return toks.mul_(mask[..., None]), mask                  # toks is a fresh copy
 
 
+def read_tokens(store: PagedStore, slots: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Token ``t[i]`` of slot ``slots[i]`` (1-D int tensors on the store's
+    device, each t below its slot's ``n_tokens``) from the pages -> (n, d)
+    fp32, decoded on the compressed tier: single tokens, without the dense
+    layout."""
+    pg = store.page_table[slots, t // store.page].long()
+    col = t % store.page
+    if store.codec is not None:
+        return residual_decode(store.codec, store.cent_pages[pg, col], store.code_pages[pg, col])
+    return store.tok_pages[pg, col]
+
+
 def token_bytes(store: PagedStore) -> int:
     """Bytes of the token payload: the fp32 page pool, or the compressed
     tier's id and code pools plus the codec tables."""

@@ -65,6 +65,16 @@ given by :meth:`from_arrays`, and writes them in place, O(new docs); once
 came in through the constructor), each tensor is copied the first time a
 mutation writes it, so the other view keeps answering its own corpus.
 
+**Threads.**  Where JAX's arrays are immutable and any thread may read
+them, the port's mutations write the index in place.  So one thread mutates
+a retriever (a server's worker), and the facade holds its :attr:`lock`
+across every mutation and across :meth:`snapshot`, :meth:`clone` and
+:meth:`with_backend`: a reader on another thread either holds the lock for
+a whole reading (the drift monitor does) or takes a :meth:`snapshot` under
+it and reads that (the background refresh does), and sees a whole index
+between two mutations either way.  Searches on the mutating thread need no
+lock.
+
 PyTorch runs eagerly; :meth:`trace_count` counts what JAX's compile cache
 would hold: one entry for each distinct (backend, resolved params, query
 shape, state shapes) served, so an add within capacity adds nothing and a
@@ -73,6 +83,7 @@ bucket growth adds one.
 from __future__ import annotations
 
 import pathlib
+import threading
 import time
 
 import numpy as np
@@ -82,7 +93,7 @@ from repro_torch.anns import registry
 from repro_torch.anns.base import CorpusView, QueryBatch, over_store, pad_topk
 from repro_torch.anns.bruteforce import mips_topk
 from repro_torch.anns.ivf import IVFIndex, search_ivf_one_launch
-from repro_torch.anns.quantization import residual_decode, train_residual_codec
+from repro_torch.anns.quantization import train_residual_codec
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common.device import resolve_device
 from repro_torch.convert import FORMAT, index_from_numpy, index_to_numpy
@@ -226,6 +237,7 @@ class LemurRetriever:
         self._served: set = set()
         self._trace_counts: dict[tuple, int] = {}
         self._trace_shapes: dict[tuple, int] = {}
+        self._lock = threading.RLock()
 
     @classmethod
     def _owning(cls, index: LemurIndex, **kw) -> "LemurRetriever":
@@ -237,6 +249,14 @@ class LemurRetriever:
     @property
     def index(self) -> LemurIndex:
         return self._index
+
+    @property
+    def lock(self) -> threading.RLock:
+        """Held across every mutation and across :meth:`snapshot`,
+        :meth:`clone` and :meth:`with_backend` (module docstring: threads).
+        A reader on another thread than the mutating one holds it for a
+        whole reading, or reads a snapshot taken under it."""
+        return self._lock
 
     @property
     def cfg(self) -> LemurConfig:
@@ -292,8 +312,9 @@ class LemurRetriever:
     def snapshot(self) -> LemurIndex:
         """The current index, which later mutations of this retriever never
         change: each tensor they write is copied first."""
-        self._share_all()
-        return self._index
+        with self._lock:
+            self._share_all()
+            return self._index
 
     def _share_all(self) -> None:
         self._shared = {"store": set(_STORE_WRITES), "ann": set(_ANN_WRITES)}
@@ -436,18 +457,19 @@ class LemurRetriever:
         The new retriever shares the store: each side copies a tensor before
         its first write to it.  Its :attr:`build_log` holds the stage seconds
         (the backend's own stages, then the backend's name for the rest)."""
-        idx = self._index
-        cfg = cfg or idx.cfg
         backend = registry.canonical(backend)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         clock = _StageClock(self.device, False)
-        ann = _build_over_store(idx, backend, cfg, gen, parts, clock)
-        clock(backend)
-        index = idx._replace(cfg=cfg.replace(anns=backend), backend=backend, ann=ann)
-        r = LemurRetriever(index, solver_state=self._solver, x_ols=self._x_ols)
+        with self._lock:
+            idx = self._index
+            cfg = cfg or idx.cfg
+            ann = _build_over_store(idx, backend, cfg, gen, parts, clock)
+            clock(backend)
+            index = idx._replace(cfg=cfg.replace(anns=backend), backend=backend, ann=ann)
+            r = LemurRetriever(index, solver_state=self._solver, x_ols=self._x_ols)
+            self._share_all()
         r._shared["ann"] = set()     # its first-stage state is its own
         r.build_log = {"seconds": clock.seconds}
-        self._share_all()
         return r
 
     def resolve(self, params: SearchParams | None = None) -> SearchParams:
@@ -542,8 +564,9 @@ class LemurRetriever:
         by ``seed``), the docs handed to the first stage's ``add`` (the IVF
         lists: appended in place), and paged into slots
         ``[m, m + n)`` (in :attr:`last_added_ids`).  Returns this retriever."""
-        self._mutate_add(doc_tokens, doc_mask, seed)
-        self._version += 1
+        with self._lock:
+            self._mutate_add(doc_tokens, doc_mask, seed)
+            self._version += 1
         return self
 
     @torch.no_grad()
@@ -552,17 +575,19 @@ class LemurRetriever:
         the first stage is not rebuilt (``pages.mask_dead`` masks its stale
         ids after every first stage).  Raises ``ValueError`` on duplicate,
         unknown or already-deleted ids.  Returns this retriever."""
-        self._mutate_delete(doc_ids)
-        self._version += 1
+        with self._lock:
+            self._mutate_delete(doc_ids)
+            self._version += 1
         return self
 
     @torch.no_grad()
     def update(self, doc_ids, doc_tokens, doc_mask, *, seed: int = 0) -> np.ndarray:
         """Replace docs: delete ``doc_ids`` and add the new contents under one
         version.  Returns the new slot ids (an updated doc is a new doc)."""
-        self._mutate_delete(doc_ids)
-        ids = self._mutate_add(doc_tokens, doc_mask, seed)
-        self._version += 1
+        with self._lock:
+            self._mutate_delete(doc_ids)
+            ids = self._mutate_add(doc_tokens, doc_mask, seed)
+            self._version += 1
         return ids
 
     def _free(self) -> list[int]:
@@ -624,13 +649,7 @@ class LemurRetriever:
         pick = np.random.default_rng(seed).integers(0, total, size=min(idx.cfg.n_ols, total))
         pos = torch.as_tensor(pick, device=nt.device)
         slot = torch.searchsorted(ends, pos, right=True)
-        t = pos - (ends - nt)[slot]
-        pg = st.page_table[slot, t // st.page].long()
-        col = t % st.page
-        if st.residual:
-            x = residual_decode(st.codec, st.cent_pages[pg, col], st.code_pages[pg, col])
-        else:
-            x = st.tok_pages[pg, col]
+        x = pages.read_tokens(st, slot, pos - (ends - nt)[slot])
         self._solver = indexer.ols_solver_state(idx.psi, x.contiguous(), idx.cfg)
         return self._solver
 
@@ -639,9 +658,10 @@ class LemurRetriever:
         or re-build: the index and the OLS solver are shared, and each side
         copies a tensor before its first write to it; ``version`` is carried
         over.  The same ``add`` on every clone gives the same W rows."""
-        r = LemurRetriever(self._index, solver_state=self._solver, x_ols=self._x_ols)
-        r._version = self._version
-        self._share_all()
+        with self._lock:
+            r = LemurRetriever(self._index, solver_state=self._solver, x_ols=self._x_ols)
+            r._version = self._version
+            self._share_all()
         return r
 
     @torch.no_grad()
@@ -662,6 +682,11 @@ class LemurRetriever:
            deleted meanwhile are zeroed.  The refresh's own tensors are never
            written.
         3. Swap the index in, one version more.  Returns this retriever."""
+        with self._lock:
+            self._install_refresh(refresh)
+        return self
+
+    def _install_refresh(self, refresh) -> None:
         idx = self._index
         dev = self.device
 
@@ -726,4 +751,3 @@ class LemurRetriever:
         self._x_ols = solver["x_ols"]
         self._version += 1
         self._last_refresh_caught_up = caught
-        return self

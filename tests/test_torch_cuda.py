@@ -1536,3 +1536,156 @@ def test_token_pruning_lists_on_card_match_cpu(cuda):
     s, i = tp.search_token_pruning(card, q, qm, nprobe=8, k_prime=300, m=view.m)
     ds, di = tp.search_token_pruning_direct(card, q, qm, nprobe=8, k_prime=300, m=view.m)
     assert torch.equal(s, ds) and torch.equal(i, di)
+
+
+# --------------------------------------------------------------------------
+# online serving, the fleet router and the index lifecycle on the card
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def online_card():
+    """A small IVF build on the card (the lifecycle suites' widths, 3,000
+    docs) and its ragged host queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    corpus = synthetic.make_corpus(m=3000, d=32, avg_tokens=16, max_tokens=24,
+                                   n_centers=64, seed=0)
+    cfg = LemurConfig(d=32, d_prime=128, m_pretrain=256, n_train=2048, n_ols=512,
+                      epochs=3, k=10, k_prime=64)
+    r = LemurRetriever.build(corpus, cfg, generator=torch.Generator().manual_seed(0),
+                             device="cuda")
+    from repro_torch.serving import ragged_queries
+    return r, corpus, ragged_queries(48, 32, (2, 40), seed=4)
+
+
+@pytest.mark.gpu
+def test_server_replay_on_card(online_card):
+    """An open-loop replay through a RetrieverServer on the card: nothing
+    lost, one launch of each serving kernel a micro-batch, the served
+    shapes within the ladder's bound, and every result's ids equal to a
+    direct search of its query alone up to near-ties (relative gap < 1e-5),
+    scores within rtol 1e-5 / atol 1e-4; the results come back as host
+    arrays."""
+    from repro_torch.serving import BucketLadder, RetrieverServer, poisson_trace, replay
+
+    r, _, queries = online_card
+    r = r.clone()
+    ladder = BucketLadder((16, 32, 64), 8)
+    tc0 = r.trace_count()
+    with RetrieverServer(r, ladder=ladder, max_wait_us=500) as srv:
+        srv.search(queries[0], timeout=120)          # first launches build the kernels
+        ops.reset_launch_counts()
+        res, rep = replay(srv, queries, poisson_trace(300.0, 0.5, seed=1), timeout=120)
+    assert rep["n_lost"] == 0 and all(isinstance(x, tuple) for x in res)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {k: rep["n_batches"] for k in ("fused_psi_pool", "ivf_probe_scan",
+                                                    "rerank_paged_scores")}
+    assert r.trace_count() - tc0 <= ladder.compile_bound()
+    for i, (s, ids) in enumerate(res):
+        q = queries[i % len(queries)]
+        assert isinstance(s, np.ndarray) and isinstance(ids, np.ndarray)
+        ws, wi = r.search(q[None], np.ones((1, len(q)), bool))
+        _same_topk(torch.as_tensor(s)[None], torch.as_tensor(ids)[None], ws.cpu(), wi.cpu(),
+                   1e-5)
+
+
+@pytest.mark.gpu
+def test_fleet_add_barrier_on_card(online_card):
+    """Two clones on the card behind a Router: one add lands one
+    snapshot_version on both, the new W rows are equal bit for bit, the
+    first add copies what the clones share, and both answer a query the
+    same way after it."""
+    from repro_torch.fleet import Router, clone_replicas, warm_replicas
+    from repro_torch.serving import BucketLadder
+
+    r, corpus, queries = online_card
+    reps = clone_replicas(r, 2)
+    ladder = BucketLadder((32, 64), 4)
+    warm_replicas(reps, ladder, 32)
+    new = synthetic.make_corpus(m=5, d=32, avg_tokens=16, max_tokens=24, n_centers=64, seed=9)
+    pool = r.index.store.tok_pages.data_ptr()
+    with Router(reps, ladder=ladder, max_wait_us=500, stall_timeout_s=30.0) as router:
+        f = router.add(new.doc_tokens, new.doc_mask)
+        assert f.result(timeout=120) == r.m + 5 and f.snapshot_version == r.version + 1
+        assert [rp.version for rp in reps] == [r.version + 1] * 2
+        outs = [router.search(queries[1], timeout=120) for _ in range(4)]
+    a, b = (rp.index.store for rp in reps)
+    assert torch.equal(a.W[r.m:r.m + 5], b.W[r.m:r.m + 5])
+    assert a.tok_pages.data_ptr() != pool and b.tok_pages.data_ptr() != pool
+    assert r.index.store.tok_pages.data_ptr() == pool and r.m == corpus.m
+    for s, ids in outs[1:]:
+        assert np.array_equal(ids, outs[0][1]) and np.array_equal(s, outs[0][0])
+
+
+@pytest.mark.gpu
+def test_router_frees_replica_memory_on_card(online_card):
+    """Two clones behind a Router copy what they share at their first add;
+    once ``with Router(...)`` has exited and the caller drops the replicas,
+    that card memory is freed with Python's cyclic collector off: no
+    reference cycle through the router, its barriers or its requests keeps
+    it."""
+    import gc
+
+    from repro_torch.fleet import Router, clone_replicas
+    from repro_torch.serving import BucketLadder
+
+    r, _, queries = online_card
+    new = synthetic.make_corpus(m=5, d=32, avg_tokens=16, max_tokens=24, n_centers=64, seed=12)
+    r.search(queries[0][None], np.ones((1, len(queries[0])), bool))
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        reps = clone_replicas(r, 2)
+        with Router(reps, ladder=BucketLadder((32, 64), 4), max_wait_us=500,
+                    stall_timeout_s=30.0) as router:
+            assert router.add(new.doc_tokens, new.doc_mask).result(timeout=120) == r.m + 5
+            futs = [router.submit(q) for q in queries[:8]]
+            router.kill_replica(1)
+            for f in futs:
+                f.result(timeout=120)
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_allocated() - mem0
+        del router, reps, futs, f
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - mem0
+    finally:
+        gc.enable()
+    pool = r.index.store.tok_pages
+    assert grown >= 2 * pool.numel() * pool.element_size(), grown
+    assert left <= 0.01 * grown, (left, grown)
+
+
+@pytest.mark.gpu
+def test_refresh_deterministic_on_card(online_card):
+    """build_refresh of one snapshot with one seed, twice on the card: W,
+    the OLS solver and every field of the rebuilt IVF equal bit for bit (the
+    k-means sums in a fixed order); installing it serves from the card."""
+    from repro_torch.anns.kmeans import segment_sums
+    from repro_torch.lifecycle import build_refresh
+
+    r, _, queries = online_card
+    r = r.clone()
+    new = synthetic.make_corpus(m=200, d=32, avg_tokens=16, max_tokens=24, n_centers=8,
+                                topic_strength=4.0, seed=11)
+    r.add(new.doc_tokens, new.doc_mask)
+    r.delete(np.arange(0, 300, 3))
+    a, b = build_refresh(r, seed=5), build_refresh(r, seed=5)
+    assert a.W.device.type == "cuda" and a.phase_s.keys() == {"solver", "refit", "recluster"}
+    assert torch.equal(a.W, b.W)
+    for k in ("chol", "feats", "x_ols"):
+        assert torch.equal(a.solver[k], b.solver[k]), k
+    for k, v in a.ann._asdict().items():
+        if v is not None:
+            assert torch.equal(v, getattr(b.ann, k)), k
+    x = torch.randn(70000, 64, device="cuda")
+    c = torch.randint(0, 700, (70000,), device="cuda")
+    s1, s2 = segment_sums(x, c, 700), segment_sums(x, c, 700)
+    assert torch.equal(s1, s2)
+    want = torch.zeros(700, 64, dtype=torch.float64, device="cuda").index_add_(0, c, x.double())
+    torch.testing.assert_close(s1.double(), want, rtol=1e-5, atol=1e-4)
+    r.install_refresh(a)
+    q = queries[2]
+    s, ids = r.search(q[None], np.ones((1, len(q)), bool))
+    assert ids.device.type == "cuda" and bool((ids >= 0).all())

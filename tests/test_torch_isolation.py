@@ -32,7 +32,7 @@ def test_importing_every_module_pulls_in_no_jax():
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 39     # with dist, dist.serve, retriever.sharded
+    assert int(r.stdout.strip()) >= 63     # with serving, fleet and lifecycle (14 modules)
 
 
 @pytest.mark.parametrize("module", ["repro_torch.dist", "repro_torch.dist.serve",
