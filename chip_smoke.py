@@ -10,7 +10,30 @@ script
 1. prints the card's name and power limit and the software versions, and
    builds every CUDA kernel in ``src/repro_torch/csrc`` (one nvcc each, in
    parallel);
-2. holds the token MaxSim kernel against its plain version on a small
+2. holds the serving kernels, ``query_fused`` / ``mips_topk`` /
+   ``mips_sq8`` and the residual kernels against their plain versions on
+   small ragged cases (4, 5 and 7 below say what each holds);
+2b. **launch**: while the process holds nothing large, runs the port's
+   launchers and examples, counters from 0 around each part:
+   ``repro_torch.launch.serve.main`` at full width (m 50,000, d 128, d'
+   2,048, batches of 64, every registered backend, ``--save-dir``,
+   ``--mesh 1``: a one-rank NCCL group it makes and destroys, ``--online``
+   at 500 QPS for 3 s, ``--fleet 2`` with a 50 ms SLO), its printed rows
+   parsed (one a backend, both sharded rows, the online row within its
+   trace bound, the fleet row with nothing lost) and no process group
+   left; the saved index loaded on the CPU and one batch served on both
+   (the card's candidates against the CPU's, the card's top-10 against the
+   CPU rerank of its candidates and, on rows whose candidates agree,
+   against the CPU's own, ids up to counted near-ties); the v0 ``query``
+   and ``candidates`` against the facade bit for bit; the four
+   ``kernels.ops`` entries against the wrappers they call, bit for bit
+   (a 4-bit codec trained on 4,096 latent rows for the residual scan);
+   the five examples in process (their own assertions) while
+   ``repro_torch.launch.serve_lifecycle`` runs twice beside them, each in
+   a process of its own (m 20,000, d 128, ``--refresh --drift-burst 512``,
+   single and ``--replicas 2``): nothing lost, every refresh start ending
+   in a swap (to a later version) or a failure;
+   then holds the token MaxSim kernel against its plain version on a small
    ragged case (d=20, T=7, a doc with no valid token, a mask that is not a
    prefix, n and m off every tile);
 3. **build path**: makes a corpus of ``--build-m`` docs on the card with the
@@ -203,14 +226,17 @@ script
 11. runs ``kernels/psi_ablation.py`` (the psi kernel built four ways:
    as built, without its product, with W' resident, without its
    statistics; under a minute);
-12. prints a ``build`` line, the ``fleet`` and ``lifecycle`` lines, a
+12. prints the ``launch`` line (each part's seconds, rows, checks and
+   launches by kernel, the phase's peak memory, the card) after phase 2b,
+   a ``build`` line, the ``fleet`` and ``lifecycle`` lines, a
    ``widths`` line, a ``serving`` line, a ``routes`` line, a ``residual``
    line, a ``sharded`` line, the ``mutation`` line (with the residual and
    sharded rounds), the ``online`` line, the ``backends`` line, the
    ``psi_ablation`` line, the ``kernels`` line (token MaxSim's row with its
    launches on the mutation path and the backends' rounds; every row with
    its launches on each backend's batches and in the online, fleet and
-   lifecycle phases) and last ``{"ok": true, ...}``.
+   lifecycle phases and in each part of the launch phase) and last
+   ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
 """
@@ -3860,6 +3886,384 @@ def registry_pack(r):
     return registry.get_backend(r.backend).pack_state(r.index.ann)
 
 
+# --------------------------------------------------------------------------
+# the launchers, the v0 surface and the examples (the launch phase)
+# --------------------------------------------------------------------------
+
+LAUNCH_ARGV = ["--m", "50000", "--d", "128", "--d-prime", "2048", "--batch", "64",
+               "--n-batches", "5", "--k", "10", "--backend", "all", "--mesh", "1", "--online",
+               "--online-rate", "500", "--online-duration", "3", "--fleet", "2",
+               "--fleet-slo-ms", "50"]
+LIFECYCLE_ARGV = ["--d", "128", "--m", "20000", "--duration", "3", "--refresh",
+                  "--drift-burst", "512", "--refresh-min-reservoir", "64"]
+EXAMPLES = {"quickstart": ["--m", "800", "--epochs", "8"], "serve_batched": [],
+            "serve_online": ["--duration", "2"], "serve_fleet": ["--duration", "2"],
+            "lifecycle_refresh": []}
+#: the kernels each part of the phase must launch
+LAUNCH_KERNELS = {
+    "launcher": ("fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores", "token_maxsim",
+                 "fused_psi", "mips_topk", "rerank_gather_scores"),
+    "ops_entries": ("token_maxsim", "fused_psi", "ivf_probe_scan", "ivf_probe_res_scan"),
+    "serve_batched": ("fused_psi_pool", "ivf_probe_scan", "rerank_paged_scores", "mips_sq8",
+                      "query_fused"),
+}
+F = r"\d+(?:\.\d+)?"
+LAUNCH_LINES = {
+    "backend": rf"\[serve\] backend=(?P<name>[a-z_]+) +QPS=(?P<qps>\d+)  "
+               rf"recall@10=(?P<recall>{F})  jit_traces=(?P<traces>\d+)",
+    "sharded": rf"\[serve\] mesh= *(?P<mesh>\S+) sharded QPS=(?P<qps>\d+)  "
+               rf"recall@10=(?P<recall>{F})  jit_traces=(?P<traces>\d+)  sq8=(?P<sq8>\w+)  "
+               rf"one_launch=(?P<one_launch>\w+)",
+    "online": rf"\[serve\] online rate=(?P<rate>{F})qps p50=(?P<p50>{F})ms p95=(?P<p95>{F})ms "
+              rf"p99=(?P<p99>{F})ms achieved=(?P<qps>\d+)qps occupancy=(?P<occ>{F}) "
+              rf"jit_traces=(?P<traces>\d+)/(?P<bound>\d+)",
+    "fleet": rf"\[serve\] fleet replicas=(?P<replicas>\d+) rate=(?P<rate>{F})qps "
+             rf"p50=(?P<p50>{F})ms p99=(?P<p99>{F})ms achieved=(?P<qps>\d+)qps "
+             rf"rejected=(?P<rejected>\d+) expired=(?P<expired>\d+) lost=(?P<lost>\d+) "
+             rf"healthy=(?P<healthy>\d+) jit_traces=(?P<traces>\d+)/(?P<bound>\d+)",
+}
+
+
+def parse_launcher(out):
+    """The launcher's printed rows by kind, their numbers as floats."""
+    rows = {k: [] for k in LAUNCH_LINES}
+    for line in out.splitlines():
+        for kind, pat in LAUNCH_LINES.items():
+            mt = re.match(pat, line)
+            if mt:
+                rows[kind].append({k: (v if k in ("name", "mesh", "sq8", "one_launch")
+                                       else float(v)) for k, v in mt.groupdict().items()})
+    return rows
+
+
+@contextlib.contextmanager
+def counted(torch, launches, part):
+    """Launch counters from 0 around a part; its counts land in launches[part]."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    yield
+    torch.cuda.synchronize()
+    launches[part] = {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def captured(fn, *a):
+    """Run fn(*a) with its stdout kept, then echo it indented: (result, text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*a)
+    out = buf.getvalue()
+    print("\n".join("    " + ln for ln in out.splitlines()), flush=True)
+    return res, out
+
+
+def saved_index_both_ways(torch, r, save_dir, batch):
+    """The launcher's saved index on the card (its reloaded retriever) and on
+    the CPU: one batch through both; card candidates against the CPU's, the
+    card's top-10 against the CPU rerank of the card's candidates and, on
+    rows whose candidates agree, against the CPU's own top-10; then the v0
+    query / candidates on the card's index against the facade, bit for bit."""
+    from repro_torch.core import index as v0
+    from repro_torch.kernels import ops
+    from repro_torch.retriever import LemurRetriever, SearchParams
+    from repro_torch.retriever.facade import first_stage
+
+    q, qm, _ = batch
+    p = SearchParams(k=10)
+    t0 = time.time()
+    cpu = LemurRetriever.load(save_dir, device="cpu")
+    load_s = time.time() - t0
+    s, i = r.search(q, qm, p)
+    cand = r.candidates(q, qm, p)
+    qc, qmc = q.cpu(), qm.cpu()
+    t0 = time.time()
+    cs, ci = cpu.search(qc, qmc, p)
+    ccand = cpu.candidates(qc, qmc, p)
+    cpu_s = time.time() - t0
+    same = (cand.cpu().sort(1).values == ccand.sort(1).values).all(1)
+    st = cpu.index.store
+    rs, ri = ops.fused_rerank_paged(qc, qmc, cand.cpu(), st.tok_pages, st.page_table,
+                                    st.n_tokens, 10)
+    err, ties, _ = same_topk(torch, s.cpu(), i.cpu(), rs, ri, 1e-5, "saved index: card rerank")
+    err2, ties2, _ = same_topk(torch, s.cpu()[same], i.cpu()[same], cs[same], ci[same], 1e-5,
+                               "saved index: card vs CPU")
+    require(int((~same).sum()) <= 2, f"saved index: candidates differ in {int((~same).sum())} "
+                                     f"of {len(same)} rows")
+    idx = r.index
+    v0_bits = {}
+    for kw in ({}, {"use_ann": False}, {"nprobe": 8}):
+        ws, wi = r.search(q, qm, v0._legacy_params(idx, **kw))
+        gs, gi = v0.query(idx, q, qm, **kw)
+        spelled = ", ".join(f"{k}={v}" for k, v in kw.items())
+        v0_bits[f"query({spelled})"] = bool(torch.equal(gs, ws) and torch.equal(gi, wi))
+    for use_ann in (False, True):
+        pp = v0._legacy_params(idx, k_prime=256, use_ann=use_ann)
+        got = v0.candidates(idx, q, qm, k_prime=256, use_ann=use_ann)
+        v0_bits[f"candidates(use_ann={use_ann})"] = bool(torch.equal(got, first_stage(
+            idx, q, qm, pp)))
+    require(all(v0_bits.values()), f"v0 functions differ from the facade: {v0_bits}")
+    del cpu
+    return dict(cpu_load_s=load_s, cpu_batch_s=cpu_s, rows=len(same),
+                rows_same_candidates=int(same.sum()), max_abs_err_card_rerank=err,
+                near_tie_ids_card_rerank=ties, max_abs_err_card_vs_cpu=err2,
+                near_tie_ids_card_vs_cpu=ties2, v0_bit_for_bit=v0_bits)
+
+
+def ops_entries_case(torch, seed):
+    """The four ops entries on the served widths of a small case (d 128, d'
+    2,048; 64 SQ8 / fp32 lists and 64 residual lists of a 4-bit codec
+    trained on 4,096 latent rows) against the wrappers they call, bit for
+    bit."""
+    from repro_torch.anns.quantization import residual_encode, sq8_quant, train_residual_codec
+    from repro_torch.core.model import Psi
+    from repro_torch.kernels import fused_psi, gather_scan, ops
+    from repro_torch.kernels import maxsim as kmaxsim
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 25)
+    d, dp, nlist = 128, 2048, 64
+    x = torch.nn.functional.normalize(torch.randn(256, d, generator=g, device=dev), dim=-1)
+    docs = torch.nn.functional.normalize(torch.randn(300, 80, d, generator=g, device=dev), dim=-1)
+    dmask = torch.rand(300, 80, generator=g, device=dev) > 0.3
+    psi = Psi.init(d, dp, torch.Generator().manual_seed(seed), device=dev)
+    w = (psi.dense.kernel, psi.dense.bias, psi.ln.scale, psi.ln.bias)
+    jdict = {"dense": {"kernel": w[0], "bias": w[1]}, "ln": {"scale": w[2], "bias": w[3]}}
+    lat = torch.nn.functional.normalize(torch.randn(4096, dp, generator=g, device=dev), dim=-1)
+    codec = train_residual_codec(torch.Generator().manual_seed(seed), lat, bits=4, ncent=nlist,
+                                 iters=4, sample=4096)
+    cid, codes = residual_encode(codec, lat)
+    order = torch.sort(cid.long(), stable=True).indices
+    counts = torch.bincount(cid.long(), minlength=nlist)
+    cap = int(counts.max())
+    slot = torch.arange(len(order), device=dev) - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    ids = torch.full((nlist, cap), -1, dtype=torch.int32, device=dev)
+    ids[cid[order].long(), slot] = order.int()
+    rcodes = torch.zeros((nlist, cap, codes.shape[1]), dtype=torch.uint8, device=dev)
+    rcodes[cid[order].long(), slot] = codes[order]
+    vecs = torch.zeros((nlist, cap, dp), device=dev)
+    vecs[cid[order].long(), slot] = lat[order]
+    sq, sc = sq8_quant(vecs)
+    q = fused_psi.fused_psi_pool(x[:64].reshape(8, 8, d), None, *w)
+    probe = torch.topk(q @ codec.centroids.T, 16).indices.int()
+    cases = {
+        "token_maxsim": (lambda: ops.token_maxsim(x, docs, dmask),
+                         lambda: kmaxsim.token_maxsim(x, docs, dmask)),
+        "fused_psi(Psi)": (lambda: ops.fused_psi(x, psi), lambda: fused_psi.fused_psi(x, *w)),
+        "fused_psi(dict)": (lambda: ops.fused_psi(x, jdict), lambda: fused_psi.fused_psi(x, *w)),
+        "fused_ivf_scan(sq8)": (lambda: ops.fused_ivf_scan(q, probe, ids, sq, sc),
+                                lambda: gather_scan.ivf_probe_scan(q, probe, ids, sq, sc)),
+        "fused_ivf_scan(fp32)": (lambda: ops.fused_ivf_scan(q, probe, ids, vecs),
+                                 lambda: gather_scan.ivf_probe_scan(q, probe, ids, vecs)),
+        "fused_ivf_scan_res": (
+            lambda: ops.fused_ivf_scan_res(q, probe, ids, rcodes, codec.centroids, codec.values),
+            lambda: gather_scan.ivf_probe_res_scan(q, probe, ids, rcodes, codec.centroids,
+                                                   codec.values)),
+    }
+    out = {}
+    for name, (entry, wrapper) in cases.items():
+        want = wrapper()
+        got = entry()
+        require(torch.equal(got, want), f"ops.{name} differs from its wrapper")
+        out[name] = list(got.shape)
+    return dict(bit_for_bit=True, shapes=out, lists=nlist, cap=cap)
+
+
+#: one lifecycle launcher run in a process of its own: its result and its
+#: launch counts (from 0 at its start) as JSON
+LIFECYCLE_CHILD = r"""
+import dataclasses, json, sys
+sys.path.insert(0, sys.argv[2])
+from repro_torch.kernels import ops
+from repro_torch.launch import serve_lifecycle
+ops.reset_launch_counts()
+res = serve_lifecycle.main(sys.argv[3:])
+mon = res["monitor_report"]
+json.dump(dict(
+    n_swaps=res["n_swaps"], version=res["version"],
+    events=[dict(kind=ev.kind, **dataclasses.asdict(ev)) for ev in res["events"]],
+    reports=[{k: v for k, v in rep.items() if isinstance(v, (int, float))}
+             for rep in res["reports"]],
+    monitor_last_report=dataclasses.asdict(mon) if mon is not None else None,
+    launches={k: v for k, v in ops.launch_counts().items() if v}),
+    open(sys.argv[1], "w"), default=str)
+"""
+LIFECYCLE_TIMEOUT_S = 600
+
+
+def event_chain(events):
+    """Every refresh start ends in a swap or a failure before the next, and
+    a swap advances the version past the one its rebuild started from."""
+    start = None
+    for ev in events:
+        if ev["kind"] == "RefreshStarted":
+            require(start is None, f"lifecycle: two refresh starts in a row: {events}")
+            start = ev
+        elif ev["kind"] in ("SwapCompleted", "SwapAborted", "RefreshFailed"):
+            require(start is not None, f"lifecycle: {ev['kind']} without a start")
+            if ev["kind"] == "SwapCompleted":
+                require(ev["version"] > start["version"],
+                        f"lifecycle: the swap to {ev['version']} did not advance past "
+                        f"{start['version']}")
+            start = None
+    require(start is None, "lifecycle: a refresh start without an end")
+
+
+def check_example(torch, name, argv, res, out):
+    """An example's own assertions, and what its line keeps."""
+    ex = {"argv": " ".join(argv)}
+    if name == "quickstart":
+        require("save/load round-trip OK" in out, "quickstart: round trip")
+        ex["recall_at_10"] = res["recall"]
+    elif name == "serve_batched":
+        r = res["retriever"]
+        one = res["rows"]["1launch"]
+        q, qm, _ = res["batches"][1]
+        ex["rows"] = {k: {kk: v for kk, v in rw.items() if kk != "params"}
+                      for k, rw in res["rows"].items()}
+        # the facade's plan for the one-launch row, and what one search of it
+        # puts on the card
+        ex["one_launch_plan"] = one["plan"]
+        ex["one_launch_cuda"] = cuda_launches(torch, lambda: r.search(q, qm, one["params"]))
+    elif name == "serve_online":
+        require(res["new_doc_found"], "serve_online: the added doc was not found")
+        ex.update(steady_p99_ms=res["steady"]["p99_ms"], qps=res["steady"]["qps"])
+    elif name == "serve_fleet":
+        require("[1] parity ok" in out and res["added_found"] and res["quarantined"] == [0]
+                and res["overload"]["n_lost"] == 0,
+                "serve_fleet: parity, the add, the quarantine or a lost request")
+        ex.update(overload_p99_ms=res["overload"]["p99_ms"],
+                  rejected=res["overload"]["n_rejected"])
+    else:
+        kinds = [ev.kind for ev in res["events"]]
+        require("RefreshFailed" in kinds and kinds[-1] == "SwapCompleted",
+                f"lifecycle_refresh: events {kinds}")
+        ex["events"] = kinds
+    return ex
+
+
+def launch_phase(torch, args, card):
+    """The launchers, the v0 surface, the ops entries and the five examples
+    on the card -> (launch line, launches by part)."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.anns import registry
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, seconds, line = {}, {}, {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the launcher at full width
+        t0 = time.time()
+        with counted(torch, launches, "launcher"):
+            res, out = captured(serve.main, LAUNCH_ARGV + ["--save-dir", tmp])
+        seconds["launcher"] = time.time() - t0
+        require(not tdist.is_initialized(), "the launcher left a process group")
+        rows = parse_launcher(out)
+        names = [rw["name"] for rw in rows["backend"]]
+        require(names == registry.list_backends(), f"launcher backend rows {names}")
+        require(all(rw["traces"] == 1 for rw in rows["backend"]), "a backend traced twice")
+        require(len(rows["sharded"]) == 2, "launcher: the two sharded rows")
+        require(len(rows["online"]) == 1 and rows["online"][0]["traces"]
+                <= rows["online"][0]["bound"], "launcher: online row / trace bound")
+        require(len(rows["fleet"]) == 1 and rows["fleet"][0]["lost"] == 0,
+                "launcher: fleet row / lost requests")
+        line["launcher"] = dict(
+            argv=" ".join(LAUNCH_ARGV), backends={rw["name"]: dict(
+                qps=rw["qps"], recall_at_10=rw["recall"], jit_traces=rw["traces"])
+                for rw in rows["backend"]},
+            sharded=rows["sharded"], online=rows["online"][0], fleet=rows["fleet"][0],
+            online_report={k: v for k, v in res["rows"]["online"].items()
+                           if isinstance(v, (int, float))},
+            fleet_report={k: v for k, v in res["rows"]["fleet"].items()
+                          if isinstance(v, (int, float))},
+            slo_transitions=[ln.strip() for ln in out.splitlines() if "slo " in ln])
+        # 2. the saved index on the card and on the CPU, the v0 functions
+        t0 = time.time()
+        with counted(torch, launches, "saved_index"):
+            line["saved_index"] = saved_index_both_ways(torch, res["retriever"], tmp,
+                                                        res["batches"][0])
+        seconds["saved_index"] = time.time() - t0
+        del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 3. the ops entries
+    t0 = time.time()
+    with counted(torch, launches, "ops_entries"):
+        line["ops_entries"] = ops_entries_case(torch, args.seed)
+    seconds["ops_entries"] = time.time() - t0
+    # 4. the lifecycle launcher, single and behind a router: each in a
+    # process of its own, both beside the examples (a run that sees no swap
+    # serves on for 120 s: the JAX launcher's wait)
+    children = {}
+    tmp = tempfile.mkdtemp(prefix="lifecycle_")
+    try:
+        for name, extra in (("lifecycle_single", []),
+                            ("lifecycle_replicas_2", ["--replicas", "2"])):
+            log = open(os.path.join(tmp, f"{name}.log"), "w")
+            children[name] = (subprocess.Popen(
+                [sys.executable, "-c", LIFECYCLE_CHILD, os.path.join(tmp, f"{name}.json"),
+                 os.path.join(HERE, "src"), *LIFECYCLE_ARGV, *extra],
+                stdout=log, stderr=subprocess.STDOUT), log, extra, time.time())
+        # 5. the five examples, their own assertions holding
+        line["examples"] = {}
+        for name, argv in EXAMPLES.items():
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            t0 = time.time()
+            with counted(torch, launches, name):
+                res, out = captured(mod.main, argv)
+            seconds[name] = time.time() - t0
+            line["examples"][name] = check_example(torch, name, argv, res, out)
+            del res
+            gc.collect()
+        for name, (proc, log, extra, t0) in children.items():
+            rc = proc.wait(timeout=max(1.0, LIFECYCLE_TIMEOUT_S - (time.time() - t0)))
+            seconds[name] = time.time() - t0
+            log.close()
+            with open(os.path.join(tmp, f"{name}.log")) as f:
+                out = f.read()
+            print(f"  {name}:\n" + "\n".join("    " + ln for ln in out.splitlines()),
+                  flush=True)
+            require(rc == 0, f"{name}: exit code {rc}")
+            with open(os.path.join(tmp, f"{name}.json")) as f:
+                res = json.load(f)
+            require(all(rep["n_lost"] == 0 for rep in res["reports"]), f"{name}: lost requests")
+            event_chain(res["events"])
+            launches[name] = res["launches"]
+            drift = [ev for ev in res["events"] if ev["kind"] == "DriftDetected"]
+            line[name] = dict(
+                argv=" ".join(LIFECYCLE_ARGV + extra), n_swaps=res["n_swaps"],
+                version=res["version"], events=[ev["kind"] for ev in res["events"]],
+                p99_ms=[rep["p99_ms"] for rep in res["reports"]],
+                replays=len(res["reports"]), lost=sum(rep["n_lost"] for rep in res["reports"]),
+                drift_report=drift[0] if drift else None,
+                monitor_last_report=res["monitor_last_report"],
+                ran_beside="the examples, in a process of its own")
+    finally:
+        for proc, log, _, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not tdist.is_initialized(), "a process group was left behind")
+    for part, need in LAUNCH_KERNELS.items():
+        missing = [k for k in need if not launches[part].get(k)]
+        require(not missing, f"launch phase, {part}: no launch of {missing}")
+    torch.cuda.empty_cache()
+    line.update(seconds=seconds, total_s=time.time() - t_phase, launches=launches,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+    return line, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -3891,6 +4295,16 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    # the ragged cases, then the launchers while the process holds nothing large
+    ragged = (ragged_case(torch, args.seed), routes_ragged_case(torch, args.seed),
+              residual_ragged_case(torch, args.seed))
+    print(f"ragged cases ok (serving, query_fused / mips_topk / mips_sq8, residual): "
+          f"max abs err {ragged}", flush=True)
+    launch_line, launch_launches = launch_phase(torch, args, card)
+    print(json.dumps({"launch": launch_line}, default=str), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     build_line, maxsim_row, psi_build_launches, fleet_lifecycle = build_phase(torch, args, card)
     build_line.update(kernel_build_s=t_build)
     print(json.dumps({"build": build_line}), flush=True)
@@ -3902,7 +4316,7 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     (serving, routes, residual, sharded, mutation, online, backends,
-     kernels) = serve_and_check(torch, args)
+     kernels) = serve_and_check(torch, args, ragged)
     serving.update(card=card, build_s=t_build, total_s=time.time() - t_start)
     kernels[0]["launches_per_build"] = psi_build_launches     # unpooled form, Gram features
     maxsim_row["launches_mutation_path"] = {
@@ -3924,6 +4338,8 @@ def main():
             name: b["launches"].get(row["name"], 0) for name, b in backends["backends"].items()}
         row["launches_online_fleet_lifecycle"] = {
             name: int(c.get(row["name"], 0)) for name, c in phase_launches.items()}
+        row["launches_launch_phase"] = {
+            part: int(c.get(row["name"], 0)) for part, c in launch_launches.items()}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
@@ -4009,9 +4425,10 @@ def scan_spread(torch, probe, ids, kernel="ivf_probe_scan"):
                 largest_item_pairs=int((readers.clamp(max=per_q) * live_r).max()))
 
 
-def serve_and_check(torch, args):
-    """Phases 2-8 on the card; returns (serving numbers, routes line,
-    residual line, sharded line, kernel rows)."""
+def serve_and_check(torch, args, ragged_cases):
+    """Phases 2-8 on the card (``ragged_cases``: the three ragged cases'
+    errors, run earlier); returns (serving numbers, routes line, residual
+    line, sharded line, kernel rows)."""
     import gc
 
     from repro_torch.anns.ivf import default_nlist
@@ -4022,15 +4439,7 @@ def serve_and_check(torch, args):
 
     dev = torch.device("cuda")
 
-    # -- 2. ragged cases ---------------------------------------------------
-    ragged = ragged_case(torch, args.seed)
-    print(f"ragged case ok: max abs err {ragged}", flush=True)
-    route_ragged = routes_ragged_case(torch, args.seed)
-    print(f"ragged case of query_fused, mips_topk, mips_sq8 ok: max abs err "
-          f"{route_ragged}", flush=True)
-    res_ragged = residual_ragged_case(torch, args.seed)
-    print(f"ragged case of the residual kernels (2 and 4 bits) ok: max abs err "
-          f"{res_ragged}", flush=True)
+    ragged, route_ragged, res_ragged = ragged_cases
 
     # -- 3. index at full width ---------------------------------------------
     t0 = time.time()

@@ -114,6 +114,15 @@ def index_from_numpy(tree: dict[str, np.ndarray], extra: dict,
     return LemurIndex(cfg, psi, stats, store, backend, over_store(be, ann, store))
 
 
+def psi_params_from_numpy(params: dict, device="cuda") -> dict:
+    """JAX's ψ param dict (``{"dense": {"kernel", "bias"}, "ln": {"scale",
+    "bias"}}``, numpy arrays) with fp32 tensor leaves on ``device``, the
+    form ``kernels.ops.fused_psi`` takes beside a ``Psi``."""
+    dev = resolve_device(device)
+    return {group: {k: _tensor(v, dev, torch.float32) for k, v in leaves.items()}
+            for group, leaves in params.items()}
+
+
 def _tensor(x, dev, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.require(np.asarray(x), requirements=["C", "W"])).to(
         device=dev, dtype=dtype)

@@ -1,13 +1,14 @@
 """MaxSim similarity (eq. 1): the build's targets and the exact ground truth
 (twin of ``repro/core/maxsim.py``).
 
-Every function goes through the token MaxSim wrapper
+The corpus-wide functions go through the token MaxSim wrapper
 (``kernels/maxsim.py``), which launches the kernel for CUDA tensors and runs
 its plain twin for CPU tensors.  ``block`` docs at a time bound the plain
 twin's (n, block, T) scores and, in ``maxsim_scores``, the (B * Tq, block)
-per-token maxima on either device.  The legacy
-gathered rerank (:func:`rerank`, :func:`rerank_gathered`) is plain PyTorch
-on either device, as the JAX package's is jnp.
+per-token maxima on either device.  One pair's MaxSim
+(:func:`maxsim_pair`) and the legacy gathered rerank (:func:`rerank`,
+:func:`rerank_gathered`) are plain PyTorch on either device, as the JAX
+package's are jnp.
 """
 from __future__ import annotations
 
@@ -17,6 +18,14 @@ from repro_torch.anns.base import stable_topk
 from repro_torch.kernels import maxsim as _mx
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG
+
+
+def maxsim_pair(q, q_mask, c, c_mask):
+    """MaxSim(X, C) for one pair.  q: (Tq, d); c: (Td, d) -> () fp32: masked
+    doc tokens score NEG, masked query tokens add 0 (plain PyTorch on either
+    device, as the JAX package's is jnp)."""
+    s = torch.where(c_mask[None, :], q @ c.T, NEG)           # (Tq, Td)
+    return torch.where(q_mask, s.amax(-1), 0.0).sum()
 
 
 def token_maxsim(x, docs, docs_mask, *, block: int = 1024):

@@ -80,6 +80,12 @@ class Psi(nn.Module):
         return psi_apply(self, x)
 
 
+def init_psi(generator: torch.Generator, d: int, d_prime: int, *, device="cuda") -> Psi:
+    """The JAX ``init_psi`` (key first, a param dict) as the port's form: a
+    :class:`Psi` drawn by :meth:`Psi.init` from a CPU ``generator``."""
+    return Psi.init(d, d_prime, generator, device=device)
+
+
 def psi_apply(psi: Psi, x: torch.Tensor) -> torch.Tensor:
     """The plain psi: dense, tanh GELU, LayerNorm (eps 1e-5) in fp32."""
     return ref.fused_psi_ref(x, psi.dense.kernel, psi.dense.bias, psi.ln.scale,

@@ -1,4 +1,5 @@
-"""Public wrappers over the kernels (twin of ``repro/kernels/ops.py``).
+"""Public wrappers over the kernels (twin of ``repro/kernels/ops.py``; its
+entries' arguments without ``use_kernel``, ``block_*`` or ``interpret``).
 
 The device decides the path and nothing else does: CPU tensors go through
 the plain PyTorch versions, CUDA tensors through the hand-written kernels,
@@ -45,6 +46,43 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def token_maxsim(x, doc_tokens, doc_mask):
+    """(n, d) x (m, T, d) -> (n, m) fp32 per-token MaxSim contributions,
+    NEG for a doc with no valid token (``repro/kernels/ops.py:27``)."""
+    return _mx.token_maxsim(x, doc_tokens, doc_mask)
+
+
+def fused_psi(x, psi_params):
+    """psi(x) = LN(GELU_tanh(x W' + b)): (n, d) -> (n, d') fp32
+    (``repro/kernels/ops.py:48``).  ``psi_params`` is a
+    :class:`~repro_torch.core.model.Psi`, or JAX's param dict
+    (``{"dense": {"kernel", "bias"}, "ln": {"scale", "bias"}}``) with tensor
+    leaves, as ``convert.psi_params_from_numpy`` makes it from JAX's."""
+    if isinstance(psi_params, dict):
+        dense, ln = psi_params["dense"], psi_params["ln"]
+        w = (dense["kernel"], dense["bias"], ln["scale"], ln["bias"])
+    else:
+        w = (psi_params.dense.kernel, psi_params.dense.bias, psi_params.ln.scale,
+             psi_params.ln.bias)
+    return _fp.fused_psi(x, *w)
+
+
+def fused_ivf_scan(q, probe, ids, vecs, scales=None):
+    """Gather-at-source IVF probe scan (``repro/kernels/ops.py:100``): q (B,
+    d'); probe (B, nprobe) int32; the index's padded lists ids (nlist, cap),
+    vecs (nlist, cap, d') fp32 or int8 codes with scales (nlist, cap) ->
+    (B, nprobe, cap) fp32, pad slots -inf."""
+    return _gs.ivf_probe_scan(q, probe, ids, vecs, scales)
+
+
+def fused_ivf_scan_res(q, probe, ids, codes, centroids, values):
+    """Residual-tier IVF probe scan, the packed 2/4-bit codes decoded at the
+    source (``repro/kernels/ops.py:119``): codes (nlist, cap, d' * bits / 8)
+    uint8 coded against each list's centroid (nlist, d'), values (d',
+    2^bits) -> (B, nprobe, cap) fp32, pad slots -inf."""
+    return _gs.ivf_probe_res_scan(q, probe, ids, codes, centroids, values)
 
 
 def maxsim_scores(q, q_mask, doc_tokens, doc_mask, *, chunk: int | None = None):

@@ -99,7 +99,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.convert import FORMAT, index_from_numpy, index_to_numpy
 from repro_torch.core import indexer, maxsim, pages
 from repro_torch.core.config import LemurConfig
-from repro_torch.core.index import LemurIndex
+from repro_torch.core.index import LemurIndex, queries_on
 from repro_torch.core.model import PSI_LEAVES, Psi, TargetStats, pool_queries, train_phi
 from repro_torch.kernels import ops
 from repro_torch.retriever.params import SearchParams, effective_nprobe
@@ -496,19 +496,11 @@ class LemurRetriever:
     def launches(self, params: SearchParams | None = None) -> dict[str, int]:
         return launch_plan(self.resolve(params))
 
-    def _queries(self, q_tokens, q_mask):
-        dev = self.device
-        q_tokens = torch.as_tensor(q_tokens, dtype=torch.float32).to(dev).contiguous()
-        if q_mask is None:
-            q_mask = torch.ones(q_tokens.shape[:2], dtype=torch.bool, device=dev)
-        q_mask = torch.as_tensor(q_mask).to(device=dev, dtype=torch.bool).contiguous()
-        return q_tokens, q_mask
-
     @torch.inference_mode()
     def search(self, q_tokens, q_mask=None, params: SearchParams | None = None):
         """q_tokens: (B, Tq, d) -> (scores (B, k) fp32, doc ids (B, k) int32),
         on the index's device; q_mask (B, Tq) defaults to all tokens."""
-        q_tokens, q_mask = self._queries(q_tokens, q_mask)
+        q_tokens, q_mask = queries_on(self._index, q_tokens, q_mask)
         resolved = self.resolve(params)
         self._account(resolved, q_tokens)
         return search_pipeline(self._index, q_tokens, q_mask, resolved)
@@ -516,7 +508,7 @@ class LemurRetriever:
     @torch.inference_mode()
     def candidates(self, q_tokens, q_mask=None, params: SearchParams | None = None):
         """First-stage candidate ids only, (B, k') int32, tombstones -1."""
-        q_tokens, q_mask = self._queries(q_tokens, q_mask)
+        q_tokens, q_mask = queries_on(self._index, q_tokens, q_mask)
         return first_stage(self._index, q_tokens, q_mask, self.resolve(params))
 
     # -- compile accounting -------------------------------------------------

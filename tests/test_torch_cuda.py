@@ -1689,3 +1689,111 @@ def test_refresh_deterministic_on_card(online_card):
     q = queries[2]
     s, ids = r.search(q[None], np.ones((1, len(q)), bool))
     assert ids.device.type == "cuda" and bool((ids >= 0).all())
+
+
+# --------------------------------------------------------------------------
+# the v0 surface, the ops entries and the launcher on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_ops_entries_are_their_wrappers_on_card(cuda):
+    """The four ``ops`` entries launch the wrapper each names and give its
+    bits: token MaxSim, the unpooled psi (from a Psi and from JAX's param
+    dict), the SQ8 and fp32 IVF scans and the 4-bit residual scan, each
+    counted once a call."""
+    from repro_torch.anns.quantization import pack_codes
+    from repro_torch.convert import psi_params_from_numpy
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((37, 128)), dtype=torch.float32, device=cuda)
+    docs = torch.as_tensor(rng.standard_normal((23, 9, 128)), dtype=torch.float32,
+                           device=cuda)
+    mask = torch.as_tensor(rng.random((23, 9)) > 0.3, device=cuda)
+    w = _psi_params(rng, 128, 256)
+    w_cuda = [t.to(cuda) for t in w]
+    psi = Psi.from_arrays(*w, device="cuda")
+    jdict = psi_params_from_numpy({"dense": {"kernel": w[0].numpy(), "bias": w[1].numpy()},
+                                   "ln": {"scale": w[2].numpy(), "bias": w[3].numpy()}})
+    nlist, cap, dp = 16, 40, 256
+    ids = torch.as_tensor(rng.integers(-1, 500, (nlist, cap)), dtype=torch.int32, device=cuda)
+    vecs = torch.as_tensor(rng.standard_normal((nlist, cap, dp)), dtype=torch.float32,
+                           device=cuda)
+    codes, scales = sq8_quant(vecs)
+    q = torch.as_tensor(rng.standard_normal((6, dp)), dtype=torch.float32, device=cuda)
+    probe = torch.as_tensor(rng.integers(0, nlist, (6, 5)), dtype=torch.int32, device=cuda)
+    rcodes = pack_codes(torch.as_tensor(rng.integers(0, 16, (nlist, cap, dp)), device=cuda), 4)
+    cent = torch.randn(nlist, dp, device=cuda)
+    values = torch.sort(torch.randn(dp, 16, device=cuda), 1).values
+    cases = [
+        ("token_maxsim", lambda: ops.token_maxsim(x, docs, mask),
+         lambda: kmaxsim.token_maxsim(x, docs, mask)),
+        ("fused_psi", lambda: ops.fused_psi(x, psi), lambda: fused_psi.fused_psi(x, *w_cuda)),
+        ("fused_psi", lambda: ops.fused_psi(x, jdict), lambda: fused_psi.fused_psi(x, *w_cuda)),
+        ("ivf_probe_scan", lambda: ops.fused_ivf_scan(q, probe, ids, codes, scales),
+         lambda: gather_scan.ivf_probe_scan(q, probe, ids, codes, scales)),
+        ("ivf_probe_scan", lambda: ops.fused_ivf_scan(q, probe, ids, vecs),
+         lambda: gather_scan.ivf_probe_scan(q, probe, ids, vecs)),
+        ("ivf_probe_res_scan",
+         lambda: ops.fused_ivf_scan_res(q, probe, ids, rcodes, cent, values),
+         lambda: gather_scan.ivf_probe_res_scan(q, probe, ids, rcodes, cent, values)),
+    ]
+    for name, entry, wrapper in cases:
+        want = wrapper()
+        ops.reset_launch_counts()
+        got = entry()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == {name: 1}, name
+        assert got.device.type == "cuda" and torch.equal(got, want), name
+
+
+@pytest.mark.gpu
+def test_v0_query_and_candidates_are_the_facade_on_card(online_card):
+    """The v0 ``query`` and ``candidates`` give, bit for bit, what
+    ``LemurRetriever.search`` / ``first_stage`` give with the same resolved
+    params, on the default, exact and nprobe-set routes."""
+    from repro_torch.core import index as v0
+    from repro_torch.retriever.facade import first_stage
+
+    r, corpus, _ = online_card
+    q = torch.as_tensor(synthetic.queries_from_corpus_query(corpus, 9, 8, seed=3),
+                        device="cuda")
+    qm = torch.ones(q.shape[:2], dtype=torch.bool, device="cuda")
+    idx = r.index
+    for kw in ({}, {"use_ann": False}, {"nprobe": 3}, {"k": 5, "k_prime": 40}):
+        p = v0._legacy_params(idx, **kw)
+        s, i = v0.query(idx, q, qm, **kw)
+        ws, wi = r.search(q, qm, p)
+        assert torch.equal(s, ws) and torch.equal(i, wi), kw
+    for use_ann in (False, True):
+        for nprobe in (None, 3):
+            got = v0.candidates(idx, q, qm, k_prime=48, nprobe=nprobe, use_ann=use_ann)
+            p = v0._legacy_params(idx, k_prime=48, nprobe=nprobe, use_ann=use_ann)
+            assert torch.equal(got, first_stage(idx, q, qm, p)), (use_ann, nprobe)
+            assert torch.equal(got, r.candidates(q, qm, p))
+    toks, m = idx.dense_view()
+    assert toks.device.type == "cuda" and toks.shape[0] == idx.m == r.m
+
+
+@pytest.mark.gpu
+def test_launcher_on_card_leaves_no_group(cuda, tmp_path):
+    """The launcher at a small size on the card, every backend, the
+    one-rank NCCL mesh, online and fleet: every backend served with one
+    trace, no request lost, and the process group it made is gone."""
+    import contextlib
+    import io
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(["--m", "3000", "--d", "32", "--d-prime", "128", "--batch", "16",
+                          "--n-batches", "3", "--backend", "all", "--save-dir", str(tmp_path),
+                          "--mesh", "1", "--online", "--online-duration", "1", "--fleet", "2"])
+    assert not tdist.is_initialized()
+    rows = res["rows"]
+    assert all(row["jit_traces"] == 1 for row in rows["backends"])
+    assert rows["fleet"]["n_lost"] == 0 and rows["online"]["n_lost"] == 0
+    assert res["retriever"].device.type == "cuda"
+    out = buf.getvalue()
+    assert out.count("sharded QPS=") == 2 and "[serve] fleet replicas=2" in out

@@ -32,7 +32,35 @@ def test_importing_every_module_pulls_in_no_jax():
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 63     # with serving, fleet and lifecycle (14 modules)
+    # with serving, fleet and lifecycle (14 modules), the launchers (4) and the examples (6)
+    assert int(r.stdout.strip()) >= 73
+
+
+@pytest.mark.parametrize("package", ["repro_torch.launch", "repro_torch.examples"])
+def test_launchers_and_examples_do_no_work_at_import(package):
+    """Importing every launcher and example runs none of it: no kernel
+    build, no process group, no device touched."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        import torch.distributed as tdist
+        pkg = importlib.import_module("{package}")
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "{package}.")]
+        for n in names:
+            importlib.import_module(n)
+        from repro_torch.kernels import build
+        assert not build._loaded, build._loaded
+        assert not tdist.is_initialized()
+        import torch
+        assert not torch.cuda.is_initialized()
+        assert "triton" not in sys.modules
+        print(len(names))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.strip()) == {"repro_torch.launch": 3,
+                                     "repro_torch.examples": 5}[package]
 
 
 @pytest.mark.parametrize("module", ["repro_torch.dist", "repro_torch.dist.serve",
