@@ -36,6 +36,29 @@ script
    then holds the token MaxSim kernel against its plain version on a small
    ragged case (d=20, T=7, a doc with no valid token, a mask that is not a
    prefix, n and m off every tile);
+2c. **lm**: the model layer (``repro_torch.models.lm`` and the LM configs;
+   no port kernel runs here: the JAX twin's attention and MoE are plain
+   ``jnp``), while the process holds nothing large: gemma-7b at full width
+   and depth drawn on the card by ``init_lm`` from a seeded CUDA generator
+   (its parameters counted against ``param_count``), a prefill of 4 x
+   2,048 tokens (twice: the first warms cuBLAS), 32 greedy decode steps
+   (CUDA events a step; the last traced by torch.profiler: the card's busy
+   share, the host's activity in its idle gaps), the first step's logits
+   against ``forward_train``
+   at the same position within ``lm.BF16_LOGIT_RTOL`` x max |logit|, each
+   time beside its bound (``lm_bound``); the port's attention on gemma's
+   prefill shapes against ``F.scaled_dot_product_attention`` (timed only);
+   gemma's layer 0 in fp32 on the card against the CPU (1 x 256, within
+   1e-4 x max |y|); deepseek-v3 at full width cut to 2 layers (prefill 2 x
+   512, 16 decode steps, the same checks); two ``make_train_step`` steps at
+   gemma's width and depth 2 (1 x 2,048: loss and grad norm finite, every
+   weight moved by the first) and two ``adam8_update`` steps on the same gradients
+   against two of ``adam_update`` (the first bit for bit, the second within
+   1.5 lr + 2^-7 max |p| a leaf);
+   the mesh forms (``moe_apply`` in both layouts and bodies,
+   ``flash_attention_cp``, ``ef_int8_allreduce``) on a one-rank NCCL
+   (1, 1, 1) ("pod", "data", "model") mesh against their single-device
+   forms; then frees all of it;
 3. **build path**: makes a corpus of ``--build-m`` docs on the card with the
    serving corpus's distribution (d=128, Poisson(67.5) lengths clipped to
    [4, 80], unit-norm tokens at topic weight 1.2 over 4,096 centres, dense
@@ -228,6 +251,8 @@ script
    statistics; under a minute);
 12. prints the ``launch`` line (each part's seconds, rows, checks and
    launches by kernel, the phase's peak memory, the card) after phase 2b,
+   the ``lm`` line (each part's times, bounds, checks and peak memory, the
+   card) after phase 2c,
    a ``build`` line, the ``fleet`` and ``lifecycle`` lines, a
    ``widths`` line, a ``serving`` line, a ``routes`` line, a ``residual``
    line, a ``sharded`` line, the ``mutation`` line (with the residual and
@@ -262,6 +287,7 @@ MSMARCO_DOCS = 8_841_823
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_TF32_S = 495e12             # tensor cores, dense
+PEAK_BF16_S = 989e12             # tensor cores, dense
 KP_BATCHES = 3                   # a route above the old k' caps: a warm-up and 2 timed
 DOC_CHUNK = 25_000               # docs generated on the card at a time
 SQ8_RTOL = 2 ** -16 * 4          # the JAX suite's SQ8 tolerance
@@ -634,7 +660,12 @@ def ragged_case(torch, seed):
 
 
 def profile_batch(torch, r, q, qm):
-    """One more batch under torch.profiler: device time by kernel, the
+    """One more batch under torch.profiler (``profile_call``)."""
+    return profile_call(torch, lambda: r.search(q, qm))
+
+
+def profile_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: device time by kernel, the
     device's busy share of the traced wall time (tracing adds host cost, so
     these are not the latency numbers above), and what the host was doing
     while the device was idle: the gaps between the device's kernels (from
@@ -645,7 +676,7 @@ def profile_batch(torch, r, q, qm):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.search(q, qm)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = []
@@ -2062,9 +2093,10 @@ SHARD_ROUTES = {   # name: (SearchParams keywords, batch or None, kernels a sear
 
 
 @contextlib.contextmanager
-def nccl_mesh(torch):
+def nccl_mesh(torch, shape=(1,), names=("model",)):
     """A one-rank NCCL process group on the card (a tcp store on a free
-    local port) and its ("model",) DeviceMesh; destroyed on exit."""
+    local port) and its DeviceMesh of ``shape`` (ones) and axis ``names``;
+    destroyed on exit."""
     import socket
 
     import torch.distributed as tdist
@@ -2076,7 +2108,7 @@ def nccl_mesh(torch):
     tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
                              rank=0)
     try:
-        yield init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+        yield init_device_mesh("cuda", shape, mesh_dim_names=names)
     finally:
         tdist.destroy_process_group()
 
@@ -4264,6 +4296,332 @@ def launch_phase(torch, args, card):
     return line, launches
 
 
+# --------------------------------------------------------------------------
+# the model layer: the LM configs at full width
+# --------------------------------------------------------------------------
+
+def _norm_or_bias(name):
+    """Leaves ``lm.param_count`` leaves out: norm scales and biases."""
+    return any(s in name for s in ("ln1/", "ln2/", "final_norm/", "q_norm/", "kv_norm/",
+                                   "/bias", "/bq", "/bk", "/bv"))
+
+
+def lm_flops(cfg, lm, batch, q_len, kv_len, readout_tokens):
+    """(block matmul, readout matmul, attention) operations of a forward of
+    batch x q_len tokens attending to kv_len keys: 2 a token and block
+    parameter (every expert: one device runs them all), 2 a readout token
+    and embedding entry, and the attention's q.k and p.v over the allowed
+    (causal) pairs only.  The matmuls run in bf16, the attention in fp32."""
+    block_params = lm.param_count(cfg) - cfg.vocab * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    if cfg.attn == "mla":
+        dk, dv = cfg.kv_lora + cfg.qk_rope, cfg.kv_lora
+    else:
+        dk, dv = cfg.head_dim, cfg.head_dim
+    pairs = batch * sum(kv_len - q_len + i + 1 for i in range(q_len))
+    return (2 * batch * q_len * block_params, 2 * readout_tokens * cfg.d_model * cfg.vocab,
+            2 * pairs * cfg.n_heads * (dk + dv) * cfg.n_layers)
+
+
+def lm_bound(nbytes, mm_flops, attn_flops):
+    """The least time (ms, by): the bytes at the memory rate against the
+    matmuls at the bf16 tensor-core rate plus the fp32 attention at the
+    CUDA cores' rate (the scores are fp32 products, TF32 off)."""
+    t_mem = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (mm_flops / PEAK_BF16_S + attn_flops / PEAK_FP32_S) * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def lm_serve(torch, cfg, batch, seq, steps, seed, reduced=None):
+    """One config on the card: ``init_lm`` from a seeded generator, a
+    prefill of batch x seq tokens (twice: the first warms cuBLAS), ``steps``
+    greedy ``make_decode_step`` steps, the first step's logits held against
+    ``forward_train`` at the same position -> (line, params)."""
+    from repro_torch.common.pytree import named_leaves
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    line = {"config": cfg.name, "n_layers": cfg.n_layers, "batch": batch, "seq": seq,
+            "decode_steps": steps}
+    if reduced:
+        line["reduced"] = reduced
+    t0 = time.time()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(seed), cfg, device="cuda")
+    torch.cuda.synchronize()
+    line["init_s"] = time.time() - t0
+    leaves = named_leaves(params)
+    counted = sum(t.numel() for n, t in leaves if not _norm_or_bias(n))
+    require(counted == lm.param_count(cfg), f"{cfg.name}: {counted} params, param_count "
+            f"{lm.param_count(cfg)}")
+    p_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    require(all(t.dtype == torch.bfloat16 for _, t in leaves), f"{cfg.name}: a leaf not bf16")
+    line.update(params=sum(t.numel() for _, t in leaves), param_count=lm.param_count(cfg),
+                param_gb=p_bytes / 1e9)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), device=dev,
+                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    cache_len = seq + steps
+    prefill = lm.make_prefill_step(cfg, cache_len)
+    step = lm.make_decode_step(cfg)
+    with torch.no_grad():
+        prefill_s = []
+        for _ in range(2):
+            caches = None
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits, caches = prefill(params, toks)
+            torch.cuda.synchronize()
+            prefill_s.append(time.time() - t0)
+        require(bool(torch.isfinite(logits).all()), f"{cfg.name}: prefill logits not finite")
+        cache_bytes = sum(t.numel() * t.element_size() for _, t in named_leaves(caches))
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        first_tok, step_ms, step_host_ms = tok, [], []
+        for s in range(steps):
+            if s == steps - 1:          # the last step traced, not timed
+                out = []
+                trace = profile_call(
+                    torch, lambda: out.append(step(params, tok, caches, seq + 1 + s)))
+                nxt, lg, caches = out[0]
+            else:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                e0.record()
+                nxt, lg, caches = step(params, tok, caches, seq + 1 + s)
+                e1.record()
+                torch.cuda.synchronize()
+                step_host_ms.append((time.time() - t0) * 1e3)
+                step_ms.append(e0.elapsed_time(e1))
+            require(bool(torch.isfinite(lg).all()), f"{cfg.name}: decode step {s} not finite")
+            if s == 0:
+                first = lg.float()
+            tok = nxt
+        # the first decode step against the train forward at the same position
+        h, _ = lm.forward_train(params, torch.cat([toks, first_tok], 1), cfg)
+        ref = lm._readout(params, h[:, -1], cfg).float()
+        del h
+    err, scale = float((first - ref).abs().max()), float(ref.abs().max())
+    require(err <= lm.BF16_LOGIT_RTOL * scale,
+            f"{cfg.name}: decode vs train {err} > {lm.BF16_LOGIT_RTOL} x {scale}")
+    med = float(np.median(step_ms))
+    blocks, readout, attn = lm_flops(cfg, lm, batch, seq, seq, batch)
+    kv_mid = seq + steps // 2
+    step_cache_bytes = cache_bytes * kv_mid / cache_len
+    d_blocks, d_readout, d_attn = lm_flops(cfg, lm, batch, 1, kv_mid, batch)
+    d_mm = d_blocks + d_readout
+    line.update(
+        prefill_s=prefill_s, prefill_tokens_per_s=batch * seq / prefill_s[1],
+        prefill_bound_ms=lm_bound(p_bytes + cache_bytes, blocks + readout, attn),
+        cache_len=cache_len,
+        cache_gb=cache_bytes / 1e9, decode_ms_median=med,
+        decode_ms=[float(x) for x in step_ms], decode_host_ms_median=float(
+            np.median(step_host_ms)), decode_tokens_per_s=batch * 1e3 / med,
+        decode_bound_ms=lm_bound(p_bytes, d_mm, d_attn),
+        decode_bound_with_cache_ms=lm_bound(p_bytes + step_cache_bytes, d_mm, d_attn),
+        decode_vs_train_max_abs_err=err, decode_vs_train_max_abs_logit=scale,
+        decode_vs_train_rtol=lm.BF16_LOGIT_RTOL,
+        decode_vs_train_argmax_agree=float((first.argmax(-1) == ref.argmax(-1)).float().mean()),
+        decode_traced={k: trace[k] for k in ("wall_ms", "device_busy_ms", "idle_share")}
+        | {"top": trace["top"][:6], "idle_gaps": trace["idle_gaps"]},
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del caches, logits, lg, first, ref
+    return line, params
+
+
+def lm_attention_yardstick(torch, cfg, batch, seq):
+    """The port's blocked attention on one layer's prefill shapes against
+    ``F.scaled_dot_product_attention`` (the library's flash attention, bf16
+    scores; timed as the yardstick of a later kernel, used nowhere)."""
+    import torch.nn.functional as F
+
+    from repro_torch.nn import attention
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shape = (batch, seq, cfg.n_heads, cfg.head_dim)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    pos = torch.arange(seq, device="cuda").expand(batch, seq)
+    kw = dict(causal=True, q_block=cfg.q_block, kv_block=cfg.kv_block)
+    with torch.no_grad():
+        port = lambda: attention.flash_attention(q, k, v, pos, pos[0], **kw)
+        lib = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True)
+        err = float((port().float() - lib().transpose(1, 2).float()).abs().max())
+        return {"shape": list(shape), "port_ms": time_ms(torch, port, n=5, warmup=1),
+                "sdpa_ms": time_ms(torch, lib, n=5, warmup=1), "max_abs_diff": err}
+
+
+def lm_layer_card_vs_cpu(torch, cfg, params, tokens=256):
+    """Layer 0 of ``params`` in fp32 at full width, on the card and on the
+    CPU from the same parameters and inputs -> its line."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import lm
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    spec = lm.layer_stacks(cfg)[0][1][0]
+    layer = tree_map(lambda t: t[0].float(), params["stack_0"]["pos_0"])
+    x = torch.randn((1, tokens, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(12))
+    pos = torch.arange(tokens, device="cuda")[None]
+    t0 = time.time()
+    with torch.no_grad():
+        y, _ = lm._layer_train(cfg32, spec, layer, x, pos)
+        y_cpu, _ = lm._layer_train(cfg32, spec, tree_map(lambda t: t.cpu(), layer), x.cpu(),
+                                   pos.cpu())
+    err, scale = float((y.cpu() - y_cpu).abs().max()), float(y_cpu.abs().max())
+    require(err <= 1e-4 * scale, f"fp32 layer card vs cpu {err} > 1e-4 x {scale}")
+    return {"config": cfg.name, "layer": 0, "tokens": tokens, "max_abs_err": err,
+            "max_abs": scale, "rtol": 1e-4, "s": time.time() - t0}
+
+
+def lm_train_step(torch, cfg, seq, seed):
+    """Two ``make_train_step`` steps at full width (the first warms the
+    backward), then two ``adam8_update`` steps on one step's gradients
+    against two of ``adam_update``."""
+    from repro_torch.common.pytree import named_leaves
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import adam_init, adam_update
+    from repro_torch.optim.adam8bit import adam8_init, adam8_update
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(seed), cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, seq + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = adam_init(params)
+    train_step = lm.make_train_step(cfg)
+    step_s, losses = [], []
+    new = params
+    for _ in range(2):          # the first step also warms the backward's kernels
+        torch.cuda.synchronize()
+        t0 = time.time()
+        new, opt, m = train_step(new, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        require(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0,
+                f"train step: loss {loss}, grad norm {gnorm}")
+        losses.append(loss)
+        if len(step_s) == 1:
+            moved = {n: float((a != b).float().mean()) for (n, a), (_, b) in
+                     zip(named_leaves(new), named_leaves(params))}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(v > 0 for n, v in moved.items() if not _norm_or_bias(n)),
+            f"train step: a weight did not move {moved}")
+    del new, opt
+    (_, _), grads = lm.value_and_grad(params, batch["tokens"], batch["labels"], cfg)
+    # two updates of each on these gradients: the first equals Adam's bit for
+    # bit (the int8 moments enter from the second); the second within
+    # test_adam8_tracks_adam's drift, 0.15 over 20 steps of lr 0.01 (0.75 lr
+    # a step), plus one bf16 ulp of the leaf's largest parameter
+    worst = []
+    with torch.no_grad():
+        p_adam, s_adam, p_8, s_8 = params, adam_init(params), params, adam8_init(params)
+        for step in range(2):
+            p_adam, s_adam, _ = adam_update(grads, s_adam, p_adam, lr=1e-3, grad_clip=1.0)
+            p_8, s_8, _ = adam8_update(grads, s_8, p_8, lr=1e-3, grad_clip=1.0)
+            diffs = []
+            for (n, a), (_, b), (_, p) in zip(named_leaves(p_adam), named_leaves(p_8),
+                                              named_leaves(params)):
+                diff = float((a.float() - b.float()).abs().max())
+                tol = 0.0 if step == 0 else 2 * 0.75 * 1e-3 + 2 ** -7 * float(p.abs().max())
+                require(diff <= tol, f"adam8 vs adam, step {step + 1}, {n}: {diff} > {tol}")
+                diffs.append(diff)
+            worst.append(max(diffs))
+    blocks, readout, attn = lm_flops(cfg, lm, 1, seq, seq, seq)
+    n = sum(t.numel() for _, t in named_leaves(params))
+    # the forward, the blocks' recompute under remat and the backward: 4x the
+    # blocks' forward, 3x the readout's, 4x the attention's; bytes: the bf16
+    # weights read three times, the gradients written, then Adam reads p, g
+    # and the fp32 moments and writes p and the moments (30 bytes a parameter)
+    line = {"config": cfg.name, "n_layers": cfg.n_layers, "tokens": seq, "step_s": step_s,
+            "loss": losses, "grad_norm": gnorm, "peak_gib": peak,
+            "moved_min_share": min(v for n, v in moved.items() if not _norm_or_bias(n)),
+            "adam8_vs_adam_max_abs_by_step": worst,
+            "adam8_tol": "step 1: 0; step 2: 1.5 lr + 2^-7 max|p| a leaf",
+            "bound_ms": lm_bound(30 * n, 4 * blocks + 3 * readout, 4 * attn)}
+    del params, grads, p_adam, p_8, s_adam, s_8
+    return line
+
+
+def lm_mesh_forms(torch, seed):
+    """The mesh forms on a one-rank NCCL mesh ("pod", "data", "model") at
+    SMOKE width, each against its single-device form on the card."""
+    from repro_torch.nn import attention, moe
+    from repro_torch.optim.compress import dequantize_int8, ef_int8_allreduce, quantize_int8
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    with nccl_mesh(torch, (1, 1, 1), ("pod", "data", "model")) as mesh:
+        p = moe.init_moe(g, 4, 64, 32, n_shared=1, device="cuda")
+        x = torch.randn((2, 16, 64), device="cuda", generator=g)
+        want, want_aux = moe.moe_apply_dense(p, x, n_experts=4, top_k=2)
+        for layout in ("ep", "ffslice"):
+            for body, threshold in (("gather_tokens", 4096), ("gather_weights", 0)):
+                y, aux = moe.moe_apply(moe.moe_local_params(p, layout, mesh),
+                                       moe.local_tokens(x, mesh), layout=layout, n_experts=4,
+                                       top_k=2, mesh=mesh, n_tokens=32, capacity_factor=8.0,
+                                       token_gather_threshold=threshold)
+                err = float((y - want.reshape(-1, 64)).abs().max())
+                require(err <= 1e-5 * max(1.0, float(want.abs().max())),
+                        f"moe_apply {layout} {body}: {err}")
+                require(abs(float(aux) - float(want_aux)) <= 1e-6 * max(1.0, float(want_aux)),
+                        f"moe_apply {layout} {body} aux")
+                out[f"moe_apply_{layout}_{body}_max_abs_err"] = err
+        q, k, v = (torch.randn((2, 256, 4, 16), device="cuda", generator=g) for _ in range(3))
+        pos = torch.arange(256, device="cuda").expand(2, 256)
+        got = attention.flash_attention_cp(q, k, v, pos, mesh, q_block=128, kv_block=128)
+        ref = attention.flash_attention(q, k, v, pos, pos[0], q_block=128, kv_block=128)
+        out["flash_attention_cp_max_abs_err"] = float((got - ref).abs().max())
+        require(out["flash_attention_cp_max_abs_err"] <= 1e-5, "flash_attention_cp")
+        err = {"g": torch.zeros(1000, device="cuda")}
+        worst = 0.0
+        for _ in range(3):
+            grad = 3 * torch.randn(1000, device="cuda", generator=g)
+            q8, scale = quantize_int8(grad + err["g"])
+            want_red = dequantize_int8(q8, scale)
+            red, err = ef_int8_allreduce({"g": grad}, err, mesh.get_group("pod"))
+            worst = max(worst, float((red["g"] - want_red).abs().max()))
+        require(worst <= 1e-6, f"ef_int8_allreduce {worst}")
+        out["ef_int8_allreduce_max_abs_err"] = worst
+    return out
+
+
+def lm_phase(torch, args, card):
+    """The ``lm`` line: gemma-7b served at full width and depth, one of its
+    layers in fp32 on the card against the CPU, deepseek-v3 at full width cut
+    to 2 layers, one train step at gemma's width (depth 2) and the mesh
+    forms on a one-rank NCCL mesh.  Frees everything it made."""
+    from repro_torch.configs import deepseek_v3_671b, gemma_7b
+
+    t_phase = time.time()
+    line = {"card": card}
+    gemma = gemma_7b.CONFIG
+    line["gemma_7b"], params = lm_serve(torch, gemma, 4, 2048, 32, args.seed)
+    line["gemma_7b"]["attention_yardstick"] = lm_attention_yardstick(torch, gemma, 4, 2048)
+    line["gemma_7b_layer_fp32"] = lm_layer_card_vs_cpu(torch, gemma, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = deepseek_v3_671b.CONFIG.replace(n_layers=2, prefix_dense_layers=1)
+    line["deepseek_v3_671b"], params = lm_serve(
+        torch, ds, 2, 512, 16, args.seed,
+        reduced={"n_layers": [61, 2], "prefix_dense_layers": [3, 1]})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["train_step"] = lm_train_step(torch, gemma.replace(n_layers=2), 2048, args.seed)
+    line["train_step"]["reduced"] = {"n_layers": [28, 2]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["mesh_forms"] = lm_mesh_forms(torch, args.seed)
+    line["s"] = time.time() - t_phase
+    return line
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -4302,6 +4660,9 @@ def main():
           f"max abs err {ragged}", flush=True)
     launch_line, launch_launches = launch_phase(torch, args, card)
     print(json.dumps({"launch": launch_line}, default=str), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm": lm_phase(torch, args, card)}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -39,6 +39,15 @@ transpose, exactly) and :func:`refresh_from_numpy`, which makes the
 ``LemurRetriever.install_refresh`` takes (the port's own ``build_refresh``
 makes one too) from a JAX ``lifecycle.build_refresh`` result given as numpy
 arrays.
+
+The LM's parameters and optimizer states cross leaf by leaf under the
+``named_leaves`` names both packages give them (``stack_0/pos_0/attn/wq``
+...): :func:`lm_params_from_numpy` / :func:`lm_params_to_numpy`,
+:func:`adam_state_from_numpy` (``OptState``) and
+:func:`adam8_state_from_numpy` (``Opt8State``, whose moments are ``Q8``
+codes and row scales).  bfloat16 leaves (``ml_dtypes.bfloat16`` numpy
+arrays) keep their bits; ``lm_params_to_numpy`` gives them as fp32 (every
+bf16 value is one).
 """
 from __future__ import annotations
 
@@ -51,11 +60,14 @@ from repro_torch.anns.base import over_store
 from repro_torch.anns.backends import MuveraState
 from repro_torch.anns.quantization import ResidualCodec
 from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import named_leaves, tree_map
 from repro_torch.core.config import LemurConfig
 from repro_torch.core.index import LemurIndex
 from repro_torch.core.model import Psi, TargetStats
 from repro_torch.core.pages import PagedStore, from_dense
 from repro_torch.lifecycle.refresh import RefreshResult
+from repro_torch.optim.adam import OptState
+from repro_torch.optim.adam8bit import Opt8State, Q8
 
 _STORE = ("tok_pages", "page_table", "n_tokens", "W", "alive", "n_docs")
 _TOKEN_TIER = ("pages/cent_pages", "pages/code_pages", "codec/centroids", "codec/cuts",
@@ -219,3 +231,70 @@ def index_to_numpy(index: LemurIndex, x_ols=None) -> tuple[dict[str, np.ndarray]
     extra = {"format": FORMAT, "cfg": index.cfg.to_dict(), "backend": index.backend,
              "ann_meta": meta}
     return tree, extra
+
+
+# ---------------------------------------------------------------------------
+# the LM's parameters and optimizer states
+# ---------------------------------------------------------------------------
+
+def _leaf_from_numpy(x, dev, dtype=None) -> torch.Tensor:
+    """A numpy array (bfloat16 by its bits) as a tensor on ``dev``; raises
+    where ``dtype`` is given and the array is of another."""
+    a = np.require(np.asarray(x), requirements=["C", "W"])
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"leaf of dtype {t.dtype}, the config says {dtype}")
+    return t.to(dev)
+
+
+def _nested(tree):
+    """A flat ``{"a/b": array}`` dict as the nested dict it names; a nested
+    tree as it is."""
+    if not (isinstance(tree, dict) and any("/" in k for k in tree)):
+        return tree
+    out: dict = {}
+    for name, x in tree.items():
+        node = out
+        *head, last = name.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = x
+    return out
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda"):
+    """The LM's parameters (a nested dict of numpy arrays as
+    ``jax.tree_util.tree_map(np.asarray, params)`` gives it, or its flat
+    ``named_leaves`` dict) as tensors of ``cfg.pdtype`` on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _leaf_from_numpy(x, dev, cfg.pdtype), _nested(tree))
+
+
+def lm_params_to_numpy(params) -> dict[str, np.ndarray]:
+    """``{named_leaves name: numpy array}``; bfloat16 leaves as fp32."""
+    return {name: (t.detach().float() if t.dtype == torch.bfloat16 else t.detach()).cpu().numpy()
+            for name, t in named_leaves(params)}
+
+
+def adam_state_from_numpy(state, device="cuda") -> OptState:
+    """JAX's ``OptState`` (step, mu, nu as numpy) on ``device``."""
+    dev = resolve_device(device)
+    conv = lambda tree: tree_map(lambda x: _leaf_from_numpy(x, dev), _nested(tree))
+    return OptState(_leaf_from_numpy(state.step, dev, torch.int32), conv(state.mu),
+                    conv(state.nu))
+
+
+def adam8_state_from_numpy(state, device="cuda") -> Opt8State:
+    """JAX's ``Opt8State`` (its moments trees of ``Q8(q, scale)``, numpy) on
+    ``device``, the moments as the port's ``Q8``."""
+    dev = resolve_device(device)
+    is_q8 = lambda x: isinstance(x, tuple) and getattr(x, "_fields", None) == ("q", "scale")
+    conv = lambda tree: tree_map(
+        lambda s: Q8(_leaf_from_numpy(s.q, dev, torch.int8),
+                     _leaf_from_numpy(s.scale, dev, torch.float32)), tree, is_leaf=is_q8)
+    return Opt8State(_leaf_from_numpy(state.step, dev, torch.int32), conv(state.mu),
+                     conv(state.nu))
+

@@ -1797,3 +1797,121 @@ def test_launcher_on_card_leaves_no_group(cuda, tmp_path):
     assert res["retriever"].device.type == "cuda"
     out = buf.getvalue()
     assert out.count("sharded QPS=") == 2 and "[serve] fleet replicas=2" in out
+
+
+# --------------------------------------------------------------------------
+# the model layer (nn, optim, models/lm.py): the card against the CPU path
+# --------------------------------------------------------------------------
+
+LM_CONFIGS = ["gemma_7b", "qwen2_5_32b", "granite_20b", "llama4_maverick_400b",
+              "deepseek_v3_671b"]
+
+
+def _lm_close(got, want, rtol=1e-4, atol=1e-5, msg=""):
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(), rtol=rtol, atol=atol,
+                               err_msg=msg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LM_CONFIGS)
+def test_smoke_lm_on_card_matches_cpu(cuda, name):
+    """Each SMOKE LM (fp32) on the card against the same parameters and
+    tokens on the CPU: forward, loss, gradients, one train step, prefill and
+    three decode steps.  Tolerances: rtol 1e-4 / atol 1e-5 (fp32 on both,
+    TF32 off; cuBLAS and the CPU sum in other orders); gradients within 1e-4
+    x max |grad| of the leaf; the train step's new params within 2 x lr
+    (Adam's first step moves a parameter by lr x g / (|g| + eps), which flips
+    with a gradient at rounding level)."""
+    import importlib
+
+    from repro_torch.common.pytree import named_leaves, tree_map
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import adam_init
+
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").SMOKE
+    cpu = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
+    labels = torch.roll(toks, -1, 1)
+    with torch.no_grad():
+        h_c, aux_c = lm.forward_train(cpu, toks, cfg)
+        h_g, aux_g = lm.forward_train(card, toks.to(cuda), cfg)
+        _lm_close(h_g, h_c, msg="hidden")
+        _lm_close(lm.lm_loss(card, h_g, labels.to(cuda), cfg), lm.lm_loss(cpu, h_c, labels, cfg))
+        _lm_close(aux_g, aux_c)
+    (_, _), g_c = lm.value_and_grad(cpu, toks, labels, cfg)
+    (_, _), g_g = lm.value_and_grad(card, toks.to(cuda), labels.to(cuda), cfg)
+    for (n, a), (_, b) in zip(named_leaves(g_g), named_leaves(g_c)):
+        _lm_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7, msg=n)
+    step = lm.make_train_step(cfg)
+    batch = {"tokens": toks, "labels": labels}
+    p_c, _, m_c = step(cpu, adam_init(cpu), batch)
+    p_g, _, m_g = step(card, adam_init(card), {k: v.to(cuda) for k, v in batch.items()})
+    _lm_close(m_g["loss"], m_c["loss"])
+    _lm_close(m_g["grad_norm"], m_c["grad_norm"])
+    for (n, a), (_, b) in zip(named_leaves(p_g), named_leaves(p_c)):
+        _lm_close(a, b, rtol=0, atol=2e-3, msg=n)
+    with torch.no_grad():
+        lg_c, c_c = lm.prefill(cpu, toks[:, :16], cfg, 24)
+        lg_g, c_g = lm.prefill(card, toks[:, :16].to(cuda), cfg, 24)
+        _lm_close(lg_g, lg_c, msg="prefill")
+        tok = toks[:, 16:17]
+        dstep = lm.make_decode_step(cfg)
+        for s in range(3):
+            nxt_c, lg_c, c_c = dstep(cpu, tok, c_c, 17 + s)
+            nxt_g, lg_g, c_g = dstep(card, tok.to(cuda), c_g, 17 + s)
+            _lm_close(lg_g, lg_c, msg=f"decode {s}")
+            tok = nxt_c
+        for (n, a), (_, b) in zip(named_leaves(c_g), named_leaves(c_c)):
+            _lm_close(a, b, msg=n)
+
+
+@pytest.mark.gpu
+def test_full_width_layer_on_card_matches_cpu(cuda):
+    """One gemma-7b layer at full width in fp32 (d 3,072, 16 heads of 256,
+    d_ff 24,576) on the card against the CPU path, 1 x 256 tokens: within
+    1e-4 x max |y| (fp32 sums of 3,072 and 24,576 terms in other orders)."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs.gemma_7b import CONFIG
+    from repro_torch.models import lm
+
+    cfg = CONFIG.replace(param_dtype="float32", compute_dtype="float32", n_layers=1)
+    spec = lm.layer_stacks(cfg)[0][1][0]
+    gen = torch.Generator().manual_seed(0)
+    layer = lm._init_layer(gen, cfg, spec, "cpu")
+    layer["ln1"]["scale"] = 1 + 0.1 * torch.randn(cfg.d_model, generator=gen)
+    x = torch.randn((1, 256, cfg.d_model), generator=gen)
+    pos = torch.arange(256)[None]
+    with torch.no_grad():
+        y_cpu, _ = lm._layer_train(cfg, spec, layer, x, pos)
+        y, _ = lm._layer_train(cfg, spec, tree_map(lambda t: t.to(cuda), layer), x.to(cuda),
+                               pos.to(cuda))
+    err, scale = float((y.cpu() - y_cpu).abs().max()), float(y_cpu.abs().max())
+    assert err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.gpu
+def test_moe_dense_on_card_full_expert_count(cuda):
+    """``moe_apply_dense`` at deepseek's expert count and top-k (256 experts
+    of 64, top-8, one shared) with tied router scores on the card against
+    the CPU: the same experts picked (lowest index first), outputs within
+    1e-5 x max |y|."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.nn import moe
+
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, 256, 128, 64, n_shared=1, device="cpu")
+    p["router"][:, 128:] = p["router"][:, :128]                    # every score twice
+    x = torch.randn((3, 5, 128), generator=gen)
+    y_c, aux_c = moe.moe_apply_dense(p, x, n_experts=256, top_k=8)
+    y_g, aux_g = moe.moe_apply_dense(tree_map(lambda t: t.to(cuda), p), x.to(cuda),
+                                     n_experts=256, top_k=8)
+    _, eid_c, _ = moe._route(x.reshape(-1, 128), p["router"], 256, 8)
+    _, eid_g, _ = moe._route(x.reshape(-1, 128).to(cuda), p["router"].to(cuda), 256, 8)
+    assert torch.equal(eid_g.cpu(), eid_c)
+    # the picks come in tied pairs (e, e + 128), the lower index first
+    assert bool((eid_c[:, 0::2] < 128).all()) and torch.equal(eid_c[:, 1::2], eid_c[:, 0::2] + 128)
+    err = float((y_g.cpu() - y_c).abs().max())
+    assert err <= 1e-5 * float(y_c.abs().max()), err
+    _lm_close(aux_g, aux_c, rtol=1e-5)

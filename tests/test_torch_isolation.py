@@ -32,8 +32,10 @@ def test_importing_every_module_pulls_in_no_jax():
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    # with serving, fleet and lifecycle (14 modules), the launchers (4) and the examples (6)
-    assert int(r.stdout.strip()) >= 73
+    # with serving, fleet and lifecycle (14 modules), the launchers (4), the examples (6)
+    # and the model layer (18: common/{pytree,prng,collectives}, optim/{schedule,adam8bit,
+    # compress}, nn and its 3 modules, models and lm, configs and its 5 LM configs)
+    assert int(r.stdout.strip()) >= 91
 
 
 @pytest.mark.parametrize("package", ["repro_torch.launch", "repro_torch.examples"])
@@ -61,6 +63,53 @@ def test_launchers_and_examples_do_no_work_at_import(package):
     assert r.returncode == 0, r.stderr[-3000:]
     assert int(r.stdout.strip()) == {"repro_torch.launch": 3,
                                      "repro_torch.examples": 5}[package]
+
+
+@pytest.mark.parametrize("package,n", [("repro_torch.common", 5), ("repro_torch.optim", 4),
+                                       ("repro_torch.nn", 3), ("repro_torch.models", 1),
+                                       ("repro_torch.configs", 5)])
+def test_model_layer_does_no_work_at_import(package, n):
+    """Importing the model layer (pytree and PRNG leaves, optim, nn, the LM
+    and its configs) builds no kernel, opens no process group, touches no
+    device and pulls in no JAX."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        import torch.distributed as tdist
+        pkg = importlib.import_module("{package}")
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "{package}.")]
+        for name in names:
+            importlib.import_module(name)
+        from repro_torch.kernels import build
+        assert not build._loaded, build._loaded
+        assert not tdist.is_initialized()
+        import torch
+        assert not torch.cuda.is_initialized()
+        bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+               or k == "repro" or k.startswith("repro.")]
+        assert not bad and "triton" not in sys.modules, bad
+        print(len(names))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.strip()) == n
+
+
+def test_model_layer_entry_points_default_to_the_card(monkeypatch):
+    """init_lm, init_cache, the layers' inits and PRNGSeq run on the card
+    unless the caller asks for the CPU, and raise without one."""
+    from repro_torch.common.prng import PRNGSeq
+    from repro_torch.configs.gemma_7b import SMOKE
+    from repro_torch.models import lm
+    from repro_torch.nn import layers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: lm.init_lm(0, SMOKE), lambda: lm.init_cache(SMOKE, 1, 8),
+                 lambda: PRNGSeq(0), lambda: layers.init_rmsnorm(4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert lm.init_cache(SMOKE, 1, 8, device="cpu")[0]["pos_0"][0].device.type == "cpu"
 
 
 @pytest.mark.parametrize("module", ["repro_torch.dist", "repro_torch.dist.serve",
