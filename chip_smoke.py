@@ -59,12 +59,30 @@ script
    ``flash_attention_cp``, ``ef_int8_allreduce``) on a one-rank NCCL
    (1, 1, 1) ("pod", "data", "model") mesh against their single-device
    forms; then frees all of it;
+2d. **train**: the training path (no port kernel owed: nothing under the
+   JAX package's models, data, checkpoint or train reaches a Pallas
+   kernel), launch counters from 0 around each part: deepfm at full width
+   (``configs/deepfm.CONFIG``, 16,262,144 table rows, batch 65,536) through
+   ``TrainLoop`` with async checkpoints (step ms by CUDA events, loss, peak
+   memory, the save's host copy and write apart), a second loop from
+   another init that restores and resumes at the saved step with bit-equal
+   state, the gradients and one step on the card against the same on the
+   CPU at 1,024 rows (``step_card_vs_cpu``'s tolerance); xdeepfm at full
+   width, its CIN a chunk of rows at a time (3 steps); meshgraphnet at full width on
+   ``full_graph_sm`` (15 layers of 128, 2,708 nodes, 10,556 edges, d_in
+   1,433, 7 classes) and ``molecule``, the steps and the card against the
+   CPU; each step beside its bound; ``multi_arch_smoke`` over the ten
+   model archs; ``repro_torch.launch.train --arch lemur`` (recall, and the
+   five LEMUR kernels each launched), the launcher on deepfm with a restart
+   that resumes at its saved step; ``train_retrieval_e2e`` (20 steps, the
+   same kernels); then frees all of it;
 3. **build path**: makes a corpus of ``--build-m`` docs on the card with the
    serving corpus's distribution (d=128, Poisson(67.5) lengths clipped to
    [4, 80], unit-norm tokens at topic weight 1.2 over 4,096 centres, dense
-   (m, 80, 128) fp32) and runs ``LemurRetriever.build`` under the default
-   ``LemurConfig`` (paper App. A: d'=2048, m'=8192, n=100k, n'=16,384, 100
-   epochs of Adam, IVF-SQ8), launch counters set to 0 just before and read
+   (m, 80, 128) fp32) and runs ``LemurRetriever.build`` under
+   ``configs/lemur_paper.CONFIG`` (paper App. A: d'=2048, m'=8192, n=100k,
+   n'=16,384, 100 epochs of Adam, IVF-SQ8; the script reads the LEMUR
+   cells' fixed values from that module), launch counters set to 0 just before and read
    just after; checks the launches, the loss, the first OLS block's W
    against the plain target path, and the Gram features; serves 256 queries
    of 32 tokens, scores recall against exact MaxSim and holds the learned
@@ -252,7 +270,9 @@ script
 12. prints the ``launch`` line (each part's seconds, rows, checks and
    launches by kernel, the phase's peak memory, the card) after phase 2b,
    the ``lm`` line (each part's times, bounds, checks and peak memory, the
-   card) after phase 2c,
+   card) after phase 2c, the ``train`` line (each part's step ms, bounds,
+   checks, save and restore seconds, peak memory and launches by kernel,
+   the card) after phase 2d,
    a ``build`` line, the ``fleet`` and ``lifecycle`` lines, a
    ``widths`` line, a ``serving`` line, a ``routes`` line, a ``residual``
    line, a ``sharded`` line, the ``mutation`` line (with the residual and
@@ -260,7 +280,7 @@ script
    ``psi_ablation`` line, the ``kernels`` line (token MaxSim's row with its
    launches on the mutation path and the backends' rounds; every row with
    its launches on each backend's batches and in the online, fleet and
-   lifecycle phases and in each part of the launch phase) and last
+   lifecycle phases and in each part of the launch and train phases) and last
    ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
@@ -282,7 +302,6 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-MSMARCO_DOCS = 8_841_823
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
@@ -308,6 +327,19 @@ TOPIC_CENTERS = 4096
 
 class CheckFailed(RuntimeError):
     pass
+
+
+def paper():
+    """``repro_torch.configs.lemur_paper``: the LEMUR cells' fixed values
+    (its ``CONFIG``: d, d', m', n, k, k', nprobe; its ``SHAPES``: the MS
+    MARCO corpus size and tokens a doc)."""
+    from repro_torch.configs import lemur_paper
+
+    return lemur_paper
+
+
+def msmarco_docs() -> int:
+    return paper().SHAPES["serve_msmarco"]["m"]
 
 
 def require(ok, msg):
@@ -402,7 +434,8 @@ def build_corpus(torch, args):
     from repro_torch.core.model import Psi
     from repro_torch.kernels import ref
 
-    d, dp, T = 128, 2048, 80
+    cfg = paper().CONFIG
+    d, dp, T = cfg.d, cfg.d_prime, paper().SHAPES["serve_msmarco"]["doc_tokens"]
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     counts = np.clip(rng.poisson(67.5, args.m), 4, T)
@@ -892,7 +925,7 @@ def make_build_corpus(torch, m, seed):
     (m, 80, 128) fp32."""
     from repro_torch.data.synthetic import MultiVectorCorpus
 
-    d, T = 128, 80
+    d, T = paper().CONFIG.d, paper().SHAPES["index_msmarco"]["doc_tokens"]
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 1)
     counts = torch.as_tensor(np.clip(rng.poisson(67.5, m), 4, T), device=dev)
@@ -923,7 +956,6 @@ def build_phase(torch, args, card):
     from repro_torch.anns.base import stable_topk
     from repro_torch.convert import index_to_numpy
     from repro_torch.core import indexer, maxsim
-    from repro_torch.core.config import LemurConfig
     from repro_torch.core.model import pool_queries
     from repro_torch.data.synthetic import MultiVectorCorpus, queries_from_corpus_query
     from repro_torch.kernels import maxsim as kmaxsim
@@ -940,7 +972,7 @@ def build_phase(torch, args, card):
     torch.cuda.synchronize()
     corpus_s = time.time() - t0
     m = corpus.m
-    cfg = LemurConfig()
+    cfg = paper().CONFIG
     torch.cuda.reset_peak_memory_stats()
 
     # -- the main path, counters from 0 ------------------------------------
@@ -1161,7 +1193,7 @@ def build_phase(torch, args, card):
         q_tokens=int(q.shape[1]), W_first_block_err=w_err, W_tol=w_tol,
         feats_err=feats_err, save_load={"m": 2000, "epochs": 1, "leaves": len(a),
                                         "residual_leaves": len(a3)},
-        reduced={"m": m, "from": MSMARCO_DOCS,
+        reduced={"m": m, "from": msmarco_docs(),
                  "why": "build holds the dense (m, 80, d) corpus on the card, as the JAX "
                         "build does: 800k docs would be 32.8 GB beside a 2^22-page pool "
                         "(34.4 GB), W and the lists on an 80 GB card"},
@@ -2331,7 +2363,7 @@ def sharded_phase(torch, args, r, batches, library_ms_kp4096=None):
                     sq8_block_bytes={n: t.numel() * t.element_size() for n, t in (
                         ("W", st.W), ("W_scales", st.W_scales), ("doc_tokens", st.doc_tokens),
                         ("doc_scales", st.doc_scales), ("doc_mask", st.doc_mask))},
-                    reduced={"m": m, "from": MSMARCO_DOCS, "legacy_batch": 16,
+                    reduced={"m": m, "from": msmarco_docs(), "legacy_batch": 16,
                              "fp32_block_slots": FP32_CUT,
                              "why": "one card: the served index (800k docs) and its SQ8 "
                                     "block fit beside each other; an fp32 block of 2^20 "
@@ -4622,6 +4654,395 @@ def lm_phase(torch, args, card):
     return line
 
 
+# --------------------------------------------------------------------------
+# the training path: deepfm and meshgraphnet at full width, the launcher,
+# the training examples
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 6          # deepfm TrainLoop steps: saves at 3 (async, overlapped) and 6
+TRAIN_CUT_BATCH = 1024   # rows of the card-vs-CPU step
+GNN_STEPS = 5
+XDEEPFM_STEPS = 3
+TRAIN_KERNELS = ("token_maxsim", "fused_psi", "fused_psi_pool", "ivf_probe_scan",
+                 "rerank_paged_scores")
+
+
+def mlp_flops(dims, rows):
+    """2 x rows x the products of an MLP of ``dims`` (d_in, ..., d_out)."""
+    return 2 * rows * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def timed_step(torch, step, sink):
+    """``step`` with CUDA events around each call, appended to ``sink``."""
+    def run(*a):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(*a)
+        e1.record()
+        sink.append((e0, e1))
+        return out
+    return run
+
+
+def elapsed_ms(torch, sink):
+    torch.cuda.synchronize()
+    return [e0.elapsed_time(e1) for e0, e1 in sink]
+
+
+def to_cpu(torch, tree):
+    from repro_torch.common.pytree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def step_card_vs_cpu(torch, step, loss_fn, params, opt, batch, lr=1e-3):
+    """The gradients and one step on the card against the same on the CPU
+    from the same state: gradients within 1e-3 x max |CPU grad| + 1e-7 a leaf
+    (fp32 sums in another order, the card's scatter-adds in no fixed order,
+    through up to 15 LayerNorm'd layers: the CPU parity tests' 1e-4, set on
+    2-3 layer SMOKE configs, is exceeded at meshgraphnet's full depth, 1.1e-4
+    of the leaf's max on ``molecule``); the step's loss rtol 1e-5, grad norm
+    rtol 1e-4, new parameters within 2 x lr (Adam moves a parameter by up to
+    lr either way on a gradient at rounding level).  The largest parameter
+    difference where the new first moment is above 1e-3 x its leaf's max is
+    reported beside them."""
+    from repro_torch.common.pytree import named_leaves, value_and_grad
+
+    cpu = lambda tree: to_cpu(torch, tree)
+    _, g_g = value_and_grad(lambda p: loss_fn(p, batch), params)
+    _, g_c = value_and_grad(lambda p: loss_fn(p, cpu(batch)), cpu(params))
+    grad_err = 0.0
+    for (n, a), (_, b) in zip(named_leaves(g_g), named_leaves(g_c)):
+        err, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        require(err <= 1e-3 * scale + 1e-7, f"card vs CPU gradient {n}: {err} of {scale}")
+        grad_err = max(grad_err, err / max(scale, 1e-30))
+    del g_g, g_c
+    p_g, o_g, m_g = step(params, opt, batch)
+    p_c, o_c, m_c = step(cpu(params), cpu(opt), cpu(batch))
+    loss_g, loss_c = float(m_g["loss"]), float(m_c["loss"])
+    require(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), f"card vs CPU loss {loss_g} {loss_c}")
+    gn_g, gn_c = float(m_g["grad_norm"]), float(m_c["grad_norm"])
+    require(abs(gn_g - gn_c) <= 1e-4 * abs(gn_c), f"card vs CPU grad norm {gn_g} {gn_c}")
+    worst_big, worst = 0.0, 0.0
+    mu = dict(named_leaves(o_c.mu))
+    for (n, a), (_, b) in zip(named_leaves(p_g), named_leaves(p_c)):
+        d = (a.cpu() - b).abs()
+        require(float(d.max()) <= 2 * lr, f"card vs CPU params {n}: {float(d.max())}")
+        big = mu[n].abs() > 1e-3 * float(mu[n].abs().max())
+        worst_big = max(worst_big, float(d[big].max()) if bool(big.any()) else 0.0)
+        worst = max(worst, float(d.max()))
+    return dict(loss_card=loss_g, loss_cpu=loss_c, grad_norm_card=gn_g, grad_norm_cpu=gn_c,
+                max_grad_err_of_leaf_max=grad_err, max_abs_param_diff=worst,
+                max_abs_param_diff_large_moment=worst_big,
+                tolerance="gradients 1e-3 x max|grad| + 1e-7 a leaf; loss rtol 1e-5, "
+                          "grad norm rtol 1e-4, params 2 lr")
+
+
+def deepfm_train(torch, args, tmp):
+    """deepfm at full width: ``TRAIN_STEPS`` TrainLoop steps on
+    ``SHAPES["train_batch"]`` with async checkpoints, a second loop that
+    restores and resumes at the saved step bit for bit, the card against the
+    CPU at a cut batch, and the step beside its bound."""
+    from repro_torch.common.pytree import named_leaves, tree_size
+    from repro_torch.configs import deepfm
+    from repro_torch.data import synthetic
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.models import recsys
+    from repro_torch.optim import adam_init
+    from repro_torch.train import TrainerConfig, TrainLoop
+
+    cfg = deepfm.CONFIG
+    B = deepfm.SHAPES["train_batch"]["batch"]
+    vocab = np.array(cfg.vocab_sizes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = recsys.init_recsys(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                                device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = tree_size(params)
+    t0 = time.time()
+    host = [synthetic.make_clicks(B, cfg.n_fields, vocab, seed=args.seed + i)
+            for i in range(TRAIN_STEPS + 1)]
+    data_s = time.time() - t0
+    batches = [{"ids": d["ids"], "labels": d["labels"]} for d in host]
+    step = recsys.make_train_step(cfg)
+    sink = []
+    tc = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS // 2,
+                       checkpoint_dir=os.path.join(tmp, "deepfm"), log_every=0)
+    loop = TrainLoop(tc, timed_step(torch, step, sink), params, adam_init(params),
+                     logger=lambda s: None)
+    t0 = time.time()
+    out = loop.run(ShardedLoader(batches[:TRAIN_STEPS], device="cuda"))
+    torch.cuda.synchronize()
+    loop_s = time.time() - t0
+    ms = elapsed_ms(torch, sink)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h["loss"] for h in out["history"]]
+    require(out["final_step"] == TRAIN_STEPS and all(np.isfinite(losses))
+            and out["nan_skips"] == 0 and out["retries"] == 0, f"deepfm loop: {out}")
+    # one save measured alone: the blocking host copy, then the write
+    mgr = loop.ckpt
+    t0 = time.perf_counter()
+    mgr.save_async(TRAIN_STEPS, (loop.params, loop.opt_state))
+    snap_s = time.perf_counter() - t0
+    mgr.wait()
+    write_s = time.perf_counter() - t0 - snap_s
+    # a second loop from another init restores and resumes at the saved step
+    p2 = recsys.init_recsys(torch.Generator(device="cuda").manual_seed(args.seed + 1), cfg,
+                            device="cuda")
+    loop2 = TrainLoop(tc.replace(total_steps=TRAIN_STEPS + 1), step, p2, adam_init(p2),
+                      logger=lambda s: None)
+    del p2
+    t0 = time.time()
+    require(loop2.try_restore() and loop2.step == TRAIN_STEPS, "deepfm: no resume")
+    restore_s = time.time() - t0
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for (_, a), (_, b) in zip(named_leaves((loop.params, loop.opt_state)),
+                                         named_leaves((loop2.params, loop2.opt_state))))
+    require(same, "deepfm: restored state differs from the saved one")
+    out2 = loop2.run(ShardedLoader(batches[TRAIN_STEPS:], device="cuda"))
+    require(out2["final_step"] == TRAIN_STEPS + 1 and np.isfinite(out2["history"][-1]["loss"]),
+            f"deepfm resumed loop: {out2}")
+    del loop2
+    # the card against the CPU on the first TRAIN_CUT_BATCH rows
+    cut = {k: torch.as_tensor(v[:TRAIN_CUT_BATCH]).cuda() for k, v in batches[0].items()}
+    t0 = time.time()
+    vs_cpu = step_card_vs_cpu(torch, step, lambda p, b: recsys.ctr_loss(p, b, cfg),
+                              loop.params, loop.opt_state, cut)
+    vs_cpu["s"] = time.time() - t0
+    full = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    trace = profile_call(torch, lambda: step(loop.params, loop.opt_state, full))
+    del full
+    # bound: the function's state (params, m, v) read once and written once
+    # in fp32 and the batch read once, against the MLP's products forward and
+    # backward (3x the forward's) at the fp32 rate
+    dims = (cfg.n_fields * cfg.embed_dim, *cfg.mlp_dims, 1)
+    nbytes = 6 * 4 * n_params + B * (cfg.n_fields + 1) * 4
+    flops = 3 * mlp_flops(dims, B)
+    b_ms, b_by = bound(nbytes, flops)
+    warm = float(np.median(ms[1:]))
+    del loop, params
+    return dict(config=cfg.name, shape="train_batch", batch=B, n_params=n_params,
+                table_rows=cfg.total_vocab, init_s=init_s, data_s=data_s,
+                step_ms=ms, step_ms_median_warm=warm, loss=losses,
+                loop_s=loop_s, peak_gib=peak, save_snapshot_s=snap_s, save_write_s=write_s,
+                checkpoint_gb=3 * 4 * n_params / 1e9, restore_s=restore_s,
+                resumed_at=TRAIN_STEPS, resumed_bits_equal=same,
+                resumed_loss=out2["history"][-1]["loss"], card_vs_cpu=vs_cpu,
+                traced_step=trace,
+                cut_batch=TRAIN_CUT_BATCH, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                flops=flops, bound_note="bytes: params, m, v read and written once (fp32) "
+                "and the batch; operations: the MLP forward and backward at 67 TFLOP/s fp32",
+                share_of_bound=b_ms / warm)
+
+
+def xdeepfm_train(torch, args):
+    """xdeepfm at full width on ``SHAPES["train_batch"]``: ``XDEEPFM_STEPS``
+    steps with the CIN run a chunk of rows at a time (``recsys.cin_layer``:
+    the one-shot (65,536, 200, 39, 10) product would be 20 GB), the step
+    beside its bound."""
+    from repro_torch.common.pytree import tree_size
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data import synthetic
+    from repro_torch.models import recsys
+    from repro_torch.optim import adam_init
+
+    cfg = xdeepfm.CONFIG
+    B = xdeepfm.SHAPES["train_batch"]["batch"]
+    d = synthetic.make_clicks(B, cfg.n_fields, np.array(cfg.vocab_sizes), seed=args.seed)
+    batch = {"ids": torch.as_tensor(d["ids"]).cuda(), "labels": torch.as_tensor(d["labels"]).cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = recsys.init_recsys(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                                device="cuda")
+    opt = adam_init(params)
+    step = recsys.make_train_step(cfg)
+    sink, losses = [], []
+    run = timed_step(torch, step, sink)
+    for _ in range(XDEEPFM_STEPS):
+        params, opt, m = run(params, opt, batch)
+        losses.append(float(m["loss"]))
+    ms = elapsed_ms(torch, sink)
+    require(all(np.isfinite(losses)), f"xdeepfm: losses {losses}")
+    n_params = tree_size(params)
+    F, dim = cfg.n_fields, cfg.embed_dim
+    hs = (F, *cfg.cin_dims)
+    # the CIN: an outer product (H_k F d a row) and its contraction (2 H H_k F d)
+    cin = sum(B * dim * hs[i] * F * (1 + 2 * hs[i + 1]) for i in range(len(cfg.cin_dims)))
+    flops = 3 * (cin + mlp_flops((F * dim, *cfg.mlp_dims, 1), B))
+    nbytes = 6 * 4 * n_params + B * (F + 1) * 4
+    b_ms, b_by = bound(nbytes, flops)
+    warm = float(np.median(ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, opt
+    return dict(config=cfg.name, shape="train_batch", batch=B, n_params=n_params,
+                cin_chunk_rows=recsys.CIN_CHUNK_ELEMS // (max(hs[:-1]) * F * dim),
+                step_ms=ms, step_ms_median_warm=warm, loss=losses, peak_gib=peak,
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                bound_note="operations: the CIN's outer products and contractions and the "
+                "MLP, forward and backward (the chunks' recompute not counted), at 67 TFLOP/s "
+                "fp32", share_of_bound=b_ms / warm)
+
+
+def cora_like(rng, spec, cfg):
+    """A Cora-shaped graph: ``n_nodes`` nodes with sparse binary features
+    (about 18 words of ``d_node_in``), ``n_edges`` uniform random edges,
+    class labels, 140 labelled nodes (Cora's training split)."""
+    N, E = spec["n_nodes"], spec["n_edges"]
+    return {"node_feat": (rng.random((N, cfg.d_node_in)) < 18 / cfg.d_node_in).astype(np.float32),
+            "edge_feat": rng.standard_normal((E, cfg.d_edge_in)).astype(np.float32),
+            "senders": rng.integers(0, N, E).astype(np.int32),
+            "receivers": rng.integers(0, N, E).astype(np.int32),
+            "labels": rng.integers(0, cfg.d_out, N).astype(np.int32),
+            "label_mask": (np.arange(N) < 140).astype(np.float32)}
+
+
+def molecules(rng, spec, cfg):
+    """``n_graphs`` graphs of ``n_nodes / n_graphs`` nodes, each with
+    ``n_edges / n_graphs`` random edges inside it, and a target a graph."""
+    G = spec["n_graphs"]
+    n, e = spec["n_nodes"] // G, spec["n_edges"] // G
+    base = np.repeat(np.arange(G) * n, e)
+    return {"node_feat": rng.standard_normal((G * n, cfg.d_node_in)).astype(np.float32),
+            "edge_feat": rng.standard_normal((G * e, cfg.d_edge_in)).astype(np.float32),
+            "senders": (base + rng.integers(0, n, G * e)).astype(np.int32),
+            "receivers": (base + rng.integers(0, n, G * e)).astype(np.int32),
+            "labels": np.zeros((G * n, cfg.d_out), np.float32),
+            "graph_ids": np.repeat(np.arange(G), n).astype(np.int32),
+            "graph_labels": rng.standard_normal((G, cfg.d_out)).astype(np.float32)}
+
+
+def gnn_train(torch, args, shape, make):
+    """meshgraphnet at full width on one of its SHAPES: ``GNN_STEPS`` steps
+    (CUDA events), the card against the CPU, the step beside its bound."""
+    from repro_torch.common.pytree import tree_size
+    from repro_torch.configs import meshgraphnet
+    from repro_torch.models import gnn
+    from repro_torch.optim import adam_init
+
+    spec = meshgraphnet.SHAPES[shape]
+    cfg = spec["cfg"]
+    b = make(np.random.default_rng(args.seed), spec, cfg)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = gnn.init_gnn(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                          device="cuda")
+    opt = adam_init(params)
+    step = gnn.make_train_step(cfg)
+    sink, losses = [], []
+    run = timed_step(torch, step, sink)
+    for _ in range(GNN_STEPS):
+        params, opt, m = run(params, opt, batch)
+        losses.append(float(m["loss"]))
+    ms = elapsed_ms(torch, sink)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(np.isfinite(losses)), f"meshgraphnet {shape}: losses {losses}")
+    t0 = time.time()
+    vs_cpu = step_card_vs_cpu(torch, step, lambda p, b: gnn.loss_fn(p, b, cfg), params, opt,
+                              batch)
+    vs_cpu["s"] = time.time() - t0
+    trace = profile_call(torch, lambda: step(params, opt, batch))
+    N, E, dh = spec["n_nodes"], spec["n_edges"], cfg.d_hidden
+    hid = [dh] * cfg.mlp_layers
+    fwd = (mlp_flops((cfg.d_node_in, *hid, dh), N) + mlp_flops((cfg.d_edge_in, *hid, dh), E)
+           + cfg.n_layers * (mlp_flops((3 * dh, *hid, dh), E) + mlp_flops((2 * dh, *hid, dh), N))
+           + mlp_flops((dh, *hid, cfg.d_out), N))
+    n_params = tree_size(params)
+    nbytes = 6 * 4 * n_params + sum(v.nbytes for v in b.values())
+    b_ms, b_by = bound(nbytes, 3 * fwd)
+    warm = float(np.median(ms[1:]))
+    del params, opt
+    return dict(config=cfg.name, shape=shape, n_nodes=N, n_edges=E, n_layers=cfg.n_layers,
+                d_hidden=dh, d_node_in=cfg.d_node_in, d_out=cfg.d_out, n_params=n_params,
+                step_ms=ms, step_ms_median_warm=warm, loss=losses, peak_gib=peak,
+                card_vs_cpu=vs_cpu, traced_step=trace, bound_ms=b_ms, bound_by=b_by,
+                flops=3 * fwd,
+                bytes=nbytes, bound_note="operations: the MLPs forward and backward (3x the "
+                "forward; the remat's recompute not counted) at 67 TFLOP/s fp32",
+                share_of_bound=b_ms / warm)
+
+
+def train_phase(torch, args, card):
+    """The ``train`` line: the training path on the card -> (line, launches
+    by part).  deepfm and meshgraphnet at full width, every arch through
+    ``multi_arch_smoke``, the launcher (``--arch lemur``, then deepfm with a
+    restart) and ``train_retrieval_e2e``, launch counters from 0 around each
+    part.  Frees everything it made."""
+    import tempfile
+
+    from repro_torch.examples import multi_arch_smoke, train_retrieval_e2e
+    from repro_torch.launch import train
+
+    t_phase = time.time()
+    line, launches, seconds = {"card": card}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        with counted(torch, launches, "deepfm"):
+            line["deepfm"] = deepfm_train(torch, args, tmp)
+        seconds["deepfm"] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        with counted(torch, launches, "xdeepfm"):
+            line["xdeepfm"] = xdeepfm_train(torch, args)
+        seconds["xdeepfm"] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        for shape, make in (("full_graph_sm", cora_like), ("molecule", molecules)):
+            t0 = time.time()
+            with counted(torch, launches, f"meshgraphnet_{shape}"):
+                line[f"meshgraphnet_{shape}"] = gnn_train(torch, args, shape, make)
+            seconds[f"meshgraphnet_{shape}"] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        with counted(torch, launches, "multi_arch_smoke"):
+            res, _ = captured(multi_arch_smoke.main, [])
+        require(len(res) == 10 and all(np.isfinite(m["loss"]) and m["grad_norm"] > 0
+                                       for m in res.values()), f"multi_arch_smoke: {res}")
+        line["multi_arch_smoke"] = res
+        seconds["multi_arch_smoke"] = time.time() - t0
+        t0 = time.time()
+        with counted(torch, launches, "launcher_lemur"):
+            res, out = captured(train.main, ["--arch", "lemur", "--steps", "2"])
+        require(re.search(r"^\[lemur\] backend=ivf recall@10 = \d\.\d{3}$", out, re.M)
+                and res["recall"] > 0.05, f"launcher --arch lemur: {res}")
+        require(all(launches["launcher_lemur"].get(k, 0) > 0 for k in TRAIN_KERNELS),
+                f"launcher --arch lemur launched {launches['launcher_lemur']}")
+        line["launcher_lemur"] = res
+        seconds["launcher_lemur"] = time.time() - t0
+        t0 = time.time()
+        ck = os.path.join(tmp, "launcher")
+        with counted(torch, launches, "launcher_deepfm"):
+            argv = ["--arch", "deepfm", "--steps", "4", "--checkpoint-every", "2",
+                    "--checkpoint-dir", ck]
+            first, _ = captured(train.main, argv)
+            again, out = captured(train.main, argv[:3] + ["6"] + argv[4:])
+        require(first["final_step"] == 4 and again["restores"] == 1
+                and again["final_step"] == 6 and len(again["history"]) == 2
+                and re.search(r"^\[train\] done: step 6, loss \S+, retries=0 nan_skips=0 "
+                              r"stragglers=\d+$", out, re.M), f"launcher deepfm: {again}")
+        line["launcher_deepfm"] = {"first": first["final_step"], "resumed": 4,
+                                   "final": again["final_step"], "loss": again["loss"]}
+        seconds["launcher_deepfm"] = time.time() - t0
+        t0 = time.time()
+        with counted(torch, launches, "train_retrieval_e2e"):
+            res, _ = captured(train_retrieval_e2e.main, ["--steps", "20"])
+        require(np.isfinite(res["loss"]) and res["recall"] > 0.05,
+                f"train_retrieval_e2e: {res}")
+        require(all(launches["train_retrieval_e2e"].get(k, 0) > 0 for k in TRAIN_KERNELS),
+                f"train_retrieval_e2e launched {launches['train_retrieval_e2e']}")
+        line["train_retrieval_e2e"] = res
+        seconds["train_retrieval_e2e"] = time.time() - t0
+    line.update(launches=launches, seconds=seconds, s=time.time() - t_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -4665,6 +5086,8 @@ def main():
     print(json.dumps({"lm": lm_phase(torch, args, card)}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    train_line, train_launches = train_phase(torch, args, card)
+    print(json.dumps({"train": train_line}), flush=True)
 
     build_line, maxsim_row, psi_build_launches, fleet_lifecycle = build_phase(torch, args, card)
     build_line.update(kernel_build_s=t_build)
@@ -4701,6 +5124,8 @@ def main():
             name: int(c.get(row["name"], 0)) for name, c in phase_launches.items()}
         row["launches_launch_phase"] = {
             part: int(c.get(row["name"], 0)) for part, c in launch_launches.items()}
+        row["launches_train_phase"] = {
+            part: int(c.get(row["name"], 0)) for part, c in train_launches.items()}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)
@@ -4793,7 +5218,6 @@ def serve_and_check(torch, args, ragged_cases):
     import gc
 
     from repro_torch.anns.ivf import default_nlist
-    from repro_torch.core.config import LemurConfig
     from repro_torch.core.model import pool_queries
     from repro_torch.kernels import gather_scan, ops, ref
     from repro_torch.retriever import LemurRetriever, SearchParams
@@ -4807,7 +5231,7 @@ def serve_and_check(torch, args, ragged_cases):
     store, psi, rng = build_corpus(torch, args)
     torch.cuda.synchronize()
     t_corpus = time.time() - t0
-    cfg = LemurConfig()                            # paper defaults: d'=2048, k=100, k'=1024
+    cfg = paper().CONFIG                           # App. A: d'=2048, k=100, k'=1024
     t0 = time.time()
     r = LemurRetriever.from_arrays(cfg, psi, store,
                                    generator=torch.Generator().manual_seed(args.seed))
@@ -4821,7 +5245,8 @@ def serve_and_check(torch, args, ragged_cases):
           flush=True)
 
     p = r.resolve(SearchParams())
-    require((p.k, p.k_prime, p.backend.nprobe) == (100, 1024, 32), f"params {p}")
+    require((p.k, p.k_prime, p.backend.nprobe) == (cfg.k, cfg.k_prime, cfg.ivf.nprobe),
+            f"params {p}")
     batches = [make_queries(torch, store, rng, args.batch) for _ in range(args.batches + 1)]
     dead = torch.cat([batches[1][2][:8],
                       torch.as_tensor(rng.integers(0, args.m, 8), device=dev)]).unique()
@@ -5002,7 +5427,7 @@ def serve_and_check(torch, args, ragged_cases):
         list_bytes=sum(t.numel() * t.element_size() for t in
                        (ann.ids, ann.vecs, ann.scales, ann.centroids, ann.counts)),
         corpus_s=t_corpus, ivf_build_s=t_ivf,
-        reduced={"m": args.m, "from": MSMARCO_DOCS,
+        reduced={"m": args.m, "from": msmarco_docs(),
                  "why": "from_dense rounds the fp32 page pool to a power of two: "
                         "800k docs fill 2^22 pages (34.4 GB); 1M docs would need "
                         "2^23 (68.7 GB) beside W and the lists on an 80 GB card"},

@@ -145,3 +145,21 @@ def tree_map_with_name(fn: Callable[[str, Any], Any], tree: Any) -> Any:
         return _rebuild(node, [walk(c, path + (k,)) for k, c in kids])
 
     return walk(tree, ())
+
+
+def value_and_grad(fn: Callable[[Any], Any], params: Any, *, has_aux: bool = False):
+    """``(fn(params), d fn / d params)`` by autograd, the gradient in
+    ``params``' structure (``jax.value_and_grad``): a leaf ``fn`` does not
+    reach gets zeros, as JAX gives.  With ``has_aux`` ``fn`` returns
+    ``(value, aux)`` and the result is ``((value, aux), grads)``, aux
+    detached.  ``params`` is left untouched."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        out = fn(leaves)
+        value = out[0] if has_aux else out
+        grads = iter(torch.autograd.grad(value, tree_leaves(leaves), allow_unused=True,
+                                         materialize_grads=True))
+    grads = tree_map(lambda _: next(grads), params)
+    if has_aux:
+        return (value.detach(), tree_map(torch.Tensor.detach, out[1])), grads
+    return value.detach(), grads

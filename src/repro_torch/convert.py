@@ -40,13 +40,15 @@ transpose, exactly) and :func:`refresh_from_numpy`, which makes the
 makes one too) from a JAX ``lifecycle.build_refresh`` result given as numpy
 arrays.
 
-The LM's parameters and optimizer states cross leaf by leaf under the
-``named_leaves`` names both packages give them (``stack_0/pos_0/attn/wq``
-...): :func:`lm_params_from_numpy` / :func:`lm_params_to_numpy`,
+A model's parameters (LM, recsys, GNN) and optimizer states cross leaf by
+leaf under the ``named_leaves`` names both packages give them
+(``stack_0/pos_0/attn/wq``, ``table/embedding``, ``proc/edge/mlp/layer_0/kernel``
+...): :func:`params_from_numpy` / :func:`params_to_numpy` (the LM's
+through :func:`lm_params_from_numpy`, which checks ``cfg.pdtype``),
 :func:`adam_state_from_numpy` (``OptState``) and
 :func:`adam8_state_from_numpy` (``Opt8State``, whose moments are ``Q8``
 codes and row scales).  bfloat16 leaves (``ml_dtypes.bfloat16`` numpy
-arrays) keep their bits; ``lm_params_to_numpy`` gives them as fp32 (every
+arrays) keep their bits; ``params_to_numpy`` gives them as fp32 (every
 bf16 value is one).
 """
 from __future__ import annotations
@@ -234,7 +236,7 @@ def index_to_numpy(index: LemurIndex, x_ols=None) -> tuple[dict[str, np.ndarray]
 
 
 # ---------------------------------------------------------------------------
-# the LM's parameters and optimizer states
+# model parameters (LM, recsys, GNN) and optimizer states
 # ---------------------------------------------------------------------------
 
 def _leaf_from_numpy(x, dev, dtype=None) -> torch.Tensor:
@@ -265,18 +267,30 @@ def _nested(tree):
     return out
 
 
-def lm_params_from_numpy(tree, cfg, device="cuda"):
-    """The LM's parameters (a nested dict of numpy arrays as
+def params_from_numpy(tree, device="cuda", dtype=None):
+    """A model's parameters (a nested dict of numpy arrays as
     ``jax.tree_util.tree_map(np.asarray, params)`` gives it, or its flat
-    ``named_leaves`` dict) as tensors of ``cfg.pdtype`` on ``device``."""
+    ``named_leaves`` dict) as tensors on ``device``, leaf for leaf: the
+    recsys and GNN trees (the GNN's ``proc`` leaves keep their leading layer
+    axis) and, through :func:`lm_params_from_numpy`, the LM's.  ``dtype``:
+    every leaf must be of it (None: each keeps its own)."""
     dev = resolve_device(device)
-    return tree_map(lambda x: _leaf_from_numpy(x, dev, cfg.pdtype), _nested(tree))
+    return tree_map(lambda x: _leaf_from_numpy(x, dev, dtype), _nested(tree))
 
 
-def lm_params_to_numpy(params) -> dict[str, np.ndarray]:
+def params_to_numpy(params) -> dict[str, np.ndarray]:
     """``{named_leaves name: numpy array}``; bfloat16 leaves as fp32."""
     return {name: (t.detach().float() if t.dtype == torch.bfloat16 else t.detach()).cpu().numpy()
             for name, t in named_leaves(params)}
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda"):
+    """The LM's parameters as tensors of ``cfg.pdtype`` on ``device``
+    (:func:`params_from_numpy`)."""
+    return params_from_numpy(tree, device, cfg.pdtype)
+
+
+lm_params_to_numpy = params_to_numpy
 
 
 def adam_state_from_numpy(state, device="cuda") -> OptState:

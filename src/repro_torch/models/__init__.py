@@ -1,2 +1,1 @@
-# Subpackages imported lazily, as in the JAX package (recsys and gnn are
-# ported in a later slice).
+# Subpackages imported lazily, as in the JAX package.

@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ConfigBase
 from repro_torch.common.device import resolve_device
 from repro_torch.common.prng import PRNGSeq
-from repro_torch.common.pytree import tree_leaves, tree_map
+from repro_torch.common import pytree
+from repro_torch.common.pytree import tree_map
 from repro_torch.nn import attention, layers, moe
 from repro_torch.optim.adam import adam_update
 
@@ -315,14 +316,12 @@ def value_and_grad(params, tokens, labels, cfg: LMConfig):
     """((loss + aux_loss_coef * aux, (loss, aux)), grads) by autograd, grads
     in ``params``' structure: ``jax.value_and_grad(..., has_aux=True)`` of
     the JAX twin's train loss."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    with torch.enable_grad():
-        hidden, aux = forward_train(leaves, tokens, cfg)
-        loss = lm_loss(leaves, hidden, labels, cfg)
-        tot = loss + cfg.aux_loss_coef * aux
-        grads = iter(torch.autograd.grad(tot, tree_leaves(leaves)))
-    return (tot.detach(), (loss.detach(), aux.detach())), tree_map(lambda _: next(grads),
-                                                                    params)
+    def total(p):
+        hidden, aux = forward_train(p, tokens, cfg)
+        loss = lm_loss(p, hidden, labels, cfg)
+        return loss + cfg.aux_loss_coef * aux, (loss, aux)
+
+    return pytree.value_and_grad(total, params, has_aux=True)
 
 
 def make_train_step(cfg: LMConfig, mesh=None, *, optimizer=None):

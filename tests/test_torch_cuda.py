@@ -1915,3 +1915,106 @@ def test_moe_dense_on_card_full_expert_count(cuda):
     err = float((y_g.cpu() - y_c).abs().max())
     assert err <= 1e-5 * float(y_c.abs().max()), err
     _lm_close(aux_g, aux_c, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the training path (recsys, gnn, loader, checkpoint, trainer): the card
+# against the CPU path
+# --------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["deepfm", "xdeepfm", "bst", "two-tower-retrieval", "meshgraphnet"]
+
+
+def _train_batch(arch, cfg, device):
+    if arch == "meshgraphnet":
+        g = synthetic.make_mesh_graph(120, d_feat=cfg.d_node_in, d_edge=cfg.d_edge_in,
+                                      d_out=cfg.d_out)
+        b = {k: getattr(g, k) for k in ("node_feat", "edge_feat", "senders", "receivers",
+                                        "labels")}
+    else:
+        d = synthetic.make_clicks(32, max(cfg.n_fields, 1), np.array(cfg.vocab_sizes or [10]),
+                                  hist_len=cfg.seq_len, n_items=cfg.n_items)
+        keys = {"bst": ("history", "target_item", "labels"),
+                "two_tower": ("ids", "target_item", "labels")}.get(cfg.model, ("ids", "labels"))
+        b = {("item" if k == "target_item" and cfg.model == "two_tower" else k):
+             (d[k][:, :cfg.n_fields] if k == "ids" else d[k]) for k in keys}
+    return {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """Each SMOKE recsys arch and meshgraphnet (fp32): three train steps on
+    the card against the same steps on the CPU.  Tolerances: loss and grad
+    norm rtol 1e-5 / 1e-4 (fp32 on both, TF32 off; the dense embedding
+    gradient adds duplicate ids in another order on the card); params within
+    2 x lr (Adam moves a parameter by up to lr either way on a gradient at
+    rounding level)."""
+    from repro_torch.common.pytree import named_leaves, tree_map
+    from repro_torch.configs import registry
+    from repro_torch.models import gnn, recsys
+    from repro_torch.optim.adam import adam_init
+
+    cfg = registry.get_arch(arch).SMOKE
+    mod = gnn if arch == "meshgraphnet" else recsys
+    init = gnn.init_gnn if arch == "meshgraphnet" else recsys.init_recsys
+    cpu = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    b_cpu = _train_batch(arch, cfg, "cpu")
+    b_card = {k: v.to(cuda) for k, v in b_cpu.items()}
+    step = mod.make_train_step(cfg)
+    o_c, o_g = adam_init(cpu), adam_init(card)
+    for _ in range(3):
+        cpu, o_c, m_c = step(cpu, o_c, b_cpu)
+        card, o_g, m_g = step(card, o_g, b_card)
+        _lm_close(m_g["loss"], m_c["loss"], rtol=1e-5, atol=0)
+        _lm_close(m_g["grad_norm"], m_c["grad_norm"], rtol=1e-4, atol=0)
+    for (n, a), (_, b) in zip(named_leaves(card), named_leaves(cpu)):
+        _lm_close(a, b, rtol=0, atol=2e-3, msg=n)
+
+
+@pytest.mark.gpu
+def test_loader_copies_on_a_side_stream_before_the_step_reads(cuda):
+    """The loader's batches arrive on the card, each read by the consumer's
+    stream only after its copy's event: a kernel queued on the consumer's
+    stream right after ``next`` sees the whole batch, batch after batch,
+    while the producer thread copies the next ones."""
+    from repro_torch.data.loader import ShardedLoader
+
+    n, rows = 12, 1 << 20
+    host = [np.full((rows,), i, np.float32) for i in range(n)]
+    ld = ShardedLoader(iter(host), prefetch=3, device=cuda)
+    assert ld._stream is not None and ld._stream != torch.cuda.current_stream()
+    sums = []
+    for b in ld:
+        assert b.device.type == "cuda" and b.shape == (rows,)
+        sums.append(b.sum())           # queued on the consumer's stream
+    assert [float(s) for s in sums] == [float(i * rows) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A TrainLoop on the card saves asynchronously; a second loop restores
+    onto the card with bit-equal leaves and resumes at the saved step."""
+    from repro_torch.common.pytree import named_leaves
+    from repro_torch.configs import registry
+    from repro_torch.models import recsys
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.train import TrainerConfig, TrainLoop
+
+    cfg = registry.get_arch("deepfm").SMOKE
+    b = _train_batch("deepfm", cfg, cuda)
+    tc = TrainerConfig(checkpoint_dir=str(tmp_path), total_steps=4, checkpoint_every=2,
+                       log_every=0)
+    mk = lambda seed: recsys.init_recsys(torch.Generator(device=cuda).manual_seed(seed),
+                                         cfg, device=cuda)
+    p = mk(0)
+    loop = TrainLoop(tc, recsys.make_train_step(cfg), p, adam_init(p), logger=lambda s: None)
+    assert loop.run([b] * 4)["final_step"] == 4
+    p2 = mk(1)
+    loop2 = TrainLoop(tc, recsys.make_train_step(cfg), p2, adam_init(p2),
+                      logger=lambda s: None)
+    assert loop2.try_restore() and loop2.step == 4
+    for (n, a), (_, c) in zip(named_leaves((loop.params, loop.opt_state)),
+                              named_leaves((loop2.params, loop2.opt_state))):
+        assert c.device.type == "cuda" and a.dtype == c.dtype and torch.equal(a, c), n

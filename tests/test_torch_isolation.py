@@ -32,10 +32,12 @@ def test_importing_every_module_pulls_in_no_jax():
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    # with serving, fleet and lifecycle (14 modules), the launchers (4), the examples (6)
-    # and the model layer (18: common/{pytree,prng,collectives}, optim/{schedule,adam8bit,
-    # compress}, nn and its 3 modules, models and lm, configs and its 5 LM configs)
-    assert int(r.stdout.strip()) >= 91
+    # with serving, fleet and lifecycle (14 modules), the launchers (4), the examples (6),
+    # the model layer (18: common/{pytree,prng,collectives}, optim/{schedule,adam8bit,
+    # compress}, nn and its 3 modules, models and lm, configs and its 5 LM configs) and
+    # the training path (15: data/loader, models/{recsys,gnn}, the 6 other configs and
+    # the registry, train and its trainer, launch/train, the 2 training examples)
+    assert int(r.stdout.strip()) >= 106
 
 
 @pytest.mark.parametrize("package", ["repro_torch.launch", "repro_torch.examples"])
@@ -61,26 +63,31 @@ def test_launchers_and_examples_do_no_work_at_import(package):
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) == {"repro_torch.launch": 3,
-                                     "repro_torch.examples": 5}[package]
+    assert int(r.stdout.strip()) == {"repro_torch.launch": 4,
+                                     "repro_torch.examples": 7}[package]
 
 
 @pytest.mark.parametrize("package,n", [("repro_torch.common", 5), ("repro_torch.optim", 4),
-                                       ("repro_torch.nn", 3), ("repro_torch.models", 1),
-                                       ("repro_torch.configs", 5)])
+                                       ("repro_torch.nn", 3), ("repro_torch.models", 3),
+                                       ("repro_torch.configs", 12), ("repro_torch.data", 2),
+                                       ("repro_torch.checkpoint", 1),
+                                       ("repro_torch.train", 1)])
 def test_model_layer_does_no_work_at_import(package, n):
-    """Importing the model layer (pytree and PRNG leaves, optim, nn, the LM
-    and its configs) builds no kernel, opens no process group, touches no
-    device and pulls in no JAX."""
+    """Importing the model layer and the training path (pytree and PRNG
+    leaves, optim, nn, the models and their configs, the loader, the
+    checkpoint manager, the trainer) builds no kernel, opens no process
+    group, touches no device, starts no thread and pulls in no JAX."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import torch.distributed as tdist
         pkg = importlib.import_module("{package}")
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "{package}.")]
+        import threading
         for name in names:
             importlib.import_module(name)
         from repro_torch.kernels import build
         assert not build._loaded, build._loaded
+        assert threading.active_count() == 1
         assert not tdist.is_initialized()
         import torch
         assert not torch.cuda.is_initialized()
