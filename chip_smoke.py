@@ -58,7 +58,13 @@ script
    the mesh forms (``moe_apply`` in both layouts and bodies,
    ``flash_attention_cp``, ``ef_int8_allreduce``) on a one-rank NCCL
    (1, 1, 1) ("pod", "data", "model") mesh against their single-device
-   forms; then frees all of it;
+   forms; and, while each model is held, the LM's mesh forms on a one-rank
+   NCCL (1, 1) ("data", "model") mesh (``lm_mesh_serve``): a prefill of the
+   same tokens (context-parallel) and 8 decode steps fed the same tokens,
+   each step's logits within ``lm.BF16_LOGIT_RTOL`` x max |logit| of the
+   ``mesh=None`` logits (deepseek-v3's ``ep`` MoE at capacity factor 8, so
+   that it drops no pair where ``moe_apply_dense`` drops none); then frees
+   all of it;
 2d. **train**: the training path (no port kernel owed: nothing under the
    JAX package's models, data, checkpoint or train reaches a Pallas
    kernel), launch counters from 0 around each part: deepfm at full width
@@ -71,11 +77,32 @@ script
    width, its CIN a chunk of rows at a time (3 steps); meshgraphnet at full width on
    ``full_graph_sm`` (15 layers of 128, 2,708 nodes, 10,556 edges, d_in
    1,433, 7 classes) and ``molecule``, the steps and the card against the
-   CPU; each step beside its bound; ``multi_arch_smoke`` over the ten
+   CPU; each step beside its bound; the mesh forms on a one-rank NCCL (1,
+   1) mesh (``train_mesh_forms``: two deepfm ``make_train_step(cfg, mesh)``
+   steps at batch 65,536 against two ``mesh=None`` steps, meshgraphnet's
+   forward and one step on ``full_graph_sm`` alike, within
+   ``step_card_vs_cpu``'s tolerance); ``multi_arch_smoke`` over the ten
    model archs; ``repro_torch.launch.train --arch lemur`` (recall, and the
    five LEMUR kernels each launched), the launcher on deepfm with a restart
    that resumes at its saved step; ``train_retrieval_e2e`` (20 steps, the
    same kernels); then frees all of it;
+2e. **dist**: launch counters from 0 around each part: two-tower at full
+   width ``make_retrieval_step`` on a one-rank NCCL (1, 1) mesh over
+   ``retrieval_cand``'s 1,000,000 candidates (the 10 best copied into the
+   second half: exact ties), k 100, its ids and scores equal to the ``mesh=None``
+   scores' stable top 100 (score descending, index ascending); then, in a
+   process of its own (``--dist-cells``: a process has one default group),
+   rank 0 of a ``fake`` group of 256 ranks and the single-pod mesh over
+   it: whether the ``fake`` backend takes CUDA tensors, and for
+   ``lemur × serve_msmarco`` (34,539 docs a rank: the ψ-pool and dense
+   rerank kernels), ``deepfm × train_batch`` and ``gemma-7b ×
+   decode_32k`` the dry run (``launch.dryrun.run_cell``) and rank 0's step
+   run on the card at its local shapes (stand-in values; the collectives
+   move nothing): the dry run's ``argument_bytes`` required equal to the
+   real local arguments' bytes, its peak beside
+   ``torch.cuda.max_memory_allocated``, its FLOPs and bytes with the
+   roofline's per-device bound at the H100's peaks beside the measured
+   step ms (CUDA events, median of 3 after a warm-up);
 3. **build path**: makes a corpus of ``--build-m`` docs on the card with the
    serving corpus's distribution (d=128, Poisson(67.5) lengths clipped to
    [4, 80], unit-norm tokens at topic weight 1.2 over 4,096 centres, dense
@@ -272,7 +299,8 @@ script
    the ``lm`` line (each part's times, bounds, checks and peak memory, the
    card) after phase 2c, the ``train`` line (each part's step ms, bounds,
    checks, save and restore seconds, peak memory and launches by kernel,
-   the card) after phase 2d,
+   the card) after phase 2d, the ``dist`` line (each part's checks, times,
+   bounds, memory and launches, the card) after phase 2e,
    a ``build`` line, the ``fleet`` and ``lifecycle`` lines, a
    ``widths`` line, a ``serving`` line, a ``routes`` line, a ``residual``
    line, a ``sharded`` line, the ``mutation`` line (with the residual and
@@ -280,7 +308,8 @@ script
    ``psi_ablation`` line, the ``kernels`` line (token MaxSim's row with its
    launches on the mutation path and the backends' rounds; every row with
    its launches on each backend's batches and in the online, fleet and
-   lifecycle phases and in each part of the launch and train phases) and last
+   lifecycle phases and in each part of the launch, train and dist
+   phases) and last
    ``{"ok": true, ...}``.
 
 Any failed check exits non-zero before the result lines are printed.
@@ -4364,11 +4393,14 @@ def lm_bound(nbytes, mm_flops, attn_flops):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-def lm_serve(torch, cfg, batch, seq, steps, seed, reduced=None):
+def lm_serve(torch, cfg, batch, seq, steps, seed, reduced=None, mesh_cfg=None):
     """One config on the card: ``init_lm`` from a seeded generator, a
     prefill of batch x seq tokens (twice: the first warms cuBLAS), ``steps``
     greedy ``make_decode_step`` steps, the first step's logits held against
-    ``forward_train`` at the same position -> (line, params)."""
+    ``forward_train`` at the same position, then the mesh forms' prefill
+    and MESH_DECODE_STEPS decode steps against these (``lm_mesh_serve``;
+    ``mesh_cfg``: the config the mesh forms run, default ``cfg``) -> (line,
+    params)."""
     from repro_torch.common.pytree import named_leaves
     from repro_torch.models import lm
 
@@ -4409,7 +4441,10 @@ def lm_serve(torch, cfg, batch, seq, steps, seed, reduced=None):
         cache_bytes = sum(t.numel() * t.element_size() for _, t in named_leaves(caches))
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         first_tok, step_ms, step_host_ms = tok, [], []
+        want_prefill, fed, want_steps = logits.float(), [], []
         for s in range(steps):
+            if s < MESH_DECODE_STEPS:
+                fed.append(tok)
             if s == steps - 1:          # the last step traced, not timed
                 out = []
                 trace = profile_call(
@@ -4427,6 +4462,8 @@ def lm_serve(torch, cfg, batch, seq, steps, seed, reduced=None):
                 step_host_ms.append((time.time() - t0) * 1e3)
                 step_ms.append(e0.elapsed_time(e1))
             require(bool(torch.isfinite(lg).all()), f"{cfg.name}: decode step {s} not finite")
+            if s < MESH_DECODE_STEPS:
+                want_steps.append(lg.float())
             if s == 0:
                 first = lg.float()
             tok = nxt
@@ -4459,6 +4496,15 @@ def lm_serve(torch, cfg, batch, seq, steps, seed, reduced=None):
         | {"top": trace["top"][:6], "idle_gaps": trace["idle_gaps"]},
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del caches, logits, lg, first, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    mesh_cfg = mesh_cfg or cfg
+    line["mesh_forms"] = lm_mesh_serve(torch, mesh_cfg, params, toks, fed, want_prefill,
+                                       want_steps)
+    line["mesh_forms"]["capacity_factor"] = mesh_cfg.capacity_factor
+    line["mesh_forms"]["s"] = time.time() - t0
+    del want_prefill, want_steps, fed
     return line, params
 
 
@@ -4639,9 +4685,13 @@ def lm_phase(torch, args, card):
     gc.collect()
     torch.cuda.empty_cache()
     ds = deepseek_v3_671b.CONFIG.replace(n_layers=2, prefix_dense_layers=1)
+    # the mesh forms' ep MoE drops pairs over its capacity where moe_apply_dense
+    # drops none: at capacity factor 8 (256 slots an expert for 1,024 tokens
+    # of top-8 over 256 experts, 32 expected) none is dropped
     line["deepseek_v3_671b"], params = lm_serve(
         torch, ds, 2, 512, 16, args.seed,
-        reduced={"n_layers": [61, 2], "prefix_dense_layers": [3, 1]})
+        reduced={"n_layers": [61, 2], "prefix_dense_layers": [3, 1]},
+        mesh_cfg=ds.replace(capacity_factor=8.0))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4698,10 +4748,11 @@ def to_cpu(torch, tree):
 def step_card_vs_cpu(torch, step, loss_fn, params, opt, batch, lr=1e-3):
     """The gradients and one step on the card against the same on the CPU
     from the same state: gradients within 1e-3 x max |CPU grad| + 1e-7 a leaf
-    (fp32 sums in another order, the card's scatter-adds in no fixed order,
-    through up to 15 LayerNorm'd layers: the CPU parity tests' 1e-4, set on
-    2-3 layer SMOKE configs, is exceeded at meshgraphnet's full depth, 1.1e-4
-    of the leaf's max on ``molecule``); the step's loss rtol 1e-5, grad norm
+    (fp32 sums in another order through up to 15 LayerNorm'd layers: the CPU
+    parity tests' 1e-4, set on 2-3 layer SMOKE configs, is exceeded at
+    meshgraphnet's full depth, 1.1e-4 of the leaf's max on ``molecule``; the
+    GNN's segment sums add in one fixed order on the card, so the check
+    repeats run to run); the step's loss rtol 1e-5, grad norm
     rtol 1e-4, new parameters within 2 x lr (Adam moves a parameter by up to
     lr either way on a gradient at rounding level).  The largest parameter
     difference where the new first moment is above 1e-3 x its leaf's max is
@@ -4999,6 +5050,12 @@ def train_phase(torch, args, card):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.time()
+        with counted(torch, launches, "mesh_forms"):
+            line["mesh_forms"] = train_mesh_forms(torch, args)
+        seconds["mesh_forms"] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
         with counted(torch, launches, "multi_arch_smoke"):
             res, _ = captured(multi_arch_smoke.main, [])
         require(len(res) == 10 and all(np.isfinite(m["loss"]) and m["grad_norm"] > 0
@@ -5043,6 +5100,309 @@ def train_phase(torch, args, card):
     return line, launches
 
 
+# --------------------------------------------------------------------------
+# the mesh forms at full width, and the dist phase: two-tower retrieval on a
+# one-rank NCCL mesh, then three cells of the single-pod mesh (a fake group
+# of 256 ranks) dry-run and run for real at rank 0's shapes
+# --------------------------------------------------------------------------
+
+MESH_DECODE_STEPS = 8
+DIST_CELLS = (("lemur", "serve_msmarco"), ("deepfm", "train_batch"),
+              ("gemma-7b", "decode_32k"))
+
+
+def lm_mesh_serve(torch, cfg, params, toks, fed, want_prefill, want_steps):
+    """The LM's mesh forms on a one-rank NCCL (1, 1) ("data", "model") mesh:
+    a prefill of the same tokens and MESH_DECODE_STEPS decode steps fed the
+    same tokens, each step's logits within ``lm.BF16_LOGIT_RTOL`` x max
+    |logit| of the ``mesh=None`` logits."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import lm
+
+    B, T = toks.shape
+    out = {"mesh": [1, 1], "steps": len(fed), "rtol": lm.BF16_LOGIT_RTOL}
+    errs = []
+    with nccl_mesh(torch, (1, 1), ("data", "model")) as mesh, torch.no_grad():
+        local = sh.shard_tree(params, lm.lm_specs(cfg, params), mesh)
+        require(lm.mesh_layout(mesh, B, T).cp, f"{cfg.name}: the mesh prefill is not "
+                "context-parallel")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, caches = lm.prefill(local, toks, cfg, T + len(fed), mesh)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.time() - t0
+        for s, (want, tok) in enumerate([(want_prefill, None)] + list(zip(want_steps, fed))):
+            if tok is not None:
+                logits, caches = lm.decode(local, tok, caches, T + s, cfg, mesh)
+            err, scale = float((logits.float() - want).abs().max()), float(want.abs().max())
+            require(err <= lm.BF16_LOGIT_RTOL * scale,
+                    f"{cfg.name} mesh form step {s}: {err} > {lm.BF16_LOGIT_RTOL} x {scale}")
+            errs.append(err / scale)
+        del caches, logits, local
+    out["max_abs_err_of_max_logit"] = max(errs)
+    out["per_step_err_of_max_logit"] = errs
+    return out
+
+
+def mesh_vs_plain_steps(torch, step_mesh, step_plain, params, opt, mesh_args, batch,
+                        n=2, lr=1e-3):
+    """``n`` steps of a mesh form against ``n`` of its ``mesh=None`` form from
+    one state.  After each step: loss rtol 1e-5, grad norm rtol 1e-4, and
+    every leaf's new first moment (the clipped gradient folded into Adam's
+    mean, so a per-leaf gradient check) within 1e-4 x its max + 1e-9 (the
+    CPU parity tests' ``check_step``).  After the last: the parameters
+    within 1e-5 x max(1, max |p|) wherever the first moment is above 1e-3 x
+    its leaf's max, and within 2 lr + 2e-6 a step everywhere (Adam moves a
+    parameter by less than lr a step; fp32 rounding of |p| < 8)."""
+    from repro_torch.common.pytree import named_leaves
+
+    pm, om = params, opt
+    pp, op = params, opt
+    worst_loss = worst_gn = worst_mu = 0.0
+    for _ in range(n):
+        pm, om, mm = step_mesh(*mesh_args(pm, om), batch)
+        pp, op, mp = step_plain(pp, op, batch)
+        lm_, lp = float(mm["loss"]), float(mp["loss"])
+        gm, gp = float(mm["grad_norm"]), float(mp["grad_norm"])
+        require(abs(lm_ - lp) <= 1e-5 * abs(lp), f"mesh vs plain loss {lm_} {lp}")
+        require(abs(gm - gp) <= 1e-4 * abs(gp), f"mesh vs plain grad norm {gm} {gp}")
+        worst_loss = max(worst_loss, abs(lm_ - lp) / abs(lp))
+        worst_gn = max(worst_gn, abs(gm - gp) / abs(gp))
+        for (k, a), (_, b) in zip(named_leaves(om.mu), named_leaves(op.mu)):
+            d, scale = float((a - b).abs().max()), float(b.abs().max())
+            require(d <= 1e-4 * scale + 1e-9, f"mesh vs plain first moment {k}: {d} of {scale}")
+            worst_mu = max(worst_mu, d / max(scale, 1e-30))
+    worst = worst_big = 0.0
+    mu = dict(named_leaves(op.mu))
+    for (k, a), (_, b) in zip(named_leaves(pm), named_leaves(pp)):
+        diff = (a - b).abs()
+        d = float(diff.max())
+        require(d <= (2 * lr + 2e-6) * n, f"mesh vs plain params {k}: {d}")
+        big = mu[k].abs() > 1e-3 * float(mu[k].abs().max())
+        if bool(big.any()):
+            db = float(diff[big].max())
+            require(db <= 1e-5 * max(1.0, float(b.abs().max())),
+                    f"mesh vs plain params {k} (large moment): {db}")
+            worst_big = max(worst_big, db)
+        worst = max(worst, d)
+    return dict(steps=n, max_rel_loss_diff=worst_loss, max_rel_grad_norm_diff=worst_gn,
+                max_first_moment_diff_of_leaf_max=worst_mu, max_abs_param_diff=worst,
+                max_abs_param_diff_large_moment=worst_big, loss=lp,
+                tolerance="loss rtol 1e-5, grad norm rtol 1e-4, first moments 1e-4 x leaf max "
+                          "+ 1e-9 a step; params 1e-5 x max(1, |p|) where the moment is large, "
+                          "2 lr + 2e-6 a step elsewhere")
+
+
+def train_mesh_forms(torch, args):
+    """deepfm at full width (batch 65,536): two ``make_train_step(cfg, mesh)``
+    steps on a one-rank NCCL (1, 1) mesh against two ``mesh=None`` steps;
+    meshgraphnet ``full_graph_sm``: its forward and one train step the same
+    way."""
+    from repro_torch.configs import deepfm, meshgraphnet
+    from repro_torch.data import synthetic
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import gnn, recsys
+    from repro_torch.optim import adam_init
+
+    out = {}
+    cfg = deepfm.CONFIG
+    B = deepfm.SHAPES["train_batch"]["batch"]
+    d = synthetic.make_clicks(B, cfg.n_fields, np.array(cfg.vocab_sizes), seed=args.seed)
+    batch = {"ids": torch.as_tensor(d["ids"]).cuda(), "labels": torch.as_tensor(
+        d["labels"]).cuda()}
+    params = recsys.init_recsys(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                                device="cuda")
+    opt = adam_init(params)
+    with nccl_mesh(torch, (1, 1), ("data", "model")) as mesh:
+        specs = sh.spec_tree(params, sh.RECSYS_RULES)
+        t0 = time.time()
+        out["deepfm"] = mesh_vs_plain_steps(
+            torch, recsys.make_train_step(cfg, mesh), recsys.make_train_step(cfg), params,
+            opt, lambda p, o: (sh.shard_tree(p, specs, mesh), o), batch)
+        out["deepfm"].update(batch=B, s=time.time() - t0)
+        del params, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = meshgraphnet.SHAPES["full_graph_sm"]
+        gcfg = spec["cfg"]
+        b = cora_like(np.random.default_rng(args.seed), spec, gcfg)
+        gb = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+        gb["senders"], gb["receivers"] = gb["senders"].long(), gb["receivers"].long()
+        gp = gnn.init_gnn(torch.Generator(device="cuda").manual_seed(args.seed), gcfg,
+                          device="cuda")
+        with torch.no_grad():
+            f = lambda m: gnn.forward(gp, gb["node_feat"], gb["edge_feat"], gb["senders"],
+                                      gb["receivers"], gcfg, m)
+            want, got = f(None), f(mesh)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        require(err <= 1e-5 * max(scale, 1.0), f"meshgraphnet mesh forward {err} of {scale}")
+        t0 = time.time()
+        out["meshgraphnet_full_graph_sm"] = mesh_vs_plain_steps(
+            torch, gnn.make_train_step(gcfg, mesh), gnn.make_train_step(gcfg), gp,
+            adam_init(gp), lambda p, o: (p, o), gb, n=1)
+        out["meshgraphnet_full_graph_sm"].update(
+            forward_max_abs_err=err, forward_max_abs=scale, s=time.time() - t0)
+    return out
+
+
+def dist_cells_main(out_path):
+    """The dist phase's cells, in a process of its own (a process has one
+    default group): a fake group of 256 ranks as rank 0, the single-pod
+    mesh; for each of DIST_CELLS ``dryrun.run_cell`` and rank 0's step run
+    on the card at its local shapes, launch counters from 0 around the real
+    steps.  Writes its results as JSON to ``out_path``."""
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs.registry import build_cell
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.cuda.set_device(0)
+    res = {"cells": {}}
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cuda")
+        try:   # does the fake backend take CUDA tensors?
+            t = torch.ones(8, device="cuda")
+            tdist.all_reduce(t, group=mesh.get_group("model"))
+            parts = [torch.empty_like(t) for _ in range(16)]
+            tdist.all_gather(parts, t, group=mesh.get_group("data"))
+            torch.cuda.synchronize()
+            res["fake_backend_takes_cuda"] = True
+        except Exception as e:  # noqa: BLE001 -- recorded; the bytes are still checked
+            res["fake_backend_takes_cuda"] = False
+            res["fake_backend_error"] = repr(e)[:500]
+        launches = {}
+        for arch, shape in DIST_CELLS:
+            t0 = time.time()
+            rec = dryrun.run_cell(arch, shape, mesh)
+            cell = build_cell(arch, shape, mesh)
+            args = dryrun.local_args(cell, mesh, "cuda", fill=True)
+            nbytes = dryrun.tree_nbytes(args)
+            row = roofline.summarize(rec, 256)
+            line = {"dry_run_s": rec["run_s"], "argument_bytes_dry_run":
+                    rec["memory"]["argument_bytes"], "argument_bytes_real": nbytes,
+                    "peak_bytes_dry_run": rec["memory"]["peak_bytes"],
+                    "flops_per_device": rec["flops_loop_corrected"],
+                    "bytes_per_device": rec["bytes_loop_corrected"],
+                    "collective_bytes_per_device": rec["collectives_loop_corrected"][
+                        "total_bytes"],
+                    "t_compute_ms": row["t_compute_s"] * 1e3,
+                    "t_memory_ms": row["t_memory_s"] * 1e3,
+                    "t_collective_ms": row["t_collective_s"] * 1e3,
+                    "bound_ms": max(row["t_compute_s"], row["t_memory_s"]) * 1e3,
+                    "bound_by": "operations" if row["t_compute_s"] >= row["t_memory_s"]
+                    else "bytes",
+                    "bound_note": "the dry run's FLOPs at 989 TFLOP/s bf16 and its unfused "
+                                  "eager bytes at 3.35 TB/s; the collectives (t_collective_ms "
+                                  "at 50 GB/s) move nothing on the fake group"}
+            if res["fake_backend_takes_cuda"]:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                cell.fn(*args)                               # warm-up
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                times = []
+                for _ in range(3):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    cell.fn(*args)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    times.append(e0.elapsed_time(e1))
+                launches[f"{arch}|{shape}"] = {k: v for k, v in ops.launch_counts().items()
+                                               if v}
+                line.update(step_ms=times, step_ms_median=float(np.median(times)),
+                            max_memory_allocated=torch.cuda.max_memory_allocated(),
+                            args_allocated=nbytes, memory_before_step=base,
+                            share_of_bound=line["bound_ms"] / float(np.median(times)))
+            line["s"] = time.time() - t0
+            res["cells"][f"{arch}|{shape}"] = line
+            del args, cell
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["launches"] = launches
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def dist_phase(torch, args, card):
+    """The ``dist`` line (launch counters from 0 around each part): two-tower
+    at full width (``configs/two_tower.CONFIG``) ``make_retrieval_step`` on a
+    one-rank NCCL (1, 1) mesh over ``retrieval_cand``'s 1,000,000
+    candidates, k 100, its ids against the ``mesh=None`` scores' stable top
+    100; then the cells of DIST_CELLS in a process of its own
+    (:func:`dist_cells_main`): each dry run's ``argument_bytes`` required
+    equal to the real local arguments' bytes.  -> (line, launches by part)."""
+    import tempfile
+
+    from repro_torch.anns.base import stable_topk
+    from repro_torch.configs import two_tower
+    from repro_torch.models import recsys
+
+    t_phase = time.time()
+    line, launches = {"card": card}, {}
+    cfg = two_tower.CONFIG
+    n_cand = two_tower.SHAPES["retrieval_cand"]["n_candidates"]
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    with counted(torch, launches, "two_tower_retrieval"):
+        params = recsys.init_recsys(g, cfg, device="cuda")
+        cand = torch.randn((n_cand, cfg.out_dim), device="cuda", generator=g)
+        ids = torch.stack([torch.randint(0, v, (1,), device="cuda", generator=g)
+                           for v in cfg.vocab_sizes], 1)
+        with torch.no_grad():
+            u = recsys.two_tower_user(params, ids, cfg)
+            # the 10 best rows copied into the second half: exact ties in the top 100
+            best = stable_topk(u @ cand.T, 10)[1][0]
+            taken = set(best.tolist())
+            dest = [i for i in range(n_cand // 2, n_cand // 2 + 20) if i not in taken][:10]
+            cand[torch.tensor(dest, device="cuda")] = cand[best]
+            scores = u @ cand.T
+        want_s, want_i = stable_topk(scores, 100)
+        plain_ms = time_ms(torch, lambda: recsys.make_retrieval_step(cfg, None, k=100)(
+            params, {"ids": ids}, cand), n=5, warmup=1)
+        with nccl_mesh(torch, (1, 1), ("data", "model")) as mesh:
+            step = recsys.make_retrieval_step(cfg, mesh, k=100)
+            got_s, got_i = step(params, {"ids": ids}, cand)
+            mesh_ms = time_ms(torch, lambda: step(params, {"ids": ids}, cand), n=5, warmup=1)
+        require(torch.equal(got_i, want_i), "two-tower retrieval: ids differ from the "
+                "mesh=None scores' top 100")
+        require(int((want_s[0, 1:] == want_s[0, :-1]).sum()) >= 10, "two-tower retrieval: "
+                "the copied rows tie with no other")
+        require(bool(torch.equal(got_s, want_s)), "two-tower retrieval: scores differ")
+        line["two_tower_retrieval"] = dict(
+            n_candidates=n_cand, k=100, out_dim=cfg.out_dim, ids_equal=True,
+            ties_in_top100=int((want_s[0, 1:] == want_s[0, :-1]).sum()),
+            mesh_ms=mesh_ms, plain_ms=plain_ms)
+        del params, cand, scores, u
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist_cells.json")
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--dist-cells", path],
+                           capture_output=True, text=True, timeout=600)
+        require(r.returncode == 0, f"dist cells: {r.stderr[-3000:]}")
+        with open(path) as f:
+            cells = json.load(f)
+    line["cells_s"] = time.time() - t0
+    for key, c in cells["cells"].items():
+        require(c["argument_bytes_dry_run"] == c["argument_bytes_real"],
+                f"{key}: dry-run argument bytes {c['argument_bytes_dry_run']} != real "
+                f"{c['argument_bytes_real']}")
+    if cells["fake_backend_takes_cuda"]:
+        lemur = cells["launches"].get("lemur|serve_msmarco", {})
+        require(lemur.get("fused_psi_pool", 0) > 0 and lemur.get("rerank_gather_scores", 0) > 0,
+                f"lemur serve cell launched {lemur}")
+    launches.update(cells["launches"])
+    line.update(cells, launches=launches, s=time.time() - t_phase)
+    return line, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--build-m", type=int, default=200_000, help="docs the build runs on")
@@ -5050,9 +5410,16 @@ def main():
     ap.add_argument("--batches", type=int, default=4, help="timed batches")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-cells", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+
+    if args.dist_cells:          # the dist phase's own process (dist_phase)
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
+        dist_cells_main(args.dist_cells)
+        return
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -5088,6 +5455,10 @@ def main():
     torch.cuda.empty_cache()
     train_line, train_launches = train_phase(torch, args, card)
     print(json.dumps({"train": train_line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_line, dist_launches = dist_phase(torch, args, card)
+    print(json.dumps({"dist": dist_line}), flush=True)
 
     build_line, maxsim_row, psi_build_launches, fleet_lifecycle = build_phase(torch, args, card)
     build_line.update(kernel_build_s=t_build)
@@ -5126,6 +5497,8 @@ def main():
             part: int(c.get(row["name"], 0)) for part, c in launch_launches.items()}
         row["launches_train_phase"] = {
             part: int(c.get(row["name"], 0)) for part, c in train_launches.items()}
+        row["launches_dist_phase"] = {
+            part: int(c.get(row["name"], 0)) for part, c in dist_launches.items()}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"routes": routes}), flush=True)
     print(json.dumps({"residual": residual}), flush=True)

@@ -18,8 +18,9 @@ every bf16 value is an fp32 one, so the bits survive.
 ``CheckpointManager`` adds the async save (a host copy of every leaf taken
 before ``save_async`` returns, written on a worker thread), retention and
 restore-latest, which waits for a save in flight.  ``restore_tree`` puts each leaf on its target leaf's device
-and dtype, the one-process counterpart of the JAX twin's elastic re-shard;
-``shardings`` waits for the sharding rules (ROADMAP Queue 1 item 10(d)).
+and dtype; with ``shardings`` (a tree of ``dist.sharding.P``) and a
+``mesh`` each rank reads the stored global leaf and keeps its block, the
+JAX twin's elastic re-shard onto the current mesh.
 """
 from __future__ import annotations
 
@@ -142,17 +143,18 @@ def restore(directory: str | os.PathLike, step: int | None = None):
 
 
 def restore_tree(directory: str | os.PathLike, target_tree: Any, *,
-                 step: int | None = None, shardings: Any = None) -> tuple[Any, int]:
+                 step: int | None = None, shardings: Any = None,
+                 mesh: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``target_tree`` -> (tree, step).  Each
     leaf is checked against its target's shape and put on the target leaf's
-    device and dtype; stored leaves the target lacks are ignored.  Raises as
-    the JAX twin: FileNotFoundError without a committed step, KeyError for a
-    missing leaf, ValueError for a shape."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) re-shards onto a mesh, which comes with the sharding "
-            "rules (ROADMAP Queue 1 item 10(d)); without it each leaf lands on its "
-            "target leaf's device")
+    device and dtype; stored leaves the target lacks are ignored.  With
+    ``shardings`` (a tree of partition specs matching the target's leaves
+    by name) and ``mesh``, each stored leaf is cut to this rank's block and
+    the target holds blocks.  Raises as the JAX twin: FileNotFoundError
+    without a committed step, KeyError for a missing leaf, ValueError for a
+    shape."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore_tree(shardings=...) needs the mesh its specs refer to")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -161,13 +163,18 @@ def restore_tree(directory: str | os.PathLike, target_tree: Any, *,
     missing = [n for n, _ in named_leaves(target_tree) if n not in stored]
     if missing:
         raise KeyError(f"checkpoint {directory} step {step} missing leaves: {missing[:5]}...")
+    specs = {} if shardings is None else dict(named_leaves(shardings))
 
     def fill(name, leaf):
-        arr = stored[name]
+        arr = torch.from_numpy(stored[name])
+        if name in specs:
+            from repro_torch.dist.sharding import local_block
+
+            arr = local_block(arr, specs[name], mesh)
         want = tuple(leaf.shape)
         if tuple(arr.shape) != want:
-            raise ValueError(f"{name}: checkpoint shape {arr.shape} != target {want}")
-        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+            raise ValueError(f"{name}: checkpoint shape {tuple(arr.shape)} != target {want}")
+        return arr.to(device=leaf.device, dtype=leaf.dtype)
 
     return tree_map_with_name(fill, target_tree), step
 
@@ -205,9 +212,9 @@ class CheckpointManager:
             e, self._error = self._error, None
             raise e
 
-    def restore_latest(self, target_tree: Any, shardings: Any = None):
+    def restore_latest(self, target_tree: Any, shardings: Any = None, *, mesh: Any = None):
         self.wait()
-        return restore_tree(self.directory, target_tree, shardings=shardings)
+        return restore_tree(self.directory, target_tree, shardings=shardings, mesh=mesh)
 
     def latest_step(self):
         """The newest committed step, a save in flight counted once it has

@@ -30,7 +30,9 @@ class PRNGSeq:
                                  device=self._parent.device))
 
     def __next__(self) -> torch.Generator:
-        return torch.Generator(self.device).manual_seed(self._seed())
+        # a meta tensor draws nothing: its generators live on the host
+        dev = "cpu" if self.device.type == "meta" else self.device
+        return torch.Generator(dev).manual_seed(self._seed())
 
     def __iter__(self):
         return self

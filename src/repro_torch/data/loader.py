@@ -9,9 +9,10 @@ copy is handed over with the batch, and the consumer's stream waits on it
 before the batch is yielded, so no kernel reads a batch before its copy
 has ended.  On the CPU a batch is ``torch.as_tensor`` of the host arrays.
 
-The JAX twin places batches with the step's input shardings; the port's
-sharded forms wait for the sharding rules (ROADMAP Queue 1 item 10(d)), so
-``shardings`` other than None raises.  An exception in the producer (a
+The JAX twin places batches with the step's input shardings.  Here
+``shardings`` is a tree of ``dist.sharding.P`` matching the batch, with the
+``mesh`` it refers to: each rank keeps its block of each leaf by the leaf's
+spec (whole for ``P()``).  An exception in the producer (a
 failing host generator) is raised in the consumer, where the JAX twin ends
 the stream early (ROADMAP Queue 3).
 """
@@ -35,12 +36,12 @@ class ShardedLoader:
         shardings: Any | None = None,
         prefetch: int = 2,
         *,
+        mesh: Any = None,
         device="cuda",
     ):
-        if shardings is not None:
-            raise NotImplementedError(
-                "ShardedLoader(shardings=...) places batches on a mesh, which comes with "
-                "the sharding rules (ROADMAP Queue 1 item 10(d))")
+        if shardings is not None and mesh is None:
+            raise ValueError("ShardedLoader(shardings=...) needs the mesh its specs refer to")
+        self._shardings, self._mesh = shardings, mesh
         self.device = resolve_device(device)
         self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                         else None)
@@ -52,6 +53,12 @@ class ShardedLoader:
 
     def _place(self, batch):
         """-> (batch on the device, the copy's event or None)."""
+        if self._shardings is not None:
+            from repro_torch.dist.sharding import local_block
+
+            batch = tree_map(lambda s, x: local_block(torch.as_tensor(np.asarray(x)), s,
+                                                      self._mesh).contiguous(),
+                             self._shardings, batch)
         if self._stream is None:
             return tree_map(torch.as_tensor, batch), None
         with torch.cuda.stream(self._stream):

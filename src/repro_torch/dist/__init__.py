@@ -1,8 +1,8 @@
 """Multi-device layer of the port: the LEMUR corpus-sharded serving and
-indexing steps on ``torch.distributed`` (:mod:`repro_torch.dist.serve`);
-the user-facing wrapper is :meth:`repro_torch.retriever.LemurRetriever.shard`.
-The JAX package's sharding rule tables (``repro/dist/sharding.py``) serve
-its model cells and wait for them (ROADMAP Queue 1 item 10)."""
+indexing steps on ``torch.distributed`` (:mod:`repro_torch.dist.serve`;
+the user-facing wrapper is :meth:`repro_torch.retriever.LemurRetriever.shard`)
+and the sharding rule tables with the block helpers of the models' mesh
+forms (:mod:`repro_torch.dist.sharding`)."""
 from repro_torch.dist.serve import (
     ShardedRetrievalState,
     corpus_axes,
@@ -13,6 +13,7 @@ from repro_torch.dist.serve import (
     merge,
     n_corpus_shards,
     shard_index,
+    state_shardings,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "merge",
     "n_corpus_shards",
     "shard_index",
+    "state_shardings",
 ]

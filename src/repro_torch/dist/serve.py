@@ -38,12 +38,17 @@ WIDEN_ROWS = 65536
 
 def corpus_axes(mesh) -> tuple:
     """The mesh axes the corpus is sharded over: all of them, in mesh order
-    (their names, or their indices on a mesh without names)."""
-    return tuple(mesh.mesh_dim_names or range(mesh.ndim))
+    (their names, or their indices on a mesh without names), of a mesh or
+    of its {axis: size}."""
+    from repro_torch.dist.sharding import axis_sizes
+
+    return tuple(axis_sizes(mesh))
 
 
 def n_corpus_shards(mesh) -> int:
-    return int(np.prod(mesh.shape))
+    from repro_torch.dist.sharding import axis_sizes
+
+    return int(np.prod(list(axis_sizes(mesh).values())))
 
 
 def shard_index(mesh) -> int:
@@ -61,6 +66,22 @@ def local_rows(mesh, n_rows: int) -> slice:
     rows = n_rows // n_corpus_shards(mesh)
     s = shard_index(mesh)
     return slice(s * rows, (s + 1) * rows)
+
+
+def state_shardings(mesh, state=None):
+    """The partition specs of a ``ShardedRetrievalState``: psi whole (as the
+    JAX twin's psi tree), every corpus-sized leaf split over
+    ``corpus_axes(mesh)`` (the JAX twin's ``state_shardings``).  With
+    ``state`` given, its scale fields' presence is mirrored."""
+    from repro_torch.dist.sharding import P
+
+    corpus, whole = P(corpus_axes(mesh)), P()
+    has_scales = state is None or state.W_scales is not None
+    return ShardedRetrievalState(
+        psi={"dense": {"kernel": whole, "bias": whole}, "ln": {"scale": whole, "bias": whole}},
+        W=corpus, doc_tokens=corpus, doc_mask=corpus, row_ids=corpus, row_valid=corpus,
+        W_scales=corpus if has_scales else None,
+        doc_scales=corpus if has_scales else None)
 
 
 class ShardedRetrievalState(NamedTuple):

@@ -1,5 +1,19 @@
-"""The serving mesh of the launchers (twin of the serving half of
-``repro/launch/mesh.py``) on ``torch.distributed``.
+"""Meshes on ``torch.distributed`` (twin of ``repro/launch/mesh.py``): the
+production and host meshes of the training cells and the serving mesh of
+the launchers.
+
+Axis semantics: ``pod`` is cross-pod data parallelism, ``data`` the in-pod
+batch and ZeRO/FSDP shards, ``model`` tensor, expert, sequence and corpus
+parallelism.  :func:`make_production_mesh` and :func:`make_host_mesh` lay a
+``DeviceMesh`` over the live process group (the caller makes it: one rank a
+process, or the ``fake`` backend of ``launch.dryrun``).
+
+The JAX package's ``common/compat.py`` papers over JAX versions
+(``shard_map``, ``make_mesh``, ``AxisType``, ``set_mesh``); the port has
+no twin of it: ``init_device_mesh`` and ``DeviceMesh`` (``get_group``,
+``get_coordinate``, ``mesh_dim_names``) are one API across the torch
+versions the port runs on, and there is no ``shard_map`` (each rank runs
+its blocks with ``common.collectives``).
 
 JAX forces host devices into one process; a ``torch.distributed`` mesh is
 one process a rank.  So ``--mesh N`` runs under ``torchrun --nproc-per-node
@@ -107,3 +121,27 @@ def make_serving_mesh(spec: str, *, device="cuda"):
 
 def n_devices(mesh) -> int:
     return int(mesh.size())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model"),
+    over the live process group of 256 or 512 ranks (``device_type`` "cpu"
+    for gloo or the dry run's ``fake`` group on meta tensors)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(device_type: str = "cuda"):
+    """("data", "model") over the live group: (n/2, 2) with 4 or more ranks,
+    else (1, 1) (JAX's rule over its local devices)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = world_size()
+    shape = (n // 2, 2) if n >= 4 else (1, 1)
+    return init_device_mesh(device_type, shape, mesh_dim_names=("data", "model"))
+
+
+from repro_torch.dist.sharding import batch_axes  # noqa: E402,F401 (JAX's import path)

@@ -13,9 +13,11 @@ fit, the index (``--backend``: any ``repro_torch.anns.registry`` name) and a
 recall report.
 
 It runs on the card (``--device cuda``, the default) and raises without one
-unless ``--device cpu`` is passed.  The JAX twin's ``--mesh`` forms wait
-for the sharding rules (ROADMAP Queue 1 item 10(d)).  ``main`` returns what
-it printed as numbers, for callers that run it in-process.
+unless ``--device cpu`` is passed.  The JAX twin's docstring names
+``--mesh`` and ``--full`` forms that its code does not take; the mesh steps
+are the models' ``make_train_step(cfg, mesh)``, which the dry-run cells
+(``launch/cells.py``) run.  ``main`` returns what it printed as numbers,
+for callers that run it in-process.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """MeshGraphNet (Pfaff et al., arXiv:2010.03409): encode-process-decode GNN
 (twin of ``repro/models/gnn.py``).
 
-Message passing runs over an edge index: the aggregators are
-``index_add`` (sum, mean) and ``scatter_reduce("amax")`` (max) into the
-node states.  As ``jax.ops.segment_max``, the max leaves a node with no
+Message passing runs over an edge index: the aggregators are a sorted
+``index_put_(accumulate=True)`` (sum, mean: the same order every run) and
+``scatter_reduce("amax")`` (max) into the node states.  As ``jax.ops.segment_max``, the max leaves a node with no
 incoming edge at -inf (ROADMAP Queue 3); the sum and the mean leave it at 0.
 
 The processor's layer parameters are stacked (leading axis ``n_layers``),
@@ -20,9 +20,18 @@ Shape regimes:
 
 The sampler's draw is a ``torch.Generator`` where JAX's is a key; the rest
 of it is :func:`neighbors_from_uniforms`, a function of the uniforms that
-matches JAX's bit for bit on the same ``u``.  The edge-sharded forms (a
-``mesh`` argument) wait for the sharding rules (ROADMAP Queue 1 item
-10(d)) and raise.
+matches JAX's bit for bit on the same ``u``.
+
+**Edge-sharded forms** (a ``DeviceMesh``), the JAX twin's ``shard_map``
+body on each rank: node tensors split over the node axes ("pod", "data"),
+edge tensors (features, senders, receivers: global node ids) over every
+axis, parameters whole.  Each layer gathers the node states over the node
+axes, computes its edges' messages, aggregates them into a whole-graph
+partial, sums that over every axis and keeps its own nodes.  As in JAX the
+sum runs over whatever the aggregator gives, so ``max`` and ``mean`` under
+a mesh combine each rank's partial max or mean by a sum (ROADMAP Queue 3).
+The loss is summed over the node axes as JAX's ``allsum`` does and each
+rank differentiates its share of it (``dist.sharding.loss_total``).
 """
 from __future__ import annotations
 
@@ -32,10 +41,12 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import collectives
 from repro_torch.common.config import ConfigBase
 from repro_torch.common.device import resolve_device
 from repro_torch.common.prng import PRNGSeq
 from repro_torch.common.pytree import tree_map, value_and_grad
+from repro_torch.dist.sharding import batch_axes
 from repro_torch.nn import layers
 from repro_torch.optim.adam import adam_update
 
@@ -54,13 +65,6 @@ class GNNConfig(ConfigBase):
     graph_readout: bool = False  # molecule: graph-level output
     fanout: tuple[int, ...] = (15, 10)
     layernorm: bool = True
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the GNN's edge-sharded forms (forward and loss_fn with a mesh) come with "
-            "the sharding rules (ROADMAP Queue 1 item 10(d))")
 
 
 def _mlp_dims(cfg: GNNConfig, d_in: int, d_out: int) -> tuple[int, ...]:
@@ -111,9 +115,13 @@ def init_gnn(generator: torch.Generator | int, cfg: GNNConfig, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def segment_sum(x, segments, n: int):
-    """``jax.ops.segment_sum``: rows of ``x`` added into ``n`` segments."""
-    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add(
-        0, segments, x)
+    """``jax.ops.segment_sum``: rows of ``x`` added into ``n`` segments, in
+    one fixed order: ``index_put_(accumulate=True)`` sorts the segment ids
+    (stably) on the card and adds each segment's rows in turn, where
+    ``index_add`` adds them with atomics in no fixed order, so that a run
+    repeats bit for bit (a ReLU at its kink turns on the sum's last bit)."""
+    out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_put_((segments.long(),), x, accumulate=True)
 
 
 def segment_max(x, segments, n: int):
@@ -144,57 +152,98 @@ def _layer(cfg, h, e, lp, senders, receivers):
     return h + _block(lp["node"], torch.cat([h, agg], dim=-1)), e_new
 
 
-def _forward_body(params, node_feat, edge_feat, senders, receivers, cfg: GNNConfig):
+def _forward_body(params, node_feat, edge_feat, senders, receivers, cfg: GNNConfig,
+                  mesh=None):
     """Encode, ``n_layers`` message-passing layers (each recomputed in the
-    backward under autograd), decode -> (N, d_out)."""
+    backward under autograd), decode -> (N, d_out), or with a mesh this
+    rank's (N_loc, d_out) (see the module docstring)."""
     h = _block(params["node_enc"], node_feat)
     e = _block(params["edge_enc"], edge_feat)
     grad = torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = tree_map(lambda t: t[i], params["proc"])
+        args = (cfg, h, e, lp, senders, receivers)
+        layer = _layer if mesh is None else _mesh_layer
+        kw = {} if mesh is None else {"mesh": mesh}
         if grad:
-            h, e = checkpoint(_layer, cfg, h, e, lp, senders, receivers, use_reentrant=False)
+            h, e = checkpoint(layer, *args, use_reentrant=False, **kw)
         else:
-            h, e = _layer(cfg, h, e, lp, senders, receivers)
+            h, e = layer(*args, **kw)
     return layers.mlp(params["decoder"]["mlp"], h)
 
 
-def _loss_from_out(out, batch, cfg: GNNConfig):
+def _mesh_layer(cfg, h_l, e, lp, senders, receivers, *, mesh):
+    """One layer on a rank: node states gathered over the node axes, its
+    edges' messages, the aggregate summed over every axis, its own nodes
+    kept."""
+    axes = batch_axes(mesh)
+    h = h_l
+    for a in reversed(axes):
+        h = collectives.all_gather(h, mesh, a, 0)
+    e_new = e + _block(lp["edge"], torch.cat([e, h[senders], h[receivers]], dim=-1))
+    agg = collectives.psum(_aggregate(cfg, e_new, receivers, h.shape[0]), mesh,
+                           collectives.axis_names(mesh))
+    idx = 0
+    for a in axes:
+        idx = idx * collectives.axis_size(mesh, a) + collectives.axis_index(mesh, a)
+    n_loc = h_l.shape[0]
+    agg_l = agg[idx * n_loc:(idx + 1) * n_loc]
+    return h_l + _block(lp["node"], torch.cat([h_l, agg_l], dim=-1)), e_new
+
+
+def _loss_from_out(out, batch, cfg: GNNConfig, mesh=None):
+    """The loss; with a mesh ``out`` and the node leaves of ``batch`` are this
+    rank's nodes and the partial sums are summed over the node axes (JAX's
+    ``allsum``)."""
+    def allsum(x):
+        return x if mesh is None else collectives.psum(x, mesh, batch_axes(mesh))
+
     if cfg.graph_readout:
-        g = segment_sum(out, batch["graph_ids"], batch["graph_labels"].shape[0])
-        return torch.mean(torch.square(g - batch["graph_labels"]))
-    if cfg.task == "classification":
+        g = allsum(segment_sum(out, batch["graph_ids"], batch["graph_labels"].shape[0]))
+        loss = torch.mean(torch.square(g - batch["graph_labels"]))
+    elif cfg.task == "classification":
         logits = out.float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, batch["labels"].long()[:, None])[:, 0]
         mask = batch.get("label_mask", torch.ones_like(lse))
-        return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    mask = batch.get("label_mask", torch.ones(out.shape[0], dtype=out.dtype,
-                                               device=out.device))
-    se = torch.sum(torch.square(out - batch["labels"]) * mask[:, None])
-    n = torch.clamp(torch.sum(mask) * out.shape[-1], min=1.0)
-    return se / n
+        loss = allsum(torch.sum((lse - gold) * mask)) / torch.clamp(allsum(torch.sum(mask)),
+                                                                     min=1.0)
+    else:
+        mask = batch.get("label_mask", torch.ones(out.shape[0], dtype=out.dtype,
+                                                   device=out.device))
+        se = torch.sum(torch.square(out - batch["labels"]) * mask[:, None])
+        loss = allsum(se) / torch.clamp(allsum(torch.sum(mask)) * out.shape[-1], min=1.0)
+    if mesh is None:
+        return loss
+    from repro_torch.dist.sharding import loss_total
+
+    # every rank holds the same loss: each differentiates 1/world of it
+    return loss_total(loss / collectives.mesh_size(mesh), mesh)
 
 
 def forward(params, node_feat, edge_feat, senders, receivers, cfg: GNNConfig, mesh=None):
-    """Full-graph forward -> (N, d_out)."""
-    _no_mesh(mesh)
-    return _forward_body(params, node_feat, edge_feat, senders, receivers, cfg)
+    """Full-graph forward -> (N, d_out); with a mesh, this rank's nodes'
+    rows from its blocks (see the module docstring)."""
+    return _forward_body(params, node_feat, edge_feat, senders, receivers, cfg, mesh)
 
 
 def loss_fn(params, batch, cfg: GNNConfig, mesh=None):
-    _no_mesh(mesh)
     out = _forward_body(params, batch["node_feat"], batch["edge_feat"],
-                        batch["senders"], batch["receivers"], cfg)
-    return _loss_from_out(out, batch, cfg)
+                        batch["senders"], batch["receivers"], cfg, mesh)
+    return _loss_from_out(out, batch, cfg, mesh)
 
 
 def make_train_step(cfg: GNNConfig, mesh=None, lr: float = 1e-3):
-    """Returns step(params, opt_state, batch) -> (params, opt_state, metrics)."""
-    _no_mesh(mesh)
+    """Returns step(params, opt_state, batch) -> (params, opt_state, metrics).
+    With a mesh the whole parameters' gradients are summed over every rank
+    (``sync_grads``)."""
 
     def step(params, opt_state, batch):
-        loss, grads = value_and_grad(lambda p: loss_fn(p, batch, cfg), params)
+        loss, grads = value_and_grad(lambda p: loss_fn(p, batch, cfg, mesh), params)
+        if mesh is not None:
+            from repro_torch.dist.sharding import GNN_RULES, spec_tree, sync_grads
+
+            grads = sync_grads(grads, spec_tree(params, GNN_RULES), mesh)
         with torch.no_grad():
             params, opt_state, om = adam_update(grads, opt_state, params, lr=lr,
                                                 grad_clip=1.0)
@@ -260,9 +309,12 @@ def sampled_forward(params, draw, batch, cfg: GNNConfig):
     return layers.mlp(params["decoder"]["mlp"], h_seed)
 
 
-def make_sampled_train_step(cfg: GNNConfig, lr: float = 1e-3):
+def make_sampled_train_step(cfg: GNNConfig, lr: float = 1e-3, *, mesh=None):
     """Returns step(params, opt_state, draw, batch) -> (params, opt_state,
-    metrics); ``draw`` as in :func:`sampled_forward`."""
+    metrics); ``draw`` as in :func:`sampled_forward`.  With a mesh (the
+    dry-run cell's data parallelism: the JAX twin lets GSPMD split the
+    seeds) each rank passes its seeds and labels, the loss is the mean over
+    every rank's seeds and the gradients are summed over the ranks."""
 
     def step(params, opt_state, draw, batch):
         uniforms = _uniforms(draw, batch["seeds"].shape[0], cfg, batch["seeds"].device)
@@ -272,10 +324,20 @@ def make_sampled_train_step(cfg: GNNConfig, lr: float = 1e-3):
             if cfg.task == "classification":
                 lse = torch.logsumexp(out, dim=-1)
                 gold = out.gather(-1, batch["labels"].long()[:, None])[:, 0]
-                return torch.mean(lse - gold)
-            return torch.mean(torch.square(out - batch["labels"]))
+                terms = lse - gold
+            else:
+                terms = torch.square(out - batch["labels"])
+            if mesh is None:
+                return torch.mean(terms)
+            from repro_torch.dist.sharding import loss_total
+
+            return loss_total(terms.sum() / (terms.numel() * collectives.mesh_size(mesh)), mesh)
 
         loss, grads = value_and_grad(lf, params)
+        if mesh is not None:
+            from repro_torch.dist.sharding import GNN_RULES, spec_tree, sync_grads
+
+            grads = sync_grads(grads, spec_tree(params, GNN_RULES), mesh)
         with torch.no_grad():
             params, opt_state, om = adam_update(grads, opt_state, params, lr=lr,
                                                 grad_clip=1.0)

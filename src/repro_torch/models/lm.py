@@ -14,9 +14,31 @@ names and ``convert`` is a leaf-by-leaf copy.  Where JAX scans a stack
 block in ``torch.utils.checkpoint`` under autograd.
 
 On one device an MoE layer runs ``moe_apply_dense`` (every expert for every
-token), as the JAX package does without a mesh.  The models' sharded forms
-wait for the sharding rules (ROADMAP Queue 1 item 10(d)): a ``mesh`` other
-than None raises.
+token), as the JAX package does without a mesh.
+
+**Mesh forms** (a ``DeviceMesh`` with axes of ("pod", "data", "model")):
+where JAX gets them from GSPMD and two ``shard_map``s, the port runs
+explicit local blocks.  Parameters are each rank's blocks of their
+``dist.sharding`` rule (``lm_specs``); a layer gathers what it needs whole
+(``gather_block``, recomputed under remat), except the dims a mesh form
+consumes itself: the ``ep`` experts over "model" and the ``ffslice``
+expert ffn over "model" (``_moe_weights``).  Token ids and labels enter
+whole on every rank (they are small) and each rank takes its rows
+(``mesh_layout``): the rows split over the batch axes when the batch
+divides them, the positions split over "model" wherever the
+context-parallel attention runs (``attention._use_cp``; the JAX twin's
+``_seq_constraint`` layout).  The embedding lookup and the loss are
+vocab-parallel: each "model" rank reads its block of the table, and the
+cross-entropy combines its block of the logits by a max and a sum-exp over
+"model", so the (V, d) table and head are never gathered.  The prefill
+writes each rank's block of the caches, whose sequence is split over
+"model" (over ("data", "model") when the rows are whole: ``cache_specs``);
+a decode step's new K/V is written by the rank that holds position
+kv_len - 1, and its attention merges each rank's partial softmax over
+those axes.  Losses are sums of every rank's share
+(``dist.sharding.loss_total``) and the gradients come out as blocks
+(``value_and_grad``).  The ``ep`` MoE raises ``ValueError`` where JAX's
+``shard_map`` cannot split its experts over ("model", "data").
 
 KV caches are written in place by ``decode`` (see ``nn.attention``).
 
@@ -27,11 +49,13 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import collectives
 from repro_torch.common.config import ConfigBase
 from repro_torch.common.device import resolve_device
 from repro_torch.common.prng import PRNGSeq
@@ -150,14 +174,6 @@ def layer_stacks(cfg: LMConfig) -> list[tuple[int, tuple[LayerSpec, ...]]]:
     return stacks
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the LM's sharded forms come with the sharding rules (ROADMAP Queue 1 "
-            "item 10(d)); the expert-parallel MoE and context-parallel attention run "
-            "as nn.moe.moe_apply and nn.attention.flash_attention_cp")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -225,80 +241,175 @@ def _block(stack, b: int):
 
 
 # ---------------------------------------------------------------------------
-# layer application
+# layer application (one device, or a rank's blocks with a MeshLayout)
 # ---------------------------------------------------------------------------
 
-def _attn_train(cfg: LMConfig, p, x, positions, chunk):
+def _attn_train(cfg: LMConfig, p, x, positions, chunk, mesh=None):
     if cfg.attn == "mla":
         return attention.mla_train(
             p, x, positions, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
             kv_lora=cfg.kv_lora, rope_base=cfg.rope_base, kv_block=cfg.kv_block,
-            q_block=cfg.q_block)
+            q_block=cfg.q_block, mesh=mesh)
     return attention.gqa_train(
         p, x, positions, rope_base=cfg.rope_base, chunk=chunk or None,
-        q_block=cfg.q_block, kv_block=cfg.kv_block)
+        q_block=cfg.q_block, kv_block=cfg.kv_block, mesh=mesh)
 
 
-def _ffn(cfg: LMConfig, spec: LayerSpec, p, h):
+def _ffn(cfg: LMConfig, spec: LayerSpec, p, h, lay=None):
     """The layer's FFN -> (y, aux)."""
     if spec.is_moe:
+        if lay is not None:
+            return _moe_mesh(cfg, p["moe"], h, lay)
         return moe.moe_apply_dense(p["moe"], h, n_experts=cfg.moe_n_experts,
                                    top_k=cfg.moe_top_k, activation=cfg.activation)
     return layers.ffn(p["mlp"], h, cfg.activation), 0.0
 
 
+def _layer(cfg: LMConfig, spec: LayerSpec, p, x, attn_fn, lay=None):
+    """One layer; ``attn_fn(p_attn, h) -> (out, cache or None)``.
+    Returns (x, aux, cache)."""
+    a, cache = attn_fn(p["attn"], _norm(cfg, p["ln1"], x))
+    x = x + a
+    y, aux = _ffn(cfg, spec, p, _norm(cfg, p["ln2"], x), lay)
+    return x + y, aux, cache
+
+
 def _layer_train(cfg: LMConfig, spec: LayerSpec, p, x, positions):
-    h = _norm(cfg, p["ln1"], x)
-    x = x + _attn_train(cfg, p["attn"], h, positions, spec.chunk)
-    y, aux = _ffn(cfg, spec, p, _norm(cfg, p["ln2"], x))
-    return x + y, aux
+    """One training layer on one device -> (x, aux)."""
+    x, aux, _ = _layer(cfg, spec, p, x, lambda pa, h: (
+        _attn_train(cfg, pa, h, positions, spec.chunk), None))
+    return x, aux
 
 
-def _embed(params, tokens, cfg: LMConfig):
-    x = layers.embed(params["embed"], tokens).to(cfg.cdtype)
+def _run_layers(params, cfg: LMConfig, x, attn_for, lay=None, remat: bool = False):
+    """``x`` through every block of every stack -> (x, aux, caches).
+    ``attn_for(si, b, pi, spec)`` gives the attention of that layer
+    (:func:`_layer`); a stack's caches are the layers' caches stacked on a
+    leading n_blocks axis (None where the attention keeps none).  With a
+    layout each block gathers its parameters (``_gathered``) inside the
+    block, so ``remat`` recomputes the gathers too."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for si, (n_blocks, block) in enumerate(layer_stacks(cfg)):
+        stack = params[f"stack_{si}"]
+        specs = None if lay is None else _layer_specs(cfg, params, si)
+
+        def block_fn(x, bp, b, si=si, block=block, specs=specs):
+            aux_b, cs = 0.0, {}     # a tensor once an MoE layer adds its aux loss
+            for pi, spec in enumerate(block):
+                p = bp[f"pos_{pi}"]
+                if lay is not None:
+                    p = _gathered(p, specs[f"pos_{pi}"], lay.mesh)
+                x, aux, cs[f"pos_{pi}"] = _layer(cfg, spec, p, x, attn_for(si, b, pi, spec),
+                                                 lay)
+                aux_b = aux_b + aux
+            return x, aux_b, cs
+
+        stack_caches, auxs = None, []
+        for b in range(n_blocks):
+            if remat and cfg.remat == "full" and torch.is_grad_enabled():
+                x, aux_b, cs = checkpoint(block_fn, x, _block(stack, b), b, use_reentrant=False)
+            else:
+                x, aux_b, cs = block_fn(x, _block(stack, b), b)
+            auxs.append(aux_b)
+            if all(c is not None for c in cs.values()):
+                if stack_caches is None:
+                    stack_caches = tree_map(lambda t: t.new_empty((n_blocks, *t.shape)), cs)
+                tree_map(lambda dst, src: dst[b].copy_(src), stack_caches, cs)
+            del cs      # views of the layer's whole padded caches: free them now
+        caches.append(stack_caches)
+        aux_total = aux_total + sum(auxs)
+    return x, aux_total, caches
+
+
+def _embed(params, tokens, cfg: LMConfig, lay=None):
+    """The embedding of ``tokens``; with a layout, of the rank's rows from
+    its block of the vocabulary: each "model" rank reads the ids in its
+    rows of the table and a sum over "model" (scattered over the sequence
+    where it is split) combines them, so the table is never gathered."""
+    if lay is None:
+        x = layers.embed(params["embed"], tokens)
+    else:
+        from repro_torch.dist.sharding import row_block_lookup
+
+        x = row_block_lookup(params["embed"]["embedding"], tokens[lay.rows], lay.mesh,
+                             1 if lay.cp else None)
+    x = x.to(cfg.cdtype)
     if cfg.embed_scale:
         # sqrt(d) in fp32, then cast to the compute dtype (55.43 -> 55.5 in bf16)
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(cfg.cdtype)
     return x
 
 
-def forward_train(params, tokens, cfg: LMConfig, mesh=None):
-    """tokens: (B, T) -> (hidden (B, T, d), aux_loss)."""
-    _no_mesh(mesh)
+def _inputs(params, tokens, cfg: LMConfig, lay=None):
+    """(embedded rows, their positions): every row and position, or with a
+    layout the rank's rows and, where the sequence is split, its positions."""
     B, T = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(T, device=tokens.device).expand(B, T)
-    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for si, (n_blocks, block) in enumerate(layer_stacks(cfg)):
-        stack = params[f"stack_{si}"]
+    x = _embed(params, tokens, cfg, lay)
+    t0, n = (0, T) if lay is None else (lay.j * lay.T_loc if lay.cp else 0, lay.T_loc)
+    return x, torch.arange(t0, t0 + n, device=tokens.device).expand(x.shape[0], n)
 
-        def block_fn(x, bp, block=block):
-            aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
-            for pi, spec in enumerate(block):
-                x, aux = _layer_train(cfg, spec, bp[f"pos_{pi}"], x, positions)
-                aux_b = aux_b + aux
-            return x, aux_b
 
-        auxs = []
-        for b in range(n_blocks):
-            if cfg.remat == "full" and torch.is_grad_enabled():
-                x, aux_b = checkpoint(block_fn, x, _block(stack, b), use_reentrant=False)
-            else:
-                x, aux_b = block_fn(x, _block(stack, b))
-            auxs.append(aux_b)
-        aux_total = aux_total + torch.stack(auxs).sum()
-    return _norm(cfg, params["final_norm"], x), aux_total
+def _cp_mesh(lay):
+    """The mesh the attention gathers the sequence over, if it is split."""
+    return lay.mesh if lay is not None and lay.cp else None
+
+
+def _layout(mesh, B: int, T: int):
+    return None if mesh is None else mesh_layout(mesh, B, T)
+
+
+def forward_train(params, tokens, cfg: LMConfig, mesh=None):
+    """tokens: (B, T) -> (hidden (B, T, d), aux_loss).  With a mesh, params
+    are this rank's blocks and tokens whole; hidden is the rank's block
+    (its rows, its positions where the sequence is split: ``mesh_layout``)
+    and aux the global value."""
+    lay = _layout(mesh, *tokens.shape)
+    x, positions = _inputs(params, tokens, cfg, lay)
+    cp = _cp_mesh(lay)
+    x, aux, _ = _run_layers(params, cfg, x, lambda si, b, pi, spec: lambda p, h: (
+        _attn_train(cfg, p, h, positions, spec.chunk, cp), None), lay, remat=True)
+    hidden = _norm(cfg, params["final_norm"], x)
+    if lay is not None:
+        from repro_torch.dist.sharding import loss_total
+
+        aux = loss_total(aux / collectives.mesh_size(mesh), mesh)
+    return hidden, aux
 
 
 def _readout(params, h, cfg: LMConfig):
+    """Logits of ``h``; on a rank's blocks, of its block of the vocabulary."""
     if cfg.tie_embeddings:
         return layers.embed_logits(params["embed"], h)
     return layers.dense(params["head"], h)
 
 
-def lm_loss(params, hidden, labels, cfg: LMConfig):
-    """Chunked softmax cross-entropy (never holds (B, T, V))."""
-    B, T, d = hidden.shape
+def _xent(logits, labels, lay):
+    """Per-position cross-entropy; with a layout, vocab-parallel: ``logits``
+    are the rank's block of the vocabulary, the max and the sum-exp are
+    combined over "model" and the gold logit comes from the block that
+    holds it."""
+    if lay is None:
+        return torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
+    mesh, v_loc = lay.mesh, logits.shape[-1]
+    m = collectives.pmax(logits.amax(-1), mesh, "model")
+    se = collectives.psum(torch.exp(logits - m[..., None]).sum(-1), mesh, "model")
+    local = labels.long() - lay.j * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    gold = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0] * ok
+    return m + torch.log(se) - collectives.psum(gold, mesh, "model")
+
+
+def lm_loss(params, hidden, labels, cfg: LMConfig, mesh=None):
+    """Chunked softmax cross-entropy (never holds (B, T, V)).  With a mesh,
+    hidden is the rank's block from ``forward_train``, labels whole: its
+    rows at every position (gathered over "model" where the sequence is
+    split) against its block of the vocabulary (:func:`_xent`)."""
+    B, T = labels.shape
+    lay = _layout(mesh, B, T)
+    if lay is not None:
+        hidden = collectives.all_gather(hidden, mesh, "model", 1) if lay.cp else hidden
+        labels = labels[lay.rows]
     chunk = min(cfg.loss_chunk, T)
     nb = T // chunk if T % chunk == 0 else 1
     chunk = T // nb
@@ -306,36 +417,50 @@ def lm_loss(params, hidden, labels, cfg: LMConfig):
     for c in range(nb):
         sl = slice(c * chunk, (c + 1) * chunk)
         logits = _readout(params, hidden[:, sl], cfg).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, sl, None])[..., 0]
-        total = total + (lse - gold).sum()
-    return total / (B * T)
+        total = total + _xent(logits, labels[:, sl], lay).sum()
+    if lay is None:
+        return total / (B * T)
+    from repro_torch.dist.sharding import loss_total
+
+    return loss_total(total / (hidden.shape[0] * T * collectives.mesh_size(mesh)), mesh)
 
 
-def value_and_grad(params, tokens, labels, cfg: LMConfig):
+def value_and_grad(params, tokens, labels, cfg: LMConfig, mesh=None):
     """((loss + aux_loss_coef * aux, (loss, aux)), grads) by autograd, grads
     in ``params``' structure: ``jax.value_and_grad(..., has_aux=True)`` of
-    the JAX twin's train loss."""
+    the JAX twin's train loss.  With a mesh the grads are this rank's blocks
+    of the global gradient (summed over the ranks holding each block)."""
     def total(p):
-        hidden, aux = forward_train(p, tokens, cfg)
-        loss = lm_loss(p, hidden, labels, cfg)
+        hidden, aux = forward_train(p, tokens, cfg, mesh)
+        loss = lm_loss(p, hidden, labels, cfg, mesh)
         return loss + cfg.aux_loss_coef * aux, (loss, aux)
 
-    return pytree.value_and_grad(total, params, has_aux=True)
+    out, grads = pytree.value_and_grad(total, params, has_aux=True)
+    if mesh is not None:
+        from repro_torch.dist.sharding import sync_grads
+
+        grads = sync_grads(grads, lm_specs(cfg, params), mesh)
+    return out, grads
 
 
 def make_train_step(cfg: LMConfig, mesh=None, *, optimizer=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     As the JAX twin, the step ignores ``optimizer`` and always applies
-    ``adam_update(lr=1e-3, grad_clip=1.0)`` (ROADMAP Queue 3 records this)."""
-    _no_mesh(mesh)
+    ``adam_update(lr=1e-3, grad_clip=1.0)`` (ROADMAP Queue 3 records this).
+    With a mesh, on this rank's blocks, clipped by the global norm."""
 
     def train_step(params, opt_state, batch):
-        (_, (loss, aux)), grads = value_and_grad(params, batch["tokens"], batch["labels"], cfg)
+        (_, (loss, aux)), grads = value_and_grad(params, batch["tokens"], batch["labels"], cfg,
+                                                 mesh)
+        norm = None
+        if mesh is not None:
+            from repro_torch.dist.sharding import global_norm
+
+            norm = global_norm(grads, lm_specs(cfg, params), mesh)
         with torch.no_grad():
             params, opt_state, om = adam_update(grads, opt_state, params, lr=1e-3,
-                                                grad_clip=1.0)
+                                                grad_clip=1.0, grad_norm=norm)
         return params, opt_state, {"loss": loss, "aux_loss": aux, **om}
 
     return train_step
@@ -345,81 +470,99 @@ def make_train_step(cfg: LMConfig, mesh=None, *, optimizer=None):
 # serving: prefill + decode with stacked caches
 # ---------------------------------------------------------------------------
 
-def _attn_prefill(cfg, p, x, positions, cache_len, chunk):
+def _attn_prefill(cfg, p, x, positions, cache_len, chunk, mesh=None):
     if cfg.attn == "mla":
         return attention.mla_prefill(
             p, x, positions, cache_len, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
             kv_lora=cfg.kv_lora, rope_base=cfg.rope_base, kv_block=cfg.kv_block,
-            q_block=cfg.q_block)
+            q_block=cfg.q_block, mesh=mesh)
     return attention.gqa_prefill(
         p, x, positions, cache_len, rope_base=cfg.rope_base, chunk=chunk or None,
-        q_block=cfg.q_block, kv_block=cfg.kv_block)
+        q_block=cfg.q_block, kv_block=cfg.kv_block, mesh=mesh)
 
 
-def _attn_decode(cfg, p, x, cache, kv_len, chunk):
+def _attn_decode(cfg, p, x, cache, kv_len, chunk, seq=None):
     if cfg.attn == "mla":
         return attention.mla_decode(
             p, x, cache, kv_len, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
-            kv_lora=cfg.kv_lora, rope_base=cfg.rope_base)
+            kv_lora=cfg.kv_lora, rope_base=cfg.rope_base, seq=seq)
     return attention.gqa_decode(p, x, cache, kv_len, rope_base=cfg.rope_base,
-                                chunk=chunk or None)
+                                chunk=chunk or None, seq=seq)
 
 
-def _layer_serve(cfg, spec, p, x, attn_fn):
-    a, cache = attn_fn(p["attn"], _norm(cfg, p["ln1"], x))
-    x = x + a
-    y, _ = _ffn(cfg, spec, p, _norm(cfg, p["ln2"], x))
-    return x + y, cache
+def _logits(params, x_last, cfg: LMConfig, lay=None):
+    """(b, 1, d) -> (b, V); on a rank, its vocabulary block gathered over
+    "model"."""
+    logits = _readout(params, _norm(cfg, params["final_norm"], x_last), cfg)
+    if lay is not None:
+        logits = collectives.all_gather(logits, lay.mesh, "model", -1)
+    return logits[:, 0]
 
 
 def prefill(params, tokens, cfg: LMConfig, cache_len: int, mesh=None):
     """Returns (last_token_logits, caches).  caches: a list a stack of
-    {pos_i: (k, v)} (MLA: (c_kv, k_rope)), each with leading axis n_blocks."""
-    _no_mesh(mesh)
+    {pos_i: (k, v)} (MLA: (c_kv, k_rope)), each with leading axis n_blocks.
+    With a mesh: the logits of the rank's rows and its blocks of the caches
+    (``cache_specs``)."""
     B, T = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(T, device=tokens.device).expand(B, T)
-    caches = []
-    for si, (n_blocks, block) in enumerate(layer_stacks(cfg)):
-        stack = params[f"stack_{si}"]
-        stack_caches = None
-        for b in range(n_blocks):
-            bp = _block(stack, b)
-            cs = {}
-            for pi, spec in enumerate(block):
-                attn_fn = lambda p, h, _spec=spec: _attn_prefill(
-                    cfg, p, h, positions, cache_len, _spec.chunk)
-                x, cs[f"pos_{pi}"] = _layer_serve(cfg, spec, bp[f"pos_{pi}"], x, attn_fn)
-            if stack_caches is None:
-                stack_caches = tree_map(lambda t: t.new_empty((n_blocks, *t.shape)), cs)
-            tree_map(lambda dst, src: dst[b].copy_(src), stack_caches, cs)
-        caches.append(stack_caches)
-    x = _norm(cfg, params["final_norm"], x)
-    return _readout(params, x[:, -1:], cfg)[:, 0], caches
+    lay = _layout(mesh, B, T)
+    x, positions = _inputs(params, tokens, cfg, lay)
+    cp = _cp_mesh(lay)
+    keep = lambda c: c
+    if lay is not None:
+        s_idx, s_n = lay.cache_seq_block()
+        if cache_len % s_n:
+            raise ValueError(f"a cache of {cache_len} positions does not split {s_n} ways")
+        S_loc = cache_len // s_n
+        keep = lambda c: tuple(t[:, s_idx * S_loc:(s_idx + 1) * S_loc] for t in c)
+
+    def attn_for(si, b, pi, spec):
+        def attn(p, h):
+            out, c = _attn_prefill(cfg, p, h, positions, cache_len, spec.chunk, cp)
+            return out, keep(c)
+        return attn
+
+    x, _, caches = _run_layers(params, cfg, x, attn_for, lay)
+    x = x[:, -1:]
+    if cp is not None:   # the last position sits on the last "model" rank
+        x = collectives.psum(x * float(lay.j == lay.M - 1), mesh, "model")
+    return _logits(params, x, cfg, lay), caches
 
 
 def decode(params, token, caches, kv_len, cfg: LMConfig, mesh=None):
     """One decode step.  token: (B, 1) int; kv_len (a scalar) includes the
     new token.  Writes the new token's K/V into ``caches`` in place and
-    returns (logits (B, vocab), caches)."""
-    _no_mesh(mesh)
-    x = _embed(params, token, cfg)
-    for si, (n_blocks, block) in enumerate(layer_stacks(cfg)):
-        stack, sc = params[f"stack_{si}"], caches[si]
-        for b in range(n_blocks):
-            bp, bc = _block(stack, b), _block(sc, b)
-            for pi, spec in enumerate(block):
-                attn_fn = lambda p, h, _spec=spec, _c=bc[f"pos_{pi}"]: _attn_decode(
-                    cfg, p, h, _c, kv_len, _spec.chunk)
-                x, _ = _layer_serve(cfg, spec, bp[f"pos_{pi}"], x, attn_fn)
-    x = _norm(cfg, params["final_norm"], x)
-    return _readout(params, x, cfg)[:, 0], caches
+    returns (logits (B, vocab), caches).  With a mesh: token whole, caches
+    this rank's blocks, the logits of its rows; the rank whose block holds
+    position kv_len - 1 writes the new K/V and the attention merges each
+    rank's partial softmax over the caches' sequence axes."""
+    lay = _layout(mesh, token.shape[0], 1)
+    seq = None
+    if lay is not None:
+        kv_len = int(kv_len)
+        seq = (mesh, lay.cache_seq_axes, lay.cache_seq_block()[0])
+    x = _embed(params, token, cfg, lay)
+
+    def attn_for(si, b, pi, spec):
+        cache = tuple(t[b] for t in caches[si][f"pos_{pi}"])
+        return lambda p, h: (_attn_decode(cfg, p, h, cache, kv_len, spec.chunk, seq)[0], None)
+
+    x, _, _ = _run_layers(params, cfg, x, attn_for, lay)
+    return _logits(params, x, cfg, lay), caches
 
 
-def init_cache(cfg: LMConfig, batch: int, cache_len: int, device="cuda"):
-    """Zero KV caches with ``prefill``'s structure (dtype: the compute dtype)."""
+def init_cache(cfg: LMConfig, batch: int, cache_len: int, device="cuda", mesh=None):
+    """Zero KV caches with ``prefill``'s structure (dtype: the compute
+    dtype); with a mesh, this rank's blocks (``cache_specs``)."""
     dev = resolve_device(device)
-    z = lambda *shape: torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+    lay = _layout(mesh, batch, 1)
+
+    def z(*shape):
+        if lay is not None:
+            n_s = lay.cache_seq_block()[1]
+            shape = (shape[0], batch // (lay.n_row_shards if lay.split_rows else 1),
+                     shape[2] // n_s, *shape[3:])
+        return torch.zeros(shape, dtype=cfg.cdtype, device=dev)
     caches = []
     for n_blocks, block in layer_stacks(cfg):
         stack_cache = {}
@@ -449,6 +592,202 @@ def make_decode_step(cfg: LMConfig, mesh=None):
         return next_tok, logits, new_caches
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# mesh layout, parameter blocks and the MoE on a mesh (see the module
+# docstring)
+# ---------------------------------------------------------------------------
+
+def lm_rules(cfg: LMConfig):
+    """The sharding rule table of ``cfg``'s layout."""
+    from repro_torch.dist.sharding import LM_RULES, LM_RULES_FFSLICE
+
+    return LM_RULES_FFSLICE if cfg.moe_layout == "ffslice" and cfg.moe_n_experts else LM_RULES
+
+
+def lm_specs(cfg: LMConfig, params):
+    """The partition spec of every parameter leaf (by its name and rank)."""
+    from repro_torch.dist.sharding import spec_tree
+
+    return spec_tree(params, lm_rules(cfg))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """Where a batch of B sequences of T tokens sits on a mesh of ``sizes``
+    ({axis: size}), seen from the rank at ``coord`` ({axis: index}): its
+    rows split over the batch axes when B divides them (else whole on every
+    rank), its positions split over ``"model"`` where the context-parallel
+    attention runs (``attention._use_cp``), and a KV cache's sequence split
+    over ``"model"`` (over ``("data", "model")`` when the rows are whole),
+    as the JAX twin's cells lay them out.  ``mesh`` is the DeviceMesh the
+    collectives run on (None for the specs alone: :func:`cache_specs`)."""
+    mesh: Any
+    sizes: dict
+    coord: dict
+    B: int
+    T: int
+
+    def _fold(self, axes) -> tuple[int, int]:
+        """(index, count) of this rank over ``axes``, the first major."""
+        i, n = 0, 1
+        for a in axes:
+            s = self.sizes.get(a, 1)
+            i, n = i * s + self.coord.get(a, 0), n * s
+        return i, n
+
+    @property
+    def batch_axes(self) -> tuple:
+        from repro_torch.dist.sharding import batch_axes
+
+        return batch_axes(self.sizes)
+
+    @property
+    def n_row_shards(self) -> int:
+        return self._fold(self.batch_axes)[1]
+
+    @property
+    def split_rows(self) -> bool:
+        return self.B >= self.n_row_shards and self.B % self.n_row_shards == 0
+
+    @property
+    def rows(self) -> slice:
+        if not self.split_rows:
+            return slice(None)
+        b = self.B // self.n_row_shards
+        i = self._fold(self.batch_axes)[0]
+        return slice(i * b, (i + 1) * b)
+
+    @property
+    def M(self) -> int:
+        return self.sizes.get("model", 1)
+
+    @property
+    def j(self) -> int:
+        return self.coord.get("model", 0)
+
+    @property
+    def cp(self) -> bool:
+        return "model" in self.sizes and attention.cp_splits(self.M, self.T)
+
+    @property
+    def T_loc(self) -> int:
+        return self.T // self.M if self.cp else self.T
+
+    @property
+    def cache_seq_axes(self) -> tuple:
+        if self.split_rows or "data" not in self.sizes:
+            return ("model",)
+        return ("data", "model")
+
+    def cache_seq_block(self) -> tuple[int, int]:
+        """(index, count) of this rank's block of a cache's sequence."""
+        return self._fold(self.cache_seq_axes)
+
+
+def mesh_layout(mesh, B: int, T: int) -> MeshLayout:
+    """The layout of a (B, T) batch on a live DeviceMesh, from this rank."""
+    from repro_torch.dist.sharding import axis_sizes
+
+    sizes = axis_sizes(mesh)
+    return MeshLayout(mesh, sizes, {a: collectives.axis_index(mesh, a) for a in sizes}, B, T)
+
+
+def cache_specs(cfg: LMConfig, mesh, batch: int, caches):
+    """The partition spec of every cache leaf (n_blocks, B, S, ...) on a mesh
+    (or its {axis: size}): the JAX twin's ``_cache_shardings``."""
+    from repro_torch.dist.sharding import P, axis_sizes
+
+    lay = MeshLayout(None, axis_sizes(mesh), {}, batch, 1)
+    bspec = lay.batch_axes if lay.split_rows else None
+    return tree_map(lambda t: P(None, bspec, lay.cache_seq_axes, *([None] * (t.dim() - 3))),
+                    caches)
+
+
+def _layer_specs(cfg: LMConfig, params, si: int):
+    """Per-layer specs of stack ``si`` (the stack dim dropped)."""
+    from repro_torch.dist.sharding import P, resolve_spec
+    from repro_torch.common.pytree import tree_map_with_name
+
+    return tree_map_with_name(
+        lambda n, t: P(*resolve_spec(lm_rules(cfg), f"stack_{si}/{n}", t.dim())[1:]),
+        params[f"stack_{si}"])
+
+
+_EXPERTS = ("moe/wi_0", "moe/wi_1", "moe/wi", "moe/wo")
+
+
+def _gathered(p, specs, mesh):
+    """A block's parameters whole, the expert weights the MoE consumes in
+    its own layout (``_moe_weights``) left as blocks."""
+    from repro_torch.common.pytree import named_leaves, tree_map_with_name
+    from repro_torch.dist.sharding import gather_block
+
+    spec = dict(named_leaves(specs))
+    return tree_map_with_name(
+        lambda n, x: x if n in _EXPERTS else gather_block(x, spec[n], mesh), p)
+
+
+def _moe_weights(cfg: LMConfig, p, lay: MeshLayout, token_gather: bool):
+    """The expert weights in the form the MoE body takes, from this rank's
+    blocks of the rules' layout: gathered over "data" (the body's ZeRO
+    gather), and for the token-gather body cut to the rank's stored expert
+    shard.  Raises ``ValueError`` where the JAX twin's ``shard_map`` cannot
+    split the experts."""
+    E = cfg.moe_n_experts
+    D, i = lay.sizes.get("data", 1), lay.coord.get("data", 0)
+    if cfg.moe_layout == "ep":
+        if E % (lay.M * D):
+            raise ValueError(f"the ep MoE splits {E} experts over ('model', 'data') = "
+                             f"{lay.M * D} ranks, which does not divide them")
+        dims = {"wi_0": 1, "wi_1": 1, "wi": 1, "wo": 1}
+        n_own = E // (lay.M * D)
+    else:
+        if E % D:
+            raise ValueError(f"the ffslice MoE splits {E} experts over 'data' = {D} ranks, "
+                             "which does not divide them")
+        dims = {"wi_0": 1, "wi_1": 1, "wi": 1, "wo": 2}
+        n_own = E // D
+    out = {}
+    for k, dim in dims.items():
+        if k not in p:
+            continue
+        w = collectives.all_gather(p[k], lay.mesh, "data", dim)
+        out[k] = w[i * n_own:(i + 1) * n_own] if token_gather else w
+    return out
+
+
+def _moe_mesh(cfg: LMConfig, p, h, lay: MeshLayout, threshold: int = 4096):
+    """The layer's MoE on the rank's tokens: every position of its rows
+    (gathered over "model" where the sequence is split), cut over the batch
+    axes as the JAX twin's token spec, through ``moe.moe_apply``; returns
+    its (b, T_loc, d) rows of y and the aux loss."""
+    mesh = lay.mesh
+    x = collectives.all_gather(h, mesh, "model", 1) if lay.cp else h     # (b, T, d)
+    b, T, d = x.shape
+    xf = x.reshape(-1, d)
+    n_tokens = lay.B * T
+    axes, n = moe.token_axes(mesh, n_tokens)
+    if not lay.split_rows and axes:
+        from repro_torch.dist.sharding import local_block
+
+        xf = local_block(xf, (axes, None), mesh)
+    token_gather = n_tokens <= threshold
+    params = dict(_moe_weights(cfg, p, lay, token_gather), router=p["router"])
+    if "shared" in p:
+        params["shared"] = p["shared"]
+    y, aux = moe.moe_apply(params, xf, layout=cfg.moe_layout, n_experts=cfg.moe_n_experts,
+                           top_k=cfg.moe_top_k, mesh=mesh, n_tokens=n_tokens,
+                           capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+                           token_gather_threshold=threshold, gathered=True)
+    if not lay.split_rows and axes:
+        for a in reversed(axes):
+            y = collectives.all_gather(y, mesh, a, 0)
+    y = y.reshape(b, T, d)
+    if lay.cp:
+        y = y[:, lay.j * lay.T_loc:(lay.j + 1) * lay.T_loc]
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

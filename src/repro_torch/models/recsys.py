@@ -18,9 +18,21 @@ batch of 65,536 and full width).  The port runs it a chunk of rows at a
 time under ``torch.utils.checkpoint``, so no more than ``CIN_CHUNK_ELEMS``
 elements of it live at once, forward or backward.
 
-The sharded forms (``sharded_embedding_lookup``, ``make_retrieval_step``
-and every ``mesh`` argument) wait for the sharding rules (ROADMAP Queue 1
-item 10(d)) and raise.
+**Mesh forms.**  With a ``DeviceMesh`` every rank passes its blocks:
+parameters cut by ``dist.sharding.RECSYS_RULES`` (the tables' rows over
+``"model"``, the two-tower MLP kernels' columns over ``"model"``, the rest
+whole) and its rows of the batch (split over the batch axes ("pod",
+"data"); whole where the batch does not divide them, as JAX replicates
+it).  A table lookup is the JAX twin's ``shard_map`` body: each rank takes
+the rows it holds, zeros elsewhere, and a sum over ``"model"`` combines
+them; a two-tower kernel is gathered whole for its product.  A loss is the
+sum over ranks of each rank's share (``dist.sharding.loss_total``): its
+rows' sum over the count of every rank's rows, replicas included, so each
+rank differentiates its share and ``sync_grads`` completes the gradient.
+The two-tower loss's in-batch softmax gathers the items over the batch
+axes (its batch must split over them).  ``make_retrieval_step`` scores its
+block of the candidates, keeps a local top-k and merges over every axis
+(``dist.serve.merge``); ties break by (score descending, index ascending).
 """
 from __future__ import annotations
 
@@ -31,10 +43,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import collectives
 from repro_torch.common.config import ConfigBase
 from repro_torch.common.device import resolve_device
 from repro_torch.common.prng import PRNGSeq
-from repro_torch.common.pytree import tree_leaves, value_and_grad
+from repro_torch.common.pytree import tree_leaves, tree_map_with_name, value_and_grad
+from repro_torch.dist.sharding import batch_axes
 from repro_torch.nn import attention, layers
 from repro_torch.optim.adam import adam_update
 
@@ -74,28 +88,37 @@ class RecsysConfig(ConfigBase):
         return np.concatenate([[0], np.cumsum(self.vocab_sizes)[:-1]]).astype(np.int64)
 
 
-_MESH = ("the recsys models' sharded forms (sharded_embedding_lookup, make_retrieval_step, "
-         "a mesh argument) come with the sharding rules (ROADMAP Queue 1 item 10(d))")
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-
-
 # ---------------------------------------------------------------------------
 # embedding substrate
 # ---------------------------------------------------------------------------
 
 def sharded_embedding_lookup(table, ids, mesh, *, batch_axes=("pod", "data")):
-    """The row-sharded EmbeddingBag of the JAX twin: not ported yet."""
-    raise NotImplementedError(_MESH)
+    """table: this rank's (V / |model|, d) block of rows; ids: the rank's
+    (B_loc, ...) global ids -> (B_loc, ..., d).  ``batch_axes`` is the JAX
+    twin's; here the ids are already the rank's rows (whole where the batch
+    does not divide the batch axes)."""
+    from repro_torch.dist.sharding import row_block_lookup
+
+    del batch_axes
+    return row_block_lookup(table, ids, mesh)
 
 
 def embedding_lookup(table, ids, mesh=None):
-    """table: (V, d); ids: (B, ...) -> (B, ..., d); a dense gradient."""
-    _no_mesh(mesh)
-    return table[ids]
+    """table: (V, d) (with a mesh, this rank's block of rows); ids: (B, ...)
+    -> (B, ..., d); a dense gradient."""
+    if mesh is None or "model" not in collectives.axis_names(mesh):
+        return table[ids]
+    return sharded_embedding_lookup(table, ids, mesh)
+
+
+def _whole(tree, prefix: str, mesh):
+    """A parameter subtree gathered whole from its blocks (by its rules)."""
+    if mesh is None:
+        return tree
+    from repro_torch.dist.sharding import RECSYS_RULES, gather_block, resolve_spec
+
+    return tree_map_with_name(lambda n, x: gather_block(
+        x, resolve_spec(RECSYS_RULES, f"{prefix}/{n}", x.dim()), mesh), tree)
 
 
 def embedding_bag(table, ids, mesh=None, *, combiner: str = "mean", pad_id: int = 0):
@@ -246,12 +269,13 @@ def _unit_rows(x):
 def two_tower_user(params, ids, cfg: RecsysConfig, mesh=None):
     gids = _offset_ids(cfg, ids)
     emb = embedding_lookup(params["user_table"]["embedding"], gids, mesh)
-    return _unit_rows(layers.mlp(params["user_tower"], emb.reshape(emb.shape[0], -1)))
+    tower = _whole(params["user_tower"], "user_tower", mesh)
+    return _unit_rows(layers.mlp(tower, emb.reshape(emb.shape[0], -1)))
 
 
 def two_tower_item(params, item_ids, cfg: RecsysConfig, mesh=None):
     e = embedding_lookup(params["item_table"]["embedding"], item_ids, mesh)
-    return _unit_rows(layers.mlp(params["item_tower"], e))
+    return _unit_rows(layers.mlp(_whole(params["item_tower"], "item_tower", mesh), e))
 
 
 FORWARDS = {
@@ -264,10 +288,24 @@ FORWARDS = {
 # losses / steps
 # ---------------------------------------------------------------------------
 
-def bce_loss(logits, labels):
+def _bce_terms(logits, labels):
     logits = logits.float()
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def bce_loss(logits, labels):
+    return torch.mean(_bce_terms(logits, labels))
+
+
+def _mean_over_mesh(terms, mesh):
+    """The mean of every rank's rows of ``terms``: the sum of each rank's
+    share, its rows' sum over the count of all ranks' rows (every rank has
+    as many, replicas included)."""
+    from repro_torch.dist.sharding import loss_total
+
+    world = collectives.mesh_size(mesh)
+    return loss_total(terms.sum() / (terms.numel() * world), mesh)
 
 
 def ctr_loss(params, batch, cfg: RecsysConfig, mesh=None):
@@ -275,33 +313,63 @@ def ctr_loss(params, batch, cfg: RecsysConfig, mesh=None):
         logits = bst_forward(params, batch["history"], batch["target_item"], cfg, mesh)
     else:
         logits = FORWARDS[cfg.model](params, batch["ids"], cfg, mesh)
-    return bce_loss(logits, batch["labels"])
+    if mesh is None:
+        return bce_loss(logits, batch["labels"])
+    return _mean_over_mesh(_bce_terms(logits, batch["labels"]), mesh)
+
+
+def _gather_rows(x, mesh):
+    """Every rank's rows over the batch axes, in the global order."""
+    for a in reversed(batch_axes(mesh)):
+        x = collectives.all_gather(x, mesh, a, 0)
+    return x
 
 
 def two_tower_loss(params, batch, cfg: RecsysConfig, mesh=None):
-    """In-batch sampled softmax with logQ correction (Yi et al. RecSys'19)."""
+    """In-batch sampled softmax with logQ correction (Yi et al. RecSys'19).
+    With a mesh the batch rows are split over the batch axes; the items and
+    ``logq`` are gathered over them for the (B_loc, B) logits."""
     u = two_tower_user(params, batch["ids"], cfg, mesh)         # (B, D)
     v = two_tower_item(params, batch["item"], cfg, mesh)        # (B, D)
-    logits = (u @ v.T) / cfg.temperature                        # (B, B)
     logq = batch.get("logq")
+    offset = 0
+    if mesh is not None:
+        v = _gather_rows(v, mesh)
+        logq = None if logq is None else _gather_rows(logq, mesh)
+        for a in batch_axes(mesh):
+            offset = offset * collectives.axis_size(mesh, a) + collectives.axis_index(mesh, a)
+        offset *= u.shape[0]
+    logits = (u @ v.T) / cfg.temperature                        # (B_loc, B)
     if logq is not None:
         logits = logits - logq[None, :]
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.diagonal(logits)
-    return torch.mean(lse - gold)
+    gold = logits[torch.arange(u.shape[0], device=u.device),
+                  torch.arange(u.shape[0], device=u.device) + offset]
+    if mesh is None:
+        return torch.mean(lse - gold)
+    return _mean_over_mesh(lse - gold, mesh)
 
 
 def make_train_step(cfg: RecsysConfig, mesh=None, lr: float = 1e-3):
     """Returns step(params, opt_state, batch) -> (params, opt_state, metrics):
-    the loss's gradient by autograd, then ``adam_update(lr, grad_clip=1.0)``."""
-    _no_mesh(mesh)
+    the loss's gradient by autograd, then ``adam_update(lr, grad_clip=1.0)``.
+    With a mesh, on this rank's blocks: the gradient summed over the ranks
+    that hold each block (``sync_grads``) and clipped by the global norm."""
     lf = two_tower_loss if cfg.model == "two_tower" else ctr_loss
 
     def step(params, opt_state, batch):
-        loss, grads = value_and_grad(lambda p: lf(p, batch, cfg), params)
+        loss, grads = value_and_grad(lambda p: lf(p, batch, cfg, mesh), params)
+        norm = None
+        if mesh is not None:
+            from repro_torch.dist.sharding import (RECSYS_RULES, global_norm, spec_tree,
+                                                   sync_grads)
+
+            specs = spec_tree(params, RECSYS_RULES)
+            grads = sync_grads(grads, specs, mesh)
+            norm = global_norm(grads, specs, mesh)
         with torch.no_grad():
             params, opt_state, om = adam_update(grads, opt_state, params, lr=lr,
-                                                grad_clip=1.0)
+                                                grad_clip=1.0, grad_norm=norm)
         return params, opt_state, {"loss": loss, **om}
 
     return step
@@ -310,17 +378,17 @@ def make_train_step(cfg: RecsysConfig, mesh=None, lr: float = 1e-3):
 def make_serve_step(cfg: RecsysConfig, mesh=None, *, chunk: int = 0):
     """Pointwise scoring step.  ``chunk`` > 0 streams the batch through
     fixed-size tiles, one after another (bounds the CIN/MLP activation
-    footprint for the bulk-scoring cells; the JAX twin's ``lax.map``)."""
-    _no_mesh(mesh)
+    footprint for the bulk-scoring cells; the JAX twin's ``lax.map``).  With
+    a mesh it scores this rank's rows."""
 
     def score(params, batch):
         if cfg.model == "bst":
-            return bst_forward(params, batch["history"], batch["target_item"], cfg)
+            return bst_forward(params, batch["history"], batch["target_item"], cfg, mesh)
         if cfg.model == "two_tower":
-            u = two_tower_user(params, batch["ids"], cfg)
-            v = two_tower_item(params, batch["item"], cfg)
+            u = two_tower_user(params, batch["ids"], cfg, mesh)
+            v = two_tower_item(params, batch["item"], cfg, mesh)
             return torch.sum(u * v, dim=-1)
-        return FORWARDS[cfg.model](params, batch["ids"], cfg)
+        return FORWARDS[cfg.model](params, batch["ids"], cfg, mesh)
 
     @torch.no_grad()
     def step(params, batch):
@@ -334,5 +402,23 @@ def make_serve_step(cfg: RecsysConfig, mesh=None, *, chunk: int = 0):
 
 
 def make_retrieval_step(cfg: RecsysConfig, mesh, k: int = 100):
-    """The mesh-sharded candidate scan of the JAX twin: not ported yet."""
-    raise NotImplementedError(_MESH)
+    """Score one query batch against the candidate matrix and return the
+    global top-k (scores, ids), ties to the lower index (the
+    ``retrieval_cand`` cell).  With a mesh each rank passes its block of the
+    candidates (split over every axis, row-major) and every rank returns
+    the merged (B, k); with ``mesh=None`` the candidates are whole."""
+    from repro_torch.anns.base import stable_topk
+
+    @torch.no_grad()
+    def step(params, batch, candidates):
+        u = two_tower_user(params, batch["ids"], cfg, mesh)
+        s = u @ candidates.T.to(u.dtype)                        # (B, m_loc)
+        top, ids = stable_topk(s, min(k, s.shape[1]))
+        if mesh is None:
+            return top, ids
+        from repro_torch.dist.serve import merge, shard_index
+
+        gids = ids + shard_index(mesh) * candidates.shape[0]
+        return merge(mesh, top, gids, k)
+
+    return step

@@ -19,6 +19,15 @@ K and V into slot ``kv_len - 1`` of the cache tensors it is given and
 returns the same tensors; the JAX package rewrites the whole cache with a
 ``where`` (the same values).  A caller that keeps an older cache clones it
 first.  ``kv_len`` is a scalar (every caller passes one).
+
+**Mesh hooks** (the LM's mesh forms run these same layers on each rank's
+blocks): the train and prefill forms take ``mesh``, given where the
+sequence is split over its ``"model"`` axis; K and V are then gathered over
+it (``flash_attention_cp``'s body) and a prefill's caches hold every
+position.  The decode forms take ``seq = (mesh, axes, index)`` where the
+caches are block ``index`` of a sequence split over the ranks of ``axes``:
+only the rank whose block holds position ``kv_len - 1`` writes the new K/V,
+and the softmax is merged over those ranks (a max and two sums).
 """
 from __future__ import annotations
 
@@ -144,11 +153,21 @@ def flash_attention_cp(q, k, v, q_positions, mesh, *, causal=True, chunk=None,
     sequence over ``"model"`` and runs the blockwise core on its T_loc query
     rows; it returns its (B_loc, T_loc, H, Dv) block of the output.
     """
-    k_f = collectives.all_gather(k, mesh, "model", dim=1)
-    v_f = collectives.all_gather(v, mesh, "model", dim=1)
-    kv_pos = torch.arange(k_f.shape[1], device=q.device)
+    (k_f, v_f), kv_pos, q_block = _over_sequence((k, v), q_positions, mesh, q_block)
     return flash_attention(q, k_f, v_f, q_positions, kv_pos, causal=causal, chunk=chunk,
-                           q_block=min(q_block, q.shape[1]), kv_block=kv_block, scale=scale)
+                           q_block=q_block, kv_block=kv_block, scale=scale)
+
+
+def _over_sequence(kv: tuple, positions, mesh, q_block: int):
+    """(K/V tensors, their positions, the query block) for the causal core
+    over the queries at ``positions``: the same positions on one device;
+    with ``mesh`` (the sequence split over its "model" axis) K/V gathered
+    from every rank and the query block cut to the rank's rows."""
+    if mesh is None:
+        return kv, positions[0], q_block
+    kv = tuple(collectives.all_gather(t, mesh, "model", dim=1) for t in kv)
+    return (kv, torch.arange(kv[0].shape[1], device=positions.device),
+            min(q_block, positions.shape[1]))
 
 
 def _use_cp(mesh, T: int) -> bool:
@@ -156,8 +175,13 @@ def _use_cp(mesh, T: int) -> bool:
     ``T`` on ``mesh``."""
     if mesh is None or "model" not in collectives.axis_names(mesh):
         return False
-    n = collectives.axis_size(mesh, "model")
-    return T % n == 0 and T // n >= 128
+    return cp_splits(collectives.axis_size(mesh, "model"), T)
+
+
+def cp_splits(n_model: int, T: int) -> bool:
+    """The context-parallel rule: ``n_model`` ranks split ``T`` positions
+    into blocks of at least 128."""
+    return T % n_model == 0 and T // n_model >= 128
 
 
 def _scalar_kv_len(kv_len) -> int | torch.Tensor:
@@ -166,8 +190,30 @@ def _scalar_kv_len(kv_len) -> int | torch.Tensor:
     return kv_len
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, *, chunk: int | None = None, scale=None):
-    """One-step decode.  q: (B, 1, Hq, D); caches: (B, S, Kv, D); kv_len: ()."""
+def _cache_positions(S: int, seq, device):
+    """The positions a cache of S slots holds: 0..S-1, or with ``seq`` its
+    block of the split sequence."""
+    return torch.arange(S, device=device) + (0 if seq is None else seq[2] * S)
+
+
+def _softmax_v(s, v, ok, seq):
+    """softmax(s) @ v over the allowed positions ``ok`` (s fp32 (..., S), v
+    fp32 (..., S, Dv)); with ``seq`` the max and the sums are combined over
+    the ranks that hold the sequence's other blocks."""
+    s = torch.where(ok, s, NEG_INF)
+    if seq is None:
+        return torch.matmul(torch.softmax(s, dim=-1), v)
+    mesh, axes, _ = seq
+    m = collectives.pmax(s.amax(-1, keepdim=True), mesh, axes)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    return (collectives.psum(p @ v, mesh, axes)
+            / collectives.psum(p.sum(-1, keepdim=True), mesh, axes))
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, chunk: int | None = None, scale=None,
+                     seq=None):
+    """One-step decode.  q: (B, 1, Hq, D); caches: (B, S, Kv, D); kv_len: ();
+    ``seq``: see the module docstring."""
     kv_len = _scalar_kv_len(kv_len)
     B, _, H, D = q.shape
     S, Kv = k_cache.shape[1], k_cache.shape[2]
@@ -175,18 +221,22 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, chunk: int | None = None, s
     scale = scale if scale is not None else D ** -0.5
     qg = q.float().view(B, Kv, G, D)
     s = torch.matmul(qg, k_cache.float().permute(0, 2, 3, 1)) * scale      # (B, K, G, S)
-    kv_pos = torch.arange(S, device=q.device)
     kv_len_t = torch.as_tensor(kv_len, device=q.device)
     q_pos = (kv_len_t - 1).expand(B)[:, None]
-    ok = _allowed(q_pos, kv_pos, causal=True, chunk=chunk, kv_len=kv_len_t)  # (B, 1, S)
-    s = torch.where(ok[:, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.matmul(p, v_cache.float().permute(0, 2, 1, 3))                 # (B, K, G, Dv)
+    ok = _allowed(q_pos, _cache_positions(S, seq, q.device), causal=True, chunk=chunk,
+                  kv_len=kv_len_t)                                         # (B, 1, S)
+    o = _softmax_v(s, v_cache.float().permute(0, 2, 1, 3), ok[:, None], seq)  # (B, K, G, Dv)
     return o.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
 
 
-def _cache_write(cache, new, kv_len):
-    """Write ``new`` (B, 1, ...) into slot ``kv_len - 1`` of ``cache`` in place."""
+def _cache_write(cache, new, kv_len, seq=None):
+    """Write ``new`` (B, 1, ...) into slot ``kv_len - 1`` of ``cache`` in
+    place; with ``seq`` (``kv_len`` an int), only where this rank's block
+    holds that position."""
+    if seq is not None:
+        kv_len = int(kv_len) - seq[2] * cache.shape[1]
+        if not 0 < kv_len <= cache.shape[1]:
+            return cache
     idx = (torch.as_tensor(kv_len, device=cache.device) - 1).reshape(1)
     cache.index_copy_(1, idx, new.to(cache.dtype))
     return cache
@@ -234,36 +284,39 @@ def _qkv(params, x):
     return q, k, v
 
 
-def gqa_train(params, x, positions, *, rope_base=10000.0, chunk=None, q_block=1024,
-              kv_block=1024):
-    """Full causal self-attention over x: (B, T, D), on one device (the
-    context-parallel form is ``flash_attention_cp``)."""
+def _gqa(params, x, positions, *, rope_base, chunk, q_block, kv_block, mesh):
+    """-> (out, K, V over the attended positions)."""
     q, k, v = _qkv(params, x)
     q = apply_rope(q, positions, rope_base)
     k = apply_rope(k, positions, rope_base)
-    o = flash_attention(q, k, v, positions, positions[0], causal=True, chunk=chunk,
+    (k, v), kv_pos, q_block = _over_sequence((k, v), positions, mesh, q_block)
+    o = flash_attention(q, k, v, positions, kv_pos, causal=True, chunk=chunk,
                         q_block=q_block, kv_block=kv_block)
-    return _out_proj(o, params["wo"])
+    return _out_proj(o, params["wo"]), k, v
+
+
+def gqa_train(params, x, positions, *, rope_base=10000.0, chunk=None, q_block=1024,
+              kv_block=1024, mesh=None):
+    """Full causal self-attention over x: (B, T, D); ``mesh``: see the module
+    docstring."""
+    return _gqa(params, x, positions, rope_base=rope_base, chunk=chunk, q_block=q_block,
+                kv_block=kv_block, mesh=mesh)[0]
 
 
 def gqa_prefill(params, x, positions, cache_len, *, rope_base=10000.0, chunk=None,
-                q_block=1024, kv_block=1024):
+                q_block=1024, kv_block=1024, mesh=None):
     """Prefill: returns (out, (k_cache, v_cache)) with caches padded to cache_len."""
-    q, k, v = _qkv(params, x)
-    q = apply_rope(q, positions, rope_base)
-    k = apply_rope(k, positions, rope_base)
-    o = flash_attention(q, k, v, positions, positions[0], causal=True, chunk=chunk,
-                        q_block=q_block, kv_block=kv_block)
-    out = _out_proj(o, params["wo"])
+    out, k, v = _gqa(params, x, positions, rope_base=rope_base, chunk=chunk,
+                     q_block=q_block, kv_block=kv_block, mesh=mesh)
     pad = cache_len - k.shape[1]
     pad_t = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
     return out, (pad_t(k), pad_t(v))
 
 
-def gqa_decode(params, x, cache, kv_len, *, rope_base=10000.0, chunk=None):
+def gqa_decode(params, x, cache, kv_len, *, rope_base=10000.0, chunk=None, seq=None):
     """Decode one token.  x: (B, 1, D); cache: (k, v) each (B, S, Kv, hd),
     written in place.  ``kv_len`` includes the new token, whose position is
-    kv_len - 1.  Returns (out, cache)."""
+    kv_len - 1.  Returns (out, cache).  ``seq``: see the module docstring."""
     kv_len = _scalar_kv_len(kv_len)
     kc, vc = cache
     B = x.shape[0]
@@ -271,9 +324,9 @@ def gqa_decode(params, x, cache, kv_len, *, rope_base=10000.0, chunk=None):
     q, k, v = _qkv(params, x)
     q = apply_rope(q, pos, rope_base)
     k = apply_rope(k, pos, rope_base)
-    _cache_write(kc, k, kv_len)
-    _cache_write(vc, v, kv_len)
-    o = decode_attention(q, kc, vc, kv_len, chunk=chunk)
+    _cache_write(kc, k, kv_len, seq)
+    _cache_write(vc, v, kv_len, seq)
+    o = decode_attention(q, kc, vc, kv_len, chunk=chunk, seq=seq)
     return _out_proj(o, params["wo"]), (kc, vc)
 
 
@@ -320,50 +373,59 @@ def _wv_b(o_lat, wv_b):
     return torch.einsum("bthl,lhv->bthv", o_lat, wv_b.to(o_lat.dtype))
 
 
-def _mla_attend(params, q_lat, q_rope, c_kv, k_rope, q_pos, kv_pos, *, scale, kv_len=None):
+def _mla_attend(params, q_lat, q_rope, c_kv, k_rope, q_pos, kv_pos, *, scale, kv_len=None,
+                seq=None):
     """Absorbed MLA attention.  q_lat: (B,T,H,L); c_kv: (B,S,L); k_rope: (B,S,R)."""
     s = torch.einsum("bthl,bsl->bhts", q_lat.float(), c_kv.float())
     s = s + torch.einsum("bthr,bsr->bhts", q_rope.float(), k_rope.float())
     s = s * scale
     ok = _allowed(q_pos, kv_pos, causal=True, kv_len=kv_len)       # (B, T, S) or (T, S)
     ok = ok[:, None] if ok.dim() == 3 else ok[None, None]
-    s = torch.where(ok, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhts,bsl->bthl", p, c_kv.float())
+    o_lat = _softmax_v(s, c_kv.float()[:, None], ok, seq).permute(0, 2, 1, 3)
     return _wv_b(o_lat.to(q_lat.dtype), params["wv_b"])
 
 
-def mla_train(params, x, positions, *, qk_nope, qk_rope, kv_lora, rope_base=10000.0,
-              kv_block: int = 2048, q_block: int = 1024):
+def _mla(params, x, positions, *, qk_nope, qk_rope, kv_lora, rope_base, kv_block, q_block,
+         mesh):
     """MLA causal self-attention through the flash core: the absorbed form is
     MQA over the latent cache (query concat(q_lat, q_rope), one shared key
     concat(c_kv, k_rope), value c_kv), with the true 1/sqrt(qk_nope+qk_rope)
-    scale passed explicitly."""
+    scale passed explicitly.  -> (out, c_kv, k_rope over the attended
+    positions)."""
     scale = (qk_nope + qk_rope) ** -0.5
     q_lat, q_rope = _mla_query(params, x, positions, qk_nope, rope_base)
     c_kv, k_rope = _mla_kv(params, x, positions, kv_lora, rope_base)
     q_cat = torch.cat([q_lat, q_rope], dim=-1)                      # (B, T, H, L+R)
     k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]       # (B, S, 1, L+R)
-    v = c_kv[:, :, None, :]                                         # (B, S, 1, L)
-    o = flash_attention(q_cat, k_cat, v, positions, positions[0], causal=True,
+    (k_cat,), kv_pos, q_block = _over_sequence((k_cat,), positions, mesh, q_block)
+    o = flash_attention(q_cat, k_cat, k_cat[..., :kv_lora], positions, kv_pos, causal=True,
                         q_block=q_block, kv_block=kv_block, scale=scale)
-    return _out_proj(_wv_b(o, params["wv_b"]), params["wo"])
+    out = _out_proj(_wv_b(o, params["wv_b"]), params["wo"])
+    return out, k_cat[:, :, 0, :kv_lora], k_cat[:, :, 0, kv_lora:]
+
+
+def mla_train(params, x, positions, *, qk_nope, qk_rope, kv_lora, rope_base=10000.0,
+              kv_block: int = 2048, q_block: int = 1024, mesh=None):
+    """MLA causal self-attention (``_mla``); ``mesh``: see the module
+    docstring."""
+    return _mla(params, x, positions, qk_nope=qk_nope, qk_rope=qk_rope, kv_lora=kv_lora,
+                rope_base=rope_base, kv_block=kv_block, q_block=q_block, mesh=mesh)[0]
 
 
 def mla_prefill(params, x, positions, cache_len, *, qk_nope, qk_rope, kv_lora,
-                rope_base=10000.0, kv_block: int = 2048, q_block: int = 1024):
-    out = mla_train(params, x, positions, qk_nope=qk_nope, qk_rope=qk_rope,
-                    kv_lora=kv_lora, rope_base=rope_base, kv_block=kv_block,
-                    q_block=q_block)
-    c_kv, k_rope = _mla_kv(params, x, positions, kv_lora, rope_base)
+                rope_base=10000.0, kv_block: int = 2048, q_block: int = 1024, mesh=None):
+    out, c_kv, k_rope = _mla(params, x, positions, qk_nope=qk_nope, qk_rope=qk_rope,
+                             kv_lora=kv_lora, rope_base=rope_base, kv_block=kv_block,
+                             q_block=q_block, mesh=mesh)
     pad = cache_len - c_kv.shape[1]
     pad_t = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))
     return out, (pad_t(c_kv), pad_t(k_rope))
 
 
-def mla_decode(params, x, cache, kv_len, *, qk_nope, qk_rope, kv_lora, rope_base=10000.0):
+def mla_decode(params, x, cache, kv_len, *, qk_nope, qk_rope, kv_lora, rope_base=10000.0,
+               seq=None):
     """Decode one token with the compressed latent cache (B, S, kv_lora) +
-    (B, S, rope), written in place."""
+    (B, S, rope), written in place; ``seq``: see the module docstring."""
     kv_len = _scalar_kv_len(kv_len)
     c_cache, r_cache = cache
     scale = (qk_nope + qk_rope) ** -0.5
@@ -372,9 +434,9 @@ def mla_decode(params, x, cache, kv_len, *, qk_nope, qk_rope, kv_lora, rope_base
     pos = (kv_len_t - 1).expand(B)[:, None]
     q_lat, q_rope = _mla_query(params, x, pos, qk_nope, rope_base)
     c_new, r_new = _mla_kv(params, x, pos, kv_lora, rope_base)
-    _cache_write(c_cache, c_new, kv_len)
-    _cache_write(r_cache, r_new, kv_len)
-    kv_pos = torch.arange(c_cache.shape[1], device=x.device)
+    _cache_write(c_cache, c_new, kv_len, seq)
+    _cache_write(r_cache, r_new, kv_len, seq)
+    kv_pos = _cache_positions(c_cache.shape[1], seq, x.device)
     o = _mla_attend(params, q_lat, q_rope, c_cache, r_cache, pos, kv_pos,
-                    scale=scale, kv_len=kv_len_t)
+                    scale=scale, kv_len=kv_len_t, seq=seq)
     return _out_proj(o, params["wo"]), (c_cache, r_cache)

@@ -40,6 +40,8 @@ def _draw(shape, dtype, device, fill):
     """A tensor of ``shape`` in ``dtype``, filled in fp32 by ``fill(t)`` (a
     slice of the leading axis at a time when it is large) and cast."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:            # shapes and dtypes only (``launch.cells``)
+        return out
     if dtype == torch.float32:
         fill(out)
         return out

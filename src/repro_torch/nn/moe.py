@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.common import collectives
 from repro_torch.common.prng import PRNGSeq
+from repro_torch.dist.sharding import batch_axes
 from repro_torch.nn import layers
 
 
@@ -72,29 +73,11 @@ def moe_param_specs(layout: str, *, stacked: bool = False) -> dict[str, tuple]:
     return specs
 
 
-def local_block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of the global tensor ``x`` under ``spec`` (a
-    PartitionSpec as a tuple: per dimension None, an axis name, or a tuple
-    of names folded major first), as ``shard_map`` hands it to its body."""
-    idx = [slice(None)] * x.dim()
-    for dim, axes in enumerate(spec):
-        if axes is None:
-            continue
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        n, i = 1, 0
-        for a in axes:
-            size = collectives.axis_size(mesh, a)
-            n, i = n * size, i * size + collectives.axis_index(mesh, a)
-        if x.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split {n} ways")
-        rows = x.shape[dim] // n
-        idx[dim] = slice(i * rows, (i + 1) * rows)
-    return x[tuple(idx)]
-
-
 def moe_local_params(params: dict, layout: str, mesh) -> dict:
     """A rank's blocks of global MoE params: the expert weights cut by
     ``moe_param_specs(layout)``, the router and the shared expert whole."""
+    from repro_torch.dist.sharding import local_block
+
     specs = moe_param_specs(layout)
     return {k: local_block(v, specs[k], mesh) if k in specs else v
             for k, v in params.items()}
@@ -104,7 +87,7 @@ def token_axes(mesh, n_tokens: int) -> tuple[tuple[str, ...], int]:
     """The batch axes the flattened tokens are split over and their count
     of shards: ("pod", "data") as present, or none when ``n_tokens`` does
     not divide (tiny decode batches: tokens replicated)."""
-    axes = tuple(a for a in ("pod", "data") if a in collectives.axis_names(mesh))
+    axes = batch_axes(mesh)
     n = math.prod(collectives.axis_size(mesh, a) for a in axes)
     if n_tokens % max(n, 1):
         return (), 1
@@ -114,6 +97,8 @@ def token_axes(mesh, n_tokens: int) -> tuple[tuple[str, ...], int]:
 def local_tokens(x: torch.Tensor, mesh) -> torch.Tensor:
     """A rank's rows of the global (B, T, d) activations for ``moe_apply``:
     the flattened tokens cut over the batch axes (``token_axes``)."""
+    from repro_torch.dist.sharding import local_block
+
     xf = x.reshape(-1, x.shape[-1])
     axes, _ = token_axes(mesh, xf.shape[0])
     return local_block(xf, (axes or None, None), mesh)
@@ -184,11 +169,13 @@ def _combine(x, out_buf, e_flat, pos_flat, keep, tok, gate):
 
 
 def _moe_shard_body(x, router_w, wi_0, wi_1, wi, wo, *, mesh, layout, n_experts, top_k,
-                    capacity_factor, activation):
-    """One rank's part: the ZeRO weight gather over "data", its tokens x
-    (N_loc, d) through its experts, the sum over "model"."""
-    gather = lambda a: None if a is None else collectives.all_gather(a, mesh, "data", 0)
-    wi_0, wi_1, wi, wo = gather(wi_0), gather(wi_1), gather(wi), gather(wo)
+                    capacity_factor, activation, gathered=False):
+    """One rank's part: the ZeRO weight gather over "data" (skipped when the
+    caller ``gathered`` them), its tokens x (N_loc, d) through its experts,
+    the sum over "model"."""
+    if not gathered:
+        gather = lambda a: None if a is None else collectives.all_gather(a, mesh, "data", 0)
+        wi_0, wi_1, wi, wo = gather(wi_0), gather(wi_1), gather(wi), gather(wo)
     model_size = collectives.axis_size(mesh, "model")
     N = x.shape[0]
     gate, eid, aux = _route(x, router_w, n_experts, top_k)
@@ -243,7 +230,7 @@ def _moe_tokengather_body(x, router_w, wi_0, wi_1, wi, wo, *, mesh, layout, n_ex
 
 def moe_apply(params, x, *, layout: str, n_experts: int, top_k: int, mesh, n_tokens: int,
               capacity_factor: float = 1.25, activation: str = "silu",
-              token_gather_threshold: int = 4096):
+              token_gather_threshold: int = 4096, gathered: bool = False):
     """This rank's part of the expert-parallel MoE -> (y, aux_loss).
 
     ``params`` holds this rank's blocks of the expert weights, cut by
@@ -252,7 +239,10 @@ def moe_apply(params, x, *, layout: str, n_experts: int, top_k: int, mesh, n_tok
     ``n_tokens`` flattened tokens, cut over ``token_axes`` (``local_tokens``).
     Returns the rank's rows of y and the aux loss.  At or below
     ``token_gather_threshold`` tokens it runs the token-gather body, above
-    it the weight-gather body, as the JAX twin does.
+    it the weight-gather body, as the JAX twin does.  With ``gathered`` the
+    weight-gather body takes the expert weights already gathered over
+    "data" (the LM's layers hold them in their own layout and gather them
+    themselves).
     """
     batch_axes, n_shards = token_axes(mesh, n_tokens)
     if x.shape[0] * n_shards != n_tokens:
@@ -264,7 +254,7 @@ def moe_apply(params, x, *, layout: str, n_experts: int, top_k: int, mesh, n_tok
     if n_tokens <= token_gather_threshold:
         y, aux = _moe_tokengather_body(*args, batch_axes=batch_axes, **kw)
     else:
-        y, aux = _moe_shard_body(*args, **kw)
+        y, aux = _moe_shard_body(*args, gathered=gathered, **kw)
     if "shared" in params:
         y = y + layers.ffn(params["shared"], x, activation)
     return y, aux

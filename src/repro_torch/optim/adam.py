@@ -36,8 +36,12 @@ def adam_init(params: Any, moment_dtype=torch.float32) -> OptState:
                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
-    norm = tree_global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float, norm: torch.Tensor | None = None):
+    """Scale ``grads`` to a global norm of at most ``max_norm``; ``norm``,
+    when given, is the norm to use (a mesh form's, taken over every rank's
+    blocks)."""
+    if norm is None:
+        norm = tree_global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -66,12 +70,14 @@ def unzip3(tree: Any, is_leaf: Callable[[Any], bool] = _is_triple):
 def adam_update(grads: Any, state: OptState, params: Any, *,
                 lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-3,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                weight_decay: float = 0.0, grad_clip: float | None = 0.5):
-    """Returns (new_params, new_state, metrics)."""
+                weight_decay: float = 0.0, grad_clip: float | None = 0.5,
+                grad_norm: torch.Tensor | None = None):
+    """Returns (new_params, new_state, metrics).  ``grad_norm`` replaces the
+    norm of ``grads`` (a mesh form passes the global norm of the blocks)."""
     if grad_clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, grad_norm)
     else:
-        gnorm = tree_global_norm(grads)
+        gnorm = tree_global_norm(grads) if grad_norm is None else grad_norm
     step = state.step + 1
     lr_t = learning_rate(lr, step)
     b1c, b2c = bias_corrections(step, b1, b2)

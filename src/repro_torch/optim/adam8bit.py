@@ -50,12 +50,14 @@ def _is_q8(x) -> bool:
 
 
 def adam8_update(grads, state: Opt8State, params, *, lr=1e-3, b1=0.9, b2=0.999,
-                 eps=1e-8, weight_decay=0.0, grad_clip: float | None = 1.0):
-    """Returns (new_params, new_state, metrics)."""
+                 eps=1e-8, weight_decay=0.0, grad_clip: float | None = 1.0,
+                 grad_norm: torch.Tensor | None = None):
+    """Returns (new_params, new_state, metrics); ``grad_norm`` as in
+    ``adam_update``."""
     if grad_clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, grad_norm)
     else:
-        gnorm = tree_global_norm(grads)
+        gnorm = tree_global_norm(grads) if grad_norm is None else grad_norm
     step = state.step + 1
     lr_t = learning_rate(lr, step)
     b1c, b2c = bias_corrections(step, b1, b2)

@@ -248,32 +248,86 @@ def test_all_archs_registered():
 
 
 def test_build_cell_raises_until_the_sharding_rules():
+    """build_cell checks the arch and the shape as the JAX twin does, and
+    now builds every cell of ``all_cells()`` (meta arguments, partition
+    specs) on the single-pod layout."""
+    from repro_torch.launch.cells import Cell
+
     with pytest.raises(KeyError):
         registry.build_cell("deepfm", "no_such_shape", None)
     for arch, shape in registry.all_cells():
-        with pytest.raises(NotImplementedError, match=r"10\(d\)"):
-            registry.build_cell(arch, shape, None)
+        cell = registry.build_cell(arch, shape, {"data": 16, "model": 16})
+        assert isinstance(cell, Cell) and cell.arch == arch and len(cell.args) == len(
+            cell.in_shardings)
 
 
-MESH = object()
+def _recsys_case(name):
+    cfg = registry.get_arch(name).SMOKE
+    p = recsys.init_recsys(0, cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    B = 8
+    if cfg.model == "bst":
+        b = {"history": torch.randint(0, cfg.n_items, (B, cfg.seq_len), generator=g),
+             "target_item": torch.randint(0, cfg.n_items, (B,), generator=g)}
+    else:
+        b = {"ids": torch.stack([torch.randint(0, v, (B,), generator=g)
+                                 for v in cfg.vocab_sizes], 1)}
+    if cfg.model == "two_tower":
+        b["item"] = torch.randint(0, cfg.n_items, (B,), generator=g)
+    b["labels"] = (torch.rand(B, generator=g) < 0.5).float()
+    return cfg, p, b
+
+
+def _gnn_case():
+    g = synthetic.make_mesh_graph(32, d_feat=8, d_edge=4, d_out=2, seed=0)
+    cfg = gnn.GNNConfig(n_layers=2, d_hidden=16, d_node_in=8, d_edge_in=4, d_out=2)
+    b = {"node_feat": torch.as_tensor(g.node_feat), "edge_feat": torch.as_tensor(g.edge_feat),
+         "senders": torch.as_tensor(g.senders).long(),
+         "receivers": torch.as_tensor(g.receivers).long(),
+         "labels": torch.randn(32, 2, generator=torch.Generator().manual_seed(2))}
+    return cfg, gnn.init_gnn(0, cfg, device="cpu"), b
+
+
+def _same(a, b):
+    for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
+        assert torch.allclose(torch.as_tensor(x), torch.as_tensor(y), rtol=1e-5, atol=1e-6)
+
+
+def _train(cfg, p, b, mesh):
+    return recsys.make_train_step(cfg, mesh)(p, adam_init(p), b)[0]
+
+
 MESH_CALLS = {
-    "embedding_lookup": lambda: recsys.embedding_lookup(torch.zeros(3, 2), torch.zeros(
-        1, dtype=torch.long), MESH),
-    "sharded_embedding_lookup": lambda: recsys.sharded_embedding_lookup(
-        torch.zeros(3, 2), torch.zeros(1, dtype=torch.long), MESH),
-    "recsys_train_step": lambda: recsys.make_train_step(recsys.RecsysConfig(), MESH),
-    "recsys_serve_step": lambda: recsys.make_serve_step(recsys.RecsysConfig(), MESH),
-    "retrieval_step": lambda: recsys.make_retrieval_step(recsys.RecsysConfig(), MESH),
-    "gnn_forward": lambda: gnn.forward({}, None, None, None, None, gnn.GNNConfig(), MESH),
-    "gnn_loss": lambda: gnn.loss_fn({}, {}, gnn.GNNConfig(), MESH),
-    "gnn_train_step": lambda: gnn.make_train_step(gnn.GNNConfig(), MESH),
+    "embedding_lookup": lambda m: recsys.embedding_lookup(
+        torch.arange(6.0).reshape(3, 2), torch.tensor([[2, 0]]), m),
+    "sharded_embedding_lookup": lambda m: recsys.sharded_embedding_lookup(
+        torch.arange(6.0).reshape(3, 2), torch.tensor([[2, 0]]), m) if m else
+    torch.arange(6.0).reshape(3, 2)[torch.tensor([[2, 0]])],
+    "recsys_train_step": lambda m: _train(*_recsys_case("deepfm"), m),
+    "recsys_serve_step": lambda m: (lambda c, p, b: recsys.make_serve_step(c, m)(
+        p, {"history": b["history"], "target_item": b["target_item"]}))(*_recsys_case("bst")),
+    "retrieval_step": lambda m: (lambda c, p, b: recsys.make_retrieval_step(c, m, k=5)(
+        p, {"ids": b["ids"][:1]}, torch.randn(64, c.out_dim,
+                                              generator=torch.Generator().manual_seed(3))))(
+        *_recsys_case("two-tower-retrieval")),
+    "gnn_forward": lambda m: (lambda c, p, b: gnn.forward(
+        p, b["node_feat"], b["edge_feat"], b["senders"], b["receivers"], c, m))(*_gnn_case()),
+    "gnn_loss": lambda m: (lambda c, p, b: gnn.loss_fn(p, b, c, m))(*_gnn_case()),
+    "gnn_train_step": lambda m: (lambda c, p, b: gnn.make_train_step(c, m)(
+        p, adam_init(p), b)[0])(*_gnn_case()),
 }
 
 
 @pytest.mark.parametrize("call", list(MESH_CALLS))
-def test_mesh_forms_raise_until_the_sharding_rules(call):
-    with pytest.raises(NotImplementedError, match=r"10\(d\)"):
-        MESH_CALLS[call]()
+def test_mesh_forms_raise_until_the_sharding_rules(call, tmp_path):
+    """The mesh forms came with the sharding rules: on a one-rank (1, 1)
+    gloo mesh each equals its single-device form (the eight-rank forms are
+    held to JAX's in ``tests/test_torch_dist_models.py``)."""
+    from _torch_one_rank import one_rank_mesh
+
+    with one_rank_mesh(tmp_path) as mesh:
+        got = MESH_CALLS[call](mesh)
+    _same(got, MESH_CALLS[call](None))
 
 
 def test_inits_default_to_the_card(monkeypatch):

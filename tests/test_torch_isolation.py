@@ -63,8 +63,35 @@ def test_launchers_and_examples_do_no_work_at_import(package):
                        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) == {"repro_torch.launch": 4,
+    # launch: serve, serve_lifecycle, mesh, train, and the dry-run tooling
+    # (cells, dryrun, hlo_analysis, roofline)
+    assert int(r.stdout.strip()) == {"repro_torch.launch": 8,
                                      "repro_torch.examples": 7}[package]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun", "repro_torch.launch.cells",
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.launch.hlo_analysis"])
+def test_dry_run_tooling_does_no_work_at_import(module):
+    """Importing the dry run, the cells, the roofline or the cost analysis
+    opens no process group, touches no device, builds no kernel and pulls
+    in no JAX."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        import torch, torch.distributed as tdist
+        importlib.import_module("{module}")
+        assert not tdist.is_initialized()
+        assert not torch.cuda.is_initialized()
+        from repro_torch.kernels import build
+        assert not build._loaded
+        bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+               or k == "repro" or k.startswith("repro.")]
+        assert not bad and "triton" not in sys.modules, bad
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
 
 
 @pytest.mark.parametrize("package,n", [("repro_torch.common", 5), ("repro_torch.optim", 4),
@@ -120,7 +147,9 @@ def test_model_layer_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.dist", "repro_torch.dist.serve",
-                                    "repro_torch.retriever.sharded"])
+                                    "repro_torch.retriever.sharded",
+                                    "repro_torch.dist.sharding",
+                                    "repro_torch.core.distributed"])
 def test_sharded_serving_pulls_in_no_jax(module):
     """The multi-device modules stand alone too: torch.distributed, never
     jax, never the JAX package, and no kernel build at import."""

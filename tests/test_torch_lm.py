@@ -121,10 +121,25 @@ def params_leaf(params, name):
     return dict(named_leaves(params))[name]
 
 
-def test_mesh_is_refused_until_the_sharding_rules():
+def test_mesh_is_refused_until_the_sharding_rules(tmp_path):
+    """The mesh forms came with the sharding rules: on a one-rank (1, 1)
+    gloo mesh (no collective moves anything) the mesh form of
+    ``forward_train`` equals the single-device form, and the ``ep`` MoE
+    refuses experts its mesh does not divide, as JAX's does (on the layout
+    of rank 0 of a (4, 2) mesh)."""
+    from _torch_one_rank import one_rank_mesh
+
     cfg = port_cfg_module("gemma_7b").SMOKE
-    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
-        lm.forward_train({}, torch.zeros(1, 4, dtype=torch.long), cfg, mesh=object())
+    params = lm.init_lm(0, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0))
+    h0, _ = lm.forward_train(params, toks, cfg)
+    with one_rank_mesh(tmp_path) as mesh:
+        h1, _ = lm.forward_train(params, toks, cfg, mesh=mesh)
+    assert torch.allclose(h0, h1, rtol=1e-5, atol=1e-6)
+    ds = port_cfg_module("deepseek_v3_671b").SMOKE
+    lay = lm.MeshLayout(None, {"data": 4, "model": 2}, {"data": 0, "model": 0}, 4, 16)
+    with pytest.raises(ValueError, match="does not divide"):
+        lm._moe_weights(ds, {"wo": torch.zeros(2, 32, 16)}, lay, False)
 
 
 @pytest.mark.parametrize("name,n_layers,prefix", [("gemma_7b", 28, 0),

@@ -110,9 +110,19 @@ def test_loader_places_trees_and_raises_the_producers_error():
         next(it)
 
 
-def test_loader_refuses_shardings_and_defaults_to_the_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match=r"10\(d\)"):
+def test_loader_refuses_shardings_and_defaults_to_the_card(monkeypatch, tmp_path):
+    """``shardings`` needs the mesh its specs refer to; with it each leaf
+    comes as the rank's block (of a one-rank gloo mesh here)."""
+    from _torch_one_rank import one_rank_mesh
+    from repro_torch.dist.sharding import P
+
+    with pytest.raises(ValueError, match="mesh"):
         loader.ShardedLoader([], shardings={"x": None}, device="cpu")
+    batch = {"x": np.arange(8).reshape(4, 2), "y": np.ones(3)}
+    with one_rank_mesh(tmp_path) as mesh:
+        got = next(iter(loader.ShardedLoader([batch], {"x": P(("data",), None), "y": P()},
+                                             mesh=mesh, device="cpu")))
+    assert torch.equal(got["x"], torch.as_tensor(batch["x"])) and got["y"].shape == (3,)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         loader.ShardedLoader([])
@@ -259,7 +269,7 @@ def test_elastic_restore_onto_the_targets_device_and_dtype(tmp_path):
     """The one-process counterpart of JAX's elastic restore: each leaf lands
     on its target leaf's device and dtype (a bf16 leaf saved as fp32 comes
     back bit for bit; fp32 into an fp64 target widens exactly), and a
-    re-shard onto a mesh waits for the sharding rules."""
+    re-shard onto a mesh needs the mesh its specs refer to."""
     tree = _tree()
     save(tmp_path, 3, tree)
     target = {"layer": {"w": torch.zeros((4, 8), dtype=torch.float64),
@@ -270,8 +280,15 @@ def test_elastic_restore_onto_the_targets_device_and_dtype(tmp_path):
     assert torch.equal(restored["layer"]["w"], tree["layer"]["w"].double())
     assert torch.equal(restored["layer"]["b"], tree["layer"]["b"])
     assert all(t.device.type == "cpu" for t in tree_leaves(restored))
-    with pytest.raises(NotImplementedError, match=r"10\(d\)"):
+    with pytest.raises(ValueError, match="mesh"):
         CheckpointManager(tmp_path).restore_latest(target, shardings=target)
+    from _torch_one_rank import one_rank_mesh
+    from repro_torch.dist.sharding import P
+
+    specs = {"layer": {"w": P(None, "model"), "b": P()}, "step_count": P()}
+    with one_rank_mesh(tmp_path.parent) as mesh:
+        blocks, _ = CheckpointManager(tmp_path).restore_latest(target, specs, mesh=mesh)
+    assert torch.equal(blocks["layer"]["w"], tree["layer"]["w"].double())
 
 
 # ---------------------------------------------------------------------------
